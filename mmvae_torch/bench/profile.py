@@ -1,0 +1,92 @@
+"""Where a train step's time goes on one GPU.
+
+    python -m mmvae_torch.bench.profile [--config seq_vae] [--steps 10]
+                                        [--set model.kwargs.remat=false ...]
+
+Runs real train steps of the config at full width on a resident u8 dataset
+(`bench.throughput.setup_resident_training`), then prints one JSON line: the step time on the
+host clock (steps ended by `torch.cuda.synchronize()`), the device-busy time
+per step from `torch.profiler` (the union of kernel intervals on the card),
+the idle share (1 - busy / step), the kernel launches per step, and the
+kernels with the most device time.  Fails without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import torch
+
+
+def _busy_ms(intervals) -> float:
+    """Length of the union of [start, end) intervals (us) in ms."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmvae_torch.bench.throughput import setup_resident_training
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_train_step measures a CUDA device; none is available")
+    state, data, step = setup_resident_training(cfg, torch.device("cuda"))
+    for _ in range(warmup):
+        step(state, data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(state, data)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(state, data)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = defaultdict(float)
+    for e in kernels:
+        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    busy = _busy_ms((e.time_range.start, e.time_range.end) for e in kernels) / steps
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {
+        "config": cfg.name,
+        "model_kwargs": {k: v for k, v in cfg.model.kwargs.items()},
+        "device": torch.cuda.get_device_name(),
+        "step_ms": round(step_ms, 3),
+        "frames_per_sec": round(cfg.data.batch_size * cfg.data.seq_len / step_ms * 1e3, 1),
+        "device_busy_ms": round(busy, 3),
+        "idle_share": round(1.0 - busy / step_ms, 4),
+        "kernel_launches_per_step": round(len(kernels) / steps, 1),
+        "top_kernels_ms_per_step": [[name[:90], round(ms / steps, 4)] for name, ms in ranked],
+    }
+
+
+def main(argv=None) -> None:
+    from mmvae_torch.configs import get_config
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", default="seq_vae")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE")
+    args = ap.parse_args(argv)
+    cfg = get_config(args.config, tuple(args.set))
+    print(json.dumps(profile_train_step(cfg, steps=args.steps)))
+
+
+if __name__ == "__main__":
+    main()

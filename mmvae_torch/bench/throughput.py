@@ -1,0 +1,97 @@
+"""Training throughput on one GPU: frames/s (port of mmvae_tpu/bench/throughput.py).
+
+Real train steps (forward, backward, Adam) on a u8 dataset resident on the
+card at the config's production size, each step gathering its batch there.
+Warmup is left out; three timed windows of `steps` steps, each ended by
+`torch.cuda.synchronize()`; frames/s is reported as the median window with
+min, max and spread.  Same JSON keys as the JAX bench; `mfu` and
+`flops_per_step` are null until the port counts FLOPs.  TF32 is off for
+both cuDNN and matmuls (the f32 heads run in full f32).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+import torch
+
+NORTH_STAR_FRAMES_PER_SEC = 50_000.0
+
+
+def setup_resident_training(cfg, dev: torch.device):
+    """(state, dataset, step_fn) for the config on `dev`: TF32 off, the
+    flax-initialized model with Adam, a u8 dataset of the config's train
+    split made on the card from seed 0, and the resident train step."""
+    from mmvae_torch.train.loop import build_model, make_train_step
+    from mmvae_torch.train.state import create_train_state
+
+    if cfg.train.use_pallas is False:
+        raise ValueError("train.use_pallas=false: the port has no plain path on the "
+                         "card; its kernels always run there")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state = create_train_state(build_model(cfg, dev), cfg.optim)
+    n_clips = max(int(cfg.data.num_sequences * cfg.data.train_fraction),
+                  cfg.data.batch_size)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = torch.randint(0, 256, (n_clips, max(cfg.data.seq_len, 1), 64, 64),
+                         generator=gen, device=dev, dtype=torch.uint8)
+    step_fn = make_train_step(
+        state.model, binarize=cfg.data.binarize, resident_batch=cfg.data.batch_size,
+    )
+    return state, data, step_fn
+
+
+def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
+                  device: Optional[str] = None) -> Dict:
+    from mmvae_torch.train.loop import _sample_shape
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("run_benchmark measures a CUDA device; none is available")
+    dev = torch.device(device or "cuda")
+    state, data, step_fn = setup_resident_training(cfg, dev)
+    shape = _sample_shape(cfg)
+
+    losses = []
+    for _ in range(max(warmup, 1)):
+        losses.append(step_fn(state, data)["loss"])
+    torch.cuda.synchronize(dev)
+
+    windows = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(step_fn(state, data)["loss"])
+        torch.cuda.synchronize(dev)
+        windows.append(time.perf_counter() - t0)
+    windows_sorted = sorted(windows)
+    dt = windows_sorted[1]
+
+    frames_per_step = shape[0] if cfg.data.per_frame else shape[0] * shape[1]
+    fps = frames_per_step * steps / dt
+    fps_all = sorted(frames_per_step * steps / w for w in windows)
+    loss_values = torch.stack(losses).float().cpu().tolist()
+    return {
+        "metric": "training frames/sec/GPU (20-frame clips)"
+        if not cfg.data.per_frame
+        else "training frames/sec/GPU (single frames)",
+        "value": round(fps, 1),
+        "unit": "frames/sec/GPU",
+        "vs_baseline": round(fps / NORTH_STAR_FRAMES_PER_SEC, 4),
+        "config": cfg.name,
+        "batch_frames": frames_per_step,
+        "steps": steps,
+        "wall_sec": round(dt, 3),
+        "windows_sec": [round(w, 3) for w in windows],
+        "value_min": round(fps_all[0], 1),
+        "value_max": round(fps_all[-1], 1),
+        "spread_pct": round(100.0 * (fps_all[-1] - fps_all[0]) / fps, 2),
+        "n_devices": 1,
+        "device": torch.cuda.get_device_name(dev),
+        "final_loss": loss_values[-1],
+        "flops_per_step": None,
+        "tflops_per_sec_chip": None,
+        "mfu": None,
+        "losses": loss_values,
+    }

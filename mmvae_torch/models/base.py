@@ -1,0 +1,173 @@
+"""Shared model pieces (port of mmvae_tpu/models/base.py).
+
+Numerics follow flax's casts explicitly: each conv layer casts its input,
+weight and bias to the model's activation `dtype`; the posterior heads and
+the final logits are float32.  Parameters are float32.  Init copies flax:
+truncated lecun_normal weights, zero biases (`flax_init_`).
+
+Layout: frames and convolutions are NCHW inside the port (cuDNN's layout);
+the ConvLSTM interface and the Gaussian head's flatten keep the JAX
+package's NHWC order so that weights and results line up with it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+# sample_fn(mu, logvar, salt=0) -> z
+SampleFn = Callable[..., torch.Tensor]
+
+# stddev correction of a standard normal truncated to [-2, 2] (flax/jax
+# variance_scaling with "truncated_normal").
+_TRUNC_STD = 0.87962566103423978
+
+
+class VAEOutput(NamedTuple):
+    """Forward result consumed by the loss: negative ELBO =
+    BCE(logits, target) + KL(mu, logvar || N(0, I)) + extra_kl."""
+
+    logits: torch.Tensor
+    target: torch.Tensor
+    mu: torch.Tensor
+    logvar: torch.Tensor
+    z: torch.Tensor
+    extra_kl: torch.Tensor
+
+
+class HWIOKernel(nn.Module):
+    """A bare conv kernel kept in flax's HWIO layout (kh, kw, in, out)."""
+
+    def __init__(self, shape, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(shape, device=device))
+
+    def fan_in(self) -> int:
+        return math.prod(self.weight.shape[:-1])
+
+
+class ProjMatrix(nn.Module):
+    """A 1x1 conv as a (C, N) matrix plus bias: flax's (1, 1, C, N) kernel."""
+
+    def __init__(self, cin: int, cout: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cin, cout, device=device))
+        self.bias = nn.Parameter(torch.empty(cout, device=device))
+
+    def fan_in(self) -> int:
+        return self.weight.shape[0]
+
+
+def _fan_in(mod: nn.Module) -> int:
+    if isinstance(mod, (HWIOKernel, ProjMatrix)):
+        return mod.fan_in()
+    if isinstance(mod, nn.Linear):
+        return mod.in_features
+    if isinstance(mod, nn.Conv2d):
+        return math.prod(mod.weight.shape[1:])
+    if isinstance(mod, nn.ConvTranspose2d):
+        # torch (in, out, kh, kw) <-> flax (kh, kw, in, out): fan_in = kh*kw*in
+        w = mod.weight.shape
+        return w[0] * w[2] * w[3]
+    raise TypeError(f"no flax init rule for {type(mod).__name__}")
+
+
+@torch.no_grad()
+def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Truncated lecun_normal weights and zero biases, as flax initializes."""
+    for mod in model.modules():
+        if not any(True for _ in mod.parameters(recurse=False)):
+            continue
+        std = math.sqrt(1.0 / _fan_in(mod)) / _TRUNC_STD
+        w = mod.weight
+        # trunc_normal_ draws on the CPU generator; copy onto the device.
+        sample = torch.empty(w.shape, dtype=torch.float32)
+        nn.init.trunc_normal_(sample, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        w.copy_(sample)
+        if getattr(mod, "bias", None) is not None:
+            mod.bias.zero_()
+    return model
+
+
+def conv2d(x, conv: nn.Conv2d, dtype, stride=1, padding=0):
+    """flax nn.Conv(dtype=...): input, kernel and bias cast to `dtype`."""
+    b = conv.bias.to(dtype) if conv.bias is not None else None
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), b, stride=stride, padding=padding)
+
+
+def linear_f32(x, lin: nn.Linear):
+    return F.linear(x.float(), lin.weight, lin.bias)
+
+
+class ConvEncoder(nn.Module):
+    """4x4 / stride-2 conv + relu stack: (N, 1, 64, 64) -> (N, C_last, 8, 8)."""
+
+    def __init__(self, channels: Sequence[int] = (32, 64, 128), dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.n = len(channels)
+        cin = 1
+        for i, ch in enumerate(channels):
+            self.add_module(f"Conv_{i}", nn.Conv2d(cin, ch, 4, stride=2, padding=1,
+                                                   device=device))
+            cin = ch
+
+    def forward(self, x):
+        h = x.to(self.dtype)
+        for i in range(self.n):
+            h = F.relu(conv2d(h, getattr(self, f"Conv_{i}"), self.dtype, stride=2, padding=1))
+        return h
+
+
+class ConvDecoder(nn.Module):
+    """Frame decoder in flax's "fast" layout: 2x2/stride-2 transposed convs,
+    one 3x3 mixing conv after the first upsample, a final 2x2 transpose to
+    1-channel float32 logits.  Input (N, C, g, g) -> (N, 1, 64, 64)."""
+
+    def __init__(self, cin: int, channels: Sequence[int] = (128, 64, 32),
+                 dtype=torch.float32, upsample: str = "fast", device=None):
+        super().__init__()
+        if upsample != "fast":
+            raise NotImplementedError(f"dec_upsample={upsample!r}: only 'fast' is ported")
+        self.dtype = dtype
+        chs = list(channels)
+        self.n_mid = len(chs[2:])
+        up = [chs[0], *chs[2:], 1]
+        prev = cin
+        for i, ch in enumerate(up):
+            self.add_module(f"ConvTranspose_{i}",
+                            nn.ConvTranspose2d(prev, ch, 2, stride=2, device=device))
+            prev = ch
+            if i == 0:
+                mix = chs[1] if len(chs) > 1 else chs[0]
+                self.Conv_0 = nn.Conv2d(prev, mix, 3, padding=1, device=device)
+                prev = mix
+
+    def _up(self, i, h):
+        m = getattr(self, f"ConvTranspose_{i}")
+        return F.conv_transpose2d(h, m.weight.to(self.dtype), m.bias.to(self.dtype), stride=2)
+
+    def forward(self, h):
+        h = F.relu(self._up(0, h.to(self.dtype)))
+        h = F.relu(conv2d(h, self.Conv_0, self.dtype, padding=1))
+        for i in range(1, 1 + self.n_mid):
+            h = F.relu(self._up(i, h))
+        return self._up(1 + self.n_mid, h).float()
+
+
+class GaussianHead(nn.Module):
+    """Flatten in NHWC order -> (mu, logvar), always float32."""
+
+    def __init__(self, in_features: int, latent_dim: int, device=None):
+        super().__init__()
+        self.mu = nn.Linear(in_features, latent_dim, device=device)
+        self.logvar = nn.Linear(in_features, latent_dim, device=device)
+
+    def forward(self, h_nhwc):
+        flat = h_nhwc.reshape(h_nhwc.shape[0], -1).float()
+        return linear_f32(flat, self.mu), linear_f32(flat, self.logvar)

@@ -1,0 +1,106 @@
+"""Config 3: ConvLSTM sequence VAE (port of mmvae_tpu/models/seq_vae.py).
+
+encode: per-frame conv stack over B*T frames -> encoder ConvLSTM (terminal
+state only, through the recurrence kernel) -> Gaussian head.
+decode: z -> initial (c, h) and a time-constant z-token -> decoder ConvLSTM
+over T steps -> batched frame decoder -> logits (B, T, H, W), float32.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from mmvae_torch.models.base import (
+    ConvDecoder,
+    ConvEncoder,
+    GaussianHead,
+    SampleFn,
+    VAEOutput,
+    linear_f32,
+)
+from mmvae_torch.models.convlstm import ConvLSTM
+
+
+class ConvLSTMSeqVAE(nn.Module):
+    def __init__(
+        self,
+        latent_dim: int = 128,
+        enc_channels: Sequence[int] = (32, 64, 128),
+        lstm_features: int = 128,
+        image_size: int = 64,
+        dtype=torch.float32,
+        remat: bool = False,
+        unroll: int = 1,  # lax.scan unroll factor of the JAX model; no effect here
+        gate_bf16: bool = False,
+        dec_upsample: str = "fast",
+        enc_x_kernel: int = 3,
+        token_ch: int = 16,
+        device=None,
+    ):
+        super().__init__()
+        del unroll
+        gate_dtype = torch.bfloat16 if gate_bf16 else torch.float32
+        self.dtype = dtype
+        self.latent_dim = latent_dim
+        self.lstm_features = lstm_features
+        self.image_size = image_size
+        self.token_ch = token_ch
+        self.grid = image_size // (2 ** len(enc_channels))
+        g, f = self.grid, lstm_features
+        self.frame_enc = ConvEncoder(enc_channels, dtype=dtype, device=device)
+        self.enc_lstm = ConvLSTM(
+            enc_channels[-1], f, x_kernel=enc_x_kernel, dtype=dtype,
+            gate_dtype=gate_dtype, remat=remat, device=device,
+        )
+        self.head = GaussianHead(g * g * f, latent_dim, device=device)
+        self.z_to_state = nn.Linear(latent_dim, 2 * g * g * f, device=device)
+        self.z_to_token = nn.Linear(latent_dim, g * g * token_ch, device=device)
+        self.dec_lstm = ConvLSTM(
+            token_ch, f, dtype=dtype, gate_dtype=gate_dtype, remat=remat, device=device,
+        )
+        self.frame_dec = ConvDecoder(
+            f, tuple(reversed(enc_channels)), dtype=dtype, upsample=dec_upsample,
+            device=device,
+        )
+
+    def encode_features(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W) -> (B, T, g, g, C) NHWC features."""
+        b, t = x.shape[:2]
+        feats = self.frame_enc(x.reshape(b * t, 1, *x.shape[2:]))
+        return feats.permute(0, 2, 3, 1).reshape(b, t, self.grid, self.grid, -1)
+
+    def encode(self, x: torch.Tensor):
+        feats = self.encode_features(x)
+        b = x.shape[0]
+        zeros = torch.zeros(b, self.grid, self.grid, self.lstm_features,
+                            device=x.device, dtype=self.dtype)
+        (_, h_t), _ = self.enc_lstm((zeros, zeros), feats, need_hs=False)
+        return self.head(h_t)
+
+    def _init_decoder(self, z: torch.Tensor):
+        b = z.shape[0]
+        g, f = self.grid, self.lstm_features
+        ch = linear_f32(z, self.z_to_state).reshape(b, g, g, 2 * f).to(self.dtype)
+        token = linear_f32(z, self.z_to_token).reshape(b, 1, g, g, self.token_ch)
+        return (ch[..., :f], ch[..., f:]), token.to(self.dtype)
+
+    def decode(self, z: torch.Tensor, t: int) -> torch.Tensor:
+        """z (B, latent) -> logits (B, t, H, W)."""
+        state0, token = self._init_decoder(z)
+        _, hs = self.dec_lstm(state0, token, length=t)  # (B, t, g, g, F)
+        b = z.shape[0]
+        flat = hs.reshape(b * t, *hs.shape[2:]).permute(0, 3, 1, 2)
+        logits = self.frame_dec(flat)[:, 0]
+        return logits.reshape(b, t, self.image_size, self.image_size)
+
+    def forward(self, x: torch.Tensor, sample_fn: SampleFn) -> VAEOutput:
+        mu, logvar = self.encode(x)
+        z = sample_fn(mu, logvar)
+        logits = self.decode(z, x.shape[1])
+        return VAEOutput(
+            logits=logits, target=x, mu=mu, logvar=logvar, z=z,
+            extra_kl=torch.zeros((), device=x.device),
+        )

@@ -1,0 +1,44 @@
+"""Kernels of the port and their plain PyTorch versions.
+
+Every kernel wrapper counts its launches in a `launches` attribute:
+`preprocess_gather`, `elbo_reduce`, `reparameterize`,
+`convlstm_proj_forward` and `convlstm_proj_backward`.
+"""
+
+from mmvae_torch.ops.convlstm_kernels import (
+    convlstm_proj_backward,
+    convlstm_proj_forward,
+    convlstm_scan_proj,
+)
+from mmvae_torch.ops.elbo_kernels import elbo_reduce, reparameterize
+from mmvae_torch.ops.preprocess_kernels import preprocess_gather
+
+KERNEL_WRAPPERS = {
+    "preprocess_gather": preprocess_gather,
+    "elbo_reduce": elbo_reduce,
+    "reparameterize": reparameterize,
+    "convlstm_proj_forward": convlstm_proj_forward,
+    "convlstm_proj_backward": convlstm_proj_backward,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+__all__ = [
+    "KERNEL_WRAPPERS",
+    "convlstm_proj_backward",
+    "convlstm_proj_forward",
+    "convlstm_scan_proj",
+    "elbo_reduce",
+    "launch_counts",
+    "preprocess_gather",
+    "reparameterize",
+    "reset_launch_counts",
+]

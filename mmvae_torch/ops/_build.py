@@ -1,0 +1,122 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+All `mmvae_torch/csrc/*.cu` sources compile into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/kernels/libmmvae_<hash>.so csrc/*.cu
+
+The library lands in `build/kernels/` at the repository root, named by a
+hash of the sources and flags, and is built at first use in a process.
+Wrappers pass tensor pointers and the current stream as `c_void_p`; every
+entry point returns `cudaGetLastError()`, and `check()` raises on non-zero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_U = ctypes.c_uint
+
+# C signatures of the library's entry points (all return int).
+_SIGNATURES = {
+    "mmvae_preprocess_gather": [_P, _P, _P, _LL, _LL, _LL, _U, _I, _I, _P],
+    "mmvae_convlstm_proj_fwd": [_P] * 8 + [_I] * 8 + [_P],
+    "mmvae_convlstm_proj_bwd": [_P] * 9 + [_I] * 5 + [_P],
+    "mmvae_convlstm_proj_wgrad": [_P] * 10 + [_I] * 8 + [_P],
+    "mmvae_convlstm_proj_smem": [_I, _I],
+}
+_RESTYPES = {"mmvae_convlstm_proj_smem": _LL}
+
+
+class KernelLibrary:
+    """The built shared library plus what its build printed."""
+
+    def __init__(self, path: Path, build_seconds: float, log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.log = log
+        self.lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(self.lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _RESTYPES.get(name, _I)
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
+_LIBRARY: Optional[KernelLibrary] = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library() -> KernelLibrary:
+    """Build (once per source hash) and load the kernel library."""
+    global _LIBRARY
+    if _LIBRARY is not None:
+        return _LIBRARY
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"libmmvae_{h.hexdigest()[:16]}.so"
+    log = ""
+    t0 = time.perf_counter()
+    if not out.exists():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
+        cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, out)
+    _LIBRARY = KernelLibrary(out, time.perf_counter() - t0, log)
+    return _LIBRARY
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def triton_cache_env() -> None:
+    """Keep Triton's compile cache inside the checkout's build directory."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR.parent / "triton"))

@@ -1,0 +1,315 @@
+"""Encoder ConvLSTM recurrence with the input projection in-kernel (K5).
+
+Replaces mmvae_tpu/ops/convlstm_pallas.py::convlstm_scan_proj_pallas with
+the CUDA kernels of `csrc/convlstm_proj.cu` (see its header for the design):
+
+    gates_t = x_t @ wx + bx + conv3x3_SAME(h_{t-1}, w)      (i, f, g, o)
+    c_t = sig(f + 1) * c_{t-1} + sig(i) * tanh(g);   h_t = sig(o) * tanh(c_t)
+
+`convlstm_scan_proj` returns only the terminal state (c_T, h_T), the
+encoder's shape.  Inputs share one activation dtype T, which is also the
+matmul operand dtype; accumulation is f32; the pointwise chain and the cell
+state run in `gate_dtype` (float32 or bfloat16), and the backward chain in
+f32, as in the TPU kernel.  The forward that feeds a backward saves hs, cs
+and the post-activation gates (in T); without grad a residual-free forward
+runs.  The CUDA kernels take T = bfloat16 (the production dtype) and raise
+for float32, which only the plain version, on the CPU, runs.
+
+The plain versions below follow the same algorithm step by step in PyTorch
+(f32 convs and matmuls on operands rounded to T); they are the CPU path and
+the oracle the kernels are compared with on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from mmvae_torch.ops import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_SMEM = 227 * 1024
+
+
+def _split_gates(gates: torch.Tensor, feat: int):
+    i, f, g, o = gates.split(feat, dim=-1)
+    i = torch.sigmoid(i)
+    f = torch.sigmoid(f + 1.0)
+    g = torch.tanh(g)
+    o = torch.sigmoid(o)
+    return i, f, g, o
+
+
+def _hidden_conv(h: torch.Tensor, w_oihw: torch.Tensor, height: int, width: int):
+    """(B, HW, F) f32 -> (B, HW, 4F): the 3x3 SAME conv in f32."""
+    b, hw, feat = h.shape
+    hn = h.view(b, height, width, feat).permute(0, 3, 1, 2)
+    out = F.conv2d(hn, w_oihw, padding=1)
+    return out.permute(0, 2, 3, 1).reshape(b, hw, -1)
+
+
+def proj_forward_plain(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
+    """Plain forward.  x (B, T, H, W, C); returns (hs, cs, gates) with shapes
+    (B, T, HW, F), (B, T, HW, F), (B, T, HW, 4F) when `save`, else
+    (h_T, c_T) as (B, HW, F); all in x.dtype."""
+    act = x.dtype
+    batch, t_len, height, width, cin = x.shape
+    f4 = wx.shape[1]
+    feat = f4 // 4
+    hw = height * width
+    xg = x.float().reshape(batch, t_len, hw, cin) @ wx.float() + bx.float()
+    w_oihw = w.float().permute(3, 2, 0, 1)
+    c = c0.reshape(batch, hw, feat).to(gate_dtype)
+    h = h0.reshape(batch, hw, feat).to(gate_dtype)
+    hs, cs, ga = [], [], []
+    for t in range(t_len):
+        hg = _hidden_conv(h.to(act).float(), w_oihw, height, width)
+        gates = (xg[:, t] + hg).to(gate_dtype)
+        i, f, g, o = _split_gates(gates, feat)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        if save:
+            hs.append(h.to(act))
+            cs.append(c.to(act))
+            ga.append(torch.cat([i, f, g, o], dim=-1).to(act))
+    if save:
+        return torch.stack(hs, 1), torch.stack(cs, 1), torch.stack(ga, 1)
+    return h.to(act), c.to(act)
+
+
+def proj_backward_plain(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
+    """Plain BPTT: reverse time, (dh, dc) carried in f32.  Returns
+    (dx, dwx, dbx, dw, dc0, dh0) in the dtypes and shapes of the inputs."""
+    act = x.dtype
+    batch, t_len, height, width, cin = x.shape
+    f4 = wx.shape[1]
+    feat = f4 // 4
+    hw = height * width
+    w_oihw = w.float().permute(3, 2, 0, 1)
+    xf = x.float().reshape(batch, t_len, hw, cin)
+    c0f = c0.reshape(batch, hw, feat).float()
+    h0f = h0.reshape(batch, hw, feat).float()
+    dh = dh_last.reshape(batch, hw, feat).to(act).float()
+    dc = dc_last.reshape(batch, hw, feat).to(act).float()
+    dx = torch.empty(batch, t_len, hw, cin, dtype=act, device=x.device)
+    dwx = torch.zeros(cin, f4, device=x.device)
+    dbx = torch.zeros(f4, device=x.device)
+    dw = torch.zeros(f4, feat, 3, 3, device=x.device)
+    for t in range(t_len - 1, -1, -1):
+        c_t = cs[:, t].float()
+        c_prev = cs[:, t - 1].float() if t > 0 else c0f
+        h_prev = hs[:, t - 1].float() if t > 0 else h0f
+        i, f, g, o = ga[:, t].float().split(feat, dim=-1)
+        tanh_ct = torch.tanh(c_t)
+        do = dh * tanh_ct
+        dct = dc + dh * o * (1.0 - tanh_ct * tanh_ct)
+        dgates = torch.cat([
+            dct * g * i * (1.0 - i),
+            dct * c_prev * f * (1.0 - f),
+            dct * i * (1.0 - g * g),
+            do * o * (1.0 - o),
+        ], dim=-1)
+        dc = dct * f
+        dg_mat = dgates.to(act).float()
+        dx[:, t] = (dg_mat @ wx.float().t()).to(act)
+        dwx += torch.einsum("bpc,bpn->cn", xf[:, t], dg_mat)
+        dbx += dgates.sum(dim=(0, 1))
+        dg_n = dg_mat.view(batch, height, width, f4).permute(0, 3, 1, 2)
+        h_n = h_prev.view(batch, height, width, feat).permute(0, 3, 1, 2)
+        dw += torch.nn.grad.conv2d_weight(h_n, w_oihw.shape, dg_n, padding=1)
+        dh = F.conv_transpose2d(dg_n, w_oihw, padding=1).permute(0, 2, 3, 1).reshape(
+            batch, hw, feat
+        )
+    return (
+        dx.view(x.shape),
+        dwx.to(wx.dtype),
+        dbx.to(wx.dtype),
+        dw.permute(2, 3, 1, 0).contiguous().to(w.dtype),
+        dc.view(c0.shape).to(c0.dtype),
+        dh.view(h0.shape).to(h0.dtype),
+    )
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(x, wx, w, c0, h0, *more):
+    """Raise unless the tensors suit the tensor-core kernels; return the
+    library.  They take bf16 activations (the matmul operands) with C and F
+    multiples of 16, F <= 128 and at most 64 positions; f32 activations run
+    only in the plain version, on the CPU."""
+    for name, t in (("x", x), ("wx", wx), ("w", w), ("c0", c0), ("h0", h0), *more):
+        if not t.is_cuda:
+            raise ValueError(f"convlstm_scan_proj: {name} is on {t.device}, not cuda")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"convlstm_scan_proj: {name} is {t.dtype}; the CUDA kernels "
+                            f"take bfloat16 activations")
+    batch, t_len, height, width, cin = x.shape
+    f4 = wx.shape[1]
+    feat = f4 // 4
+    if (wx.shape != (cin, f4) or w.shape != (3, 3, feat, f4)
+            or c0.shape != (batch, height, width, feat) or h0.shape != c0.shape):
+        raise ValueError(
+            f"convlstm_scan_proj: inconsistent shapes x {tuple(x.shape)} wx "
+            f"{tuple(wx.shape)} w {tuple(w.shape)} c0 {tuple(c0.shape)} h0 {tuple(h0.shape)}"
+        )
+    if cin % 16 or feat % 16 or feat > 128 or height * width > 64:
+        raise ValueError(
+            f"convlstm_scan_proj: the CUDA kernels need C and F multiples of 16, "
+            f"F <= 128 and H*W <= 64; got C={cin}, F={feat}, H*W={height * width}"
+        )
+    lib = _build.library()
+    smem = lib.mmvae_convlstm_proj_smem(cin, feat)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"convlstm_scan_proj: C={cin}, F={feat} need {smem} bytes of "
+                         f"shared memory, more than one CTA has")
+    return lib
+
+
+def _pack_mma_b(mat: torch.Tensor) -> torch.Tensor:
+    """(K, N) -> mma.m16n8k16 B fragments: [K/16][N/8][lane g*4+t][k-half][pair],
+    lane (g, t) holding B[16kb + 8h + 2t + p][8nb + g]."""
+    k, n = mat.shape
+    return mat.reshape(k // 16, 2, 4, 2, n // 8, 8).permute(0, 4, 5, 2, 1, 3).contiguous()
+
+
+def proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
+    """CUDA forward; same contract as `proj_forward_plain`."""
+    lib = _check_cuda(x, wx, w, c0, h0, ("bx", bx))
+    if bx.shape != wx.shape[1:]:
+        raise ValueError(f"convlstm_scan_proj: bx {tuple(bx.shape)}, wx {tuple(wx.shape)}")
+    if gate_dtype not in _DTYPE_CODE:
+        raise TypeError(f"convlstm_scan_proj: gate dtype {gate_dtype} not supported")
+    batch, t_len, height, width, cin = x.shape
+    f4 = wx.shape[1]
+    feat = f4 // 4
+    hw = height * width
+    x, bx, c0, h0 = (t.contiguous() for t in (x, bx, c0, h0))
+    kw = dict(device=x.device, dtype=x.dtype)
+    if save:
+        outs = (torch.empty(batch, t_len, hw, feat, **kw),
+                torch.empty(batch, t_len, hw, feat, **kw),
+                torch.empty(batch, t_len, hw, f4, **kw))
+        ptrs = [o.data_ptr() for o in outs]
+    else:
+        outs = (torch.empty(batch, hw, feat, **kw), torch.empty(batch, hw, feat, **kw))
+        ptrs = [outs[0].data_ptr(), outs[1].data_ptr(), None]
+    wpk = _pack_mma_b(torch.cat([wx, w.reshape(9 * feat, f4)]))
+    err = lib.mmvae_convlstm_proj_fwd(
+        x.data_ptr(), wpk.data_ptr(), bx.data_ptr(), c0.data_ptr(), h0.data_ptr(),
+        *ptrs, batch, t_len, height, width, cin, feat, _DTYPE_CODE[gate_dtype],
+        int(save), _build.stream_ptr(x.device),
+    )
+    _build.check(err, "convlstm_proj_fwd")
+    convlstm_proj_forward.launches += 1
+    return outs
+
+
+def proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
+    """CUDA backward; same contract as `proj_backward_plain`."""
+    lib = _check_cuda(x, wx, w, c0, h0, ("hs", hs), ("cs", cs), ("ga", ga))
+    act = x.dtype
+    batch, t_len, height, width, cin = x.shape
+    f4 = wx.shape[1]
+    feat = f4 // 4
+    hw = height * width
+    wtpk = _pack_mma_b(w.reshape(9, feat, f4).transpose(1, 2).reshape(9 * f4, feat))
+    x, c0, h0, wx, hs, cs, ga = (t.contiguous() for t in (x, c0, h0, wx, hs, cs, ga))
+    dhl = dh_last.to(act).contiguous()
+    dcl = dc_last.to(act).contiguous()
+    dev = x.device
+    stream = _build.stream_ptr(dev)
+    d_gates = torch.empty(batch, t_len, hw, f4, device=dev, dtype=torch.float32)
+    dc0 = torch.empty(batch, hw, feat, device=dev, dtype=act)
+    dh0 = torch.empty_like(dc0)
+    err = lib.mmvae_convlstm_proj_bwd(
+        wtpk.data_ptr(), c0.data_ptr(), cs.data_ptr(), ga.data_ptr(), dhl.data_ptr(),
+        dcl.data_ptr(), d_gates.data_ptr(), dc0.data_ptr(), dh0.data_ptr(),
+        batch, t_len, height, width, feat, stream,
+    )
+    _build.check(err, "convlstm_proj_bwd")
+    rows = batch * t_len * hw
+    m = cin + 9 * feat
+    splits = max(1, min(8, rows // 8192))
+    bsplits = max(1, min(256, rows // 256))
+    dw_part = torch.empty(splits, m, f4, device=dev, dtype=torch.float32)
+    dw_out = torch.empty(m, f4, device=dev, dtype=torch.float32)
+    db_part = torch.empty(bsplits, f4, device=dev, dtype=torch.float32)
+    db_out = torch.empty(f4, device=dev, dtype=torch.float32)
+    dx = torch.empty(batch, t_len, hw, cin, device=dev, dtype=act)
+    err = lib.mmvae_convlstm_proj_wgrad(
+        x.data_ptr(), hs.data_ptr(), h0.data_ptr(), d_gates.data_ptr(), wx.data_ptr(),
+        dw_part.data_ptr(), dw_out.data_ptr(), db_part.data_ptr(), db_out.data_ptr(),
+        dx.data_ptr(), batch, t_len, height, width, cin, feat, splits, bsplits, stream,
+    )
+    _build.check(err, "convlstm_proj_wgrad")
+    convlstm_proj_backward.launches += 1
+    return (
+        dx.view(x.shape),
+        dw_out[:cin].to(wx.dtype),
+        db_out.to(wx.dtype),
+        dw_out[cin:].view(3, 3, feat, f4).to(w.dtype),
+        dc0.view(c0.shape),
+        dh0.view(h0.shape),
+    )
+
+
+def convlstm_proj_forward(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
+    """Forward kernel for CUDA tensors, plain version for CPU tensors."""
+    if x.is_cuda:
+        return proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save)
+    return proj_forward_plain(x, wx, bx, w, c0, h0, gate_dtype, save)
+
+
+def convlstm_proj_backward(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
+    """Backward kernels for CUDA tensors, plain version for CPU tensors."""
+    if x.is_cuda:
+        return proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last)
+    return proj_backward_plain(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last)
+
+
+convlstm_proj_forward.launches = 0
+convlstm_proj_backward.launches = 0
+
+
+class _ScanProjLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wx, bx, w, c0, h0, gate_dtype):
+        hs, cs, ga = convlstm_proj_forward(x, wx, bx, w, c0, h0, gate_dtype, True)
+        ctx.save_for_backward(x, wx, w, c0, h0, hs, cs, ga)
+        return hs[:, -1].clone(), cs[:, -1].clone()
+
+    @staticmethod
+    def backward(ctx, dh_last, dc_last):
+        x, wx, w, c0, h0, hs, cs, ga = ctx.saved_tensors
+        grads = convlstm_proj_backward(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last)
+        return (*grads, None)
+
+
+def convlstm_scan_proj(
+    x: torch.Tensor,
+    wx: torch.Tensor,
+    bx: torch.Tensor,
+    w: torch.Tensor,
+    c0: torch.Tensor,
+    h0: torch.Tensor,
+    *,
+    gate_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ConvLSTM recurrence with the 1x1 input projection inside the kernel.
+
+    x: (B, T, H, W, C); wx: (C, 4F); bx: (4F,); w: (3, 3, F, 4F) HWIO;
+    c0, h0: (B, H, W, F); all one dtype.  Returns (c_T, h_T), each
+    (B, H, W, F).  Differentiable wrt all six tensors."""
+    shape = c0.shape
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, wx, bx, w, c0, h0)
+    ):
+        h_last, c_last = _ScanProjLast.apply(x, wx, bx, w, c0, h0, gate_dtype)
+    else:
+        h_last, c_last = convlstm_proj_forward(x, wx, bx, w, c0, h0, gate_dtype, False)
+    return c_last.view(shape).to(c0.dtype), h_last.view(shape)
