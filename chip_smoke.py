@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card smoke of the PyTorch / CUDA port's main path (config 3, seq_vae).
+"""On-card smoke of the PyTorch / CUDA port: configs 3, 4 and 5 training.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -9,19 +9,27 @@ Phases, each raising on failure (the script catches nothing):
 1. card and toolchain: the card's name and power limit, torch / CUDA / nvcc /
    triton versions, the TF32 settings (both off);
 2. build: the CUDA kernels from mmvae_torch/csrc/ with nvcc (into
-   build/kernels/), and the Triton kernels at first launch;
-3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and at one unaligned shape, with its tolerance, and the
-   time of both; then the full-width model's forward and gradients on a
-   small input, on the card through the kernels against the CPU through
-   the plain versions;
-4. the slice: `run_benchmark(get_config("seq_vae"))` at full width (64 clips
-   x 20 frames x 64x64, bf16, a 9,000-clip resident u8 dataset), 3 timed
-   windows of 20 train steps after 5 warmup steps; losses finite and falling; every
-   kernel's launch counter above 0 for that run; no jax imported.
-The last three lines are the card, the kernels' JSON line, and
-{"ok": true, "device": {...}}.  Exits non-zero with no result when CUDA is
-not available.
+   build/kernels/, one nvcc per source, all at once), and the Triton kernels
+   at first launch;
+3. each kernel against its plain PyTorch version on the card, at every
+   shape the runs of phase 4 give it (`path_shapes`, from their configs)
+   and at one unaligned shape, with its tolerance (K5 and K6 through
+   `mmvae_torch.ops.kernel_checks`), and the time of both at each path's
+   shape; then each config's full-width model (seq_vae;
+   pred_vae and hier_vae with fused=true), forward and gradients on a small
+   input, on the card through the kernels against the CPU through the plain
+   versions;
+4. the slices through `run_benchmark` at full width, each with the launch
+   counters set to 0 just before it and read just after: config 3
+   `seq_vae` (64 clips x 20 frames, its five kernels; K6 not launched),
+   config 4 `pred_vae` and config 5 `hier_vae` (16 clips x 100 frames) with
+   `model.kwargs.fused=true` (K1, K2, K3, K5 and K6), 3 timed windows of 20
+   train steps after 5 warmup steps, losses finite and falling; then config
+   3 with fused=true once more, timed beside the default, as a measurement
+   of the decoder policy (not adopted).  No jax imported.
+The last three lines are the card, the kernels' JSON line (launches summed
+over the three slice runs), and {"ok": true, "device": {...}}.  Exits
+non-zero with no result when CUDA is not available.
 """
 
 from __future__ import annotations
@@ -44,7 +52,14 @@ _KERNELS = {
                               "mmvae_tpu/ops/convlstm_pallas.py:760"),
     "convlstm_proj_backward": ("cuda", "mmvae_torch/csrc/convlstm_proj.cu",
                                "mmvae_tpu/ops/convlstm_pallas.py:741"),
+    "convlstm_scan_forward": ("cuda", "mmvae_torch/csrc/convlstm_scan.cu",
+                              "mmvae_tpu/ops/convlstm_pallas.py:1143"),
+    "convlstm_scan_backward": ("cuda", "mmvae_torch/csrc/convlstm_scan.cu",
+                               "mmvae_tpu/ops/convlstm_pallas.py:949"),
 }
+_K5 = ("convlstm_proj_forward", "convlstm_proj_backward")
+_K6 = ("convlstm_scan_forward", "convlstm_scan_backward")
+_STEP = ("preprocess_gather", "elbo_reduce", "reparameterize")
 
 
 def _require(cond: bool, what: str) -> None:
@@ -107,66 +122,127 @@ def phase_build() -> None:
 # --- phase 3: kernels against their plain versions -------------------------
 
 
-def check_preprocess(dev) -> dict:
+def _model_kwargs(cfg) -> dict:
+    """The model's constructor arguments under `cfg`: its defaults, then the
+    config's kwargs."""
+    import inspect
+
+    from mmvae_torch.models import MODEL_REGISTRY
+
+    params = inspect.signature(MODEL_REGISTRY[cfg.model.name]).parameters
+    return {**{k: p.default for k, p in params.items()}, **cfg.model.kwargs}
+
+
+def path_shapes() -> dict:
+    """The shapes each kernel is given in the phase-4 runs (_SLICES and
+    _POLICY), from their configs and the models' defaults:
+    {kernel: {shape: [the runs that give it]}}.  preprocess: (clips in the
+    resident set, frames a clip, batch); elbo: (logits, mu); reparameterize:
+    (shape, salt); convlstm_proj: (B, T, H, W, C, F); convlstm_scan: (B, T,
+    H, W, F), time-constant xg."""
+    from mmvae_torch.configs import get_config
+
+    out = {k: {} for k in ("preprocess", "elbo", "reparam", "proj", "scan")}
+    for name, overrides, launched, _ in (*_SLICES, _POLICY):
+        cfg = get_config(name, overrides)
+        kw = _model_kwargs(cfg)
+        b, t, size = cfg.data.batch_size, cfg.data.seq_len, kw["image_size"]
+        grid, feat = size // 2 ** len(kw["enc_channels"]), kw["lstm_features"]
+        enc = dec = (b, t)
+        scored = t
+        if name == "pred_vae":
+            ctx = kw["context_len"]
+            enc, dec, scored = (b, ctx), (b, t - ctx), t - ctx
+        if name == "hier_vae":
+            k = t // kw["chunk_len"]
+            enc = dec = (b * k, kw["chunk_len"])
+            samples = [((b, kw["global_latent"]), 0), ((b * k, kw["chunk_latent"]), 1)]
+        else:
+            samples = [((b, kw["latent_dim"]), 0)]
+        clips = max(int(cfg.data.num_sequences * cfg.data.train_fraction), b)
+        groups = {
+            "preprocess": [(clips, t, b)],
+            "elbo": [((b, scored, size, size), samples[0][0])],
+            "reparam": samples,
+            "proj": [(*enc, grid, grid, kw["enc_channels"][-1], feat)],
+            "scan": [(*dec, grid, grid, feat)] if _K6[0] in launched else [],
+        }
+        for kind, keys in groups.items():
+            for key in keys:
+                out[kind].setdefault(key, []).append(" ".join((name, *overrides)))
+    return out
+
+
+def _runs(tags) -> str:
+    return "; ".join(tags)
+
+
+def check_preprocess(dev, shapes) -> dict:
+    """K3 at each path's resident set: binarize=False exact (both output
+    dtypes, and at an odd shape with out-of-range rows), binarize=True hit
+    rates per u8 value within 5 sigma of u8/255 (each clip one ramp over the
+    u8 values), seeds that decide the bits, and the time of both versions."""
     import torch
 
     from mmvae_torch.ops.preprocess_kernels import preprocess_gather, preprocess_gather_plain
 
     g = torch.Generator(device=dev).manual_seed(1)
-    data = torch.randint(0, 256, (512, 20, 64, 64), generator=g, device=dev, dtype=torch.uint8)
-    idx = torch.randint(0, 512, (64,), generator=g, device=dev)
-    err = 0.0
-    for dt in (torch.bfloat16, torch.float32):
-        k = preprocess_gather(data, idx, 7, binarize=False, out_dtype=dt)
-        p = preprocess_gather_plain(data, idx, 7, binarize=False, out_dtype=dt)
-        err = max(err, _maxerr(k, p))
     odd = torch.randint(0, 256, (37, 3, 17, 5), generator=g, device=dev, dtype=torch.uint8)
     oidx = torch.randint(0, 37, (7,), generator=g, device=dev)
     oidx[:2] = torch.tensor([-4, 40])  # out of range: both versions clamp
-    err = max(err, _maxerr(preprocess_gather(odd, oidx, 7, binarize=False),
-                           preprocess_gather_plain(odd, oidx, 7, binarize=False)))
-    _require(err == 0.0, f"preprocess binarize=False max|err| {err} (tolerance 0)")
-
-    # binarize=True: per-u8-value hit rates within 5 sigma of u8/255.
-    ramp = (torch.arange(20 * 64 * 64, device=dev) % 256).to(torch.uint8).view(1, 20, 64, 64)
-    ramp_set = ramp.expand(64, 20, 64, 64).contiguous()
-    ar = torch.arange(64, device=dev)
-    b1 = preprocess_gather(ramp_set, ar, 12345, binarize=True, out_dtype=torch.bfloat16)
-    b2 = preprocess_gather(ramp_set, ar, 12345, binarize=True, out_dtype=torch.bfloat16)
-    b3 = preprocess_gather(ramp_set, ar, 54321, binarize=True, out_dtype=torch.bfloat16)
-    _require(torch.equal(b1, b2), "preprocess: same seed gave different bits")
-    _require(not torch.equal(b1, b3), "preprocess: different seeds gave the same bits")
-    vals = ramp_set.flatten().long()
-    hits = torch.zeros(256, device=dev).index_add_(0, vals, b1.flatten().float())
-    counts = torch.bincount(vals, minlength=256).float()
-    p = torch.arange(256, device=dev).float() / 255.0
-    sigma = torch.sqrt(p * (1 - p) / counts).clamp_min(1.0 / counts)
-    z = ((hits / counts - p).abs() / sigma).max().item()
-    _require(z <= 5.0, f"preprocess binarize hit rates off by {z:.2f} sigma (limit 5)")
-    # odd row length, binarize, both dtypes: values in {0, 1}
+    err = _maxerr(preprocess_gather(odd, oidx, 7, binarize=False),
+                  preprocess_gather_plain(odd, oidx, 7, binarize=False))
     ob = preprocess_gather(odd, oidx, 3, binarize=True)
     _require(bool(((ob == 0) | (ob == 1)).all()), "preprocess: non-binary output")
+    first = None
+    for (n, t, b), runs in shapes.items():
+        data = torch.randint(0, 256, (n, t, 64, 64), generator=g, device=dev, dtype=torch.uint8)
+        idx = torch.randint(0, n, (b,), generator=g, device=dev)
+        for dt in (torch.bfloat16, torch.float32):
+            err = max(err, _maxerr(preprocess_gather(data, idx, 7, binarize=False, out_dtype=dt),
+                                   preprocess_gather_plain(data, idx, 7, binarize=False,
+                                                           out_dtype=dt)))
+        _require(err == 0.0, f"preprocess ({n}, {t}, {b}) binarize=False max|err| {err} "
+                             f"(tolerance 0)")
+        del data
+        ramp = (torch.arange(t * 64 * 64, device=dev) % 256).to(torch.uint8)
+        ramp_set = ramp.view(1, t, 64, 64).expand(n, t, 64, 64).contiguous()
+        b1 = preprocess_gather(ramp_set, idx, 12345, binarize=True, out_dtype=torch.bfloat16)
+        b2 = preprocess_gather(ramp_set, idx, 12345, binarize=True, out_dtype=torch.bfloat16)
+        b3 = preprocess_gather(ramp_set, idx, 54321, binarize=True, out_dtype=torch.bfloat16)
+        _require(torch.equal(b1, b2), "preprocess: same seed gave different bits")
+        _require(not torch.equal(b1, b3), "preprocess: different seeds gave the same bits")
+        vals = ramp.long().repeat(b)
+        hits = torch.zeros(256, device=dev).index_add_(0, vals, b1.flatten().float())
+        counts = torch.bincount(vals, minlength=256).float()
+        p = torch.arange(256, device=dev).float() / 255.0
+        sigma = torch.sqrt(p * (1 - p) / counts).clamp_min(1.0 / counts)
+        z = ((hits / counts - p).abs() / sigma).max().item()
+        _require(z <= 5.0, f"preprocess ({n}, {t}, {b}) binarize hit rates off by {z:.2f} "
+                           f"sigma (limit 5)")
+        ms = _time_ms(lambda: preprocess_gather(ramp_set, idx, 5, binarize=True,
+                                                out_dtype=torch.bfloat16), 50)
+        plain_ms = _time_ms(lambda: preprocess_gather_plain(ramp_set, idx, 5, binarize=True,
+                                                            out_dtype=torch.bfloat16), 50)
+        del ramp_set
+        first = first or (ms, plain_ms)
+        print(f"[kernel] preprocess_gather {b} of {n} clips x {t} frames ({_runs(runs)}): "
+              f"binarize=False max|err| {err} (tolerance 0, exact); binarize=True worst "
+              f"hit-rate deviation {z:.2f} sigma (limit 5); {ms:.4f} ms vs plain "
+              f"{plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": first[0], "plain_ms": first[1]}
 
-    big = torch.randint(0, 256, (9000, 20, 64, 64), generator=g, device=dev, dtype=torch.uint8)
-    bidx = torch.randint(0, 9000, (64,), generator=g, device=dev)
-    ms = _time_ms(lambda: preprocess_gather(big, bidx, 5, binarize=True,
-                                            out_dtype=torch.bfloat16), 50)
-    plain_ms = _time_ms(lambda: preprocess_gather_plain(big, bidx, 5, binarize=True,
-                                                        out_dtype=torch.bfloat16), 50)
-    print(f"[kernel] preprocess_gather: binarize=False max|err| {err} (tolerance 0, exact); "
-          f"binarize=True worst hit-rate deviation {z:.2f} sigma (limit 5); "
-          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
-
-def check_elbo(dev) -> dict:
+def check_elbo(dev, shapes) -> dict:
+    """K1 at each path's (logits, mu) and at an unaligned shape: the sums
+    and their gradients against the plain version, and the time of both."""
     import torch
 
     from mmvae_torch.ops.elbo_kernels import elbo_reduce, elbo_reduce_plain
 
     g = torch.Generator(device=dev).manual_seed(2)
-    worst = 0.0
-    for big, small in (((64, 20, 64, 64), (64, 128)), ((3, 17), (3, 5))):
+    worst, first = 0.0, None
+    for big, small in (*shapes, ((3, 17), (3, 5))):
         logits = (torch.randn(big, generator=g, device=dev) * 2).requires_grad_()
         x = (torch.rand(big, generator=g, device=dev) < 0.4).to(torch.bfloat16)
         mu = torch.randn(small, generator=g, device=dev).requires_grad_()
@@ -187,28 +263,34 @@ def check_elbo(dev) -> dict:
         _require(rb <= 2e-5 and rk <= 1e-5 and ge <= 1e-6,
                  f"elbo {big}: rel err bce {rb:.2e} (2e-5) kl {rk:.2e} (1e-5) grad {ge:.2e} (1e-6)")
         worst = max(worst, abs(bk.item() - bp.item()), abs(kk.item() - kp.item()))
-        print(f"[kernel] elbo_reduce {big}: bce rel err {rb:.2e} (tolerance 2e-5), "
-              f"kl rel err {rk:.2e} (1e-5), grads max|err| {ge:.2e} (1e-6)")
-    logits = torch.randn((64, 20, 64, 64), generator=g, device=dev)
-    x = (torch.rand((64, 20, 64, 64), generator=g, device=dev) < 0.4).to(torch.bfloat16)
-    mu = torch.randn((64, 128), generator=g, device=dev)
-    ms = _time_ms(lambda: elbo_reduce(logits, x, mu, mu), 50)
-    plain_ms = _time_ms(lambda: elbo_reduce_plain(logits, x, mu, mu), 50)
-    print(f"[kernel] elbo_reduce: {ms:.4f} ms vs plain {plain_ms:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        timing = ""
+        if (big, small) in shapes:
+            l, m = logits.detach(), mu.detach()
+            ms = _time_ms(lambda: elbo_reduce(l, x, m, m), 50)
+            plain_ms = _time_ms(lambda: elbo_reduce_plain(l, x, m, m), 50)
+            first = first or (ms, plain_ms)
+            timing = f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms ({_runs(shapes[(big, small)])})"
+        print(f"[kernel] elbo_reduce {big}, {small}: bce rel err {rb:.2e} (tolerance 2e-5), "
+              f"kl rel err {rk:.2e} (1e-5), grads max|err| {ge:.2e} (1e-6){timing}")
+    return {"max_abs_err": worst, "ms": first[0], "plain_ms": first[1]}
 
 
-def check_reparam(dev) -> dict:
+def check_reparam(dev, shapes) -> dict:
+    """K2 at each path's (shape, salt) and at an unaligned shape: the VJP,
+    the formula, eps's moments, seeds that decide eps, and the time of both
+    versions."""
     import torch
 
+    from mmvae_torch.ops import seeds
     from mmvae_torch.ops.elbo_kernels import reparameterize, reparameterize_plain
 
     g = torch.Generator(device=dev).manual_seed(3)
-    worst = 0.0
-    for shape in ((64, 128), (3, 5)):
+    worst, first = 0.0, None
+    for shape, salt in (*shapes, ((3, 5), 0)):
+        seed = seeds.stream_seed(1234, seeds.STREAM_REPARAM, salt)
         mu = torch.randn(shape, generator=g, device=dev).requires_grad_()
         lv = (torch.randn(shape, generator=g, device=dev) * 0.5).requires_grad_()
-        z = reparameterize(mu, lv, 1234)
+        z = reparameterize(mu, lv, seed)
         cot = torch.randn(shape, generator=g, device=dev)
         z.backward(cot)
         d_lv = 0.5 * cot * (z.detach() - mu.detach())
@@ -219,114 +301,120 @@ def check_reparam(dev) -> dict:
         fe = _maxerr(z, zp)
         _require(fe <= 1e-5, f"reparameterize {shape}: formula max|err| {fe:.2e} (1e-5)")
         worst = max(worst, ge, fe)
-        if shape == (64, 128):
+        txt = ""
+        if (shape, salt) in shapes:
             n = eps.numel()
             m, v = eps.mean().item(), eps.var().item()
             _require(abs(m) <= 5 / math.sqrt(n) and abs(v - 1) <= 5 * math.sqrt(2 / n),
-                     f"reparameterize eps moments mean {m:.4f} var {v:.4f}")
-            same = reparameterize(mu.detach(), lv.detach(), 1234)
-            other = reparameterize(mu.detach(), lv.detach(), 4321)
+                     f"reparameterize {shape} eps moments mean {m:.4f} var {v:.4f}")
+            same = reparameterize(mu.detach(), lv.detach(), seed)
+            other = reparameterize(mu.detach(), lv.detach(), seed + 1)
             _require(torch.equal(same, z.detach()) and not torch.equal(other, same),
-                     "reparameterize: seed does not determine eps")
-            print(f"[kernel] reparameterize eps moments: mean {m:.4f} var {v:.4f} "
-                  f"(limits 5 sigma: {5 / math.sqrt(n):.4f}, {5 * math.sqrt(2 / n):.4f})")
-        print(f"[kernel] reparameterize {shape}: VJP max|err| {ge:.2e} (tolerance 1e-6), "
-              f"formula max|err| {fe:.2e} (1e-5)")
-    mu = torch.randn((64, 128), generator=g, device=dev)
-    ms = _time_ms(lambda: reparameterize(mu, mu, 9), 100)
-    plain_ms = _time_ms(lambda: reparameterize_plain(mu, mu, 9), 100)
-    print(f"[kernel] reparameterize: {ms:.4f} ms vs plain {plain_ms:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+                     f"reparameterize {shape}: seed does not determine eps")
+            m_, l_ = mu.detach(), lv.detach()
+            ms = _time_ms(lambda: reparameterize(m_, l_, seed), 100)
+            plain_ms = _time_ms(lambda: reparameterize_plain(m_, l_, seed), 100)
+            first = first or (ms, plain_ms)
+            txt = (f"; eps mean {m:.4f} var {v:.4f} (limits 5 sigma: {5 / math.sqrt(n):.4f}, "
+                   f"{5 * math.sqrt(2 / n):.4f}); {ms:.4f} ms vs plain {plain_ms:.4f} ms "
+                   f"({_runs(shapes[(shape, salt)])})")
+        print(f"[kernel] reparameterize {shape} salt {salt}: VJP max|err| {ge:.2e} "
+              f"(tolerance 1e-6), formula max|err| {fe:.2e} (1e-5){txt}")
+    return {"max_abs_err": worst, "ms": first[0], "plain_ms": first[1]}
 
 
-def _proj_inputs(dev, dtype, b, t, h, w, c, f, seed):
-    import torch
-
-    g = torch.Generator(device=dev).manual_seed(seed)
-
-    def rn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
-
-    return (rn(b, t, h, w, c, scale=0.5), rn(c, 4 * f, scale=c ** -0.5),
-            rn(4 * f, scale=0.1), rn(3, 3, f, 4 * f, scale=(9 * f) ** -0.5),
-            rn(b, h, w, f, scale=0.5), rn(b, h, w, f, scale=0.5))
-
-
-def _bf16_ulps(a, b) -> float:
-    """max|a - b| in bf16 ulps of b's largest magnitude."""
-    m = float(b.detach().float().abs().max())
-    return _maxerr(a, b) / 2.0 ** (math.floor(math.log2(max(m, 2.0 ** -126))) - 7)
-
-
-def check_convlstm(dev) -> tuple:
-    """K5 with bf16 activations, the only ones its CUDA kernels take, at the main
-    path's shape and at an unaligned one (5x6 positions, odd T).  Kernel
-    and plain version round the same operands to bf16, so with f32 gates
-    every output is held to 2 bf16 ulps of its largest value.  bf16 gates
-    round the pointwise chain at each step on both sides: forward to 0.05
-    absolute, the bf16 tolerance of tests/test_convlstm_fused.py.  The
-    backward chain is f32 whatever the gate dtype and both backward passes
-    start from the same residuals: 2 ulps in both cases."""
+def check_convlstm(dev, shapes) -> tuple:
+    """K5 (bf16 activations, the only ones its kernels take) at each path's
+    (B, T, H, W, C, F) and at an unaligned one (5x6 positions, odd T), both
+    gate dtypes, through `kernel_checks.compare_proj` and its tolerances;
+    then the time of both versions at each path's shape (bf16 gates)."""
     import torch
 
     from mmvae_torch.ops import convlstm_kernels as ck
+    from mmvae_torch.ops import kernel_checks as kc
 
-    f32, bf16 = torch.float32, torch.bfloat16
     worst_f = worst_b = 0.0
-    names = ("dx", "dWx", "dbx", "dW", "dc0", "dh0")
-    for shape in ((64, 20, 8, 8, 128, 128), (3, 7, 5, 6, 48, 32)):
-        for gdt in (f32, bf16):
-            x, wx, bx, w, c0, h0 = _proj_inputs(dev, bf16, *shape, seed=4)
-            outs_k = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, gdt, True)
-            outs_p = ck.proj_forward_plain(x, wx, bx, w, c0, h0, gdt, True)
-            hl_k, cl_k = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, gdt, False)
-            nores = max(_maxerr(hl_k, outs_k[0][:, -1]), _maxerr(cl_k, outs_k[1][:, -1]))
-            _require(nores == 0.0, f"convlstm {shape}: the residual-free forward differs "
-                                   f"from the saving one by {nores:.2e}")
-            fe = max(_maxerr(a, b) for a, b in zip(outs_k, outs_p))
-            if gdt == f32:
-                fu = max(_bf16_ulps(a, b) for a, b in zip(outs_k, outs_p))
-                _require(fu <= 2.0, f"convlstm fwd {shape} gates f32: {fu:.2f} bf16 ulps (2)")
-                fwd_txt = f"fwd {fu:.2f} ulps (tolerance 2)"
-            else:
-                _require(fe <= 0.05, f"convlstm fwd {shape} gates bf16: max|err| {fe:.2e} (0.05)")
-                fwd_txt = f"fwd max|err| {fe:.2e} (tolerance 0.05)"
-            g = torch.Generator(device=dev).manual_seed(5)
-            dh = torch.randn(hl_k.shape, generator=g, device=dev)
-            dc = torch.randn(hl_k.shape, generator=g, device=dev)
-            # both backward passes from the same (plain) residuals
-            gk = ck.proj_backward_cuda(x, wx, w, c0, h0, *outs_p, dh, dc)
-            gp = ck.proj_backward_plain(x, wx, w, c0, h0, *outs_p, dh, dc)
-            errs = []
-            for name, a, b in zip(names, gk, gp):
-                u = _bf16_ulps(a, b)
-                _require(u <= 2.0, f"convlstm bwd {shape} gates {gdt} {name}: {u:.2f} bf16 "
-                                   f"ulps of max|ref| (tolerance 2)")
-                errs.append(f"{name} {u:.2f}")
-            worst_f = max(worst_f, fe)
-            worst_b = max(worst_b, max(_maxerr(a, b) for a, b in zip(gk, gp)))
-            print(f"[kernel] convlstm_proj {shape} bf16, gates {gdt}: {fwd_txt}; bwd ulps "
-                  f"{', '.join(errs)} (tolerance 2 ulps of each gradient's max|ref|)")
-    x, wx, bx, w, c0, h0 = _proj_inputs(dev, bf16, 64, 20, 8, 8, 128, 128, seed=6)
-    hs, cs, ga = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, bf16, True)
-    dh = torch.randn(64, 8, 8, 128, device=dev)
-    fwd_ms = _time_ms(lambda: ck.proj_forward_cuda(x, wx, bx, w, c0, h0, bf16, True), 5)
-    fwd_plain = _time_ms(lambda: ck.proj_forward_plain(x, wx, bx, w, c0, h0, bf16, True), 5)
-    bwd_ms = _time_ms(lambda: ck.proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh, dh), 5)
-    bwd_plain = _time_ms(lambda: ck.proj_backward_plain(x, wx, w, c0, h0, hs, cs, ga, dh, dh), 5)
-    print(f"[kernel] convlstm_proj forward (bf16, saves residuals): {fwd_ms:.3f} ms vs plain "
-          f"{fwd_plain:.3f} ms; backward {bwd_ms:.3f} ms vs plain {bwd_plain:.3f} ms")
+    for shape in (*shapes, (3, 7, 5, 6, 48, 32)):
+        for gdt in (torch.float32, torch.bfloat16):
+            cmp = kc.compare_proj(dev, shape, gdt)
+            print(f"[kernel] convlstm_proj {shape} bf16, gates {gdt}: {cmp.text()}")
+            cmp.check(f"convlstm_proj {shape} gates {gdt}")
+            worst_f, worst_b = max(worst_f, cmp.fwd_err), max(worst_b, cmp.bwd_err)
+    first = None
+    for shape, runs in shapes.items():
+        x, wx, bx, w, c0, h0 = kc.proj_inputs(dev, *shape, seed=6)
+        hs, cs, ga = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True)
+        dh = torch.randn(c0.shape, device=dev)
+        ms = (_time_ms(lambda: ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16,
+                                                    True), 5),
+              _time_ms(lambda: ck.proj_forward_plain(x, wx, bx, w, c0, h0, torch.bfloat16,
+                                                     True), 5),
+              _time_ms(lambda: ck.proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh, dh), 5),
+              _time_ms(lambda: ck.proj_backward_plain(x, wx, w, c0, h0, hs, cs, ga, dh, dh), 5))
+        first = first or ms
+        print(f"[kernel] convlstm_proj {shape} ({_runs(runs)}), bf16 gates: forward (saves "
+              f"residuals) {ms[0]:.3f} ms vs plain {ms[1]:.3f} ms; backward {ms[2]:.3f} ms vs "
+              f"plain {ms[3]:.3f} ms")
+    return ({"max_abs_err": worst_f, "ms": first[0], "plain_ms": first[1]},
+            {"max_abs_err": worst_b, "ms": first[2], "plain_ms": first[3]})
+
+
+def check_convlstm_scan(dev, shapes) -> tuple:
+    """K6 (bf16 activations) at each path's (B, T, H, W, F) with a
+    time-constant xg, at the streaming last-only encoder of enc_x_kernel=3
+    (config 3's B=64, T=20), and at an unaligned shape (5x6 positions, F=32,
+    odd T) in both input kinds; both gate dtypes, every forward mode and
+    both backward modes, through `kernel_checks.compare_scan` and its
+    tolerances; then the time of both versions at each of those 8x8 shapes
+    (bf16 gates).  The JSON line takes config 4's decoder."""
+    import torch
+
+    from mmvae_torch.ops import convlstm_kernels as ck
+    from mmvae_torch.ops import kernel_checks as kc
+
+    cases = {(shape, True): runs for shape, runs in shapes.items()}
+    cases[((64, 20, 8, 8, 128), False)] = ["enc_x_kernel=3 encoder, last-only"]
+    worst_f = worst_b = 0.0
+    for shape, const in (*cases, ((3, 7, 5, 6, 32), True), ((3, 7, 5, 6, 32), False)):
+        tag = f"{shape} {'const' if const else 'streaming'}"
+        for gdt in (torch.float32, torch.bfloat16):
+            cmp = kc.compare_scan(dev, shape, const, gdt)
+            print(f"[kernel] convlstm_scan {tag} bf16, gates {gdt}: {cmp.text()}")
+            cmp.check(f"convlstm_scan {tag} gates {gdt}")
+            worst_f, worst_b = max(worst_f, cmp.fwd_err), max(worst_b, cmp.bwd_err)
+    times = {}
+    for (shape, const), runs in cases.items():
+        b, t, h, w, f = shape
+        xg, wh, c0, h0 = kc.scan_inputs(dev, b, 1 if const else t, h, w, f, seed=10)
+        res = ck.scan_forward_cuda(xg, wh, c0, h0, t, torch.bfloat16, "save")
+        dh = torch.randn(res[0].shape, device=dev)
+        dc = dh[:, -1]
+        last = not const
+        dh_in = dh[:, -1] if last else dh
+        ms = (_time_ms(lambda: ck.scan_forward_cuda(xg, wh, c0, h0, t, torch.bfloat16,
+                                                    "save"), 5),
+              _time_ms(lambda: ck.scan_forward_plain(xg, wh, c0, h0, t, torch.bfloat16,
+                                                     "save"), 5),
+              _time_ms(lambda: ck.scan_backward_cuda(wh, c0, h0, *res, dh_in, dc, const,
+                                                     last), 5),
+              _time_ms(lambda: ck.scan_backward_plain(wh, c0, h0, *res, dh_in, dc, const,
+                                                      last), 5))
+        for run in runs:
+            times[run] = ms
+        print(f"[kernel] convlstm_scan {shape} {'const' if const else 'streaming'} "
+              f"({_runs(runs)}), bf16 gates: forward (saves residuals) {ms[0]:.3f} ms vs "
+              f"plain {ms[1]:.3f} ms; backward {ms[2]:.3f} ms vs plain {ms[3]:.3f} ms")
+    fwd_ms, fwd_plain, bwd_ms, bwd_plain = times["pred_vae model.kwargs.fused=true"]
     return ({"max_abs_err": worst_f, "ms": fwd_ms, "plain_ms": fwd_plain},
             {"max_abs_err": worst_b, "ms": bwd_ms, "plain_ms": bwd_plain})
-
 
 def _rel_l2(a, b) -> float:
     a, b = a.detach().float().cpu(), b.detach().float().cpu()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def check_model(dev) -> None:
-    """The config-3 model at full width on a small input (2 clips x 4
+def check_model(dev, name: str, frames: int, overrides=()) -> None:
+    """A config's model at full width on a small input (2 clips x `frames`
     frames): forward and every parameter gradient on the card, through the
     kernels, against the same model on the CPU, through the plain versions.
     The kernels take bf16 activations, so the card runs bf16 with f32 gates
@@ -343,20 +431,27 @@ def check_model(dev) -> None:
     from mmvae_torch.train.loop import build_model
 
     g = torch.Generator().manual_seed(7)
-    x = (torch.rand(2, 4, 64, 64, generator=g) < 0.35).float()
-    eps = torch.randn(2, 128, generator=g)
+    x = (torch.rand(2, frames, 64, 64, generator=g) < 0.35).float()
+    noise = {}
+
+    def sample(device):
+        # eps per sampling call (salt), drawn once on the CPU and injected
+        def fn(m, v, salt=0):
+            if salt not in noise:
+                noise[salt] = torch.randn(m.shape, generator=g)
+            return m + torch.exp(0.5 * v) * noise[salt].to(device)
+        return fn
 
     def run(model, device):
-        e = eps.to(device)
-        out = model(x.to(device), lambda m, v, salt=0: m + torch.exp(0.5 * v) * e)
+        out = model(x.to(device), sample(device))
         bce, kl = elbo_reduce(out.logits, out.target, out.mu, out.logvar)
-        ((bce + kl) / 2).backward()
-        res = dict(zip(("logits", "mu", "logvar"), out[:3]))
+        ((bce + kl + out.extra_kl) / 2).backward()
+        res = {"logits": out.logits, "mu": out.mu, "logvar": out.logvar}
         res.update((n, p.grad) for n, p in model.named_parameters())
         return {n: t.detach().float().cpu() for n, t in res.items()}
 
     def config(dtype, gate_bf16):
-        cfg = get_config("seq_vae", (f"model.dtype={dtype}",))
+        cfg = get_config(name, (f"model.dtype={dtype}", *overrides))
         cfg.model.kwargs["gate_bf16"] = gate_bf16
         return cfg
 
@@ -367,54 +462,92 @@ def check_model(dev) -> None:
         plain = run(ref_model, torch.device("cpu"))
         kern = run(copy.deepcopy(ref_model).to(dev), dev)
         worst = (0.0, "")
-        for name, b in plain.items():
-            a = kern[name]
-            e_k, e_p = _rel_l2(a, truth[name]), _rel_l2(b, truth[name])
+        for tname, b in plain.items():
+            a = kern[tname]
+            e_k, e_p = _rel_l2(a, truth[tname]), _rel_l2(b, truth[tname])
             lim = max(2 * e_p, 0.05)
-            _require(e_k <= lim, f"model bf16 gates {'bf16' if gate_bf16 else 'f32'} {name}: "
-                                 f"rel L2 to f32 {e_k:.3f} on the card, {e_p:.3f} on the CPU "
-                                 f"(limit {lim:.3f})")
-            worst = max(worst, (e_k / lim, f"{name} (card {e_k:.3f}, CPU {e_p:.3f}, "
-                                           f"card vs CPU {_rel_l2(a, b):.3f})"))
-        print(f"[model] seq_vae bf16, gates {'bf16' if gate_bf16 else 'f32'} (2 x 4 x 64x64), "
-              f"card with kernels vs CPU with plain versions, over {len(plain)} tensors: "
-              f"worst rel L2 to the f32 result over its limit {worst[0]:.3f} (must be <= 1) "
-              f"at {worst[1]}")
+            _require(e_k <= lim, f"model {name} bf16 gates {'bf16' if gate_bf16 else 'f32'} "
+                                 f"{tname}: rel L2 to f32 {e_k:.3f} on the card, {e_p:.3f} on "
+                                 f"the CPU (limit {lim:.3f})")
+            worst = max(worst, (e_k / lim, f"{tname} (card {e_k:.3f}, CPU {e_p:.3f}, "
+                                            f"card vs CPU {_rel_l2(a, b):.3f})"))
+        print(f"[model] {name} {' '.join(overrides)} bf16, gates "
+              f"{'bf16' if gate_bf16 else 'f32'} (2 x {frames} x 64x64), card with kernels vs "
+              f"CPU with plain versions, over {len(plain)} tensors: worst rel L2 to the f32 "
+              f"result over its limit {worst[0]:.3f} (must be <= 1) at {worst[1]}")
 
 
 def phase_kernels(dev) -> dict:
-    fwd, bwd = check_convlstm(dev)
+    shapes = path_shapes()
+    fwd, bwd = check_convlstm(dev, shapes["proj"])
+    sfwd, sbwd = check_convlstm_scan(dev, shapes["scan"])
     return {
-        "preprocess_gather": check_preprocess(dev),
-        "elbo_reduce": check_elbo(dev),
-        "reparameterize": check_reparam(dev),
+        "preprocess_gather": check_preprocess(dev, shapes["preprocess"]),
+        "elbo_reduce": check_elbo(dev, shapes["elbo"]),
+        "reparameterize": check_reparam(dev, shapes["reparam"]),
         "convlstm_proj_forward": fwd,
         "convlstm_proj_backward": bwd,
+        "convlstm_scan_forward": sfwd,
+        "convlstm_scan_backward": sbwd,
     }
 
 
-def phase_slice(card: str) -> dict:
+def phase_models(dev) -> None:
+    check_model(dev, "seq_vae", 4)
+    check_model(dev, "pred_vae", 20, ("model.kwargs.fused=true",))
+    check_model(dev, "hier_vae", 20, ("model.kwargs.fused=true",))
+
+
+# (config, overrides, kernels that must launch, kernels that must not)
+_SLICES = (
+    ("seq_vae", (), _STEP + _K5, _K6),
+    ("pred_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, ()),
+    ("hier_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, ()),
+)
+# Policy measurement, recorded and not adopted: config 3's decoder through K6.
+_POLICY = ("seq_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, ())
+
+
+def run_slice(card: str, name: str, overrides, launched, idle) -> dict:
+    """One path at full width through `run_benchmark`, with the launch
+    counters set to 0 just before it and read just after."""
     from mmvae_torch import ops
     from mmvae_torch.bench.throughput import run_benchmark
     from mmvae_torch.configs import get_config
 
-    cfg = get_config("seq_vae")
-    _require(cfg.data.batch_size == 64 and cfg.data.seq_len == 20
-             and cfg.model.dtype == "bfloat16", "seq_vae is not the full-width config")
+    cfg = get_config(name, overrides)
+    base = get_config(name)
+    _require(cfg.data.batch_size == base.data.batch_size and cfg.data.seq_len == base.data.seq_len
+             and cfg.model.dtype == "bfloat16", f"{name} is not the full-width config")
     ops.reset_launch_counts()
     res = run_benchmark(cfg, steps=20, warmup=5)
     counts = ops.launch_counts()
     losses = res.pop("losses")
-    _require(all(math.isfinite(v) for v in losses), f"non-finite loss in {losses}")
+    tag = f"{name} {' '.join(overrides)}".strip()
+    _require(all(math.isfinite(v) for v in losses), f"{tag}: non-finite loss in {losses}")
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
-    _require(last < first, f"loss did not fall: first 5 mean {first:.1f}, last 5 {last:.1f}")
-    _require(all(n > 0 for n in counts.values()), f"a kernel was not launched: {counts}")
-    print(f"[slice] {len(losses)} train steps, loss first-5 mean {first:.2f} -> "
+    _require(last < first, f"{tag}: loss did not fall: first 5 mean {first:.1f}, last 5 {last:.1f}")
+    _require(all(counts[k] > 0 for k in launched), f"{tag}: a kernel was not launched: {counts}")
+    _require(all(counts[k] == 0 for k in idle), f"{tag}: a kernel off this path ran: {counts}")
+    print(f"[slice] {tag}: {len(losses)} train steps, loss first-5 mean {first:.2f} -> "
           f"last-5 mean {last:.2f}; launches {counts}")
     print(f"[slice] {json.dumps(res)}")
-    print(f"[slice] {res['value']} frames/s/GPU (min {res['value_min']}, max "
+    print(f"[slice] {tag}: {res['value']} frames/s/GPU (min {res['value_min']}, max "
           f"{res['value_max']}, spread {res['spread_pct']}%) on {card}")
     return counts
+
+
+def phase_slice(card: str) -> dict:
+    """Configs 3, 4 and 5; then config 3 with fused=true (policy
+    measurement).  Returns each kernel's launches summed over the three
+    slice runs."""
+    total = {}
+    for name, overrides, launched, idle in _SLICES:
+        counts = run_slice(card, name, overrides, launched, idle)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    run_slice(card, *_POLICY)
+    return total
 
 
 def main() -> int:
@@ -429,7 +562,7 @@ def main() -> int:
     card = phase_card()
     phase_build()
     checks = phase_kernels(dev)
-    check_model(dev)
+    phase_models(dev)
     counts = phase_slice(card)
     _require("jax" not in sys.modules and "mmvae_tpu" not in sys.modules,
              "jax or mmvae_tpu was imported")

@@ -73,7 +73,7 @@ def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
     fps_all = sorted(frames_per_step * steps / w for w in windows)
     loss_values = torch.stack(losses).float().cpu().tolist()
     return {
-        "metric": "training frames/sec/GPU (20-frame clips)"
+        "metric": f"training frames/sec/GPU ({cfg.data.seq_len}-frame clips)"
         if not cfg.data.per_frame
         else "training frames/sec/GPU (single frames)",
         "value": round(fps, 1),

@@ -2,10 +2,15 @@
 
 from mmvae_torch.models.base import VAEOutput, flax_init_
 from mmvae_torch.models.convlstm import ConvLSTM
+from mmvae_torch.models.hier_vae import HierVideoVAE
+from mmvae_torch.models.pred_vae import PredSeqVAE
 from mmvae_torch.models.seq_vae import ConvLSTMSeqVAE
 
 MODEL_REGISTRY = {
     "seq_vae": ConvLSTMSeqVAE,
+    "pred_vae": PredSeqVAE,
+    "hier_vae": HierVideoVAE,
 }
 
-__all__ = ["ConvLSTM", "ConvLSTMSeqVAE", "MODEL_REGISTRY", "VAEOutput", "flax_init_"]
+__all__ = ["ConvLSTM", "ConvLSTMSeqVAE", "HierVideoVAE", "MODEL_REGISTRY", "PredSeqVAE",
+           "VAEOutput", "flax_init_"]

@@ -3,7 +3,8 @@
 Numerics follow flax's casts explicitly: each conv layer casts its input,
 weight and bias to the model's activation `dtype`; the posterior heads and
 the final logits are float32.  Parameters are float32.  Init copies flax:
-truncated lecun_normal weights, zero biases (`flax_init_`).
+truncated lecun_normal weights, orthogonal recurrent kernels, zero biases
+(`flax_init_`).
 
 Layout: frames and convolutions are NCHW inside the port (cuDNN's layout);
 the ConvLSTM interface and the Gaussian head's flatten keep the JAX
@@ -62,6 +63,11 @@ class ProjMatrix(nn.Module):
         return self.weight.shape[0]
 
 
+class RecurrentLinear(nn.Linear):
+    """A Dense whose kernel flax initializes orthogonal (a GRU's recurrent
+    kernels, `recurrent_kernel_init=orthogonal()`)."""
+
+
 def _fan_in(mod: nn.Module) -> int:
     if isinstance(mod, (HWIOKernel, ProjMatrix)):
         return mod.fan_in()
@@ -78,15 +84,19 @@ def _fan_in(mod: nn.Module) -> int:
 
 @torch.no_grad()
 def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Truncated lecun_normal weights and zero biases, as flax initializes."""
+    """Truncated lecun_normal weights, orthogonal recurrent kernels and zero
+    biases, as flax initializes."""
     for mod in model.modules():
         if not any(True for _ in mod.parameters(recurse=False)):
             continue
-        std = math.sqrt(1.0 / _fan_in(mod)) / _TRUNC_STD
         w = mod.weight
-        # trunc_normal_ draws on the CPU generator; copy onto the device.
+        # Drawn on the CPU generator, then copied onto the device.
         sample = torch.empty(w.shape, dtype=torch.float32)
-        nn.init.trunc_normal_(sample, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        if isinstance(mod, RecurrentLinear):
+            nn.init.orthogonal_(sample, generator=generator)
+        else:
+            std = math.sqrt(1.0 / _fan_in(mod)) / _TRUNC_STD
+            nn.init.trunc_normal_(sample, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
         w.copy_(sample)
         if getattr(mod, "bias", None) is not None:
             mod.bias.zero_()

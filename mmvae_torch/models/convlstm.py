@@ -1,20 +1,29 @@
 """ConvLSTM with a hoisted input projection (port of mmvae_tpu/models/convlstm.py).
 
-`ConvLSTM(cin, features, x_kernel=...)`:
+`ConvLSTM(cin, features, x_kernel=..., fused=...)`:
 
-- x_kernel == 1 (the encoder): the input projection is a (C, 4F) matrix and
-  the hidden kernel stays HWIO (3, 3, F, 4F).  With need_hs=False and a
-  streaming input, the whole recurrence runs in `ops.convlstm_scan_proj`
-  (the CUDA kernel on the card, its plain version on the CPU), the
-  counterpart of the JAX encoder's proj-fused Pallas path.  The JAX path
-  also needs C % 128 == 0, a TPU lane-width condition.  The CUDA kernels
-  have conditions of their own and raise where they are not met: bf16
-  activations, C and F multiples of 16, F <= 128 and H*W <= 64.
-- otherwise (the decoder): the input projection is a conv, the hidden conv
-  an OIHW `nn.Conv2d`, and the recurrence an eager loop of cuDNN convs, as
-  the JAX auto policy runs it (`lax.scan`).  A time-constant input
-  (xs of length 1 with `length=T`) is projected once.  `remat=True`
-  recomputes each step in the backward (`torch.utils.checkpoint`).
+- x_kernel == 1 (the encoders of configs 3-5): the input projection is a
+  (C, 4F) matrix and the hidden kernel stays HWIO (3, 3, F, 4F); otherwise
+  (the decoders) the input projection is a conv and the hidden conv an OIHW
+  `nn.Conv2d`.  Param names and layouts follow `convert.state_dict_from_flax`.
+- The recurrence runs one of three ways, chosen as the JAX module chooses
+  (`fused`, `mmvae_tpu/models/convlstm.py:224-307`):
+  - the encoder fast path, `ops.convlstm_scan_proj` (K5, projection inside
+    the kernel), for a 1x1 projection, need_hs=False and a streaming input,
+    unless fused=False.  The JAX path also needs C % 128 == 0, a TPU
+    lane-width condition;
+  - `ops.convlstm_scan` (K6) after the hoisted projection: for every other
+    recurrence under fused=True, and under fused=None (auto) for a
+    streaming input;
+  - an eager loop of convs (the JAX `lax.scan`): fused=False, and a
+    time-constant input (xs of length 1 with `length=T`, the decoders)
+    under auto.  `remat=True` recomputes each step in the backward
+    (`torch.utils.checkpoint`); on the kernel paths it is ignored, with a
+    warning when fused=True asked for it, as in JAX.
+  A time-constant input is projected once on every path.  Each kernel
+  wrapper runs its CUDA kernel for CUDA tensors (bf16 activations, F a
+  multiple of 16, F <= 128, H*W <= 64, else it raises) and its plain
+  version for CPU tensors.
 
 Gate order i/f/g/o, forget bias +1; the pointwise chain and the cell state
 run in `gate_dtype` (`_gate_math`).  The interface is NHWC like the JAX
@@ -23,6 +32,7 @@ module: state (c, h) each (B, H, W, F), xs (B, T, H, W, C), hs (B, T, H, W, F).
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -31,7 +41,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from mmvae_torch.models.base import HWIOKernel, ProjMatrix
-from mmvae_torch.ops.convlstm_kernels import convlstm_scan_proj
+from mmvae_torch.ops.convlstm_kernels import convlstm_scan, convlstm_scan_proj
 
 State = Tuple[torch.Tensor, torch.Tensor]
 
@@ -52,7 +62,8 @@ def _gate_math(gates, c, out_dtype, compute_dtype=torch.float32):
 class ConvLSTM(nn.Module):
     def __init__(self, cin: int, features: int, *, kernel: int = 3,
                  x_kernel: Optional[int] = None, dtype=torch.float32,
-                 gate_dtype=torch.float32, remat: bool = False, device=None):
+                 gate_dtype=torch.float32, remat: bool = False,
+                 fused: Optional[bool] = None, device=None):
         super().__init__()
         self.features = features
         self.kernel = kernel
@@ -60,6 +71,7 @@ class ConvLSTM(nn.Module):
         self.dtype = dtype
         self.gate_dtype = gate_dtype
         self.remat = remat
+        self.fused = fused
         f4 = 4 * features
         self.proj = self.x_kernel == 1
         self.step = nn.Module()
@@ -87,9 +99,11 @@ class ConvLSTM(nn.Module):
                 need_hs: bool = True) -> Tuple[State, Optional[torch.Tensor]]:
         b, t_in = xs.shape[:2]
         t = length or t_in
+        const = t_in == 1 and t > 1
+        fused = self.fused if self.fused is not None else not const
         dt = self.dtype
         c0, h0 = state0
-        if self.proj and not need_hs and t_in == t:
+        if fused and self.proj and not need_hs and not const:
             c_t, h_t = convlstm_scan_proj(
                 xs.to(dt), self.input.weight.to(dt), self.input.bias.to(dt),
                 self.step.hidden.weight.to(dt), c0.to(dt), h0.to(dt),
@@ -97,21 +111,30 @@ class ConvLSTM(nn.Module):
             )
             return (c_t, h_t), None
 
-        # Hoisted input projection over all B*T_in frames (NCHW inside).
+        # Hoisted input projection over all B*T_in frames (NHWC views; the
+        # conv runs NCHW).
         flat = xs.reshape(b * t_in, *xs.shape[2:]).to(dt)
         if self.proj:
             xg = flat @ self.input.weight.to(dt) + self.input.bias.to(dt)
-            xg = xg.permute(0, 3, 1, 2)
         else:
             xg = F.conv2d(flat.permute(0, 3, 1, 2), self.input.weight.to(dt),
-                          self.input.bias.to(dt), padding=self.x_kernel // 2)
+                          self.input.bias.to(dt), padding=self.x_kernel // 2).permute(0, 2, 3, 1)
         xg = xg.reshape(b, t_in, *xg.shape[1:])
+        if fused:
+            if self.fused and self.remat:
+                warnings.warn("ConvLSTM(fused=True): the K6 kernel keeps its own forward "
+                              "residuals; remat is ignored on this path.", stacklevel=2)
+            w = self.step.hidden.weight
+            w_hwio = w if self.proj else w.permute(2, 3, 1, 0)
+            return convlstm_scan(xg, w_hwio.to(dt), c0.to(dt), h0.to(dt), length=t,
+                                 gate_dtype=self.gate_dtype, last_only=not need_hs)
+
         w_h = self._hidden_oihw().to(dt)
         c = c0.permute(0, 3, 1, 2)
         h = h0.permute(0, 3, 1, 2)
         hs = []
         for s in range(t):
-            xg_t = xg[:, 0] if t_in == 1 else xg[:, s]
+            xg_t = (xg[:, 0] if t_in == 1 else xg[:, s]).permute(0, 3, 1, 2)
             if self.remat and torch.is_grad_enabled():
                 c, h = checkpoint(self._step, xg_t, c, h, w_h, use_reentrant=False)
             else:

@@ -4,11 +4,13 @@ encode: per-frame conv stack over B*T frames -> encoder ConvLSTM (terminal
 state only, through the recurrence kernel) -> Gaussian head.
 decode: z -> initial (c, h) and a time-constant z-token -> decoder ConvLSTM
 over T steps -> batched frame decoder -> logits (B, T, H, W), float32.
+`fused` goes to both ConvLSTMs (see models/convlstm.py): None runs the
+decoder eagerly, True through K6.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -35,6 +37,7 @@ class ConvLSTMSeqVAE(nn.Module):
         remat: bool = False,
         unroll: int = 1,  # lax.scan unroll factor of the JAX model; no effect here
         gate_bf16: bool = False,
+        fused: Optional[bool] = None,
         dec_upsample: str = "fast",
         enc_x_kernel: int = 3,
         token_ch: int = 16,
@@ -53,13 +56,14 @@ class ConvLSTMSeqVAE(nn.Module):
         self.frame_enc = ConvEncoder(enc_channels, dtype=dtype, device=device)
         self.enc_lstm = ConvLSTM(
             enc_channels[-1], f, x_kernel=enc_x_kernel, dtype=dtype,
-            gate_dtype=gate_dtype, remat=remat, device=device,
+            gate_dtype=gate_dtype, remat=remat, fused=fused, device=device,
         )
         self.head = GaussianHead(g * g * f, latent_dim, device=device)
         self.z_to_state = nn.Linear(latent_dim, 2 * g * g * f, device=device)
         self.z_to_token = nn.Linear(latent_dim, g * g * token_ch, device=device)
         self.dec_lstm = ConvLSTM(
-            token_ch, f, dtype=dtype, gate_dtype=gate_dtype, remat=remat, device=device,
+            token_ch, f, dtype=dtype, gate_dtype=gate_dtype, remat=remat, fused=fused,
+            device=device,
         )
         self.frame_dec = ConvDecoder(
             f, tuple(reversed(enc_channels)), dtype=dtype, upsample=dec_upsample,

@@ -2,12 +2,16 @@
 
 Every kernel wrapper counts its launches in a `launches` attribute:
 `preprocess_gather`, `elbo_reduce`, `reparameterize`,
-`convlstm_proj_forward` and `convlstm_proj_backward`.
+`convlstm_proj_forward`, `convlstm_proj_backward` (K5),
+`convlstm_scan_forward` and `convlstm_scan_backward` (K6).
 """
 
 from mmvae_torch.ops.convlstm_kernels import (
     convlstm_proj_backward,
     convlstm_proj_forward,
+    convlstm_scan,
+    convlstm_scan_backward,
+    convlstm_scan_forward,
     convlstm_scan_proj,
 )
 from mmvae_torch.ops.elbo_kernels import elbo_reduce, reparameterize
@@ -19,6 +23,8 @@ KERNEL_WRAPPERS = {
     "reparameterize": reparameterize,
     "convlstm_proj_forward": convlstm_proj_forward,
     "convlstm_proj_backward": convlstm_proj_backward,
+    "convlstm_scan_forward": convlstm_scan_forward,
+    "convlstm_scan_backward": convlstm_scan_backward,
 }
 
 
@@ -35,6 +41,9 @@ __all__ = [
     "KERNEL_WRAPPERS",
     "convlstm_proj_backward",
     "convlstm_proj_forward",
+    "convlstm_scan",
+    "convlstm_scan_backward",
+    "convlstm_scan_forward",
     "convlstm_scan_proj",
     "elbo_reduce",
     "launch_counts",

@@ -1,10 +1,12 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
 All `mmvae_torch/csrc/*.cu` sources compile into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds):
+plain C interface (no PyTorch headers, so the build takes seconds), one
+nvcc process per source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/libmmvae_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu      (each source)
+    nvcc -shared -o build/kernels/libmmvae_<hash>.so *.o
 
 The library lands in `build/kernels/` at the repository root, named by a
 hash of the sources and flags, and is built at first use in a process.
@@ -27,7 +29,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -42,8 +44,11 @@ _SIGNATURES = {
     "mmvae_convlstm_proj_bwd": [_P] * 9 + [_I] * 5 + [_P],
     "mmvae_convlstm_proj_wgrad": [_P] * 10 + [_I] * 8 + [_P],
     "mmvae_convlstm_proj_smem": [_I, _I],
+    "mmvae_convlstm_scan_fwd": [_P] * 7 + [_I] * 8 + [_P],
+    "mmvae_convlstm_scan_bwd": [_P] * 14 + [_I] * 8 + [_P],
+    "mmvae_convlstm_scan_smem": [_I],
 }
-_RESTYPES = {"mmvae_convlstm_proj_smem": _LL}
+_RESTYPES = {"mmvae_convlstm_proj_smem": _LL, "mmvae_convlstm_scan_smem": _LL}
 
 
 class KernelLibrary:
@@ -94,16 +99,39 @@ def library() -> KernelLibrary:
     log = ""
     t0 = time.perf_counter()
     if not out.exists():
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-        cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)
+        log = _compile(out)
     _LIBRARY = KernelLibrary(out, time.perf_counter() - t0, log)
     return _LIBRARY
+
+
+def _compile(out: Path) -> str:
+    """nvcc each source into an object, all at once, then link `out`."""
+    objdir = out.with_suffix(f".{os.getpid()}.objs")
+    objdir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = objdir / f"{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for obj, proc in procs:
+        text, _ = proc.communicate()
+        log += f"== {obj.stem}.cu\n{text}"
+        if proc.returncode != 0:
+            failed.append(obj.stem)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for o, _ in procs)],
+                          capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    os.replace(tmp, out)
+    shutil.rmtree(objdir, ignore_errors=True)
+    return log
 
 
 def check(err: int, what: str) -> None:

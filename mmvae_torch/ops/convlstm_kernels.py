@@ -1,21 +1,29 @@
-"""Encoder ConvLSTM recurrence with the input projection in-kernel (K5).
+"""The ConvLSTM recurrences: encoder with the input projection in-kernel (K5)
+and the hidden recurrence given a precomputed projection (K6).
 
-Replaces mmvae_tpu/ops/convlstm_pallas.py::convlstm_scan_proj_pallas with
+K5 replaces mmvae_tpu/ops/convlstm_pallas.py::convlstm_scan_proj_pallas with
 the CUDA kernels of `csrc/convlstm_proj.cu` (see its header for the design):
 
     gates_t = x_t @ wx + bx + conv3x3_SAME(h_{t-1}, w)      (i, f, g, o)
     c_t = sig(f + 1) * c_{t-1} + sig(i) * tanh(g);   h_t = sig(o) * tanh(c_t)
 
 `convlstm_scan_proj` returns only the terminal state (c_T, h_T), the
-encoder's shape.  Inputs share one activation dtype T, which is also the
-matmul operand dtype; accumulation is f32; the pointwise chain and the cell
-state run in `gate_dtype` (float32 or bfloat16), and the backward chain in
-f32, as in the TPU kernel.  The forward that feeds a backward saves hs, cs
-and the post-activation gates (in T); without grad a residual-free forward
-runs.  The CUDA kernels take T = bfloat16 (the production dtype) and raise
-for float32, which only the plain version, on the CPU, runs.
+encoder's shape.  K6 replaces `convlstm_scan_pallas` with the kernels of
+`csrc/convlstm_scan.cu`: `convlstm_scan` takes xg (the hoisted projection,
+bias included) streaming (B, T, H, W, 4F) or time-constant (B, 1, H, W, 4F)
+with `length=T`, and returns ((c_T, h_T), hs) or, `last_only`, ((c_T, h_T),
+None); gates_t = xg_t + conv3x3_SAME(h_{t-1}, w), the two added in the gate
+dtype as the TPU kernel adds them.
 
-The plain versions below follow the same algorithm step by step in PyTorch
+Inputs share one activation dtype T, which is also the matmul operand dtype;
+accumulation is f32; the pointwise chain and the cell state run in
+`gate_dtype` (float32 or bfloat16), and the backward chain in f32, as in the
+TPU kernels.  The forward that feeds a backward saves hs, cs and the
+post-activation gates (in T); without grad a residual-free forward runs.
+The CUDA kernels take T = bfloat16 (the production dtype) and raise for
+float32, which only the plain versions, on the CPU, run.
+
+The plain versions below follow the same algorithms step by step in PyTorch
 (f32 convs and matmuls on operands rounded to T); they are the CPU path and
 the oracle the kernels are compared with on the card.
 """
@@ -137,17 +145,22 @@ def proj_backward_plain(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda(x, wx, w, c0, h0, *more):
-    """Raise unless the tensors suit the tensor-core kernels; return the
-    library.  They take bf16 activations (the matmul operands) with C and F
-    multiples of 16, F <= 128 and at most 64 positions; f32 activations run
-    only in the plain version, on the CPU."""
-    for name, t in (("x", x), ("wx", wx), ("w", w), ("c0", c0), ("h0", h0), *more):
+def _require_bf16_cuda(what, named):
+    """The tensor-core kernels take bf16 activations (the matmul operands) on
+    the card; f32 activations run only in the plain versions, on the CPU."""
+    for name, t in named:
         if not t.is_cuda:
-            raise ValueError(f"convlstm_scan_proj: {name} is on {t.device}, not cuda")
+            raise ValueError(f"{what}: {name} is on {t.device}, not cuda")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"convlstm_scan_proj: {name} is {t.dtype}; the CUDA kernels "
-                            f"take bfloat16 activations")
+            raise TypeError(f"{what}: {name} is {t.dtype}; the CUDA kernels take "
+                            f"bfloat16 activations")
+
+
+def _check_cuda(x, wx, w, c0, h0, *more):
+    """Raise unless the tensors suit the K5 kernels (bf16 activations, C and
+    F multiples of 16, F <= 128, at most 64 positions); return the library."""
+    _require_bf16_cuda("convlstm_scan_proj",
+                       (("x", x), ("wx", wx), ("w", w), ("c0", c0), ("h0", h0), *more))
     batch, t_len, height, width, cin = x.shape
     f4 = wx.shape[1]
     feat = f4 // 4
@@ -313,3 +326,267 @@ def convlstm_scan_proj(
     else:
         h_last, c_last = convlstm_proj_forward(x, wx, bx, w, c0, h0, gate_dtype, False)
     return c_last.view(shape).to(c0.dtype), h_last.view(shape)
+
+
+# ---------------------------------------------------------------------------
+# K6: the hidden recurrence given xg (streaming or time-constant)
+# ---------------------------------------------------------------------------
+
+# Forward modes: "save" returns the residuals (hs, cs, gates) for a backward;
+# "hs" every h_t and c_T; "last" h_T and c_T.
+_SCAN_MODES = {"save": 0, "hs": 1, "last": 2}
+
+
+def scan_forward_plain(xg, w, c0, h0, length, gate_dtype, mode: str):
+    """Plain forward.  xg (B, T_in, H, W, 4F), T_in = length or 1 (a
+    time-constant input); w (3, 3, F, 4F) HWIO; c0, h0 (B, H, W, F).
+    Returns, in xg.dtype: "save" (hs, cs, gates) shaped (B, T, HW, F),
+    (B, T, HW, F), (B, T, HW, 4F); "hs" (hs, c_T); "last" (h_T, c_T), with
+    c_T and h_T (B, HW, F)."""
+    act = xg.dtype
+    batch, t_in, height, width, f4 = xg.shape
+    feat = f4 // 4
+    hw = height * width
+    xg = xg.reshape(batch, t_in, hw, f4)
+    w_oihw = w.float().permute(3, 2, 0, 1)
+    c = c0.reshape(batch, hw, feat).to(gate_dtype)
+    h = h0.reshape(batch, hw, feat).to(gate_dtype)
+    hs, cs, ga = [], [], []
+    for t in range(length):
+        hg = _hidden_conv(h.to(act).float(), w_oihw, height, width)
+        gates = xg[:, t if t_in > 1 else 0].to(gate_dtype) + hg.to(gate_dtype)
+        i, f, g, o = _split_gates(gates, feat)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        if mode != "last":
+            hs.append(h.to(act))
+        if mode == "save":
+            cs.append(c.to(act))
+            ga.append(torch.cat([i, f, g, o], dim=-1).to(act))
+    if mode == "save":
+        return torch.stack(hs, 1), torch.stack(cs, 1), torch.stack(ga, 1)
+    if mode == "hs":
+        return torch.stack(hs, 1), c.to(act)
+    return h.to(act), c.to(act)
+
+
+def scan_backward_plain(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
+                        last_only: bool):
+    """Plain BPTT: reverse time, (dh, dc) carried in f32.  dh is the per-step
+    cotangent of hs (B, T, HW, F), or of h_T (B, H, W, F) when `last_only`.
+    Returns (dxg, dw, dc0, dh0): dxg (B, T or 1, H, W, 4F) in hs.dtype, the
+    const input's being the f32 sum over t of the dgates; the rest in the
+    dtypes and shapes of w, c0, h0."""
+    act = hs.dtype
+    batch, t_len, hw, feat = hs.shape
+    height, width = c0.shape[1:3]
+    f4 = 4 * feat
+    w_oihw = w.float().permute(3, 2, 0, 1)
+    c0f = c0.reshape(batch, hw, feat).float()
+    h0f = h0.reshape(batch, hw, feat).float()
+    dhs = dh.reshape(batch, -1, hw, feat).to(act).float()
+    carry = dhs[:, 0] if last_only else torch.zeros_like(c0f)
+    dc = dc_last.reshape(batch, hw, feat).to(act).float()
+    if const_input:
+        dxg = torch.zeros(batch, 1, hw, f4, device=hs.device)
+    else:
+        dxg = torch.empty(batch, t_len, hw, f4, dtype=act, device=hs.device)
+    dw = torch.zeros(f4, feat, 3, 3, device=hs.device)
+    for t in range(t_len - 1, -1, -1):
+        dh_t = carry if last_only else carry + dhs[:, t]
+        c_t = cs[:, t].float()
+        c_prev = cs[:, t - 1].float() if t > 0 else c0f
+        h_prev = hs[:, t - 1].float() if t > 0 else h0f
+        i, f, g, o = ga[:, t].float().split(feat, dim=-1)
+        tanh_ct = torch.tanh(c_t)
+        do = dh_t * tanh_ct
+        dct = dc + dh_t * o * (1.0 - tanh_ct * tanh_ct)
+        dgates = torch.cat([
+            dct * g * i * (1.0 - i),
+            dct * c_prev * f * (1.0 - f),
+            dct * i * (1.0 - g * g),
+            do * o * (1.0 - o),
+        ], dim=-1)
+        dc = dct * f
+        if const_input:
+            dxg[:, 0] += dgates
+        else:
+            dxg[:, t] = dgates.to(act)
+        dg_n = dgates.to(act).float().view(batch, height, width, f4).permute(0, 3, 1, 2)
+        h_n = h_prev.view(batch, height, width, feat).permute(0, 3, 1, 2)
+        dw += torch.nn.grad.conv2d_weight(h_n, w_oihw.shape, dg_n, padding=1)
+        carry = F.conv_transpose2d(dg_n, w_oihw, padding=1).permute(0, 2, 3, 1).reshape(
+            batch, hw, feat
+        )
+    return (
+        dxg.to(act).view(batch, -1, height, width, f4),
+        dw.permute(2, 3, 1, 0).contiguous().to(w.dtype),
+        dc.view(c0.shape).to(c0.dtype),
+        carry.view(h0.shape).to(h0.dtype),
+    )
+
+
+def _check_scan(w, c0, h0, **more):
+    """Raise unless the tensors suit the K6 kernels (bf16 activations, F a
+    multiple of 16, F <= 128, at most 64 positions); return the library."""
+    _require_bf16_cuda("convlstm_scan", (("w", w), ("c0", c0), ("h0", h0), *more.items()))
+    height, width, feat = c0.shape[1:]
+    if w.shape != (3, 3, feat, 4 * feat) or h0.shape != c0.shape:
+        raise ValueError(f"convlstm_scan: inconsistent shapes w {tuple(w.shape)} "
+                         f"c0 {tuple(c0.shape)} h0 {tuple(h0.shape)}")
+    if feat % 16 or feat > 128 or height * width > 64:
+        raise ValueError(f"convlstm_scan: the CUDA kernels need F a multiple of 16, "
+                         f"F <= 128 and H*W <= 64; got F={feat}, H*W={height * width}")
+    lib = _build.library()
+    smem = lib.mmvae_convlstm_scan_smem(feat)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"convlstm_scan: F={feat} needs {smem} bytes of shared memory, "
+                         f"more than one CTA has")
+    return lib
+
+
+def scan_forward_cuda(xg, w, c0, h0, length, gate_dtype, mode: str):
+    """CUDA forward; same contract as `scan_forward_plain`."""
+    lib = _check_scan(w, c0, h0, xg=xg)
+    if gate_dtype not in _DTYPE_CODE:
+        raise TypeError(f"convlstm_scan: gate dtype {gate_dtype} not supported")
+    batch, t_in, height, width, f4 = xg.shape
+    feat = f4 // 4
+    hw = height * width
+    if (batch, height, width, feat) != tuple(c0.shape):
+        raise ValueError(f"convlstm_scan: xg {tuple(xg.shape)} does not fit c0 "
+                         f"{tuple(c0.shape)}")
+    xg, c0, h0 = (t.contiguous() for t in (xg, c0, h0))
+    kw = dict(device=xg.device, dtype=xg.dtype)
+    if mode == "save":
+        outs = (torch.empty(batch, length, hw, feat, **kw),
+                torch.empty(batch, length, hw, feat, **kw),
+                torch.empty(batch, length, hw, f4, **kw))
+    elif mode == "hs":
+        outs = (torch.empty(batch, length, hw, feat, **kw), torch.empty(batch, hw, feat, **kw))
+    else:
+        outs = (torch.empty(batch, hw, feat, **kw), torch.empty(batch, hw, feat, **kw))
+    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
+    wpk = _pack_mma_b(w.reshape(9 * feat, f4))
+    err = lib.mmvae_convlstm_scan_fwd(
+        xg.data_ptr(), wpk.data_ptr(), c0.data_ptr(), h0.data_ptr(), *ptrs,
+        batch, length, int(t_in == 1 and length > 1), height, width, feat,
+        _DTYPE_CODE[gate_dtype], _SCAN_MODES[mode], _build.stream_ptr(xg.device),
+    )
+    _build.check(err, "convlstm_scan_fwd")
+    convlstm_scan_forward.launches += 1
+    return outs
+
+
+def scan_backward_cuda(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
+                       last_only: bool):
+    """CUDA backward (BPTT, then the weight-gradient GEMM); same contract as
+    `scan_backward_plain`."""
+    lib = _check_scan(w, c0, h0, hs=hs, cs=cs, ga=ga)
+    batch, t_len, hw, feat = hs.shape
+    height, width = c0.shape[1:3]
+    f4 = 4 * feat
+    act = hs.dtype
+    wtpk = _pack_mma_b(w.reshape(9, feat, f4).transpose(1, 2).reshape(9 * f4, feat))
+    c0, h0, hs, cs, ga = (t.contiguous() for t in (c0, h0, hs, cs, ga))
+    dhs = dh.to(act).contiguous()
+    dcl = dc_last.to(act).contiguous()
+    dev = hs.device
+    rows = batch * t_len * hw
+    splits = max(1, min(8, rows // 8192))
+    d_gates = torch.empty(batch, t_len, hw, f4, device=dev, dtype=torch.float32)
+    dxg = torch.empty(batch, 1 if const_input else t_len, height, width, f4, device=dev,
+                      dtype=act)
+    dc0 = torch.empty(batch, hw, feat, device=dev, dtype=act)
+    dh0 = torch.empty_like(dc0)
+    dw_part = torch.empty(splits, 9 * feat, f4, device=dev, dtype=torch.float32)
+    dw_out = torch.empty(9 * feat, f4, device=dev, dtype=torch.float32)
+    err = lib.mmvae_convlstm_scan_bwd(
+        wtpk.data_ptr(), c0.data_ptr(), h0.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+        ga.data_ptr(), dhs.data_ptr(), dcl.data_ptr(), d_gates.data_ptr(), dxg.data_ptr(),
+        dc0.data_ptr(), dh0.data_ptr(), dw_part.data_ptr(), dw_out.data_ptr(),
+        batch, t_len, height, width, feat, int(const_input), int(last_only), splits,
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, "convlstm_scan_bwd")
+    convlstm_scan_backward.launches += 1
+    return (
+        dxg,
+        dw_out.view(3, 3, feat, f4).to(w.dtype),
+        dc0.view(c0.shape),
+        dh0.view(h0.shape),
+    )
+
+
+def convlstm_scan_forward(xg, w, c0, h0, length, gate_dtype, mode: str):
+    """Forward kernel for CUDA tensors, plain version for CPU tensors."""
+    if xg.is_cuda:
+        return scan_forward_cuda(xg, w, c0, h0, length, gate_dtype, mode)
+    return scan_forward_plain(xg, w, c0, h0, length, gate_dtype, mode)
+
+
+def convlstm_scan_backward(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
+                           last_only: bool):
+    """Backward kernels for CUDA tensors, plain version for CPU tensors."""
+    if hs.is_cuda:
+        return scan_backward_cuda(w, c0, h0, hs, cs, ga, dh, dc_last, const_input, last_only)
+    return scan_backward_plain(w, c0, h0, hs, cs, ga, dh, dc_last, const_input, last_only)
+
+
+convlstm_scan_forward.launches = 0
+convlstm_scan_backward.launches = 0
+
+
+class _Scan(torch.autograd.Function):
+    """The `_scan` and `_scan_last` VJPs: outputs (hs, c_T), or (h_T, c_T)
+    when `last_only`; the backward takes the matching cotangents."""
+
+    @staticmethod
+    def forward(ctx, xg, w, c0, h0, length, gate_dtype, last_only):
+        hs, cs, ga = convlstm_scan_forward(xg, w, c0, h0, length, gate_dtype, "save")
+        ctx.save_for_backward(w, c0, h0, hs, cs, ga)
+        ctx.const_input = xg.shape[1] == 1 and length > 1
+        ctx.last_only = last_only
+        if last_only:
+            return hs[:, -1].clone(), cs[:, -1].clone()
+        return hs, cs[:, -1].clone()
+
+    @staticmethod
+    def backward(ctx, dh, dc_last):
+        grads = convlstm_scan_backward(*ctx.saved_tensors, dh, dc_last, ctx.const_input,
+                                       ctx.last_only)
+        return (*grads, None, None, None)
+
+
+def convlstm_scan(
+    xg: torch.Tensor,
+    w: torch.Tensor,
+    c0: torch.Tensor,
+    h0: torch.Tensor,
+    *,
+    length: int | None = None,
+    gate_dtype: torch.dtype = torch.float32,
+    last_only: bool = False,
+):
+    """The ConvLSTM hidden recurrence as one kernel (K6).
+
+    xg: (B, T, H, W, 4F) hoisted input projections (bias included), or
+    (B, 1, H, W, 4F) with `length=T` for a time-constant input; w: (3, 3,
+    F, 4F) HWIO; c0, h0: (B, H, W, F); all one dtype.  Returns ((c_T, h_T),
+    hs) with hs (B, T, H, W, F), or ((c_T, h_T), None) when `last_only`.
+    Differentiable wrt all four tensors."""
+    batch, t_in, height, width, f4 = xg.shape
+    length = length or t_in
+    if t_in not in (1, length):
+        raise ValueError(f"convlstm_scan: xg has {t_in} steps, length is {length}")
+    shape = c0.shape
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xg, w, c0, h0)):
+        h_out, c_last = _Scan.apply(xg, w, c0, h0, length, gate_dtype, last_only)
+    else:
+        h_out, c_last = convlstm_scan_forward(xg, w, c0, h0, length, gate_dtype,
+                                              "last" if last_only else "hs")
+    c_last = c_last.view(shape).to(c0.dtype)
+    if last_only:
+        return (c_last, h_out.view(shape)), None
+    hs = h_out.view(batch, length, height, width, f4 // 4)
+    return (c_last, hs[:, -1]), hs

@@ -162,7 +162,8 @@ def test_decoder_const_input_matches_jax_scan(remat):
 
 def test_encoder_takes_kernel_path_only_for_terminal_state():
     """x_kernel=1 + need_hs=False runs convlstm_scan_proj; need_hs=True runs
-    the eager loop; both give the same terminal state."""
+    convlstm_scan (K6) after the hoisted projection, as the JAX auto policy
+    does for a streaming input; both give the same terminal state."""
     args = [torch.from_numpy(a) for a in _proj_inputs(5)]
     m = ConvLSTM(C, F, x_kernel=1)
     with torch.no_grad():

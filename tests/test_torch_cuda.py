@@ -8,15 +8,13 @@ neither jax nor mmvae_tpu, so it runs on a GPU host that has only PyTorch:
 (`--noconftest`: tests/conftest.py sets up jax for the JAX package's tests.)
 """
 
-import math
-
 import pytest
 import torch
 
 from mmvae_torch import ops
 from mmvae_torch.configs import get_config
 from mmvae_torch.ops import convlstm_kernels as ck
-from mmvae_torch.ops import elbo_kernels, preprocess_kernels
+from mmvae_torch.ops import elbo_kernels, kernel_checks, preprocess_kernels
 from mmvae_torch.train.loop import build_model, make_train_step
 from mmvae_torch.train.state import create_train_state
 
@@ -84,53 +82,16 @@ def test_reparameterize_formula_and_vjp(dev):
     torch.testing.assert_close(lv.grad, 0.5 * cot * (z.detach() - mu.detach()))
 
 
-def _proj_args(dev, dtype, b, t, h, w, c, f):
-    g = torch.Generator(device=dev).manual_seed(6)
-
-    def rn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
-
-    return (rn(b, t, h, w, c, scale=0.5), rn(c, 4 * f, scale=c ** -0.5), rn(4 * f, scale=0.1),
-            rn(3, 3, f, 4 * f, scale=(9 * f) ** -0.5), rn(b, h, w, f, scale=0.5),
-            rn(b, h, w, f, scale=0.5))
-
-
-def _assert_within_bf16_ulps(got, want, ulps):
-    """max|got - want| <= `ulps` bf16 ulps of want's largest magnitude."""
-    m = want.float().abs().max().item()
-    ulp = 2.0 ** (math.floor(math.log2(max(m, 2.0 ** -126))) - 7)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= ulps * ulp, f"max|err| {err} > {ulps} bf16 ulps of {m}"
-
-
 @pytest.mark.parametrize("gate_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 7, 5, 6, 48, 32), (2, 4, 7, 9, 32, 16)])
 def test_proj_kernel_matches_plain(dev, shape, gate_dtype):
-    """Unaligned positions (5x6, 7x9) and odd T.  The same operands are
-    rounded to bf16 on both sides: 2 bf16 ulps of each tensor's largest
-    value, except the bf16-gate forward, which rounds the pointwise chain at
-    each step (0.05, tests/test_convlstm_fused.py's bf16 tolerance)."""
-    args = _proj_args(dev, torch.bfloat16, *shape)
-    outs_k = ck.proj_forward_cuda(*args, gate_dtype, True)
-    outs_p = ck.proj_forward_plain(*args, gate_dtype, True)
-    for a, b_ in zip(outs_k, outs_p):
-        if gate_dtype == torch.float32:
-            _assert_within_bf16_ulps(a, b_, 2)
-        else:
-            torch.testing.assert_close(a.float(), b_.float(), rtol=0, atol=0.05)
-    last = ck.proj_forward_cuda(*args, gate_dtype, False)
-    assert torch.equal(last[0], outs_k[0][:, -1]) and torch.equal(last[1], outs_k[1][:, -1])
-    g = torch.Generator(device=dev).manual_seed(7)
-    dh = torch.randn(args[4].shape, generator=g, device=dev)
-    x, wx, _, wh, c0, h0 = args
-    gk = ck.proj_backward_cuda(x, wx, wh, c0, h0, *outs_p, dh, dh)
-    gp = ck.proj_backward_plain(x, wx, wh, c0, h0, *outs_p, dh, dh)
-    for a, b_ in zip(gk, gp):
-        _assert_within_bf16_ulps(a, b_, 2)
+    """K5 at unaligned positions (5x6, 7x9) and odd T, with the smoke's
+    comparison and tolerances (`kernel_checks.compare_proj`)."""
+    kernel_checks.compare_proj(dev, shape, gate_dtype).check(f"convlstm_proj {shape}")
 
 
 def test_proj_kernel_refuses_f32_activations(dev):
-    args = _proj_args(dev, torch.float32, 2, 3, 4, 4, 16, 16)
+    args = [t.float() for t in kernel_checks.proj_inputs(dev, 2, 3, 4, 4, 16, 16, seed=6)]
     with pytest.raises(TypeError, match="bfloat16"):
         ck.proj_forward_cuda(*args, torch.float32, True)
 
@@ -146,4 +107,43 @@ def test_train_step_launches_every_kernel(dev):
     ops.reset_launch_counts()
     losses = [float(step(state, data)["loss"]) for _ in range(2)]
     assert all(torch.isfinite(torch.tensor(losses)))
-    assert all(n == 2 for n in ops.launch_counts().values()), ops.launch_counts()
+    counts = ops.launch_counts()
+    # the decoder runs eagerly under the default (auto) policy: K6 stays idle
+    assert counts.pop("convlstm_scan_forward") == counts.pop("convlstm_scan_backward") == 0
+    assert all(n == 2 for n in counts.values()), counts
+
+
+@pytest.mark.parametrize("gate_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("const", [True, False])
+@pytest.mark.parametrize("shape", [(3, 7, 5, 6, 32), (2, 4, 7, 9, 16)])
+def test_scan_kernel_matches_plain(dev, shape, const, gate_dtype):
+    """K6 in every mode at unaligned positions (5x6, 7x9) and odd T, with the
+    smoke's comparison and tolerances (`kernel_checks.compare_scan`)."""
+    kernel_checks.compare_scan(dev, shape, const, gate_dtype).check(f"convlstm_scan {shape}")
+
+
+def test_scan_kernel_refuses_f32_activations(dev):
+    xg, wh, c0, h0 = (t.float() for t in kernel_checks.scan_inputs(dev, 2, 1, 4, 4, 16, 11))
+    with pytest.raises(TypeError, match="bfloat16"):
+        ck.scan_forward_cuda(xg, wh, c0, h0, 3, torch.float32, "save")
+
+
+@pytest.mark.parametrize("name", ["pred_vae", "hier_vae"])
+def test_fused_train_steps_launch_k5_and_k6(dev, name):
+    """A few train steps of configs 4 and 5 with fused=true at small widths:
+    finite losses, and every kernel launched once a step."""
+    cfg = get_config(name, ("model.kwargs.fused=true",))
+    cfg.model.kwargs.update(enc_channels=(16, 32, 32), lstm_features=16)
+    cfg.model.kwargs.update({"hier_vae": {"chunk_len": 2}, "pred_vae": {"context_len": 2}}[name])
+    cfg.data.batch_size, cfg.data.seq_len = 2, 4
+    model = build_model(cfg, dev)
+    state = create_train_state(model, cfg.optim)
+    step = make_train_step(model, resident_batch=2)
+    data = torch.randint(0, 256, (6, 4, 64, 64), device=dev, dtype=torch.uint8)
+    ops.reset_launch_counts()
+    losses = [float(step(state, data)["loss"]) for _ in range(3)]
+    assert all(torch.isfinite(torch.tensor(losses)))
+    counts = ops.launch_counts()
+    # hier_vae samples twice a step (z_g, then the chunk latents with salt 1)
+    assert counts.pop("reparameterize") == (6 if name == "hier_vae" else 3)
+    assert all(n == 3 for n in counts.values()), counts
