@@ -456,9 +456,9 @@ def check_model(dev, name: str, frames: int, overrides=()) -> None:
         return cfg
 
     # Same seed, so the same f32 weights for every dtype.
-    truth = run(build_model(config("float32", False)), torch.device("cpu"))
+    truth = run(build_model(config("float32", False), device="cpu"), torch.device("cpu"))
     for gate_bf16 in (False, True):
-        ref_model = build_model(config("bfloat16", gate_bf16))
+        ref_model = build_model(config("bfloat16", gate_bf16), device="cpu")
         plain = run(ref_model, torch.device("cpu"))
         kern = run(copy.deepcopy(ref_model).to(dev), dev)
         worst = (0.0, "")

@@ -89,9 +89,10 @@ def make_train_step(
     return step
 
 
-def build_model(cfg, device=None, generator: Optional[torch.Generator] = None):
-    """The config's model with flax-style init from `generator` (default: a
-    CPU generator seeded with cfg.train.seed)."""
+def build_model(cfg, device="cuda", generator: Optional[torch.Generator] = None):
+    """The config's model on `device` (the card unless the caller names the
+    CPU) with flax-style init from `generator` (default: a CPU generator
+    seeded with cfg.train.seed, so every device gets the same weights)."""
     cls = MODEL_REGISTRY[cfg.model.name]
     model = cls(**dict(cfg.model.kwargs), dtype=_DTYPES[cfg.model.dtype], device=device)
     if generator is None:

@@ -52,7 +52,7 @@ def test_state_dict_from_flax_consumes_every_seq_vae_leaf():
     fake = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), params)
     sd = state_dict_from_flax(fake)
     assert len(sd) == 28
-    port = build_model(get_config("seq_vae"))
+    port = build_model(get_config("seq_vae"), device="cpu")
     assert set(sd) == set(port.state_dict())
     for name, t in port.state_dict().items():
         assert sd[name].shape == t.shape, name
@@ -64,7 +64,7 @@ def test_state_dict_from_flax_consumes_every_seq_vae_leaf():
 def test_flax_style_init():
     """Truncated lecun_normal weights (|w| <= 2 std, std ~ sqrt(1/fan_in) with
     the truncation correction) and zero biases."""
-    port = build_model(get_config("seq_vae"))
+    port = build_model(get_config("seq_vae"), device="cpu")
     w = port.enc_lstm.step.hidden.weight.detach()  # HWIO (3, 3, 128, 512)
     std = math.sqrt(1.0 / (9 * 128)) / 0.87962566103423978
     assert float(w.abs().max()) <= 2 * std + 1e-7

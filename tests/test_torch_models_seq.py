@@ -168,7 +168,7 @@ def test_state_dict_from_flax_consumes_every_production_leaf(name, n_leaves):
     assert len(leaves) == n_leaves
     sd = state_dict_from_flax(jax.tree.map(lambda s: np.zeros(s.shape, np.float32), params))
     assert len(sd) == n_leaves
-    port = build_model(get_config(name))
+    port = build_model(get_config(name), device="cpu")
     assert set(sd) == set(port.state_dict())
     for key, t in port.state_dict().items():
         assert sd[key].shape == t.shape, key
@@ -180,7 +180,7 @@ def test_state_dict_from_flax_consumes_every_production_leaf(name, n_leaves):
 def test_gru_recurrent_kernels_orthogonal_at_init():
     """flax GRUCell init: orthogonal hr, hz, hn; truncated lecun_normal input
     kernels; zero biases."""
-    gru = build_model(get_config("hier_vae")).prior_gru
+    gru = build_model(get_config("hier_vae"), device="cpu").prior_gru
     for n in ("hr", "hz", "hn"):
         w = getattr(gru, n).weight.detach()
         torch.testing.assert_close(w @ w.T, torch.eye(256), rtol=0, atol=1e-5)

@@ -228,7 +228,7 @@ TINY = dict(latent_dim=8, enc_channels=(8, 128), lstm_features=8, image_size=32,
 def test_seq_vae_fused_kwarg_builds():
     """The port's seq_vae takes `fused` as the JAX model does (it raised
     TypeError); both ConvLSTMs get it."""
-    model = build_model(get_config("seq_vae", ("model.kwargs.fused=true",)))
+    model = build_model(get_config("seq_vae", ("model.kwargs.fused=true",)), device="cpu")
     assert model.enc_lstm.fused is True and model.dec_lstm.fused is True
 
 

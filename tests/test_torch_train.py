@@ -91,7 +91,7 @@ def _tiny_cfg():
 
 
 def _run_steps(cfg, data, n):
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     state = create_train_state(model, cfg.optim)
     step = make_train_step(model, binarize=True, resident_batch=cfg.data.batch_size)
     metrics = [{k: float(v) for k, v in step(state, data).items()} for _ in range(n)]
@@ -104,7 +104,7 @@ def test_train_step_on_resident_u8_cpu():
     cfg = _tiny_cfg()
     data = torch.randint(0, 256, (10, 4, 64, 64), dtype=torch.uint8,
                          generator=torch.Generator().manual_seed(0))
-    init = {k: v.clone() for k, v in build_model(cfg).state_dict().items()}
+    init = {k: v.clone() for k, v in build_model(cfg, device="cpu").state_dict().items()}
     ops.reset_launch_counts()
     state, metrics = _run_steps(cfg, data, 3)
     assert set(ops.launch_counts().values()) == {0}  # CPU tensors: plain versions
@@ -122,7 +122,21 @@ def test_optimizer_refuses_unported_options():
     cfg = _tiny_cfg()
     cfg.optim.ema_decay = 0.999
     with pytest.raises(NotImplementedError, match="ema_decay"):
-        create_train_state(build_model(cfg), cfg.optim)
+        create_train_state(build_model(cfg, device="cpu"), cfg.optim)
+
+
+def test_build_model_defaults_to_the_card():
+    """build_model puts the model on the card unless the caller names the CPU."""
+    import inspect
+
+    assert inspect.signature(build_model).parameters["device"].default == "cuda"
+    cfg = _tiny_cfg()
+    if torch.cuda.is_available():
+        assert next(build_model(cfg).parameters()).is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            build_model(cfg)
+    assert not next(build_model(cfg, device="cpu").parameters()).is_cuda
 
 
 def test_configs_are_the_jax_packages_dataclasses():
@@ -138,7 +152,7 @@ from mmvae_torch.train.state import create_train_state
 cfg = get_config("seq_vae")
 cfg.model.kwargs.update(latent_dim=8, enc_channels=(4, 8), lstm_features=8)
 cfg.data.batch_size, cfg.data.seq_len = 2, 3
-model = build_model(cfg)
+model = build_model(cfg, device="cpu")
 state = create_train_state(model, cfg.optim)
 step = make_train_step(model, resident_batch=2)
 data = torch.randint(0, 256, (4, 3, 64, 64), dtype=torch.uint8)
