@@ -15,7 +15,12 @@ Phases, each raising on failure (the script catches nothing):
    shape the runs of phase 4 give it (`path_shapes`, from their configs)
    and at one unaligned shape, with its tolerance (K5 and K6 through
    `mmvae_torch.ops.kernel_checks`), and the time of both at each path's
-   shape; then each config's full-width model (seq_vae;
+   shape beside the kernel's bound (`mmvae_torch.bench.roofline`) and its
+   share of it; K1, K2 and K3, which take tens of microseconds, timed on
+   the device by replaying a CUDA graph of 20 calls (the host's launch
+   path is longer than they are), K1 beside the one PyTorch call that
+   computes its BCE sum (`library_ms`); K5's backward run twice and
+   required bit-identical; then each config's full-width model (seq_vae;
    pred_vae and hier_vae with fused=true), forward and gradients on a small
    input, on the card through the kernels against the CPU through the plain
    versions;
@@ -80,6 +85,46 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device time of one call of `fn`: a CUDA graph of `n` calls replayed
+    `reps` times between two CUDA events, so the host's launch path is not
+    timed (the tiny kernels take tens of microseconds, less than a launch
+    from Python)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * reps)
+
+
+def _bound(name: str, shape) -> tuple:
+    from mmvae_torch.bench.roofline import bound
+
+    return bound(name, shape)
+
+
+def _share(ms: float, name: str, shape) -> str:
+    """'bound X ms (by), share Y %' for a kernel's time at `shape`."""
+    b_ms, by = _bound(name, shape)
+    return f"bound {b_ms:.4f} ms ({by}), {100 * b_ms / ms:.1f} % of it"
 
 
 def _maxerr(a, b) -> float:
@@ -220,23 +265,31 @@ def check_preprocess(dev, shapes) -> dict:
         z = ((hits / counts - p).abs() / sigma).max().item()
         _require(z <= 5.0, f"preprocess ({n}, {t}, {b}) binarize hit rates off by {z:.2f} "
                            f"sigma (limit 5)")
-        ms = _time_ms(lambda: preprocess_gather(ramp_set, idx, 5, binarize=True,
-                                                out_dtype=torch.bfloat16), 50)
+        def kern():
+            return preprocess_gather(ramp_set, idx, 5, binarize=True, out_dtype=torch.bfloat16)
+
+        ms, host_ms = _graph_ms(kern), _time_ms(kern, 50)
         plain_ms = _time_ms(lambda: preprocess_gather_plain(ramp_set, idx, 5, binarize=True,
                                                             out_dtype=torch.bfloat16), 50)
         del ramp_set
-        first = first or (ms, plain_ms)
+        first = first or (ms, plain_ms, (n, t, b))
         print(f"[kernel] preprocess_gather {b} of {n} clips x {t} frames ({_runs(runs)}): "
               f"binarize=False max|err| {err} (tolerance 0, exact); binarize=True worst "
-              f"hit-rate deviation {z:.2f} sigma (limit 5); {ms:.4f} ms vs plain "
-              f"{plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": first[0], "plain_ms": first[1]}
+              f"hit-rate deviation {z:.2f} sigma (limit 5); {ms:.4f} ms on the device (CUDA "
+              f"graph; {host_ms:.4f} ms back to back from the host), "
+              f"{_share(ms, 'preprocess_gather', (n, t, b))}; plain {plain_ms:.4f} ms; "
+              f"library: none (no one PyTorch call gathers and binarizes)")
+    b_ms, by = _bound("preprocess_gather", first[2])
+    return {"max_abs_err": err, "ms": first[0], "plain_ms": first[1], "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None}
 
 
 def check_elbo(dev, shapes) -> dict:
     """K1 at each path's (logits, mu) and at an unaligned shape: the sums
     and their gradients against the plain version, and the time of both."""
     import torch
+
+    import torch.nn.functional as F
 
     from mmvae_torch.ops.elbo_kernels import elbo_reduce, elbo_reduce_plain
 
@@ -266,13 +319,25 @@ def check_elbo(dev, shapes) -> dict:
         timing = ""
         if (big, small) in shapes:
             l, m = logits.detach(), mu.detach()
-            ms = _time_ms(lambda: elbo_reduce(l, x, m, m), 50)
+            ms = _graph_ms(lambda: elbo_reduce(l, x, m, m))
+            host_ms = _time_ms(lambda: elbo_reduce(l, x, m, m), 50)
+            lib_ms = _graph_ms(lambda: F.binary_cross_entropy_with_logits(l, x, reduction="sum"))
             plain_ms = _time_ms(lambda: elbo_reduce_plain(l, x, m, m), 50)
-            first = first or (ms, plain_ms)
-            timing = f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms ({_runs(shapes[(big, small)])})"
+            first = first or (ms, plain_ms, lib_ms, (big, small))
+            timing = (f"; {ms:.4f} ms on the device (CUDA graph; {host_ms:.4f} ms back to back "
+                      f"from the host), {_share(ms, 'elbo_reduce', (big, small))}; library "
+                      f"F.binary_cross_entropy_with_logits(logits, x, reduction='sum') "
+                      f"{lib_ms:.4f} ms (CUDA graph; BCE only, no KL); plain {plain_ms:.4f} ms "
+                      f"({_runs(shapes[(big, small)])})")
         print(f"[kernel] elbo_reduce {big}, {small}: bce rel err {rb:.2e} (tolerance 2e-5), "
               f"kl rel err {rk:.2e} (1e-5), grads max|err| {ge:.2e} (1e-6){timing}")
-    return {"max_abs_err": worst, "ms": first[0], "plain_ms": first[1]}
+    ms, plain_ms, lib_ms, shape = first
+    print(f"[kernel] elbo_reduce at the main path's shape: kernel {ms:.4f} ms against the "
+          f"library call's {lib_ms:.4f} ms: the kernel "
+          f"{'is faster' if ms <= lib_ms else 'is SLOWER'}")
+    b_ms, by = _bound("elbo_reduce", shape)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": lib_ms}
 
 
 def check_reparam(dev, shapes) -> dict:
@@ -312,15 +377,20 @@ def check_reparam(dev, shapes) -> dict:
             _require(torch.equal(same, z.detach()) and not torch.equal(other, same),
                      f"reparameterize {shape}: seed does not determine eps")
             m_, l_ = mu.detach(), lv.detach()
-            ms = _time_ms(lambda: reparameterize(m_, l_, seed), 100)
+            ms = _graph_ms(lambda: reparameterize(m_, l_, seed))
+            host_ms = _time_ms(lambda: reparameterize(m_, l_, seed), 100)
             plain_ms = _time_ms(lambda: reparameterize_plain(m_, l_, seed), 100)
-            first = first or (ms, plain_ms)
+            first = first or (ms, plain_ms, shape)
             txt = (f"; eps mean {m:.4f} var {v:.4f} (limits 5 sigma: {5 / math.sqrt(n):.4f}, "
-                   f"{5 * math.sqrt(2 / n):.4f}); {ms:.4f} ms vs plain {plain_ms:.4f} ms "
-                   f"({_runs(shapes[(shape, salt)])})")
+                   f"{5 * math.sqrt(2 / n):.4f}); {ms:.4f} ms on the device (CUDA graph; "
+                   f"{host_ms:.4f} ms back to back from the host), "
+                   f"{_share(ms, 'reparameterize', shape)}; plain {plain_ms:.4f} ms; library: "
+                   f"none (no one PyTorch call draws and scales) ({_runs(shapes[(shape, salt)])})")
         print(f"[kernel] reparameterize {shape} salt {salt}: VJP max|err| {ge:.2e} "
               f"(tolerance 1e-6), formula max|err| {fe:.2e} (1e-5){txt}")
-    return {"max_abs_err": worst, "ms": first[0], "plain_ms": first[1]}
+    b_ms, by = _bound("reparameterize", first[2])
+    return {"max_abs_err": worst, "ms": first[0], "plain_ms": first[1], "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None}
 
 
 def check_convlstm(dev, shapes) -> tuple:
@@ -351,12 +421,24 @@ def check_convlstm(dev, shapes) -> tuple:
                                                      True), 5),
               _time_ms(lambda: ck.proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh, dh), 5),
               _time_ms(lambda: ck.proj_backward_plain(x, wx, w, c0, h0, hs, cs, ga, dh, dh), 5))
-        first = first or ms
+        first = first or (ms, shape)
         print(f"[kernel] convlstm_proj {shape} ({_runs(runs)}), bf16 gates: forward (saves "
-              f"residuals) {ms[0]:.3f} ms vs plain {ms[1]:.3f} ms; backward {ms[2]:.3f} ms vs "
-              f"plain {ms[3]:.3f} ms")
-    return ({"max_abs_err": worst_f, "ms": first[0], "plain_ms": first[1]},
-            {"max_abs_err": worst_b, "ms": first[2], "plain_ms": first[3]})
+              f"residuals) {ms[0]:.3f} ms, {_share(ms[0], 'convlstm_proj_forward', shape)}, vs "
+              f"plain {ms[1]:.3f} ms; backward {ms[2]:.3f} ms, "
+              f"{_share(ms[2], 'convlstm_proj_backward', shape)}, vs plain {ms[3]:.3f} ms; "
+              f"library: none (no one PyTorch call runs the recurrence)")
+    (fwd_ms, fwd_plain, bwd_ms, bwd_plain), shape = first
+    same = kc.proj_backward_repeatable(dev, shape)
+    _require(all(same.values()), f"convlstm_proj backward at {shape} differs between two "
+                                 f"calls: {same}")
+    print(f"[kernel] convlstm_proj backward at {shape}: two calls on the same inputs give "
+          f"bit-identical {', '.join(same)}")
+    fb, fby = _bound("convlstm_proj_forward", shape)
+    bb, bby = _bound("convlstm_proj_backward", shape)
+    return ({"max_abs_err": worst_f, "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fb,
+             "bound_by": fby, "library_ms": None},
+            {"max_abs_err": worst_b, "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bb,
+             "bound_by": bby, "library_ms": None})
 
 
 def check_convlstm_scan(dev, shapes) -> tuple:
@@ -400,13 +482,20 @@ def check_convlstm_scan(dev, shapes) -> tuple:
               _time_ms(lambda: ck.scan_backward_plain(wh, c0, h0, *res, dh_in, dc, const,
                                                       last), 5))
         for run in runs:
-            times[run] = ms
+            times[run] = (ms, (*shape, const))
+        key = (*shape, const)
         print(f"[kernel] convlstm_scan {shape} {'const' if const else 'streaming'} "
-              f"({_runs(runs)}), bf16 gates: forward (saves residuals) {ms[0]:.3f} ms vs "
-              f"plain {ms[1]:.3f} ms; backward {ms[2]:.3f} ms vs plain {ms[3]:.3f} ms")
-    fwd_ms, fwd_plain, bwd_ms, bwd_plain = times["pred_vae model.kwargs.fused=true"]
-    return ({"max_abs_err": worst_f, "ms": fwd_ms, "plain_ms": fwd_plain},
-            {"max_abs_err": worst_b, "ms": bwd_ms, "plain_ms": bwd_plain})
+              f"({_runs(runs)}), bf16 gates: forward (saves residuals) {ms[0]:.3f} ms, "
+              f"{_share(ms[0], 'convlstm_scan_forward', key)}, vs plain {ms[1]:.3f} ms; "
+              f"backward {ms[2]:.3f} ms, {_share(ms[2], 'convlstm_scan_backward', key)}, vs "
+              f"plain {ms[3]:.3f} ms; library: none (no one PyTorch call runs the recurrence)")
+    (fwd_ms, fwd_plain, bwd_ms, bwd_plain), key = times["pred_vae model.kwargs.fused=true"]
+    fb, fby = _bound("convlstm_scan_forward", key)
+    bb, bby = _bound("convlstm_scan_backward", key)
+    return ({"max_abs_err": worst_f, "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fb,
+             "bound_by": fby, "library_ms": None},
+            {"max_abs_err": worst_b, "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bb,
+             "bound_by": bby, "library_ms": None})
 
 def _rel_l2(a, b) -> float:
     a, b = a.detach().float().cpu(), b.detach().float().cpu()

@@ -30,6 +30,7 @@ the oracle the kernels are compared with on the card.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -156,9 +157,55 @@ def _require_bf16_cuda(what, named):
                             f"bfloat16 activations")
 
 
+# K5's launch geometry, as `csrc/convlstm_wgmma.cuh` computes it (the
+# wrapper checks the two agree): one 2-CTA cluster per sample; shared memory
+# per CTA for the forward (weight ring of FWD_ROWS-row slabs, two x tiles,
+# two h tiles, residual staging), the BPTT (ring of BWD_ROWS-row slabs, the
+# dgates tile, the residuals, dbx warp partials) and the weight gradient.
+SMEM_LIMIT = 232448  # bytes one CTA may use on the H100 (227 KB)
+SMS = 132
+_MROWS, _MIN_STAGES, _MAX_STAGES = 64, 4, 8
+_FWD_ROWS, _BWD_ROWS, _DX_BLOCK = 32, 64, 64
+_WG_BM, _WG_BK, _WG_STAGES = 128, 64, 4
+
+
+def _round128(v: int) -> int:
+    return (v + 127) // 128 * 128
+
+
+def proj_geometry(batch, t_len, height, width, cin, feat) -> dict:
+    """The K5 kernels' launch geometry at (B, T, H, W, C, F): CTAs, ring
+    stages and bytes, shared memory per CTA, the weight GEMM's tile width
+    and split-K."""
+    f_slot = _FWD_ROWS * 2 * feat * 2
+    f_fixed = (1280 + 2 * _round128((_MROWS + 1) * (cin + 8) * 2)
+               + 2 * _round128((_MROWS + 1) * feat * 2) + _MROWS * 3 * feat * 2)
+    f_stages = min(_MAX_STAGES, (SMEM_LIMIT - f_fixed) // f_slot)
+    b_slot = _BWD_ROWS * _DX_BLOCK * 2
+    b_fixed = (256 + _round128((_MROWS + 1) * 4 * feat * 2) + _MROWS * 3 * feat * 2
+               + 4 * 2 * feat * 4)
+    b_stages = min(_MAX_STAGES, (SMEM_LIMIT - b_fixed) // b_slot)
+    bn = 256 if 4 * feat >= 256 else 64
+    m, rows = cin + 9 * feat, batch * t_len * height * width
+    tiles = -(-m // _WG_BM) * -(-4 * feat // bn)
+    splits = max(1, min(SMS // tiles, rows // (8 * _WG_BK)))
+    return {
+        "clusters": batch, "ctas": 2 * batch,
+        "fwd_stages": f_stages, "fwd_slot_bytes": f_slot,
+        "fwd_ring_bytes": f_stages * f_slot, "fwd_smem": f_fixed + f_stages * f_slot,
+        "bwd_stages": b_stages, "bwd_slot_bytes": b_slot,
+        "bwd_ring_bytes": b_stages * b_slot, "bwd_smem": b_fixed + b_stages * b_slot,
+        "dx_blocks": -(-(cin // 2) // _DX_BLOCK),
+        "wgrad_bn": bn, "wgrad_tiles": tiles, "wgrad_splits": splits,
+        "wgrad_rows_per_split": -(-(-(-rows // splits)) // _WG_BK) * _WG_BK,
+        "wgrad_smem": _WG_STAGES * (_WG_BK * _WG_BM * 2 + _WG_BK * bn * 2) + 256,
+    }
+
+
 def _check_cuda(x, wx, w, c0, h0, *more):
     """Raise unless the tensors suit the K5 kernels (bf16 activations, C and
-    F multiples of 16, F <= 128, at most 64 positions); return the library."""
+    F multiples of 16, F <= 128, at most 64 positions, rings of at least 4
+    stages); return the library and the geometry."""
     _require_bf16_cuda("convlstm_scan_proj",
                        (("x", x), ("wx", wx), ("w", w), ("c0", c0), ("h0", h0), *more))
     batch, t_len, height, width, cin = x.shape
@@ -175,24 +222,64 @@ def _check_cuda(x, wx, w, c0, h0, *more):
             f"convlstm_scan_proj: the CUDA kernels need C and F multiples of 16, "
             f"F <= 128 and H*W <= 64; got C={cin}, F={feat}, H*W={height * width}"
         )
+    geo = proj_geometry(batch, t_len, height, width, cin, feat)
+    if min(geo["fwd_stages"], geo["bwd_stages"]) < _MIN_STAGES:
+        raise ValueError(f"convlstm_scan_proj: C={cin}, F={feat} leave less than "
+                         f"{_MIN_STAGES} weight stages in one CTA's shared memory")
     lib = _build.library()
-    smem = lib.mmvae_convlstm_proj_smem(cin, feat)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"convlstm_scan_proj: C={cin}, F={feat} need {smem} bytes of "
-                         f"shared memory, more than one CTA has")
-    return lib
+    got = (ctypes.c_int * 6)()
+    lib.mmvae_convlstm_proj_layout(cin, feat, got)
+    want = [geo[k] for k in ("fwd_stages", "fwd_smem", "bwd_stages", "bwd_smem", "wgrad_bn",
+                             "wgrad_smem")]
+    if list(got) != want:
+        raise RuntimeError(f"convlstm_scan_proj: kernel geometry {list(got)} differs from "
+                           f"the wrapper's {want}")
+    return lib, geo
 
 
-def _pack_mma_b(mat: torch.Tensor) -> torch.Tensor:
-    """(K, N) -> mma.m16n8k16 B fragments: [K/16][N/8][lane g*4+t][k-half][pair],
-    lane (g, t) holding B[16kb + 8h + 2t + p][8nb + g]."""
-    k, n = mat.shape
-    return mat.reshape(k // 16, 2, 4, 2, n // 8, 8).permute(0, 4, 5, 2, 1, 3).contiguous()
+def pack_cores(mat: torch.Tensor) -> torch.Tensor:
+    """(K, N) -> K-major wgmma cores [K/8][N/8][8 n][8 k]: core (kc, nb) holds
+    mat[8kc + k][8nb + n] at [kc][nb][n][k], 128 contiguous bytes in bf16."""
+    k, n = mat.shape[-2:]
+    lead = mat.shape[:-2]
+    return mat.reshape(*lead, k // 8, 8, n // 8, 8).movedim(-3, -1).contiguous()
+
+
+def unpack_cores(pk: torch.Tensor) -> torch.Tensor:
+    """The inverse of `pack_cores`."""
+    kc, nb = pk.shape[-4:-2]
+    return pk.movedim(-1, -3).reshape(*pk.shape[:-4], kc * 8, nb * 8)
+
+
+def pack_proj_forward(wx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[Wx; W] ((C + 9F) x 4F) cut for the two CTAs of a cluster: rank r
+    keeps channels [r F/2, (r + 1) F/2) of each gate, 2F columns in gate
+    order; (2, K/8, 2F/8, 8, 8)."""
+    cin, f4 = wx.shape
+    feat = f4 // 4
+    full = torch.cat([wx, w.reshape(9 * feat, f4)])
+    k = full.shape[0]
+    per_rank = full.view(k, 4, 2, feat // 2).permute(2, 0, 1, 3).reshape(2, k, 2 * feat)
+    return pack_cores(per_rank)
+
+
+def pack_proj_backward(wx: torch.Tensor, w: torch.Tensor):
+    """The BPTT's two slabs per rank: W^T with rows (tap, n) and the rank's
+    F/2 columns, (2, 9*4F/8, F/16, 8, 8); Wx^T (rows n) with the rank's C/2
+    columns in zero-padded blocks of 64, (2, blocks, 4F/8, 8, 8, 8)."""
+    cin, f4 = wx.shape
+    feat, c2 = f4 // 4, cin // 2
+    wt = w.reshape(9, feat, f4).transpose(1, 2).reshape(9 * f4, feat)
+    wt = wt.view(9 * f4, 2, feat // 2).permute(1, 0, 2)
+    blocks = -(-c2 // _DX_BLOCK)
+    wxt = wx.t().reshape(f4, 2, c2).permute(1, 0, 2)
+    wxt = F.pad(wxt, (0, blocks * _DX_BLOCK - c2)).view(2, f4, blocks, _DX_BLOCK)
+    return pack_cores(wt), pack_cores(wxt.permute(0, 2, 1, 3))
 
 
 def proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
     """CUDA forward; same contract as `proj_forward_plain`."""
-    lib = _check_cuda(x, wx, w, c0, h0, ("bx", bx))
+    lib, _ = _check_cuda(x, wx, w, c0, h0, ("bx", bx))
     if bx.shape != wx.shape[1:]:
         raise ValueError(f"convlstm_scan_proj: bx {tuple(bx.shape)}, wx {tuple(wx.shape)}")
     if gate_dtype not in _DTYPE_CODE:
@@ -211,7 +298,7 @@ def proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
     else:
         outs = (torch.empty(batch, hw, feat, **kw), torch.empty(batch, hw, feat, **kw))
         ptrs = [outs[0].data_ptr(), outs[1].data_ptr(), None]
-    wpk = _pack_mma_b(torch.cat([wx, w.reshape(9 * feat, f4)]))
+    wpk = pack_proj_forward(wx, w)
     err = lib.mmvae_convlstm_proj_fwd(
         x.data_ptr(), wpk.data_ptr(), bx.data_ptr(), c0.data_ptr(), h0.data_ptr(),
         *ptrs, batch, t_len, height, width, cin, feat, _DTYPE_CODE[gate_dtype],
@@ -223,41 +310,39 @@ def proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
 
 
 def proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
-    """CUDA backward; same contract as `proj_backward_plain`."""
-    lib = _check_cuda(x, wx, w, c0, h0, ("hs", hs), ("cs", cs), ("ga", ga))
+    """CUDA backward (BPTT with dx and dbx, then the weight-gradient GEMM);
+    same contract as `proj_backward_plain`."""
+    lib, geo = _check_cuda(x, wx, w, c0, h0, ("hs", hs), ("cs", cs), ("ga", ga))
     act = x.dtype
     batch, t_len, height, width, cin = x.shape
     f4 = wx.shape[1]
     feat = f4 // 4
     hw = height * width
-    wtpk = _pack_mma_b(w.reshape(9, feat, f4).transpose(1, 2).reshape(9 * f4, feat))
-    x, c0, h0, wx, hs, cs, ga = (t.contiguous() for t in (x, c0, h0, wx, hs, cs, ga))
+    wtpk, wxpk = pack_proj_backward(wx, w)
+    x, c0, h0, hs, cs, ga = (t.contiguous() for t in (x, c0, h0, hs, cs, ga))
     dhl = dh_last.to(act).contiguous()
     dcl = dc_last.to(act).contiguous()
     dev = x.device
     stream = _build.stream_ptr(dev)
-    d_gates = torch.empty(batch, t_len, hw, f4, device=dev, dtype=torch.float32)
+    d_gates = torch.empty(batch, t_len, hw, f4, device=dev, dtype=torch.bfloat16)
+    dx = torch.empty(batch, t_len, hw, cin, device=dev, dtype=act)
+    db_part = torch.empty(batch, f4, device=dev, dtype=torch.float32)
+    db_out = torch.empty(f4, device=dev, dtype=torch.float32)
     dc0 = torch.empty(batch, hw, feat, device=dev, dtype=act)
     dh0 = torch.empty_like(dc0)
     err = lib.mmvae_convlstm_proj_bwd(
-        wtpk.data_ptr(), c0.data_ptr(), cs.data_ptr(), ga.data_ptr(), dhl.data_ptr(),
-        dcl.data_ptr(), d_gates.data_ptr(), dc0.data_ptr(), dh0.data_ptr(),
-        batch, t_len, height, width, feat, stream,
+        wtpk.data_ptr(), wxpk.data_ptr(), c0.data_ptr(), cs.data_ptr(), ga.data_ptr(),
+        dhl.data_ptr(), dcl.data_ptr(), d_gates.data_ptr(), dx.data_ptr(), db_part.data_ptr(),
+        db_out.data_ptr(), dc0.data_ptr(), dh0.data_ptr(), batch, t_len, height, width, cin,
+        feat, stream,
     )
     _build.check(err, "convlstm_proj_bwd")
-    rows = batch * t_len * hw
-    m = cin + 9 * feat
-    splits = max(1, min(8, rows // 8192))
-    bsplits = max(1, min(256, rows // 256))
+    m, splits = cin + 9 * feat, geo["wgrad_splits"]
     dw_part = torch.empty(splits, m, f4, device=dev, dtype=torch.float32)
     dw_out = torch.empty(m, f4, device=dev, dtype=torch.float32)
-    db_part = torch.empty(bsplits, f4, device=dev, dtype=torch.float32)
-    db_out = torch.empty(f4, device=dev, dtype=torch.float32)
-    dx = torch.empty(batch, t_len, hw, cin, device=dev, dtype=act)
     err = lib.mmvae_convlstm_proj_wgrad(
-        x.data_ptr(), hs.data_ptr(), h0.data_ptr(), d_gates.data_ptr(), wx.data_ptr(),
-        dw_part.data_ptr(), dw_out.data_ptr(), db_part.data_ptr(), db_out.data_ptr(),
-        dx.data_ptr(), batch, t_len, height, width, cin, feat, splits, bsplits, stream,
+        x.data_ptr(), hs.data_ptr(), h0.data_ptr(), d_gates.data_ptr(), dw_part.data_ptr(),
+        dw_out.data_ptr(), batch, t_len, height, width, cin, feat, splits, stream,
     )
     _build.check(err, "convlstm_proj_wgrad")
     convlstm_proj_backward.launches += 1
@@ -269,6 +354,13 @@ def proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
         dc0.view(c0.shape),
         dh0.view(h0.shape),
     )
+
+
+def _pack_mma_b(mat: torch.Tensor) -> torch.Tensor:
+    """K6's operands: (K, N) -> mma.m16n8k16 B fragments: [K/16][N/8][lane
+    g*4+t][k-half][pair], lane (g, t) holding B[16kb + 8h + 2t + p][8nb + g]."""
+    k, n = mat.shape
+    return mat.reshape(k // 16, 2, 4, 2, n // 8, 8).permute(0, 4, 5, 2, 1, 3).contiguous()
 
 
 def convlstm_proj_forward(x, wx, bx, w, c0, h0, gate_dtype, save: bool):

@@ -130,6 +130,20 @@ def compare_proj(dev, shape, gate_dtype, seed: int = 4) -> Comparison:
                       max(max_abs_err(a, b) for a, b in zip(gk, gp)))
 
 
+def proj_backward_repeatable(dev, shape, seed: int = 12) -> dict:
+    """K5's backward twice on the same inputs (bf16 gates): {gradient name:
+    bit-identical}.  The kernels sum in fixed orders, without float atomics."""
+    x, wx, bx, w, c0, h0 = proj_inputs(dev, *shape, seed)
+    res = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dh = torch.randn(c0.shape, generator=g, device=dev)
+    dc = torch.randn(c0.shape, generator=g, device=dev)
+    first = ck.proj_backward_cuda(x, wx, w, c0, h0, *res, dh, dc)
+    second = ck.proj_backward_cuda(x, wx, w, c0, h0, *res, dh, dc)
+    return {n: torch.equal(a, b)
+            for n, a, b in zip(("dx", "dWx", "dbx", "dW", "dc0", "dh0"), first, second)}
+
+
 def compare_scan(dev, shape, const: bool, gate_dtype, seed: int = 8) -> Comparison:
     """K6 at shape (B, T, H, W, F) with a time-constant or streaming xg: the
     saving forward, the two residual-free ones (every h_t; last-only), and

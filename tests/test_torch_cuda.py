@@ -83,11 +83,22 @@ def test_reparameterize_formula_and_vjp(dev):
 
 
 @pytest.mark.parametrize("gate_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 7, 5, 6, 48, 32), (2, 4, 7, 9, 32, 16)])
+@pytest.mark.parametrize("shape", [(3, 7, 5, 6, 48, 32), (2, 4, 7, 9, 32, 16),
+                                   (5, 3, 7, 9, 32, 16), (160, 10, 8, 8, 128, 128)])
 def test_proj_kernel_matches_plain(dev, shape, gate_dtype):
-    """K5 at unaligned positions (5x6, 7x9) and odd T, with the smoke's
-    comparison and tolerances (`kernel_checks.compare_proj`)."""
+    """K5 at unaligned positions (5x6, 7x9), odd B and T, and at config 5's
+    full-width shape (B=160, T=10: more clusters than the card holds at
+    once), with the smoke's comparison and tolerances
+    (`kernel_checks.compare_proj`)."""
     kernel_checks.compare_proj(dev, shape, gate_dtype).check(f"convlstm_proj {shape}")
+
+
+@pytest.mark.parametrize("shape", [(3, 7, 5, 6, 48, 32), (64, 20, 8, 8, 128, 128)])
+def test_proj_backward_is_bit_reproducible(dev, shape):
+    """Two K5 backward calls on the same inputs give bit-identical gradients
+    (dW, dWx and dbx included): every sum runs in a fixed order."""
+    same = kernel_checks.proj_backward_repeatable(dev, shape)
+    assert all(same.values()), same
 
 
 def test_proj_kernel_refuses_f32_activations(dev):
