@@ -28,7 +28,7 @@ namespace {
 constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one CTA may use
 constexpr int MIN_STAGES = 4, MAX_STAGES = 8;
 constexpr int FWD_ROWS = 32;        // weight rows (K) per forward stage
-constexpr int BWD_ROWS = 64;        // per backward stage
+constexpr int BWD_ROWS = 128;       // per backward stage
 constexpr int DX_BLOCK = 64;        // dx columns per wgmma block (zero-padded)
 constexpr int NCONS = 128;          // consumer threads (one warpgroup)
 constexpr int NTHREADS = NCONS + 32;
@@ -63,7 +63,7 @@ struct BwdSmem {
 };
 __host__ __device__ inline BwdSmem bwd_smem_layout(int F) {
   BwdSmem s;
-  s.slot = BWD_ROWS * DX_BLOCK * 2;  // HF <= 64 = DX_BLOCK
+  s.slot = BWD_ROWS * DX_BLOCK * 2;  // HF <= 64 = DX_BLOCK columns
   const int dg = round128((MROWS + 1) * 4 * F * 2);
   const int fixed = 256 + dg + MROWS * 3 * F * 2 + 4 * 2 * F * 4;
   s.stages = (SMEM_LIMIT - fixed) / s.slot;
@@ -142,33 +142,6 @@ __device__ __forceinline__ int fwd_stages_per_step(int C, int F) {
 // Forward
 // ---------------------------------------------------------------------------
 
-// One forward stage into accumulator `acc` with A fragment set `a` (two
-// k16 steps at most), B from ring slot `slot`.
-template <int N>
-__device__ __forceinline__ void fwd_stage_mma(float (&acc)[N / 2], uint32_t (&a)[2][4],
-                                              const Stage& st, uint32_t slot_addr,
-                                              const bf16* xt, int xrow, const SwzTile& ht,
-                                              int srow_x, const int (&srow_h)[9], int lane) {
-  const int ksteps = st.rows / 16;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (i < ksteps) {
-      const int k = st.off + 16 * i;
-      if (st.seg == 0)
-        ldsm_x4(a[i], xt + srow_x * xrow + k + (lane >> 4) * 8);
-      else
-        ldsm_x4(a[i], ht.chunk(srow_h[st.seg - 1], k / 8 + (lane >> 4)));
-    }
-  }
-  wgmma_fence();
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    if (i < ksteps)
-      wgmma_rs<N, 0>(acc, a[i], smem_desc(slot_addr + i * 2 * (N / 8) * 128, N * 16, 128), 128,
-                     1);
-  wgmma_commit();
-}
-
 // gates_t = x_t @ Wx + bx + conv3x3(h_{t-1}, W) and the cell, for all T
 // steps of sample blockIdx.x / 2.  wpk: per cluster rank, the CTA's 2F
 // columns of [Wx; W] (K = C + 9F rows) packed as K-major cores
@@ -220,6 +193,10 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
     const int q = i / HF, ch = i - q * HF;
     bias[i] = to_f(bx[q * F + rank * HF + ch]);
   }
+  // The ring starts zeroed: a slab shorter than a slot leaves older, finite
+  // contents behind it, which zero A fragments then multiply.
+  for (int i = tid; i < stages * L.slot / 16; i += NTHREADS)
+    reinterpret_cast<uint4*>(ring)[i] = make_uint4(0u, 0u, 0u, 0u);
   // Zero rows (row MROWS stands in for masked taps and absent positions).
   for (int i = tid; i < 2 * (C + 8); i += NTHREADS)
     xt[i / (C + 8)][MROWS * xrow + i % (C + 8)] = from_f<bf16>(0.f);
@@ -264,11 +241,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
           const int r = 16 * warp + g + 8 * hr, ch = rank * HF + 8 * j8 + 2 * tq + e;
           creg[(j8 * 2 + hr) * 2 + e] = r < HW ? round_to<G>(to_f(c0[(b * HW + r) * F + ch])) : 0.f;
         }
-    const int p = 16 * warp + (lane & 15);
+    const int p = 16 * warp + (lane & 15), py = p / W, px = p % W;
     const int srow_x = p < HW ? p : MROWS;
-    int srow_h[9];
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) srow_h[tap] = tap_row(p, tap, 1, H, W, HW);
 
     int slot = 0;
     uint32_t ph = 0;
@@ -294,36 +268,55 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
         acc[4 * j + 3] = bv.y;
       }
       fence_regs(acc);
-      // Two A fragment sets in turn: a stage's set stays untouched until
-      // the wait after the next stage's products shows its products done.
-      uint32_t a0[2][4], a1[2][4];
-      int prev = -1;
-      auto one = [&](int i, uint32_t(&a_this)[2][4], uint32_t(&a_prev)[2][4]) {
-        const Stage st = fwd_stage(i, C, F);
-        mbar_wait(&full[slot], ph);
-        fwd_stage_mma<N>(acc, a_this, st, smem_u32(ring + slot * L.slot), xt[cur], xrow,
-                         ht[cur], srow_x, srow_h, lane);
-        wgmma_wait<1>();  // the previous stage's products are done
-        fence_regs4(a_prev[0]);
-        fence_regs4(a_prev[1]);
-        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-        prev = slot;
-        if (++slot == stages) {
-          slot = 0;
-          ph ^= 1;
+      // The K loop: the x segment, then the 9 taps, each in FWD_ROWS-row
+      // slabs; a slab's k16 steps run back to back, and the wait at its end
+      // frees its A registers and its ring slot.
+      const uint32_t xrow_addr = smem_u32(xt[cur] + srow_x * xrow) + (lane >> 4) * 16;
+      wgmma_fence();
+      for (int seg = 0; seg < 10; ++seg) {
+        const bool is_x = seg == 0;
+        int hrow = MROWS;
+        if (!is_x) {
+          const int yy = py + (seg - 1) / 3 - 1, xx = px + (seg - 1) % 3 - 1;
+          if (p < HW && yy >= 0 && yy < H && xx >= 0 && xx < W) hrow = yy * W + xx;
         }
-      };
-      for (int i = 0; i < NS; i += 2) {
-        one(i, a0, a1);
-        if (i + 1 < NS) one(i + 1, a1, a0);
+        const uint32_t hrow_addr = smem_u32(ht[cur].base + (size_t)hrow * F);
+        const int hswz = hrow & ht[cur].mask;
+        const int seglen = is_x ? C : F;
+        for (int off = 0; off < seglen; off += FWD_ROWS) {
+          const int ksteps = min(FWD_ROWS, seglen - off) / 16;
+          uint32_t a[FWD_ROWS / 16][4];
+          mbar_wait(&full[slot], ph);
+#pragma unroll
+          for (int i = 0; i < FWD_ROWS / 16; ++i) {
+            const int k = off + 16 * (i < ksteps ? i : 0);
+            const uint32_t addr =
+                is_x ? xrow_addr + k * 2
+                     : hrow_addr + ((((k >> 3) + (lane >> 4)) ^ hswz) << 4);
+            ldsm_x4_addr(a[i], addr);
+            if (i >= ksteps) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0u;
+          }
+          // Every k step of the slab is issued: one past a 16-row tail
+          // multiplies zeros by the slot's older, finite contents.  Branches
+          // around a wgmma make ptxas serialize all of them.
+          const uint32_t slot_addr = smem_u32(ring + slot * L.slot);
+          wgmma_fence();
+#pragma unroll
+          for (int i = 0; i < FWD_ROWS / 16; ++i)
+            wgmma_rs<N, 0>(acc, a[i], smem_desc(slot_addr + i * 2 * (N / 8) * 128, N * 16, 128),
+                           128, 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int i = 0; i < FWD_ROWS / 16; ++i) keep_regs4(a[i]);
+          if (lane == 0) mbar_arrive(&empty[slot]);
+          if (++slot == stages) {
+            slot = 0;
+            ph ^= 1;
+          }
+        }
       }
-      wgmma_wait<0>();
       fence_regs(acc);
-      fence_regs4(a0[0]);
-      fence_regs4(a0[1]);
-      fence_regs4(a1[0]);
-      fence_regs4(a1[1]);
-      if (lane == 0) mbar_arrive(&empty[prev]);
 
       // The cell; h_t into both CTAs' next h tile, residuals into staging.
       if (SAVE) named_sync(1, NCONS);  // the last step's staging is written out
@@ -409,19 +402,38 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
 // 4F/BWD_ROWS slabs of Wx^T (N = DX_BLOCK, zero-padded past C/2).
 __host__ __device__ inline int bwd_dx_blocks(int C) { return (C / 2 + DX_BLOCK - 1) / DX_BLOCK; }
 
-// One backward stage: acc (+)= the four k16 steps of slab `slot` against A
-// rows `srow` of the dgates tile, from column `k0` on.
+// One backward slab: wait for ring slot `slot`, acc (+)= its `ksteps` k16
+// steps against the dgates tile row at `row_addr` (swizzle `swz`) from
+// column `off` on, wait for the products, hand the slot back.
 template <int N>
-__device__ __forceinline__ void bwd_stage_mma(float (&acc)[N / 2], uint32_t (&a)[4][4],
-                                              uint32_t slot_addr, const SwzTile& dgs, int srow,
-                                              int k0, int lane) {
+__device__ __forceinline__ void bwd_slab(float (&acc)[N / 2], uint64_t* full, uint64_t* empty,
+                                         int& slot, uint32_t& ph, int stages,
+                                         const unsigned char* ring, int slot_bytes,
+                                         uint32_t row_addr, int swz, int off, int ksteps,
+                                         int lane) {
+  uint32_t a[BWD_ROWS / 16][4];
+  mbar_wait(&full[slot], ph);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) ldsm_x4(a[i], dgs.chunk(srow, (k0 + 16 * i) / 8 + (lane >> 4)));
+  for (int i = 0; i < BWD_ROWS / 16; ++i) {
+    const int k = off + 16 * (i < ksteps ? i : 0);
+    ldsm_x4_addr(a[i], row_addr + ((((k >> 3) + (lane >> 4)) ^ swz) << 4));
+    if (i >= ksteps) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0u;
+  }
+  // All k steps issued, zeros past a short slab (see the forward's slab).
+  const uint32_t slot_addr = smem_u32(ring + slot * slot_bytes);
   wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < BWD_ROWS / 16; ++i)
     wgmma_rs<N, 0>(acc, a[i], smem_desc(slot_addr + i * 2 * (N / 8) * 128, N * 16, 128), 128, 1);
   wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < BWD_ROWS / 16; ++i) keep_regs4(a[i]);
+  if (lane == 0) mbar_arrive(&empty[slot]);
+  if (++slot == stages) {
+    slot = 0;
+    ph ^= 1;
+  }
 }
 
 // Reverse time for sample blockIdx.x / 2, (dh, dc) carried in f32 registers.
@@ -442,7 +454,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
                           bf16* __restrict__ dx, float* __restrict__ dbx_part,
                           bf16* __restrict__ dc0, bf16* __restrict__ dh0, int Tn, int H, int W,
                           int C) {
-  constexpr int HF = F / 2, F4 = 4 * F, J8 = HF / 8, KS = F4 / BWD_ROWS;
+  constexpr int HF = F / 2, F4 = 4 * F, J8 = HF / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   const BwdSmem L = bwd_smem_layout(F);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -462,7 +474,6 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
   const uint32_t rank = cluster_rank(), peer = rank ^ 1;
   const size_t b = blockIdx.x >> 1;
   const int HW = H * W, C2 = C / 2, NXB = bwd_dx_blocks(C);
-  const int NDH = 9 * KS, NS = NDH + NXB * KS;
   const int stages = L.stages;
 
   if (tid == 0) {
@@ -476,6 +487,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
     mbar_init_fence();
   }
   for (int i = tid; i < F4; i += NTHREADS) *dgs.at(MROWS, i) = from_f<bf16>(0.f);
+  for (int i = tid; i < stages * L.slot / 16; i += NTHREADS)  // see the forward's ring
+    reinterpret_cast<uint4*>(ring)[i] = make_uint4(0u, 0u, 0u, 0u);
   cluster_sync();
 
   if (warp == 4) {
@@ -485,17 +498,20 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
       int slot = 0;
       uint32_t ph = 0;
       for (int t = 0; t < Tn; ++t)
-        for (int i = 0; i < NS; ++i) {
-          const bool dh_part = i < NDH;
-          const uint32_t bytes = BWD_ROWS * (dh_part ? HF : DX_BLOCK) * 2;
-          const bf16* src = dh_part ? wt + (size_t)i * BWD_ROWS * HF
-                                    : wx + (size_t)(i - NDH) * BWD_ROWS * DX_BLOCK;
-          mbar_wait(&empty[slot], ph ^ 1);
-          mbar_expect_tx(&full[slot], bytes);
-          bulk_g2s(ring + slot * L.slot, src, bytes, &full[slot]);
-          if (++slot == stages) {
-            slot = 0;
-            ph ^= 1;
+        for (int seg = 0; seg < 9 + NXB; ++seg) {
+          const bool dh_part = seg < 9;
+          const int ncol = dh_part ? HF : DX_BLOCK;
+          const bf16* base =
+              dh_part ? wt + (size_t)seg * F4 * HF : wx + (size_t)(seg - 9) * F4 * DX_BLOCK;
+          for (int off = 0; off < F4; off += BWD_ROWS) {
+            const uint32_t bytes = min(BWD_ROWS, F4 - off) * ncol * 2;
+            mbar_wait(&empty[slot], ph ^ 1);
+            mbar_expect_tx(&full[slot], bytes);
+            bulk_g2s(ring + slot * L.slot, base + (size_t)off * ncol, bytes, &full[slot]);
+            if (++slot == stages) {
+              slot = 0;
+              ph ^= 1;
+            }
           }
         }
     }
@@ -607,31 +623,14 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
 #pragma unroll
       for (int i = 0; i < HF / 2; ++i) acc[i] = 0.f;
       fence_regs(acc);
-      uint32_t a0[4][4], a1[4][4];
-      int prev = -1;
-      auto release = [&]() {
-        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-        prev = slot;
-        if (++slot == stages) {
-          slot = 0;
-          ph ^= 1;
-        }
-      };
-      auto dh_stage = [&](int i, uint32_t(&a_this)[4][4], uint32_t(&a_prev)[4][4]) {
-        const int tap = i / KS;
-        mbar_wait(&full[slot], ph);
-        bwd_stage_mma<HF>(acc, a_this, smem_u32(ring + slot * L.slot), dgs, srow[tap],
-                          (i - tap * KS) * BWD_ROWS, lane);
-        wgmma_wait<1>();
-#pragma unroll
-        for (int k = 0; k < 4; ++k) fence_regs4(a_prev[k]);
-        release();
-      };
-      for (int i = 0; i < NDH; i += 2) {
-        dh_stage(i, a0, a1);
-        if (i + 1 < NDH) dh_stage(i + 1, a1, a0);
+      wgmma_fence();
+      for (int tap = 0; tap < 9; ++tap) {
+        const int row = srow[tap];
+        const uint32_t row_addr = smem_u32(dgs.base + (size_t)row * F4);
+        for (int off = 0; off < F4; off += BWD_ROWS)
+          bwd_slab<HF>(acc, full, empty, slot, ph, stages, ring, L.slot, row_addr,
+                       row & dgs.mask, off, min(BWD_ROWS, F4 - off) / 16, lane);
       }
-      wgmma_wait<0>();
       fence_regs(acc);
 
       // dx_t = bf16(dgates_t) @ Wx^T: the centre tap's rows, K = 4F.
@@ -641,20 +640,11 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
 #pragma unroll
         for (int i = 0; i < DX_BLOCK / 2; ++i) xacc[i] = 0.f;
         fence_regs(xacc);
-        auto dx_stage = [&](int i, uint32_t(&a_this)[4][4], uint32_t(&a_prev)[4][4]) {
-          mbar_wait(&full[slot], ph);
-          bwd_stage_mma<DX_BLOCK>(xacc, a_this, smem_u32(ring + slot * L.slot), dgs, srow[4],
-                                  i * BWD_ROWS, lane);
-          wgmma_wait<1>();
-#pragma unroll
-          for (int k = 0; k < 4; ++k) fence_regs4(a_prev[k]);
-          release();
-        };
-        for (int i = 0; i < KS; i += 2) {
-          dx_stage(i, a0, a1);
-          if (i + 1 < KS) dx_stage(i + 1, a1, a0);
-        }
-        wgmma_wait<0>();
+        const uint32_t row_addr = smem_u32(dgs.base + (size_t)srow[4] * F4);
+        wgmma_fence();
+        for (int off = 0; off < F4; off += BWD_ROWS)
+          bwd_slab<DX_BLOCK>(xacc, full, empty, slot, ph, stages, ring, L.slot, row_addr,
+                             srow[4] & dgs.mask, off, min(BWD_ROWS, F4 - off) / 16, lane);
         fence_regs(xacc);
 #pragma unroll
         for (int j = 0; j < DX_BLOCK / 8; ++j)
@@ -666,12 +656,6 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
                   pack_bf16(xacc[4 * j + 2 * hr], xacc[4 * j + 2 * hr + 1]);
           }
       }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        fence_regs4(a0[k]);
-        fence_regs4(a1[k]);
-      }
-      if (lane == 0) mbar_arrive(&empty[prev]);
       mbar_arrive_remote(map_rank(freeb, rank));
       mbar_arrive_remote(map_rank(freeb, peer));
 #pragma unroll
@@ -812,12 +796,14 @@ __global__ void __launch_bounds__(256, 1) wgrad_wgmma_kernel(
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   fence_regs(acc);
-  uint32_t a0[WW_BK / 16][4], a1[WW_BK / 16][4];
-  auto step = [&](int it, uint32_t(&a)[WW_BK / 16][4], uint32_t(&a_prev)[WW_BK / 16][4]) {
+  for (int it = 0; it < nk; ++it) {
     cp_async_wait<WW_STAGES - 2>();
-    __syncthreads();  // stage it landed, for every thread's copies
+    __syncthreads();  // stage it landed for every thread's copies; stage it - 1 read out
+    if (it + WW_STAGES - 1 < nk) load(it + WW_STAGES - 1, (it + WW_STAGES - 1) % WW_STAGES);
+    cp_async_commit();
     const int s = it % WW_STAGES;
     const SwzTile As = a_tile(s);
+    uint32_t a[WW_BK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < WW_BK / 16; ++kk)
       ldsm_x4_t(a[kk], As.chunk(16 * kk + (lane >> 4) * 8 + (lane & 7),
@@ -828,24 +814,11 @@ __global__ void __launch_bounds__(256, 1) wgrad_wgmma_kernel(
     for (int kk = 0; kk < WW_BK / 16; ++kk)
       wgmma_rs<BN, 1>(acc, a[kk], smem_desc(bs + kk * 2 * NB8 * 128, BN * 16, 128), 128, 1);
     wgmma_commit();
-    wgmma_wait<1>();  // this warpgroup's products of stage it - 1 are done
+    wgmma_wait<0>();  // the other warpgroup's products fill this one's gaps
 #pragma unroll
-    for (int kk = 0; kk < WW_BK / 16; ++kk) fence_regs4(a_prev[kk]);
-    __syncthreads();  // both warpgroups are done with stage it - 1's slot
-    if (it + WW_STAGES - 1 < nk) load(it + WW_STAGES - 1, (it + WW_STAGES - 1) % WW_STAGES);
-    cp_async_commit();
-  };
-  for (int it = 0; it < nk; it += 2) {
-    step(it, a0, a1);
-    if (it + 1 < nk) step(it + 1, a1, a0);
+    for (int kk = 0; kk < WW_BK / 16; ++kk) keep_regs4(a[kk]);
   }
-  wgmma_wait<0>();
   fence_regs(acc);
-#pragma unroll
-  for (int kk = 0; kk < WW_BK / 16; ++kk) {
-    fence_regs4(a0[kk]);
-    fence_regs4(a1[kk]);
-  }
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j)
 #pragma unroll

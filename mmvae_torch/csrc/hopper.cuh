@@ -55,9 +55,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void fence_regs4(uint32_t (&a)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+// Keeps A fragment registers live and unchanged up to this point, the wait
+// that shows the products reading them done.  An input-only use: an output
+// constraint would redefine them inside the wgmma pipeline, and ptxas then
+// serializes every wgmma.
+__device__ __forceinline__ void keep_regs4(const uint32_t (&a)[4]) {
+  asm volatile("" ::"r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]) : "memory");
 }
 
 template <int TB>
@@ -155,6 +158,13 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4], uint6
     wgmma_rs_p<P, TB>(d + OFF / 2, a, desc + (((uint64_t)(OFF / 8) * nstride) >> 4), scale_d);
     wgmma_rs<N - P, TB, OFF + P>(d, a, desc, nstride, scale_d);
   }
+}
+
+// ldmatrix.x4 at a shared-memory byte address.
+__device__ __forceinline__ void ldsm_x4_addr(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // ---------------------------------------------------------------------------

@@ -165,7 +165,7 @@ def _require_bf16_cuda(what, named):
 SMEM_LIMIT = 232448  # bytes one CTA may use on the H100 (227 KB)
 SMS = 132
 _MROWS, _MIN_STAGES, _MAX_STAGES = 64, 4, 8
-_FWD_ROWS, _BWD_ROWS, _DX_BLOCK = 32, 64, 64
+_FWD_ROWS, _BWD_ROWS, _DX_BLOCK = 32, 128, 64
 _WG_BM, _WG_BK, _WG_STAGES = 128, 64, 4
 
 

@@ -85,11 +85,11 @@ def test_launch_geometry_fits_the_card(shape):
 
 def test_main_path_geometry():
     """Config 3's numbers: 128 CTAs on 132 SMs, six 16 KB forward slabs and
-    eight 8 KB backward slabs in flight, the weight GEMM's 20 tiles of
+    six 16 KB backward slabs in flight, the weight GEMM's 20 tiles of
     128 x 256 split 6 ways (120 CTAs)."""
     geo = ck.proj_geometry(64, 20, 8, 8, 128, 128)
     assert (geo["ctas"], geo["fwd_stages"], geo["fwd_slot_bytes"]) == (128, 6, 16384)
-    assert (geo["bwd_stages"], geo["bwd_slot_bytes"]) == (8, 8192)
+    assert (geo["bwd_stages"], geo["bwd_slot_bytes"]) == (6, 16384)
     assert (geo["wgrad_bn"], geo["wgrad_tiles"], geo["wgrad_splits"]) == (256, 20, 6)
 
 
