@@ -11,10 +11,17 @@
 // bf16, every operation rounded to G as torch's bf16 ops round), matmul
 // operands in bf16 (the activation dtype) and f32 accumulation.
 //
-// What bounds it on the H100: tensor-core operations and the serial time
-// loop.  At the main path's shape (B=64, T=20, 8x8, C=F=128) the forward is
-// 107 GFLOP (0.109 ms at 989 TFLOP/s) and moves ~0.15 GB; the backward is
-// 215 GFLOP (dh recurrence 97, dW and dWx 107, dx 11).
+// What bounds it on the H100.  The work: at the main path's shape (B=64,
+// T=20, 8x8, C=F=128) the forward is 107 GFLOP (0.109 ms at 989 TFLOP/s)
+// and moves ~0.15 GB; the backward is 215 GFLOP (dh recurrence 97, dW and
+// dWx 107, dx 11).  Measured on the H100, the recurrences are bound by
+// latency, not by either rate: at B=64, T=20 the forward takes ~0.51 ms;
+// without the weight copies (slots never refilled) it took 2 % less and
+// without the products 10 % less.  Each CTA's one consumer warpgroup walks
+// 40 slabs a step, each a handshake, fragment loads, two products and a
+// wait, then the cell, the exchange and the residual stores, with no other
+// warps on the SM to hide their latency.  The weight GEMM is bound by
+// re-reading the dgates scratch (without those loads it took 43 % less).
 //
 // Design (device code in convlstm_wgmma.cuh and hopper.cuh):
 // - forward and BPTT run one 2-CTA cluster per sample (2B CTAs: 128 at
@@ -25,9 +32,12 @@
 //   into registers by ldmatrix, tap by tap (a zero row for masked taps), B
 //   a weight slab in shared memory, streamed by a producer warp with 1D bulk
 //   copies through a ring of 4-8 slots (the weights, 0.66 MB a CTA at
-//   C=F=128, are larger than shared memory); x_{t+1} and the backward's
-//   residuals are bulk-copied a step ahead; residuals leave in 16-byte
-//   stores;
+//   C=F=128, are larger than shared memory); a slab's k16 steps issue back
+//   to back, all of them, with one wait at its end (ptxas serializes every
+//   wgmma of a kernel that branches around one or redefines an A fragment
+//   while products are in flight); x_{t+1} and the backward's residuals are
+//   bulk-copied a step ahead; residuals leave in 16-byte stores; the cell
+//   uses the special-function unit's exp and reciprocal;
 // - the BPTT computes dx_t = bf16(dgates_t) @ Wx^T from the dgates tile
 //   (no dx kernel), dbx as per-sample column sums of the unrounded dgates
 //   summed in a fixed order, and writes the dgates scratch in bf16 (the

@@ -110,34 +110,6 @@ __device__ __forceinline__ float lstm_cell_bwd_fast(float dh, float dc, float ct
   return dct * af;
 }
 
-// Forward stage i of a step: the x segment (K = C), then 9 taps (K = F
-// each), each cut into FWD_ROWS-row slabs (a 16-row tail where the segment
-// ends).  seg 0 is x, seg 1 + tap the taps; `off` is the row within the
-// segment, `k0` the row of [Wx; W].
-struct Stage {
-  int seg, off, rows, k0;
-};
-__device__ __forceinline__ Stage fwd_stage(int i, int C, int F) {
-  const int nx = (C + FWD_ROWS - 1) / FWD_ROWS, nh = (F + FWD_ROWS - 1) / FWD_ROWS;
-  Stage s;
-  if (i < nx) {
-    s.seg = 0;
-    s.off = i * FWD_ROWS;
-    s.rows = min(FWD_ROWS, C - s.off);
-    s.k0 = s.off;
-  } else {
-    const int j = i - nx, tap = j / nh;
-    s.seg = 1 + tap;
-    s.off = (j - tap * nh) * FWD_ROWS;
-    s.rows = min(FWD_ROWS, F - s.off);
-    s.k0 = C + tap * F + s.off;
-  }
-  return s;
-}
-__device__ __forceinline__ int fwd_stages_per_step(int C, int F) {
-  return (C + FWD_ROWS - 1) / FWD_ROWS + 9 * ((F + FWD_ROWS - 1) / FWD_ROWS);
-}
-
 // ---------------------------------------------------------------------------
 // Forward
 // ---------------------------------------------------------------------------
@@ -175,7 +147,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
   const int g = lane >> 2, tq = lane & 3;
   const uint32_t rank = cluster_rank(), peer = rank ^ 1;
   const size_t b = blockIdx.x >> 1;
-  const int HW = H * W, K = C + 9 * F, NS = fwd_stages_per_step(C, F);
+  const int HW = H * W, K = C + 9 * F;
   const int stages = L.stages;
 
   if (tid == 0) {
@@ -216,16 +188,20 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
       const bf16* wsrc = wpk + (size_t)rank * K * N;
       int slot = 0;
       uint32_t ph = 0;
+      // The consumers' order: the x segment (K = C), then the 9 taps (K = F
+      // each), in FWD_ROWS-row slabs (a 16-row tail where a segment ends).
       for (int t = 0; t < Tn; ++t)
-        for (int i = 0; i < NS; ++i) {
-          const Stage st = fwd_stage(i, C, F);
-          const uint32_t bytes = st.rows * N * 2;
-          mbar_wait(&empty[slot], ph ^ 1);
-          mbar_expect_tx(&full[slot], bytes);
-          bulk_g2s(ring + slot * L.slot, wsrc + (size_t)st.k0 * N, bytes, &full[slot]);
-          if (++slot == stages) {
-            slot = 0;
-            ph ^= 1;
+        for (int seg = 0; seg < 10; ++seg) {
+          const int seglen = seg == 0 ? C : F, k0 = seg == 0 ? 0 : C + (seg - 1) * F;
+          for (int off = 0; off < seglen; off += FWD_ROWS) {
+            const uint32_t bytes = min(FWD_ROWS, seglen - off) * N * 2;
+            mbar_wait(&empty[slot], ph ^ 1);
+            mbar_expect_tx(&full[slot], bytes);
+            bulk_g2s(ring + slot * L.slot, wsrc + (size_t)(k0 + off) * N, bytes, &full[slot]);
+            if (++slot == stages) {
+              slot = 0;
+              ph ^= 1;
+            }
           }
         }
     }
