@@ -1,12 +1,13 @@
-// Device code shared by the two ConvLSTM recurrences (convlstm_proj.cu, K5;
-// convlstm_scan.cu, K6): mma.sync m16n8k16 fragments (bf16 in, f32
-// accumulate), swizzled bf16 shared-memory tiles, the 3x3 SAME conv of h as 9
-// row-shifted ldmatrix gathers (a zero row stands in for the masked taps of
-// convlstm_pallas.py::_tap_masks), the LSTM cell forward rounded in the gate
-// dtype and its f32 backward, and the deterministic tensor-core weight
-// gradient.
+// Device code of the K6 recurrence (convlstm_scan.cu): mma.sync m16n8k16
+// fragments (bf16 in, f32 accumulate), swizzled bf16 shared-memory tiles,
+// the 3x3 SAME conv of h as 9 row-shifted ldmatrix gathers (a zero row
+// stands in for the masked taps of convlstm_pallas.py::_tap_masks), the LSTM
+// cell forward rounded in the gate dtype and its f32 backward, and the
+// deterministic tensor-core weight gradient.  K5's Hopper kernels
+// (convlstm_wgmma.cuh) share the tiles, the tap rows, the cell types and the
+// split-order reduction.
 //
-// Layout of the recurrent kernels: one CTA per sample, 2F threads; warp w
+// Layout of K6's kernels: one CTA per sample, 2F threads; warp w
 // owns channels [16w, 16w + 16) of all four gates, so a thread's
 // accumulators acc[mt][nt][k] hold i, f, g, o (n8 tiles 2q, 2q + 1) of the
 // same (position, channel) pairs: position mt*16 + g + 8*(k >> 1), channel
