@@ -94,8 +94,8 @@ def test_main_path_geometry():
 
 
 def test_geometry_refuses_what_does_not_fit():
-    """A C so wide that fewer than 4 forward slabs fit raises before any
-    launch (on the CPU the shape check comes first, through the CUDA path)."""
+    """A C so wide that fewer than 4 forward slabs fit in one CTA's shared
+    memory: `proj_geometry` reports it, and the CUDA wrapper refuses it."""
     geo = ck.proj_geometry(2, 2, 8, 8, 1024, 128)
     assert geo["fwd_stages"] < 4
 
