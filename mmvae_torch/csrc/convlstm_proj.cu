@@ -15,17 +15,21 @@
 // T=20, 8x8, C=F=128) the forward is 107 GFLOP (0.109 ms at 989 TFLOP/s)
 // and moves ~0.15 GB; the backward is 215 GFLOP (dh recurrence 97, dW and
 // dWx 107, dx 11).  Measured on the H100, the recurrences are bound by
-// latency, not by either rate: at B=64, T=20 the forward takes ~0.51 ms;
-// without the weight copies (slots never refilled) it took 2 % less and
-// without the products 10 % less.  Each CTA's one consumer warpgroup walks
-// 40 slabs a step, each a handshake, fragment loads, two products and a
-// wait, then the cell, the exchange and the residual stores, with no other
-// warps on the SM to hide their latency.  The weight GEMM is bound by
-// re-reading the dgates scratch (without those loads it took 43 % less).
+// latency, not by either rate: at B=64, T=20 with one consumer warpgroup
+// the forward took ~0.51 ms, 2 % less without the weight copies (slots
+// never refilled) and 10 % less without the products.  A CTA walks 40 slabs
+// a step, each a handshake, fragment loads, products and a wait, then the
+// cell, the exchange and the residual stores (~0.2 ms of the forward
+// without any slab), with few warps on the SM to hide their latency.  A
+// second consumer warpgroup, each owning half the CTA's channels, brought
+// the forward to ~0.44 ms; in the BPTT, whose products are m64n64, it did
+// not pay.  The weight GEMM is bound by re-reading the dgates scratch
+// (without those loads it took 43 % less).
 //
 // Design (device code in convlstm_wgmma.cuh and hopper.cuh):
 // - forward and BPTT run one 2-CTA cluster per sample (2B CTAs: 128 at
-//   B=64), each CTA owning half the channels of all four gates; the CTAs
+//   B=64), each CTA owning half the channels of all four gates (the
+//   forward's two consumer warpgroups a quarter each); the CTAs
 //   exchange h_t (forward) or bf16 dgates_t (backward) through distributed
 //   shared memory, with mbarriers of both CTAs in place of __syncthreads;
 // - the products run on wgmma m64nNk16: A (the <= 64 positions) gathered
@@ -53,13 +57,13 @@
 namespace mmvae {
 namespace {
 
-cudaError_t cluster_launch(const void* kern, int ctas, int smem, cudaStream_t stream,
-                           void** args) {
+cudaError_t cluster_launch(const void* kern, int ctas, int threads, int smem,
+                           cudaStream_t stream, void** args) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
-  cfg.blockDim = dim3(NTHREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -80,8 +84,8 @@ cudaError_t launch_fwd(const void* x, const void* wpk, const void* bx, const voi
   const FwdSmem L = fwd_smem_layout(C, F);
   if (L.stages < MIN_STAGES) return cudaErrorInvalidValue;
   void* args[] = {&x, &wpk, &bx, &c0, &h0, &oh, &oc, &og, &Tn, &H, &W, &C};
-  return cluster_launch((const void*)proj_fwd_wgmma_kernel<G, SAVE, F>, 2 * B, L.total, stream,
-                        args);
+  return cluster_launch((const void*)proj_fwd_wgmma_kernel<G, SAVE, F>, 2 * B, rec_threads(F),
+                        L.total, stream, args);
 }
 
 template <int F>
@@ -94,7 +98,8 @@ cudaError_t launch_bwd(const void* wtpk, const void* wxpk, const void* c0, const
   void* args[] = {&wtpk, &wxpk, &c0, &cs, &ga, &dhl, &dcl, &dG, &dx, &dbx_part, &dc0, &dh0,
                   &Tn, &H, &W, &C};
   cudaError_t err =
-      cluster_launch((const void*)proj_bwd_wgmma_kernel<F>, 2 * B, L.total, stream, args);
+      cluster_launch((const void*)proj_bwd_wgmma_kernel<F>, 2 * B, 128 + 32, L.total, stream,
+                     args);
   if (err != cudaSuccess) return err;
   // dbx: the per-sample partials summed in sample order.
   reduce_splits_kernel<<<(4 * F + 255) / 256, 256, 0, stream>>>(dbx_part, dbx_out, B, 4 * F);

@@ -6,9 +6,10 @@
 // Layout of the recurrent kernels: a cluster of 2 CTAs per sample b; CTA k
 // of the cluster owns channels [k F/2, (k+1) F/2) of all four gates (HF =
 // F/2 of each, 2F gate columns), so the cell math stays inside the CTA.
-// Warps 0-3 are one consumer warpgroup; warp 4 is the producer, whose lane
-// 0 streams the CTA's weight slabs, step after step, into a ring of
-// `stages` slots (full / empty mbarriers).  Each CTA keeps the operand tile
+// The consumer warpgroups come first (the forward's two, each with its own
+// channels, where F is a multiple of 32; the BPTT's one), then the producer
+// warp, whose lane 0 streams the CTA's weight slabs, step after step, into a
+// ring of `stages` slots (full / empty mbarriers).  Each CTA keeps the operand tile
 // of the recurrence (h in the forward, dgates in the backward) whole: it
 // writes its own columns into its own tile and, through distributed shared
 // memory, into its peer's, and both arrive on mbarriers of both CTAs.
@@ -30,8 +31,12 @@ constexpr int MIN_STAGES = 4, MAX_STAGES = 8;
 constexpr int FWD_ROWS = 32;        // weight rows (K) per forward stage
 constexpr int BWD_ROWS = 128;       // per backward stage
 constexpr int DX_BLOCK = 64;        // dx columns per wgmma block (zero-padded)
-constexpr int NCONS = 128;          // consumer threads (one warpgroup)
-constexpr int NTHREADS = NCONS + 32;
+
+// Consumer warpgroups of a recurrent CTA: two when each can own a multiple
+// of 8 of the CTA's F/2 channels (F a multiple of 32), so that two latency
+// chains share the SM; one otherwise.  Plus one producer warp.
+__host__ __device__ constexpr int rec_wgs(int F) { return F % 32 == 0 ? 2 : 1; }
+__host__ __device__ constexpr int rec_threads(int F) { return 128 * rec_wgs(F) + 32; }
 
 __host__ __device__ inline int round128(int v) { return (v + 127) / 128 * 128; }
 
@@ -119,13 +124,17 @@ __device__ __forceinline__ float lstm_cell_bwd_fast(float dh, float dc, float ct
 // columns of [Wx; W] (K = C + 9F rows) packed as K-major cores
 // [K/8][2F/8][8][8].
 template <typename G, bool SAVE, int F>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
     proj_fwd_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
                           const bf16* __restrict__ bx, const bf16* __restrict__ c0,
                           const bf16* __restrict__ h0, bf16* __restrict__ out_h,
                           bf16* __restrict__ out_c, bf16* __restrict__ out_g, int Tn, int H, int W,
                           int C) {
-  constexpr int HF = F / 2, N = 2 * F, J8 = HF / 8, NCELL = HF / 2;
+  // Warpgroup wg owns HFW of the CTA's HF channels, all four gates: NW of
+  // the CTA's N gate columns, which the packing puts together.
+  constexpr int NWG = rec_wgs(F), NCONS = 128 * NWG, NTHREADS = NCONS + 32;
+  constexpr int HF = F / 2, HFW = HF / NWG, N = 2 * F, NW = N / NWG;
+  constexpr int J8 = HFW / 8, JC = HF / 8, NCELL = HFW / 2;
   extern __shared__ __align__(128) unsigned char smem[];
   const FwdSmem L = fwd_smem_layout(C, F);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -144,7 +153,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
   bf16* st_g = st_c + MROWS * HF;                        // (64, 4 HF)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
+  const int g = lane >> 2, tq = lane & 3, wg = warp >> 2, wq = warp & 3;
   const uint32_t rank = cluster_rank(), peer = rank ^ 1;
   const size_t b = blockIdx.x >> 1;
   const int HW = H * W, K = C + 9 * F;
@@ -153,7 +162,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+      mbar_init(&empty[s], 4 * NWG);  // lane 0 of each consumer warp
     }
     mbar_init(&xfull[0], 1);
     mbar_init(&xfull[1], 1);
@@ -161,9 +170,9 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
     mbar_init(&hready[1], 2 * NCONS);
     mbar_init_fence();
   }
-  for (int i = tid; i < N; i += NTHREADS) {
-    const int q = i / HF, ch = i - q * HF;
-    bias[i] = to_f(bx[q * F + rank * HF + ch]);
+  for (int i = tid; i < N; i += NTHREADS) {  // in the packed column order
+    const int w = i / NW, q = (i - w * NW) / HFW, c = i - w * NW - q * HFW;
+    bias[i] = to_f(bx[q * F + rank * HF + w * HFW + c]);
   }
   // The ring starts zeroed: a slab shorter than a slot leaves older, finite
   // contents behind it, which zero A fragments then multiply.
@@ -182,7 +191,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
     *ht[0].at(i / F, i % F) = from_f<bf16>(round_to<G>(to_f(h0[b * HW * F + i])));
   cluster_sync();
 
-  if (warp == 4) {
+  if (warp == 4 * NWG) {
     // Producer: the CTA's weight slabs, stage after stage, step after step.
     if (lane == 0) {
       const bf16* wsrc = wpk + (size_t)rank * K * N;
@@ -214,10 +223,10 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
       for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int r = 16 * warp + g + 8 * hr, ch = rank * HF + 8 * j8 + 2 * tq + e;
+          const int r = 16 * wq + g + 8 * hr, ch = rank * HF + wg * HFW + 8 * j8 + 2 * tq + e;
           creg[(j8 * 2 + hr) * 2 + e] = r < HW ? round_to<G>(to_f(c0[(b * HW + r) * F + ch])) : 0.f;
         }
-    const int p = 16 * warp + (lane & 15), py = p / W, px = p % W;
+    const int p = 16 * wq + (lane & 15), py = p / W, px = p % W;
     const int srow_x = p < HW ? p : MROWS;
 
     int slot = 0;
@@ -234,10 +243,10 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
       }
       if (t > 0) mbar_wait(&xfull[cur], ((t - 1) >> 1) & 1);
 
-      float acc[N / 2];
+      float acc[NW / 2];
 #pragma unroll
-      for (int j = 0; j < N / 8; ++j) {
-        const float2 bv = *reinterpret_cast<const float2*>(&bias[8 * j + 2 * tq]);
+      for (int j = 0; j < NW / 8; ++j) {
+        const float2 bv = *reinterpret_cast<const float2*>(&bias[wg * NW + 8 * j + 2 * tq]);
         acc[4 * j + 0] = bv.x;
         acc[4 * j + 1] = bv.y;
         acc[4 * j + 2] = bv.x;
@@ -279,8 +288,10 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
           wgmma_fence();
 #pragma unroll
           for (int i = 0; i < FWD_ROWS / 16; ++i)
-            wgmma_rs<N, 0>(acc, a[i], smem_desc(slot_addr + i * 2 * (N / 8) * 128, N * 16, 128),
-                           128, 1);
+            wgmma_rs<NW, 0>(acc, a[i],
+                            smem_desc(slot_addr + (i * 2 * (N / 8) + wg * (NW / 8)) * 128,
+                                      N * 16, 128),
+                            128, 1);
           wgmma_commit();
           wgmma_wait<0>();
 #pragma unroll
@@ -301,7 +312,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
       for (int j8 = 0; j8 < J8; ++j8)
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
-          const int r = 16 * warp + g + 8 * hr;
+          const int r = 16 * wq + g + 8 * hr;
           if (r >= HW) continue;
           float hv[2], cv[2], gv[4][2];
 #pragma unroll
@@ -320,7 +331,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
             gv[2][e] = cl.g;
             gv[3][e] = cl.o;
           }
-          const int lc = 8 * j8 + 2 * tq, ch = rank * HF + lc;
+          const int lc = wg * HFW + 8 * j8 + 2 * tq, ch = rank * HF + lc;
           const uint32_t hp = pack_bf16(hv[0], hv[1]);
           bf16* own = ht[nxt].at(r, ch);
           *reinterpret_cast<uint32_t*>(own) = hp;
@@ -345,18 +356,18 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
         // The CTA's channels of hs_t, cs_t and gates_t, 16 bytes a store.
         named_sync(1, NCONS);
         const size_t o = (b * Tn + t) * HW;
-        for (int i = tid; i < HW * 6 * J8; i += NCONS) {
-          const int r = i / (6 * J8), c = i - r * (6 * J8);
+        for (int i = tid; i < HW * 6 * JC; i += NCONS) {
+          const int r = i / (6 * JC), c = i - r * (6 * JC);
           const bf16* src;
           bf16* dst;
-          if (c < J8) {
+          if (c < JC) {
             src = st_h + r * HF + 8 * c;
             dst = out_h + (o + r) * F + rank * HF + 8 * c;
-          } else if (c < 2 * J8) {
-            src = st_c + r * HF + 8 * (c - J8);
-            dst = out_c + (o + r) * F + rank * HF + 8 * (c - J8);
+          } else if (c < 2 * JC) {
+            src = st_c + r * HF + 8 * (c - JC);
+            dst = out_c + (o + r) * F + rank * HF + 8 * (c - JC);
           } else {
-            const int q = (c - 2 * J8) / J8, c8 = (c - 2 * J8) - q * J8;
+            const int q = (c - 2 * JC) / JC, c8 = (c - 2 * JC) - q * JC;
             src = st_g + r * 4 * HF + q * HF + 8 * c8;
             dst = out_g + (o + r) * 4 * F + q * F + rank * HF + 8 * c8;
           }
@@ -378,13 +389,14 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
 // 4F/BWD_ROWS slabs of Wx^T (N = DX_BLOCK, zero-padded past C/2).
 __host__ __device__ inline int bwd_dx_blocks(int C) { return (C / 2 + DX_BLOCK - 1) / DX_BLOCK; }
 
-// One backward slab: wait for ring slot `slot`, acc (+)= its `ksteps` k16
-// steps against the dgates tile row at `row_addr` (swizzle `swz`) from
-// column `off` on, wait for the products, hand the slot back.
-template <int N>
+// One backward slab of NS columns: wait for ring slot `slot`, acc (+)= its
+// `ksteps` k16 steps, columns [wg N, (wg + 1) N), against the dgates tile
+// row at `row_addr` (swizzle `swz`) from column `off` on, wait for the
+// products, hand the slot back.
+template <int N, int NS>
 __device__ __forceinline__ void bwd_slab(float (&acc)[N / 2], uint64_t* full, uint64_t* empty,
                                          int& slot, uint32_t& ph, int stages,
-                                         const unsigned char* ring, int slot_bytes,
+                                         const unsigned char* ring, int slot_bytes, int wg,
                                          uint32_t row_addr, int swz, int off, int ksteps,
                                          int lane) {
   uint32_t a[BWD_ROWS / 16][4];
@@ -400,7 +412,9 @@ __device__ __forceinline__ void bwd_slab(float (&acc)[N / 2], uint64_t* full, ui
   wgmma_fence();
 #pragma unroll
   for (int i = 0; i < BWD_ROWS / 16; ++i)
-    wgmma_rs<N, 0>(acc, a[i], smem_desc(slot_addr + i * 2 * (N / 8) * 128, N * 16, 128), 128, 1);
+    wgmma_rs<N, 0>(acc, a[i],
+                   smem_desc(slot_addr + (i * 2 * (NS / 8) + wg * (N / 8)) * 128, NS * 16, 128),
+                   128, 1);
   wgmma_commit();
   wgmma_wait<0>();
 #pragma unroll
@@ -422,7 +436,7 @@ __device__ __forceinline__ void bwd_slab(float (&acc)[N / 2], uint64_t* full, ui
 // wtpk: per rank, W^T rows (tap, n), the CTA's HF columns, K-major cores
 // [9*4F/8][HF/8][8][8]; wxpk: per rank, [C/2 blocks of 64][4F/8][8][8][8].
 template <int F>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 + 32, 1)
     proj_bwd_wgmma_kernel(const bf16* __restrict__ wtpk, const bf16* __restrict__ wxpk,
                           const bf16* __restrict__ c0, const bf16* __restrict__ cs,
                           const bf16* __restrict__ ga, const bf16* __restrict__ dhl,
@@ -430,7 +444,12 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
                           bf16* __restrict__ dx, float* __restrict__ dbx_part,
                           bf16* __restrict__ dc0, bf16* __restrict__ dh0, int Tn, int H, int W,
                           int C) {
-  constexpr int HF = F / 2, F4 = 4 * F, J8 = HF / 8;
+  // Warpgroup wg owns HFW of the CTA's HF channels (its cells, its dh
+  // columns) and DXW of each dx block's columns.  One warpgroup: a second
+  // one, splitting the m64n64 products in two, ran slower on the H100.
+  constexpr int NWG = 1, NCONS = 128 * NWG, NTHREADS = NCONS + 32;
+  constexpr int HF = F / 2, HFW = HF / NWG, F4 = 4 * F, J8 = HFW / 8, JC = HF / 8;
+  constexpr int DXW = DX_BLOCK / NWG;
   extern __shared__ __align__(128) unsigned char smem[];
   const BwdSmem L = bwd_smem_layout(F);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -443,10 +462,10 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
   bf16* res_c = reinterpret_cast<bf16*>(smem + L.res);  // (64, HF) c_t
   bf16* res_p = res_c + MROWS * HF;                      // (64, HF) c_{t-1}
   bf16* res_g = res_p + MROWS * HF;                      // (64, 4 HF) gates
-  float* wpart = reinterpret_cast<float*>(smem + L.wpart);  // (4 warps, 4 HF)
+  float* wpart = reinterpret_cast<float*>(smem + L.wpart);  // (4 warps of a wg, 4 HF)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
+  const int g = lane >> 2, tq = lane & 3, wg = warp >> 2, wq = warp & 3;
   const uint32_t rank = cluster_rank(), peer = rank ^ 1;
   const size_t b = blockIdx.x >> 1;
   const int HW = H * W, C2 = C / 2, NXB = bwd_dx_blocks(C);
@@ -455,7 +474,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4);
+      mbar_init(&empty[s], 4 * NWG);
     }
     mbar_init(ready, 2 * NCONS);
     mbar_init(freeb, 2 * NCONS);
@@ -467,7 +486,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
     reinterpret_cast<uint4*>(ring)[i] = make_uint4(0u, 0u, 0u, 0u);
   cluster_sync();
 
-  if (warp == 4) {
+  if (warp == 4 * NWG) {
     if (lane == 0) {
       const bf16* wt = wtpk + (size_t)rank * 9 * F4 * HF;
       const bf16* wx = wxpk + (size_t)rank * NXB * F4 * DX_BLOCK;
@@ -509,21 +528,21 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
     };
     if (warp == 0) load_res(Tn - 1);
 
-    // dh and dc of the CTA's cells, in the accumulator layout of N = HF.
-    float dh[HF / 2], dc[HF / 2];
+    // dh and dc of the warpgroup's cells, in the accumulator layout of N = HFW.
+    float dh[HFW / 2], dc[HFW / 2];
 #pragma unroll
     for (int j8 = 0; j8 < J8; ++j8)
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int r = 16 * warp + g + 8 * hr, ch = rank * HF + 8 * j8 + 2 * tq + e;
+          const int r = 16 * wq + g + 8 * hr, ch = rank * HF + wg * HFW + 8 * j8 + 2 * tq + e;
           const int k = 4 * j8 + 2 * hr + e;
           dh[k] = r < HW ? to_f(dhl[(b * HW + r) * F + ch]) : 0.f;
           dc[k] = r < HW ? to_f(dcl[(b * HW + r) * F + ch]) : 0.f;
         }
     float dbx_run[2] = {0.f, 0.f};
-    const int p = 16 * warp + (lane & 15);
+    const int p = 16 * wq + (lane & 15);
     int srow[9];
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) srow[tap] = tap_row(p, tap, -1, H, W, HW);
@@ -543,7 +562,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
         for (int q = 0; q < 4; ++q) colsum[q][0] = colsum[q][1] = 0.f;
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
-          const int r = 16 * warp + g + 8 * hr, lc = 8 * j8 + 2 * tq;
+          const int r = 16 * wq + g + 8 * hr, lc = wg * HFW + 8 * j8 + 2 * tq;
           if (r >= HW) continue;
           float gq[2][4];
 #pragma unroll
@@ -572,7 +591,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
             v += __shfl_xor_sync(0xffffffffu, v, 4);
             v += __shfl_xor_sync(0xffffffffu, v, 8);
             v += __shfl_xor_sync(0xffffffffu, v, 16);
-            if (g == 0) wpart[warp * 4 * HF + q * HF + 8 * j8 + 2 * tq + e] = v;
+            if (g == 0) wpart[wq * 4 * HF + q * HF + wg * HFW + 8 * j8 + 2 * tq + e] = v;
           }
       }
       mbar_arrive_remote(map_rank(ready, rank));
@@ -587,46 +606,47 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
         dbx_run[1] += ((wpart[c] + wpart[4 * HF + c]) + wpart[8 * HF + c]) + wpart[12 * HF + c];
       }
       // The CTA's columns of dgates_t into the bf16 scratch, 16 bytes a store.
-      for (int i = tid; i < HW * 4 * J8; i += NCONS) {
-        const int r = i / (4 * J8), q = (i - r * 4 * J8) / J8, c8 = i - r * 4 * J8 - q * J8;
+      for (int i = tid; i < HW * 4 * JC; i += NCONS) {
+        const int r = i / (4 * JC), q = (i - r * 4 * JC) / JC, c8 = i - r * 4 * JC - q * JC;
         const int col = q * F + rank * HF + 8 * c8;
         *reinterpret_cast<uint4*>(dG + ((b * Tn + t) * HW + r) * F4 + col) =
             *reinterpret_cast<const uint4*>(dgs.chunk(r, col / 8));
       }
 
       // dh_{t-1} for the CTA's channels: 9 taps x K = 4F.
-      float acc[HF / 2];
+      float acc[HFW / 2];
 #pragma unroll
-      for (int i = 0; i < HF / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < HFW / 2; ++i) acc[i] = 0.f;
       fence_regs(acc);
       wgmma_fence();
       for (int tap = 0; tap < 9; ++tap) {
         const int row = srow[tap];
         const uint32_t row_addr = smem_u32(dgs.base + (size_t)row * F4);
         for (int off = 0; off < F4; off += BWD_ROWS)
-          bwd_slab<HF>(acc, full, empty, slot, ph, stages, ring, L.slot, row_addr,
-                       row & dgs.mask, off, min(BWD_ROWS, F4 - off) / 16, lane);
+          bwd_slab<HFW, HF>(acc, full, empty, slot, ph, stages, ring, L.slot, wg, row_addr,
+                            row & dgs.mask, off, min(BWD_ROWS, F4 - off) / 16, lane);
       }
       fence_regs(acc);
 
       // dx_t = bf16(dgates_t) @ Wx^T: the centre tap's rows, K = 4F.
       const size_t orow = (b * Tn + t) * HW;
       for (int cb = 0; cb < NXB; ++cb) {
-        float xacc[DX_BLOCK / 2];
+        float xacc[DXW / 2];
 #pragma unroll
-        for (int i = 0; i < DX_BLOCK / 2; ++i) xacc[i] = 0.f;
+        for (int i = 0; i < DXW / 2; ++i) xacc[i] = 0.f;
         fence_regs(xacc);
         const uint32_t row_addr = smem_u32(dgs.base + (size_t)srow[4] * F4);
         wgmma_fence();
         for (int off = 0; off < F4; off += BWD_ROWS)
-          bwd_slab<DX_BLOCK>(xacc, full, empty, slot, ph, stages, ring, L.slot, row_addr,
-                             srow[4] & dgs.mask, off, min(BWD_ROWS, F4 - off) / 16, lane);
+          bwd_slab<DXW, DX_BLOCK>(xacc, full, empty, slot, ph, stages, ring, L.slot, wg,
+                                  row_addr, srow[4] & dgs.mask, off,
+                                  min(BWD_ROWS, F4 - off) / 16, lane);
         fence_regs(xacc);
 #pragma unroll
-        for (int j = 0; j < DX_BLOCK / 8; ++j)
+        for (int j = 0; j < DXW / 8; ++j)
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
-            const int r = 16 * warp + g + 8 * hr, c = cb * DX_BLOCK + 8 * j + 2 * tq;
+            const int r = 16 * wq + g + 8 * hr, c = cb * DX_BLOCK + wg * DXW + 8 * j + 2 * tq;
             if (r < HW && c < C2)
               *reinterpret_cast<uint32_t*>(dx + (orow + r) * C + rank * C2 + c) =
                   pack_bf16(xacc[4 * j + 2 * hr], xacc[4 * j + 2 * hr + 1]);
@@ -635,14 +655,14 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
       mbar_arrive_remote(map_rank(freeb, rank));
       mbar_arrive_remote(map_rank(freeb, peer));
 #pragma unroll
-      for (int i = 0; i < HF / 2; ++i) dh[i] = acc[i];
+      for (int i = 0; i < HFW / 2; ++i) dh[i] = acc[i];
     }
 
 #pragma unroll
     for (int j8 = 0; j8 < J8; ++j8)
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        const int r = 16 * warp + g + 8 * hr, ch = rank * HF + 8 * j8 + 2 * tq;
+        const int r = 16 * wq + g + 8 * hr, ch = rank * HF + wg * HFW + 8 * j8 + 2 * tq;
         const int k = 4 * j8 + 2 * hr;
         if (r >= HW) continue;
         *reinterpret_cast<uint32_t*>(dh0 + (b * HW + r) * F + ch) = pack_bf16(dh[k], dh[k + 1]);

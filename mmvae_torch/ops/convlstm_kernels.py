@@ -251,16 +251,24 @@ def unpack_cores(pk: torch.Tensor) -> torch.Tensor:
     return pk.movedim(-1, -3).reshape(*pk.shape[:-4], kc * 8, nb * 8)
 
 
+def consumer_groups(feat: int) -> int:
+    """Consumer warpgroups of a K5 CTA (`rec_wgs` in convlstm_wgmma.cuh): two
+    when each owns a multiple of 8 of the CTA's F/2 channels."""
+    return 2 if feat % 32 == 0 else 1
+
+
 def pack_proj_forward(wx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[Wx; W] ((C + 9F) x 4F) cut for the two CTAs of a cluster: rank r
-    keeps channels [r F/2, (r + 1) F/2) of each gate, 2F columns in gate
-    order; (2, K/8, 2F/8, 8, 8)."""
+    keeps channels [r F/2, (r + 1) F/2) of each gate, 2F columns ordered
+    (warpgroup, gate, channel), each consumer warpgroup's F/2 / groups
+    channels of the four gates together; (2, K/8, 2F/8, 8, 8)."""
     cin, f4 = wx.shape
     feat = f4 // 4
+    nwg = consumer_groups(feat)
     full = torch.cat([wx, w.reshape(9 * feat, f4)])
     k = full.shape[0]
-    per_rank = full.view(k, 4, 2, feat // 2).permute(2, 0, 1, 3).reshape(2, k, 2 * feat)
-    return pack_cores(per_rank)
+    per_rank = full.view(k, 4, 2, nwg, feat // 2 // nwg).permute(2, 0, 3, 1, 4)
+    return pack_cores(per_rank.reshape(2, k, 2 * feat))
 
 
 def pack_proj_backward(wx: torch.Tensor, w: torch.Tensor):

@@ -40,10 +40,16 @@ def test_forward_slabs_unpack_to_the_weights(c, f):
     assert pk.shape == (2, (c + 9 * f) // 8, 2 * f // 8, 8, 8)
     full = torch.cat([wx, w.reshape(9 * f, 4 * f)])
     back = torch.zeros_like(full)
+    nwg = ck.consumer_groups(f)
+    assert nwg == (2 if f % 32 == 0 else 1)
+    hfw = hf // nwg
     for rank in range(2):
-        per_rank = ck.unpack_cores(pk[rank])  # (K, 2F): gate q's channels in [q*HF, (q+1)*HF)
-        for q in range(4):
-            back[:, q * f + rank * hf:q * f + (rank + 1) * hf] = per_rank[:, q * hf:(q + 1) * hf]
+        per_rank = ck.unpack_cores(pk[rank])  # (K, 2F) ordered (warpgroup, gate, channel)
+        for wg in range(nwg):
+            for q in range(4):
+                src = per_rank[:, (wg * 4 + q) * hfw:(wg * 4 + q + 1) * hfw]
+                lo = q * f + rank * hf + wg * hfw
+                back[:, lo:lo + hfw] = src
     assert torch.equal(back, full)
 
 
