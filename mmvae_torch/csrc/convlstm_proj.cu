@@ -98,7 +98,7 @@ cudaError_t launch_bwd(const void* wtpk, const void* wxpk, const void* c0, const
   void* args[] = {&wtpk, &wxpk, &c0, &cs, &ga, &dhl, &dcl, &dG, &dx, &dbx_part, &dc0, &dh0,
                   &Tn, &H, &W, &C};
   cudaError_t err =
-      cluster_launch((const void*)proj_bwd_wgmma_kernel<F>, 2 * B, 128 + 32, L.total, stream,
+      cluster_launch((const void*)proj_bwd_wgmma_kernel<F>, 2 * B, BWD_THREADS, L.total, stream,
                      args);
   if (err != cudaSuccess) return err;
   // dbx: the per-sample partials summed in sample order.

@@ -37,6 +37,9 @@ constexpr int DX_BLOCK = 64;        // dx columns per wgmma block (zero-padded)
 // chains share the SM; one otherwise.  Plus one producer warp.
 __host__ __device__ constexpr int rec_wgs(int F) { return F % 32 == 0 ? 2 : 1; }
 __host__ __device__ constexpr int rec_threads(int F) { return 128 * rec_wgs(F) + 32; }
+// The BPTT's one consumer warpgroup (a second, splitting its m64n64
+// products in two, ran slower on the H100) and its producer warp.
+constexpr int BWD_CONS = 128, BWD_THREADS = BWD_CONS + 32;
 
 __host__ __device__ inline int round128(int v) { return (v + 127) / 128 * 128; }
 
@@ -389,14 +392,13 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
 // 4F/BWD_ROWS slabs of Wx^T (N = DX_BLOCK, zero-padded past C/2).
 __host__ __device__ inline int bwd_dx_blocks(int C) { return (C / 2 + DX_BLOCK - 1) / DX_BLOCK; }
 
-// One backward slab of NS columns: wait for ring slot `slot`, acc (+)= its
-// `ksteps` k16 steps, columns [wg N, (wg + 1) N), against the dgates tile
-// row at `row_addr` (swizzle `swz`) from column `off` on, wait for the
-// products, hand the slot back.
-template <int N, int NS>
+// One backward slab: wait for ring slot `slot`, acc (+)= its `ksteps` k16
+// steps against the dgates tile row at `row_addr` (swizzle `swz`) from
+// column `off` on, wait for the products, hand the slot back.
+template <int N>
 __device__ __forceinline__ void bwd_slab(float (&acc)[N / 2], uint64_t* full, uint64_t* empty,
                                          int& slot, uint32_t& ph, int stages,
-                                         const unsigned char* ring, int slot_bytes, int wg,
+                                         const unsigned char* ring, int slot_bytes,
                                          uint32_t row_addr, int swz, int off, int ksteps,
                                          int lane) {
   uint32_t a[BWD_ROWS / 16][4];
@@ -412,9 +414,7 @@ __device__ __forceinline__ void bwd_slab(float (&acc)[N / 2], uint64_t* full, ui
   wgmma_fence();
 #pragma unroll
   for (int i = 0; i < BWD_ROWS / 16; ++i)
-    wgmma_rs<N, 0>(acc, a[i],
-                   smem_desc(slot_addr + (i * 2 * (NS / 8) + wg * (N / 8)) * 128, NS * 16, 128),
-                   128, 1);
+    wgmma_rs<N, 0>(acc, a[i], smem_desc(slot_addr + i * 2 * (N / 8) * 128, N * 16, 128), 128, 1);
   wgmma_commit();
   wgmma_wait<0>();
 #pragma unroll
@@ -436,7 +436,7 @@ __device__ __forceinline__ void bwd_slab(float (&acc)[N / 2], uint64_t* full, ui
 // wtpk: per rank, W^T rows (tap, n), the CTA's HF columns, K-major cores
 // [9*4F/8][HF/8][8][8]; wxpk: per rank, [C/2 blocks of 64][4F/8][8][8][8].
 template <int F>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 + 32, 1)
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
     proj_bwd_wgmma_kernel(const bf16* __restrict__ wtpk, const bf16* __restrict__ wxpk,
                           const bf16* __restrict__ c0, const bf16* __restrict__ cs,
                           const bf16* __restrict__ ga, const bf16* __restrict__ dhl,
@@ -444,12 +444,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 + 32, 1)
                           bf16* __restrict__ dx, float* __restrict__ dbx_part,
                           bf16* __restrict__ dc0, bf16* __restrict__ dh0, int Tn, int H, int W,
                           int C) {
-  // Warpgroup wg owns HFW of the CTA's HF channels (its cells, its dh
-  // columns) and DXW of each dx block's columns.  One warpgroup: a second
-  // one, splitting the m64n64 products in two, ran slower on the H100.
-  constexpr int NWG = 1, NCONS = 128 * NWG, NTHREADS = NCONS + 32;
-  constexpr int HF = F / 2, HFW = HF / NWG, F4 = 4 * F, J8 = HFW / 8, JC = HF / 8;
-  constexpr int DXW = DX_BLOCK / NWG;
+  constexpr int HF = F / 2, F4 = 4 * F, J8 = HF / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   const BwdSmem L = bwd_smem_layout(F);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -462,10 +457,10 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 + 32, 1)
   bf16* res_c = reinterpret_cast<bf16*>(smem + L.res);  // (64, HF) c_t
   bf16* res_p = res_c + MROWS * HF;                      // (64, HF) c_{t-1}
   bf16* res_g = res_p + MROWS * HF;                      // (64, 4 HF) gates
-  float* wpart = reinterpret_cast<float*>(smem + L.wpart);  // (4 warps of a wg, 4 HF)
+  float* wpart = reinterpret_cast<float*>(smem + L.wpart);  // (4 warps, 4 HF)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3, wg = warp >> 2, wq = warp & 3;
+  const int g = lane >> 2, tq = lane & 3;
   const uint32_t rank = cluster_rank(), peer = rank ^ 1;
   const size_t b = blockIdx.x >> 1;
   const int HW = H * W, C2 = C / 2, NXB = bwd_dx_blocks(C);
@@ -474,19 +469,19 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 + 32, 1)
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4 * NWG);
+      mbar_init(&empty[s], 4);
     }
-    mbar_init(ready, 2 * NCONS);
-    mbar_init(freeb, 2 * NCONS);
+    mbar_init(ready, 2 * BWD_CONS);
+    mbar_init(freeb, 2 * BWD_CONS);
     mbar_init(rfull, 1);
     mbar_init_fence();
   }
-  for (int i = tid; i < F4; i += NTHREADS) *dgs.at(MROWS, i) = from_f<bf16>(0.f);
-  for (int i = tid; i < stages * L.slot / 16; i += NTHREADS)  // see the forward's ring
+  for (int i = tid; i < F4; i += BWD_THREADS) *dgs.at(MROWS, i) = from_f<bf16>(0.f);
+  for (int i = tid; i < stages * L.slot / 16; i += BWD_THREADS)  // see the forward's ring
     reinterpret_cast<uint4*>(ring)[i] = make_uint4(0u, 0u, 0u, 0u);
   cluster_sync();
 
-  if (warp == 4 * NWG) {
+  if (warp == 4) {
     if (lane == 0) {
       const bf16* wt = wtpk + (size_t)rank * 9 * F4 * HF;
       const bf16* wx = wxpk + (size_t)rank * NXB * F4 * DX_BLOCK;
@@ -528,21 +523,21 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 + 32, 1)
     };
     if (warp == 0) load_res(Tn - 1);
 
-    // dh and dc of the warpgroup's cells, in the accumulator layout of N = HFW.
-    float dh[HFW / 2], dc[HFW / 2];
+    // dh and dc of the CTA's cells, in the accumulator layout of N = HF.
+    float dh[HF / 2], dc[HF / 2];
 #pragma unroll
     for (int j8 = 0; j8 < J8; ++j8)
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int r = 16 * wq + g + 8 * hr, ch = rank * HF + wg * HFW + 8 * j8 + 2 * tq + e;
+          const int r = 16 * warp + g + 8 * hr, ch = rank * HF + 8 * j8 + 2 * tq + e;
           const int k = 4 * j8 + 2 * hr + e;
           dh[k] = r < HW ? to_f(dhl[(b * HW + r) * F + ch]) : 0.f;
           dc[k] = r < HW ? to_f(dcl[(b * HW + r) * F + ch]) : 0.f;
         }
     float dbx_run[2] = {0.f, 0.f};
-    const int p = 16 * wq + (lane & 15);
+    const int p = 16 * warp + (lane & 15);
     int srow[9];
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) srow[tap] = tap_row(p, tap, -1, H, W, HW);
@@ -562,7 +557,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 + 32, 1)
         for (int q = 0; q < 4; ++q) colsum[q][0] = colsum[q][1] = 0.f;
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
-          const int r = 16 * wq + g + 8 * hr, lc = wg * HFW + 8 * j8 + 2 * tq;
+          const int r = 16 * warp + g + 8 * hr, lc = 8 * j8 + 2 * tq;
           if (r >= HW) continue;
           float gq[2][4];
 #pragma unroll
@@ -591,7 +586,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 + 32, 1)
             v += __shfl_xor_sync(0xffffffffu, v, 4);
             v += __shfl_xor_sync(0xffffffffu, v, 8);
             v += __shfl_xor_sync(0xffffffffu, v, 16);
-            if (g == 0) wpart[wq * 4 * HF + q * HF + wg * HFW + 8 * j8 + 2 * tq + e] = v;
+            if (g == 0) wpart[warp * 4 * HF + q * HF + 8 * j8 + 2 * tq + e] = v;
           }
       }
       mbar_arrive_remote(map_rank(ready, rank));
@@ -601,52 +596,51 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 + 32, 1)
       if (tid < 4 * HF)
         dbx_run[0] += ((wpart[tid] + wpart[4 * HF + tid]) + wpart[8 * HF + tid]) +
                       wpart[12 * HF + tid];
-      if (tid + NCONS < 4 * HF) {
-        const int c = tid + NCONS;
+      if (tid + BWD_CONS < 4 * HF) {
+        const int c = tid + BWD_CONS;
         dbx_run[1] += ((wpart[c] + wpart[4 * HF + c]) + wpart[8 * HF + c]) + wpart[12 * HF + c];
       }
       // The CTA's columns of dgates_t into the bf16 scratch, 16 bytes a store.
-      for (int i = tid; i < HW * 4 * JC; i += NCONS) {
-        const int r = i / (4 * JC), q = (i - r * 4 * JC) / JC, c8 = i - r * 4 * JC - q * JC;
+      for (int i = tid; i < HW * 4 * J8; i += BWD_CONS) {
+        const int r = i / (4 * J8), q = (i - r * 4 * J8) / J8, c8 = i - r * 4 * J8 - q * J8;
         const int col = q * F + rank * HF + 8 * c8;
         *reinterpret_cast<uint4*>(dG + ((b * Tn + t) * HW + r) * F4 + col) =
             *reinterpret_cast<const uint4*>(dgs.chunk(r, col / 8));
       }
 
       // dh_{t-1} for the CTA's channels: 9 taps x K = 4F.
-      float acc[HFW / 2];
+      float acc[HF / 2];
 #pragma unroll
-      for (int i = 0; i < HFW / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < HF / 2; ++i) acc[i] = 0.f;
       fence_regs(acc);
       wgmma_fence();
       for (int tap = 0; tap < 9; ++tap) {
         const int row = srow[tap];
         const uint32_t row_addr = smem_u32(dgs.base + (size_t)row * F4);
         for (int off = 0; off < F4; off += BWD_ROWS)
-          bwd_slab<HFW, HF>(acc, full, empty, slot, ph, stages, ring, L.slot, wg, row_addr,
-                            row & dgs.mask, off, min(BWD_ROWS, F4 - off) / 16, lane);
+          bwd_slab<HF>(acc, full, empty, slot, ph, stages, ring, L.slot, row_addr,
+                       row & dgs.mask, off, min(BWD_ROWS, F4 - off) / 16, lane);
       }
       fence_regs(acc);
 
       // dx_t = bf16(dgates_t) @ Wx^T: the centre tap's rows, K = 4F.
       const size_t orow = (b * Tn + t) * HW;
       for (int cb = 0; cb < NXB; ++cb) {
-        float xacc[DXW / 2];
+        float xacc[DX_BLOCK / 2];
 #pragma unroll
-        for (int i = 0; i < DXW / 2; ++i) xacc[i] = 0.f;
+        for (int i = 0; i < DX_BLOCK / 2; ++i) xacc[i] = 0.f;
         fence_regs(xacc);
         const uint32_t row_addr = smem_u32(dgs.base + (size_t)srow[4] * F4);
         wgmma_fence();
         for (int off = 0; off < F4; off += BWD_ROWS)
-          bwd_slab<DXW, DX_BLOCK>(xacc, full, empty, slot, ph, stages, ring, L.slot, wg,
-                                  row_addr, srow[4] & dgs.mask, off,
-                                  min(BWD_ROWS, F4 - off) / 16, lane);
+          bwd_slab<DX_BLOCK>(xacc, full, empty, slot, ph, stages, ring, L.slot, row_addr,
+                             srow[4] & dgs.mask, off, min(BWD_ROWS, F4 - off) / 16, lane);
         fence_regs(xacc);
 #pragma unroll
-        for (int j = 0; j < DXW / 8; ++j)
+        for (int j = 0; j < DX_BLOCK / 8; ++j)
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
-            const int r = 16 * wq + g + 8 * hr, c = cb * DX_BLOCK + wg * DXW + 8 * j + 2 * tq;
+            const int r = 16 * warp + g + 8 * hr, c = cb * DX_BLOCK + 8 * j + 2 * tq;
             if (r < HW && c < C2)
               *reinterpret_cast<uint32_t*>(dx + (orow + r) * C + rank * C2 + c) =
                   pack_bf16(xacc[4 * j + 2 * hr], xacc[4 * j + 2 * hr + 1]);
@@ -655,14 +649,14 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 + 32, 1)
       mbar_arrive_remote(map_rank(freeb, rank));
       mbar_arrive_remote(map_rank(freeb, peer));
 #pragma unroll
-      for (int i = 0; i < HFW / 2; ++i) dh[i] = acc[i];
+      for (int i = 0; i < HF / 2; ++i) dh[i] = acc[i];
     }
 
 #pragma unroll
     for (int j8 = 0; j8 < J8; ++j8)
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        const int r = 16 * wq + g + 8 * hr, ch = rank * HF + wg * HFW + 8 * j8 + 2 * tq;
+        const int r = 16 * warp + g + 8 * hr, ch = rank * HF + 8 * j8 + 2 * tq;
         const int k = 4 * j8 + 2 * hr;
         if (r >= HW) continue;
         *reinterpret_cast<uint32_t*>(dh0 + (b * HW + r) * F + ch) = pack_bf16(dh[k], dh[k + 1]);
@@ -670,7 +664,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(128 + 32, 1)
       }
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      const int lc = tid + k * NCONS;
+      const int lc = tid + k * BWD_CONS;
       if (lc < 4 * HF) {
         const int q = lc / HF, ch = lc - q * HF;
         dbx_part[b * F4 + q * F + rank * HF + ch] = dbx_run[k];
