@@ -18,9 +18,10 @@ Phases, each raising on failure (the script catches nothing):
    shape beside the kernel's bound (`mmvae_torch.bench.roofline`) and its
    share of it; K1, K2 and K3, which take tens of microseconds, timed on
    the device by replaying a CUDA graph of 20 calls (the host's launch
-   path is longer than they are), K1 beside the one PyTorch call that
-   computes its BCE sum (`library_ms`); K5's backward run twice and
-   required bit-identical; then each config's full-width model (seq_vae;
+   path is longer than they are; K1 and K3 on a cold L2), K1 beside the
+   one PyTorch call that computes its BCE sum (`library_ms`); K5's
+   backward run twice and required bit-identical; then each config's
+   full-width model (seq_vae;
    pred_vae and hier_vae with fused=true), forward and gradients on a small
    input, on the card through the kernels against the CPU through the plain
    versions;
@@ -32,8 +33,9 @@ Phases, each raising on failure (the script catches nothing):
    train steps after 5 warmup steps, losses finite and falling; then config
    3 with fused=true once more, timed beside the default, as a measurement
    of the decoder policy (not adopted).  No jax imported.
-The last three lines are the card, the kernels' JSON line (launches summed
-over the three slice runs), and {"ok": true, "device": {...}}.  Exits
+The last three lines are the card, the kernels' JSON line (`launches`: the
+count from the kernel's own path, config 3 for K1-K5 and config 4 for K6;
+`launches_by_path`: each path's run), and {"ok": true, "device": {...}}.  Exits
 non-zero with no result when CUDA is not available.
 """
 
@@ -87,22 +89,28 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _graph_ms(fn, n: int = 20, reps: int = 10) -> float:
-    """Device time of one call of `fn`: a CUDA graph of `n` calls replayed
-    `reps` times between two CUDA events, so the host's launch path is not
-    timed (the tiny kernels take tens of microseconds, less than a launch
-    from Python)."""
+_GRAPH_CALLS = 20
+
+
+def _graph_ms(calls, reps: int = 10) -> float:
+    """Device time of one call: a CUDA graph of the calls in `calls`, in
+    order, replayed `reps` times between two CUDA events, so the host's
+    launch path is not timed (the tiny kernels take tens of microseconds,
+    less than a launch from Python).  Where each call reads its own copy of
+    the inputs, the 19 calls between two reads of one copy move more than
+    the card's 50 MB of L2, so every call reads its inputs from HBM, as the
+    bound counts them; one call repeated reads them from L2."""
     import torch
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for fn in calls[:3]:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(n):
+        for fn in calls:
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -112,7 +120,7 @@ def _graph_ms(fn, n: int = 20, reps: int = 10) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (n * reps)
+    return start.elapsed_time(end) / (len(calls) * reps)
 
 
 def _bound(name: str, shape) -> tuple:
@@ -265,10 +273,13 @@ def check_preprocess(dev, shapes) -> dict:
         z = ((hits / counts - p).abs() / sigma).max().item()
         _require(z <= 5.0, f"preprocess ({n}, {t}, {b}) binarize hit rates off by {z:.2f} "
                            f"sigma (limit 5)")
-        def kern():
-            return preprocess_gather(ramp_set, idx, 5, binarize=True, out_dtype=torch.bfloat16)
+        def kern(rows=idx):
+            return preprocess_gather(ramp_set, rows, 5, binarize=True, out_dtype=torch.bfloat16)
 
-        ms, host_ms = _graph_ms(kern), _time_ms(kern, 50)
+        # each graph call gathers its own clips from the set (far larger than L2)
+        cold = [lambda r=torch.randint(0, n, (b,), generator=g, device=dev): kern(r)
+                for _ in range(_GRAPH_CALLS)]
+        ms, host_ms = _graph_ms(cold), _time_ms(kern, 50)
         plain_ms = _time_ms(lambda: preprocess_gather_plain(ramp_set, idx, 5, binarize=True,
                                                             out_dtype=torch.bfloat16), 50)
         del ramp_set
@@ -276,7 +287,7 @@ def check_preprocess(dev, shapes) -> dict:
         print(f"[kernel] preprocess_gather {b} of {n} clips x {t} frames ({_runs(runs)}): "
               f"binarize=False max|err| {err} (tolerance 0, exact); binarize=True worst "
               f"hit-rate deviation {z:.2f} sigma (limit 5); {ms:.4f} ms on the device (CUDA "
-              f"graph; {host_ms:.4f} ms back to back from the host), "
+              f"graph, cold L2; {host_ms:.4f} ms back to back from the host), "
               f"{_share(ms, 'preprocess_gather', (n, t, b))}; plain {plain_ms:.4f} ms; "
               f"library: none (no one PyTorch call gathers and binarizes)")
     b_ms, by = _bound("preprocess_gather", first[2])
@@ -319,16 +330,21 @@ def check_elbo(dev, shapes) -> dict:
         timing = ""
         if (big, small) in shapes:
             l, m = logits.detach(), mu.detach()
-            ms = _graph_ms(lambda: elbo_reduce(l, x, m, m))
+            # one copy of the inputs for each graph call: cold L2, as the bound
+            # counts it (in the step the decoder has just written part of them)
+            copies = [(l.clone(), x.clone(), m.clone()) for _ in range(_GRAPH_CALLS)]
+            ms = _graph_ms([lambda c=c: elbo_reduce(c[0], c[1], c[2], c[2]) for c in copies])
             host_ms = _time_ms(lambda: elbo_reduce(l, x, m, m), 50)
-            lib_ms = _graph_ms(lambda: F.binary_cross_entropy_with_logits(l, x, reduction="sum"))
+            lib_ms = _graph_ms([lambda c=c: F.binary_cross_entropy_with_logits(
+                c[0], c[1], reduction="sum") for c in copies])
+            del copies
             plain_ms = _time_ms(lambda: elbo_reduce_plain(l, x, m, m), 50)
             first = first or (ms, plain_ms, lib_ms, (big, small))
-            timing = (f"; {ms:.4f} ms on the device (CUDA graph; {host_ms:.4f} ms back to back "
-                      f"from the host), {_share(ms, 'elbo_reduce', (big, small))}; library "
-                      f"F.binary_cross_entropy_with_logits(logits, x, reduction='sum') "
-                      f"{lib_ms:.4f} ms (CUDA graph; BCE only, no KL); plain {plain_ms:.4f} ms "
-                      f"({_runs(shapes[(big, small)])})")
+            timing = (f"; {ms:.4f} ms on the device (CUDA graph, cold L2; {host_ms:.4f} ms "
+                      f"back to back from the host), {_share(ms, 'elbo_reduce', (big, small))}; "
+                      f"library F.binary_cross_entropy_with_logits(logits, x, reduction='sum') "
+                      f"{lib_ms:.4f} ms (CUDA graph, cold L2; BCE only, no KL); plain "
+                      f"{plain_ms:.4f} ms ({_runs(shapes[(big, small)])})")
         print(f"[kernel] elbo_reduce {big}, {small}: bce rel err {rb:.2e} (tolerance 2e-5), "
               f"kl rel err {rk:.2e} (1e-5), grads max|err| {ge:.2e} (1e-6){timing}")
     ms, plain_ms, lib_ms, shape = first
@@ -377,7 +393,9 @@ def check_reparam(dev, shapes) -> dict:
             _require(torch.equal(same, z.detach()) and not torch.equal(other, same),
                      f"reparameterize {shape}: seed does not determine eps")
             m_, l_ = mu.detach(), lv.detach()
-            ms = _graph_ms(lambda: reparameterize(m_, l_, seed))
+            # one input repeated: warm L2, as in the step, where the head has
+            # just written mu and logvar (tens of KB)
+            ms = _graph_ms([lambda: reparameterize(m_, l_, seed)] * _GRAPH_CALLS)
             host_ms = _time_ms(lambda: reparameterize(m_, l_, seed), 100)
             plain_ms = _time_ms(lambda: reparameterize_plain(m_, l_, seed), 100)
             first = first or (ms, plain_ms, shape)
@@ -612,7 +630,7 @@ def run_slice(card: str, name: str, overrides, launched, idle) -> dict:
     res = run_benchmark(cfg, steps=20, warmup=5)
     counts = ops.launch_counts()
     losses = res.pop("losses")
-    tag = f"{name} {' '.join(overrides)}".strip()
+    tag = _tag(name, overrides)
     _require(all(math.isfinite(v) for v in losses), f"{tag}: non-finite loss in {losses}")
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
     _require(last < first, f"{tag}: loss did not fall: first 5 mean {first:.1f}, last 5 {last:.1f}")
@@ -626,17 +644,22 @@ def run_slice(card: str, name: str, overrides, launched, idle) -> dict:
     return counts
 
 
+def _tag(name: str, overrides) -> str:
+    return " ".join((name, *overrides))
+
+
 def phase_slice(card: str) -> dict:
     """Configs 3, 4 and 5; then config 3 with fused=true (policy
-    measurement).  Returns each kernel's launches summed over the three
-    slice runs."""
-    total = {}
-    for name, overrides, launched, idle in _SLICES:
-        counts = run_slice(card, name, overrides, launched, idle)
-        for k, n in counts.items():
-            total[k] = total.get(k, 0) + n
-    run_slice(card, *_POLICY)
-    return total
+    measurement).  Returns {path: that run's launch counts}."""
+    return {_tag(name, overrides): run_slice(card, name, overrides, launched, idle)
+            for name, overrides, launched, idle in (*_SLICES, _POLICY)}
+
+
+def _own_path(kernel: str) -> str:
+    """The first slice whose path launches `kernel`: config 3 (the main
+    path) for K1-K5, config 4 fused for K6."""
+    return next(_tag(name, overrides) for name, overrides, launched, _ in _SLICES
+                if kernel in launched)
 
 
 def main() -> int:
@@ -652,13 +675,16 @@ def main() -> int:
     phase_build()
     checks = phase_kernels(dev)
     phase_models(dev)
-    counts = phase_slice(card)
+    by_path = phase_slice(card)
     _require("jax" not in sys.modules and "mmvae_tpu" not in sys.modules,
              "jax or mmvae_tpu was imported")
     kernels = []
     for name, (route, source, replaces) in _KERNELS.items():
+        own = _own_path(name)
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": counts[name], **checks[name]})
+                        "launches": by_path[own][name], "launches_path": own,
+                        "launches_by_path": {tag: c[name] for tag, c in by_path.items()},
+                        **checks[name]})
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,133 @@
+"""Two checkouts of the package timed side by side on one card.
+
+    python -m mmvae_torch.bench.ab OTHER_ROOT [--steps 10]
+
+OTHER_ROOT is the root of another checkout of the repository, for example
+an earlier commit unpacked with `git archive` into a directory that
+`.gitignore` lists.  In the order other, this, this, other, one process per
+run imports that checkout's `mmvae_torch` and measures K5 forward and
+backward at the path shapes (CUDA events over 20 calls, bf16 gates); the
+wall time of a K5 forward and backward call at one step of one sample,
+where the wrappers' host work and the launches take the time; and
+`bench.profile.profile_train_step` of each path (config 3; configs 4 and 5
+with fused=true; config 3 with fused=true).  Each run prints one JSON line,
+then one line per path sums it up.  Fails without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# (B, T, H, W, C, F): K5 on configs 3, 4 and 5
+K5_SHAPES = ((64, 20, 8, 8, 128, 128), (64, 10, 8, 8, 128, 128), (160, 10, 8, 8, 128, 128))
+PATHS = (("seq_vae", ()), ("pred_vae", ("model.kwargs.fused=true",)),
+         ("hier_vae", ("model.kwargs.fused=true",)), ("seq_vae", ("model.kwargs.fused=true",)))
+
+
+def _time_ms(fn, iters: int = 20) -> float:
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _host_ms(fn, iters: int = 200) -> float:
+    """Milliseconds a call on the host clock, synchronized at the ends only."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def measure(steps: int) -> dict:
+    """K5 times and the paths' profiles, with the `mmvae_torch` on sys.path."""
+    import torch
+
+    from mmvae_torch.bench.profile import profile_train_step
+    from mmvae_torch.configs import get_config
+    from mmvae_torch.ops import convlstm_kernels as ck
+    from mmvae_torch.ops import kernel_checks as kc
+
+    dev = torch.device("cuda")
+    out = {"root": os.getcwd(), "k5_fwd_bwd_ms": {}, "profiles": {}}
+    for shape in K5_SHAPES:
+        x, wx, bx, w, c0, h0 = kc.proj_inputs(dev, *shape, seed=6)
+        hs, cs, ga = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True)
+        dh = torch.randn(c0.shape, device=dev)
+        out["k5_fwd_bwd_ms"][str(shape)] = [
+            _time_ms(lambda: ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True)),
+            _time_ms(lambda: ck.proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh, dh)),
+        ]
+    # the wrappers' host path: at one step of one sample the kernels are short
+    x, wx, bx, w, c0, h0 = kc.proj_inputs(dev, 1, 1, 8, 8, 16, 16, seed=6)
+    hs, cs, ga = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True)
+    dh = torch.randn(c0.shape, device=dev)
+    out["k5_host_fwd_bwd_ms"] = [
+        _host_ms(lambda: ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True)),
+        _host_ms(lambda: ck.proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh, dh)),
+    ]
+    for name, overrides in PATHS:
+        res = profile_train_step(get_config(name, overrides), steps=steps, top=6)
+        out["profiles"][" ".join((name, *overrides))] = res
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("other", help="root of the other checkout (in a worker: its own root)")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        print(json.dumps(measure(args.steps)))
+        return
+    here = Path(__file__).resolve().parents[2]
+    other = Path(args.other).resolve()
+    runs = []
+    for root in (other, here, here, other):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--worker", "--steps",
+             str(args.steps), str(root)],
+            cwd=root, env={**os.environ, "PYTHONPATH": str(root)}, capture_output=True,
+            text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"the run in {root} failed ({proc.returncode}):\n"
+                               f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    for path in runs[0]["profiles"]:
+        cells = [f"{Path(r['root']).name}: "
+                 + " ".join(f"{k} {r['profiles'][path][k]}" for k in
+                            ("step_ms", "frames_per_sec", "device_busy_ms", "idle_share"))
+                 for r in runs]
+        print(f"[ab] {path}: " + "; ".join(cells))
+    print("[ab] K5 host ms a call (1 x 1 x 8x8, C=F=16), fwd, bwd: "
+          + "; ".join(f"{Path(r['root']).name}: {r['k5_host_fwd_bwd_ms']}" for r in runs))
+    for shape in runs[0]["k5_fwd_bwd_ms"]:
+        print(f"[ab] K5 {shape} fwd, bwd ms: "
+              + "; ".join(f"{Path(r['root']).name}: {r['k5_fwd_bwd_ms'][shape]}" for r in runs))
+
+
+if __name__ == "__main__":
+    sys.path[0] = os.getcwd()  # run by path in a worker: import the checkout it runs in
+    main()

@@ -2,7 +2,9 @@
 
 `kernel_work(name, shape)` counts the operations and bytes one call of a
 kernel wrapper needs at `shape`: each input read once, each output written
-once, whatever the kernel reads again.  `bound(name, shape)` turns them into
+once, whatever the kernel reads again; a 3x3 conv's products count only
+for the taps inside the image, not those on its zero padding (at 8x8, 484
+of 576).  `bound(name, shape)` turns them into
 milliseconds against the published peaks of one H100 SXM (NVIDIA's data
 sheet, dense, at the full 700 W power limit): the larger of operations over
 the peak rate of their type and bytes over the memory rate.  The ConvLSTM
@@ -44,6 +46,12 @@ def _n(shape) -> int:
     return math.prod(shape)
 
 
+def _taps(h: int, w: int) -> int:
+    """(position, tap) pairs of a 3x3 SAME conv on an h x w image whose tap
+    lies inside it: (3h - 2)(3w - 2) of 9hw, the rest read the zero pad."""
+    return (3 * h - 2) * (3 * w - 2)
+
+
 def kernel_work(name: str, shape) -> Tuple[float, float]:
     """(operations, bytes) of one call of kernel wrapper `name` at `shape`."""
     if name == "preprocess_gather":
@@ -64,14 +72,14 @@ def kernel_work(name: str, shape) -> Tuple[float, float]:
         state = 4 * b * h * w * f * 2  # c0, h0 and (c_T, h_T) or (dc0, dh0), bf16
         weights = k * f4 * 2 + f4 * 2
         x, hs, gates = rows * c * 2, rows * f * 2, rows * f4 * 2
-        fwd = 2.0 * rows * k * f4
+        # the x projection, then the conv over the taps inside the image
+        proj, conv = 2.0 * rows * c * f4, 2.0 * b * t * _taps(h, w) * f * f4
         if name == "convlstm_proj_forward":
-            return fwd, float(x + 2 * hs + gates + weights + state)
-        dh = 2.0 * rows * 9 * f4 * f
-        dx = 2.0 * rows * f4 * c
-        # x, hs, cs, gates in; dx out; weights in, their f32 gradients out
-        return dh + fwd + dx, float(2 * x + 2 * hs + gates + weights + k * f4 * 4 + f4 * 4
-                                    + state)
+            return proj + conv, float(x + 2 * hs + gates + weights + state)
+        # dh (transposed conv), dW, dWx, dx; x, hs, cs, gates in; dx out;
+        # weights in, their f32 gradients out
+        return 2 * conv + 2 * proj, float(2 * x + 2 * hs + gates + weights + k * f4 * 4
+                                          + f4 * 4 + state)
     if name.startswith("convlstm_scan"):
         b, t, h, w, f, const = shape
         rows, f4 = b * t * h * w, 4 * f
@@ -79,7 +87,7 @@ def kernel_work(name: str, shape) -> Tuple[float, float]:
         hs, gates = rows * f * 2, rows * f4 * 2
         weights = 9 * f * f4 * 2
         state = 4 * b * h * w * f * 2
-        fwd = 2.0 * rows * 9 * f * f4
+        fwd = 2.0 * b * t * _taps(h, w) * f * f4
         if name == "convlstm_scan_forward":
             return fwd, float(xg + 2 * hs + gates + weights + state)
         # hs, cs, gates, dhs in; dxg (f32 sum for a const input) and dW out

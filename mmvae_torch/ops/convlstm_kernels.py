@@ -31,6 +31,7 @@ the oracle the kernels are compared with on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -157,8 +158,10 @@ def _require_bf16_cuda(what, named):
                             f"bfloat16 activations")
 
 
-# K5's launch geometry, as `csrc/convlstm_wgmma.cuh` computes it (the
-# wrapper checks the two agree): one 2-CTA cluster per sample; shared memory
+# K5's launch geometry, as `csrc/convlstm_wgmma.cuh` (fwd_smem_layout,
+# bwd_smem_layout, wgrad_bn, wgrad_smem) computes it: a change to one is
+# made in both; `_check_cuda` holds them equal, asking the library once per
+# (C, F) (`_layouts`).  One 2-CTA cluster per sample; shared memory
 # per CTA for the forward (weight ring of FWD_ROWS-row slabs, two x tiles,
 # two h tiles, residual staging), the BPTT (ring of BWD_ROWS-row slabs, the
 # dgates tile, the residuals, dbx warp partials) and the weight gradient.
@@ -173,10 +176,11 @@ def _round128(v: int) -> int:
     return (v + 127) // 128 * 128
 
 
+@functools.lru_cache(maxsize=None)
 def proj_geometry(batch, t_len, height, width, cin, feat) -> dict:
     """The K5 kernels' launch geometry at (B, T, H, W, C, F): CTAs, ring
     stages and bytes, shared memory per CTA, the weight GEMM's tile width
-    and split-K."""
+    and split-K.  Cached: callers read the dict and never change it."""
     f_slot = _FWD_ROWS * 2 * feat * 2
     f_fixed = (1280 + 2 * _round128((_MROWS + 1) * (cin + 8) * 2)
                + 2 * _round128((_MROWS + 1) * feat * 2) + _MROWS * 3 * feat * 2)
@@ -227,14 +231,24 @@ def _check_cuda(x, wx, w, c0, h0, *more):
         raise ValueError(f"convlstm_scan_proj: C={cin}, F={feat} leave less than "
                          f"{_MIN_STAGES} weight stages in one CTA's shared memory")
     lib = _build.library()
-    got = (ctypes.c_int * 6)()
-    lib.mmvae_convlstm_proj_layout(cin, feat, got)
-    want = [geo[k] for k in ("fwd_stages", "fwd_smem", "bwd_stages", "bwd_smem", "wgrad_bn",
-                             "wgrad_smem")]
-    if list(got) != want:
-        raise RuntimeError(f"convlstm_scan_proj: kernel geometry {list(got)} differs from "
+    got, want = _layouts(cin, feat)
+    if got != want:
+        raise RuntimeError(f"convlstm_scan_proj: kernel geometry {got} differs from "
                            f"the wrapper's {want}")
     return lib, geo
+
+
+_LAYOUT_KEYS = ("fwd_stages", "fwd_smem", "bwd_stages", "bwd_smem", "wgrad_bn", "wgrad_smem")
+
+
+@functools.lru_cache(maxsize=None)
+def _layouts(cin: int, feat: int):
+    """(the kernels' shared-memory layout at (C, F), `proj_geometry`'s):
+    asked of the library once per (C, F)."""
+    got = (ctypes.c_int * len(_LAYOUT_KEYS))()
+    _build.library().mmvae_convlstm_proj_layout(cin, feat, got)
+    geo = proj_geometry(1, 1, 8, 8, cin, feat)  # the layout depends on C and F alone
+    return tuple(got), tuple(geo[k] for k in _LAYOUT_KEYS)
 
 
 def pack_cores(mat: torch.Tensor) -> torch.Tensor:

@@ -101,6 +101,14 @@ def test_proj_backward_is_bit_reproducible(dev, shape):
     assert all(same.values()), same
 
 
+@pytest.mark.parametrize("cin,feat", [(128, 128), (48, 32), (32, 16), (160, 64)])
+def test_proj_layout_matches_the_wrapper(dev, cin, feat):
+    """K5's shared-memory layout as the library computes it equals
+    `proj_geometry`'s (the CPU tests check the Python side's sizes)."""
+    got, want = ck._layouts(cin, feat)
+    assert got == want
+
+
 def test_proj_kernel_refuses_f32_activations(dev):
     args = [t.float() for t in kernel_checks.proj_inputs(dev, 2, 3, 4, 4, 16, 16, seed=6)]
     with pytest.raises(TypeError, match="bfloat16"):

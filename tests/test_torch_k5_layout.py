@@ -109,12 +109,17 @@ def test_geometry_refuses_what_does_not_fit():
 def test_kernel_work_matches_the_hand_counts():
     k5 = (64, 20, 8, 8, 128, 128)
     flops, nbytes = kernel_work("convlstm_proj_forward", k5)
-    assert flops == pytest.approx(107.4e9, rel=1e-3)   # 2 B T HW (C + 9F) 4F
+    # 2 B T 4F (HW C + (3H-2)(3W-2) F): only the 484 of 576 taps inside 8x8
+    assert flops == pytest.approx(91.94e9, rel=1e-3)
     assert nbytes == pytest.approx(147e6, rel=0.05)
-    assert bound("convlstm_proj_forward", k5) == (pytest.approx(0.109, rel=0.01), "operations")
+    assert bound("convlstm_proj_forward", k5) == (pytest.approx(0.0930, rel=0.01), "operations")
     flops, _ = kernel_work("convlstm_proj_backward", k5)
-    assert flops == pytest.approx((96.6 + 107.4 + 10.7) * 1e9, rel=1e-3)
-    assert bound("convlstm_proj_backward", k5) == (pytest.approx(0.217, rel=0.01), "operations")
+    # dh 81.2 + dW 81.2 + dWx 10.7 + dx 10.7
+    assert flops == pytest.approx((81.20 + 81.20 + 10.74 + 10.74) * 1e9, rel=1e-3)
+    assert bound("convlstm_proj_backward", k5) == (pytest.approx(0.186, rel=0.01), "operations")
+    # a 5x6 image: 13 x 16 = 208 of 270 taps
+    assert kernel_work("convlstm_proj_forward", (1, 1, 5, 6, 16, 16))[0] == (
+        2 * 64 * (30 * 16 + 208 * 16))
     _, nbytes = kernel_work("elbo_reduce", ((64, 20, 64, 64), (64, 128)))
     assert nbytes == pytest.approx(31.5e6, rel=0.01)
     assert bound("elbo_reduce", ((64, 20, 64, 64), (64, 128))) == (
@@ -123,8 +128,9 @@ def test_kernel_work_matches_the_hand_counts():
     assert nbytes == pytest.approx(5.2e6 + 10.5e6, rel=0.01)
     assert bound("preprocess_gather", (9000, 20, 64))[0] == pytest.approx(0.0047, rel=0.01)
     k6 = (64, 10, 8, 8, 128, True)
-    assert bound("convlstm_scan_forward", k6) == (pytest.approx(0.049, rel=0.01), "operations")
-    assert bound("convlstm_scan_backward", k6) == (pytest.approx(0.098, rel=0.01), "operations")
+    assert kernel_work("convlstm_scan_forward", k6)[0] == pytest.approx(40.60e9, rel=1e-3)
+    assert bound("convlstm_scan_forward", k6) == (pytest.approx(0.0411, rel=0.01), "operations")
+    assert bound("convlstm_scan_backward", k6) == (pytest.approx(0.0821, rel=0.01), "operations")
     assert bound("reparameterize", (64, 128))[1] == "bytes"
     with pytest.raises(KeyError):
         kernel_work("nope", ())
