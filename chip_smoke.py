@@ -9,8 +9,10 @@ Phases, each raising on failure (the script catches nothing):
 1. card and toolchain: the card's name and power limit, torch / CUDA / nvcc /
    triton versions, the TF32 settings (both off);
 2. build: the CUDA kernels from mmvae_torch/csrc/ with nvcc (into
-   build/kernels/, one nvcc per source, all at once), and the Triton kernels
-   at first launch;
+   build/kernels/, one nvcc per source, all at once), each kernel's
+   registers and spills and every compiler warning printed, none of them
+   ptxas serializing a kernel's wgmma (C7513 / C7520); the Triton kernels at
+   first launch;
 3. each kernel against its plain PyTorch version on the card, at every
    shape the runs of phase 4 give it (`path_shapes`, from their configs)
    and at one unaligned shape, with its tolerance (K5 and K6 through
@@ -19,8 +21,9 @@ Phases, each raising on failure (the script catches nothing):
    share of it; K1, K2 and K3, which take tens of microseconds, timed on
    the device by replaying a CUDA graph of 20 calls (the host's launch
    path is longer than they are; K1 and K3 on a cold L2), K1 beside the
-   one PyTorch call that computes its BCE sum (`library_ms`); K5's
-   backward run twice and required bit-identical; then each config's
+   one PyTorch call that computes its BCE sum (`library_ms`); K5's and
+   K6's backward (K6 with a time-constant and a streaming xg) run twice and
+   required bit-identical; then each config's
    full-width model (seq_vae;
    pred_vae and hier_vae with fused=true), forward and gradients on a small
    input, on the card through the kernels against the CPU through the plain
@@ -167,9 +170,13 @@ def phase_build() -> None:
 
     lib = _build.library()
     print(f"[build] {lib.path.name} in {lib.build_seconds:.1f} s")
+    serialized = []
     for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "warning" in line.lower():
             print(f"[build] {line.strip()}")
+        if "C7513" in line or "C7520" in line:
+            serialized.append(line.strip())
+    _require(not serialized, f"ptxas serialized wgmma in {len(serialized)} places")
 
 
 # --- phase 3: kernels against their plain versions -------------------------
@@ -466,7 +473,8 @@ def check_convlstm_scan(dev, shapes) -> tuple:
     odd T) in both input kinds; both gate dtypes, every forward mode and
     both backward modes, through `kernel_checks.compare_scan` and its
     tolerances; then the time of both versions at each of those 8x8 shapes
-    (bf16 gates).  The JSON line takes config 4's decoder."""
+    (bf16 gates), and the backward twice at config 4's shape, both input
+    kinds, bit-identical.  The JSON line takes config 4's decoder."""
     import torch
 
     from mmvae_torch.ops import convlstm_kernels as ck
@@ -508,6 +516,14 @@ def check_convlstm_scan(dev, shapes) -> tuple:
               f"backward {ms[2]:.3f} ms, {_share(ms[2], 'convlstm_scan_backward', key)}, vs "
               f"plain {ms[3]:.3f} ms; library: none (no one PyTorch call runs the recurrence)")
     (fwd_ms, fwd_plain, bwd_ms, bwd_plain), key = times["pred_vae model.kwargs.fused=true"]
+    for const in (True, False):
+        same = kc.scan_backward_repeatable(dev, key[:5], const)
+        _require(all(same.values()), f"convlstm_scan backward at {key[:5]} "
+                                     f"{'const' if const else 'streaming'} differs between two "
+                                     f"calls: {same}")
+        print(f"[kernel] convlstm_scan backward at {key[:5]} "
+              f"{'const' if const else 'streaming'}: two calls on the same inputs give "
+              f"bit-identical {', '.join(same)}")
     fb, fby = _bound("convlstm_scan_forward", key)
     bb, bby = _bound("convlstm_scan_backward", key)
     return ({"max_abs_err": worst_f, "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fb,

@@ -5,8 +5,10 @@
 OTHER_ROOT is the root of another checkout of the repository, for example
 an earlier commit unpacked with `git archive` into a directory that
 `.gitignore` lists.  In the order other, this, this, other, one process per
-run imports that checkout's `mmvae_torch` and measures K5 forward and
-backward at the path shapes (CUDA events over 20 calls, bf16 gates); the
+run imports that checkout's `mmvae_torch` and measures K5 and K6 forward
+(saving residuals) and backward at the path shapes (CUDA events over 20
+calls, bf16 gates) and hashes K5's outputs (forward and gradients, from
+seeded inputs) so that the two checkouts' K5 can be held bit-identical; the
 wall time of a K5 forward and backward call at one step of one sample,
 where the wrappers' host work and the launches take the time; and
 `bench.profile.profile_train_step` of each path (config 3; configs 4 and 5
@@ -17,6 +19,7 @@ then one line per path sums it up.  Fails without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -26,6 +29,10 @@ from pathlib import Path
 
 # (B, T, H, W, C, F): K5 on configs 3, 4 and 5
 K5_SHAPES = ((64, 20, 8, 8, 128, 128), (64, 10, 8, 8, 128, 128), (160, 10, 8, 8, 128, 128))
+# (B, T, H, W, F, const xg): K6 as the decoders of configs 4, 5 and 3 fused
+# run it (per-step dhs), and enc_x_kernel=3's streaming last-only encoder
+K6_SHAPES = ((64, 10, 8, 8, 128, True), (160, 10, 8, 8, 128, True), (64, 20, 8, 8, 128, True),
+             (64, 20, 8, 8, 128, False))
 PATHS = (("seq_vae", ()), ("pred_vae", ("model.kwargs.fused=true",)),
          ("hier_vae", ("model.kwargs.fused=true",)), ("seq_vae", ("model.kwargs.fused=true",)))
 
@@ -59,7 +66,8 @@ def _host_ms(fn, iters: int = 200) -> float:
 
 
 def measure(steps: int) -> dict:
-    """K5 times and the paths' profiles, with the `mmvae_torch` on sys.path."""
+    """K5 and K6 times and the paths' profiles, with the `mmvae_torch` on
+    sys.path."""
     import torch
 
     from mmvae_torch.bench.profile import profile_train_step
@@ -68,7 +76,8 @@ def measure(steps: int) -> dict:
     from mmvae_torch.ops import kernel_checks as kc
 
     dev = torch.device("cuda")
-    out = {"root": os.getcwd(), "k5_fwd_bwd_ms": {}, "profiles": {}}
+    out = {"root": os.getcwd(), "k5_fwd_bwd_ms": {}, "k5_sha256": {}, "k6_fwd_bwd_ms": {},
+           "profiles": {}}
     for shape in K5_SHAPES:
         x, wx, bx, w, c0, h0 = kc.proj_inputs(dev, *shape, seed=6)
         hs, cs, ga = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True)
@@ -76,6 +85,22 @@ def measure(steps: int) -> dict:
         out["k5_fwd_bwd_ms"][str(shape)] = [
             _time_ms(lambda: ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True)),
             _time_ms(lambda: ck.proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh, dh)),
+        ]
+        dh = torch.randn(c0.shape, generator=torch.Generator(device=dev).manual_seed(7),
+                         device=dev)
+        digest = hashlib.sha256()
+        for t in (hs, cs, ga, *ck.proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh, dh)):
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        out["k5_sha256"][str(shape)] = digest.hexdigest()
+    for b, t, h, w_, f, const in K6_SHAPES:
+        xg, wh, c0, h0 = kc.scan_inputs(dev, b, 1 if const else t, h, w_, f, seed=10)
+        res = ck.scan_forward_cuda(xg, wh, c0, h0, t, torch.bfloat16, "save")
+        dhs = torch.randn(res[0].shape, device=dev)
+        dh = dhs if const else dhs[:, -1]  # the streaming encoder returns h_T alone
+        out["k6_fwd_bwd_ms"][str((b, t, h, w_, f, const))] = [
+            _time_ms(lambda: ck.scan_forward_cuda(xg, wh, c0, h0, t, torch.bfloat16, "save")),
+            _time_ms(lambda: ck.scan_backward_cuda(wh, c0, h0, *res, dh, dhs[:, -1], const,
+                                                   not const)),
         ]
     # the wrappers' host path: at one step of one sample the kernels are short
     x, wx, bx, w, c0, h0 = kc.proj_inputs(dev, 1, 1, 8, 8, 16, 16, seed=6)
@@ -123,9 +148,13 @@ def main(argv=None) -> None:
         print(f"[ab] {path}: " + "; ".join(cells))
     print("[ab] K5 host ms a call (1 x 1 x 8x8, C=F=16), fwd, bwd: "
           + "; ".join(f"{Path(r['root']).name}: {r['k5_host_fwd_bwd_ms']}" for r in runs))
-    for shape in runs[0]["k5_fwd_bwd_ms"]:
-        print(f"[ab] K5 {shape} fwd, bwd ms: "
-              + "; ".join(f"{Path(r['root']).name}: {r['k5_fwd_bwd_ms'][shape]}" for r in runs))
+    same = all(r["k5_sha256"] == runs[0]["k5_sha256"] for r in runs)
+    print(f"[ab] K5 outputs (forward and gradients, bf16 gates) at {len(K5_SHAPES)} shapes: "
+          f"{'bit-identical in every run' if same else 'DIFFER between runs'}")
+    for kernel in ("k5", "k6"):
+        for shape in runs[0][f"{kernel}_fwd_bwd_ms"]:
+            print(f"[ab] {kernel.upper()} {shape} fwd, bwd ms: " + "; ".join(
+                f"{Path(r['root']).name}: {r[f'{kernel}_fwd_bwd_ms'][shape]}" for r in runs))
 
 
 if __name__ == "__main__":

@@ -26,7 +26,8 @@
 // not pay.  The weight GEMM is bound by re-reading the dgates scratch
 // (without those loads it took 43 % less).
 //
-// Design (device code in convlstm_wgmma.cuh and hopper.cuh):
+// Design (device code in convlstm_wgmma.cuh and hopper.cuh, whose kernels
+// K6 instantiates too):
 // - forward and BPTT run one 2-CTA cluster per sample (2B CTAs: 128 at
 //   B=64), each CTA owning half the channels of all four gates (the
 //   forward's two consumer warpgroups a quarter each); the CTAs
@@ -57,35 +58,16 @@
 namespace mmvae {
 namespace {
 
-cudaError_t cluster_launch(const void* kern, int ctas, int threads, int smem,
-                           cudaStream_t stream, void** args) {
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 2;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelExC(&cfg, kern, args);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
 template <typename G, bool SAVE, int F>
 cudaError_t launch_fwd(const void* x, const void* wpk, const void* bx, const void* c0,
                        const void* h0, void* oh, void* oc, void* og, int B, int Tn, int H, int W,
                        int C, cudaStream_t stream) {
   const FwdSmem L = fwd_smem_layout(C, F);
   if (L.stages < MIN_STAGES) return cudaErrorInvalidValue;
-  void* args[] = {&x, &wpk, &bx, &c0, &h0, &oh, &oc, &og, &Tn, &H, &W, &C};
-  return cluster_launch((const void*)proj_fwd_wgmma_kernel<G, SAVE, F>, 2 * B, rec_threads(F),
-                        L.total, stream, args);
+  int xg_steps = 0;
+  void* args[] = {&x, &wpk, &bx, &c0, &h0, &oh, &oc, &og, &Tn, &H, &W, &C, &xg_steps};
+  return cluster_launch((const void*)rec_fwd_wgmma_kernel<G, SAVE ? kSave : kLast, F, false>,
+                        2 * B, rec_threads(F), L.total, stream, args);
 }
 
 template <int F>
@@ -95,11 +77,13 @@ cudaError_t launch_bwd(const void* wtpk, const void* wxpk, const void* c0, const
                        int W, int C, cudaStream_t stream) {
   const BwdSmem L = bwd_smem_layout(F);
   if (L.stages < MIN_STAGES) return cudaErrorInvalidValue;
-  void* args[] = {&wtpk, &wxpk, &c0, &cs, &ga, &dhl, &dcl, &dG, &dx, &dbx_part, &dc0, &dh0,
-                  &Tn, &H, &W, &C};
+  void* none = nullptr;
+  int last_only = 1;
+  void* args[] = {&wtpk, &wxpk, &c0, &cs, &ga, &dhl, &dcl, &dG, &dx, &dbx_part, &none, &dc0,
+                  &dh0, &Tn, &H, &W, &C, &last_only};
   cudaError_t err =
-      cluster_launch((const void*)proj_bwd_wgmma_kernel<F>, 2 * B, BWD_THREADS, L.total, stream,
-                     args);
+      cluster_launch((const void*)rec_bwd_wgmma_kernel<F, true>, 2 * B, BWD_THREADS, L.total,
+                     stream, args);
   if (err != cudaSuccess) return err;
   // dbx: the per-sample partials summed in sample order.
   reduce_splits_kernel<<<(4 * F + 255) / 256, 256, 0, stream>>>(dbx_part, dbx_out, B, 4 * F);
@@ -130,20 +114,6 @@ cudaError_t launch_wgrad_bn(const void* x, const void* hs, const void* h0, const
 
 using namespace mmvae;
 
-// F (a multiple of 16 up to 128) as a compile-time constant.
-#define MMVAE_FOR_F(F, CALL)          \
-  switch (F) {                        \
-    case 16: { constexpr int FF = 16; CALL; } \
-    case 32: { constexpr int FF = 32; CALL; } \
-    case 48: { constexpr int FF = 48; CALL; } \
-    case 64: { constexpr int FF = 64; CALL; } \
-    case 80: { constexpr int FF = 80; CALL; } \
-    case 96: { constexpr int FF = 96; CALL; } \
-    case 112: { constexpr int FF = 112; CALL; } \
-    case 128: { constexpr int FF = 128; CALL; } \
-    default: return (int)cudaErrorInvalidValue; \
-  }
-
 extern "C" {
 
 // Weights pre-packed by the wrapper (see convlstm_kernels.py).
@@ -172,10 +142,11 @@ int mmvae_convlstm_proj_bwd(const void* wtpk, const void* wxpk, const void* c0, 
                                             H, W, C, (cudaStream_t)stream));
 }
 
-// dW and dWx ((C + 9F) x 4F, f32) from the bf16 dgates scratch.
-int mmvae_convlstm_proj_wgrad(const void* x, const void* hs, const void* h0, const void* dG,
-                              void* dw_part, void* dw_out, int B, int Tn, int H, int W, int C,
-                              int F, int splits, void* stream) {
+// dW and dWx ((C + 9F) x 4F, f32) from the bf16 dgates scratch; K6 passes
+// C = 0 (dW alone) and hs for the x it does not have.
+int mmvae_convlstm_wgrad(const void* x, const void* hs, const void* h0, const void* dG,
+                         void* dw_part, void* dw_out, int B, int Tn, int H, int W, int C, int F,
+                         int splits, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (wgrad_bn(F) == 256)
     return (int)launch_wgrad_bn<256>(x, hs, h0, dG, (float*)dw_part, (float*)dw_out, B, Tn, H,

@@ -1,7 +1,10 @@
 // ConvLSTM recurrences on Hopper: 2-CTA clusters per sample, wgmma with A
 // gathered into registers and B streamed through a shared-memory ring by
-// bulk copies, and the deterministic weight-gradient GEMM on wgmma.  Used by
-// K5 (convlstm_proj.cu); written so K6 can take the same pieces.
+// bulk copies, and the deterministic weight-gradient GEMM on wgmma.  K5
+// (convlstm_proj.cu) and K6 (convlstm_scan.cu) instantiate the same kernels:
+// K5 with x_t and its 1x1 projection as the first K segment and the bias in
+// the accumulator; K6 with C = 0 and the precomputed xg_t added in the gate
+// epilogue (XG), its BPTT without dx and dbx (!PROJ).
 //
 // Layout of the recurrent kernels: a cluster of 2 CTAs per sample b; CTA k
 // of the cluster owns channels [k F/2, (k+1) F/2) of all four gates (HF =
@@ -20,7 +23,7 @@
 // 8j8 + 2tq + e; its gate q sits in 8-column group q*HF/8 + j8.
 #pragma once
 
-#include "convlstm_mma.cuh"
+#include "convlstm_tiles.cuh"
 #include "hopper.cuh"
 
 namespace mmvae {
@@ -28,9 +31,16 @@ namespace {
 
 constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one CTA may use
 constexpr int MIN_STAGES = 4, MAX_STAGES = 8;
-constexpr int FWD_ROWS = 32;        // weight rows (K) per forward stage
-constexpr int BWD_ROWS = 128;       // per backward stage
-constexpr int DX_BLOCK = 64;        // dx columns per wgmma block (zero-padded)
+// K6's BPTT with a time-constant xg keeps the f32 sum of its dgates beside
+// the ring (64 KB at F = 128), which leaves room for 3 slots of 16 KB.
+constexpr int SCAN_BWD_MIN_STAGES = 3;
+constexpr int FWD_ROWS = 32;   // weight rows (K) per forward stage
+constexpr int BWD_ROWS = 128;  // per backward stage
+constexpr int DX_BLOCK = 64;   // dx columns per wgmma block (zero-padded)
+
+// Forward output modes: residuals for a backward (hs, cs, gates), every h_t
+// and c_T, or h_T and c_T.  K5 runs kSave and kLast.
+enum RecMode : int { kSave = 0, kHiddens = 1, kLast = 2 };
 
 // Consumer warpgroups of a recurrent CTA: two when each can own a multiple
 // of 8 of the CTA's F/2 channels (F a multiple of 32), so that two latency
@@ -45,13 +55,15 @@ __host__ __device__ inline int round128(int v) { return (v + 127) / 128 * 128; }
 
 // Forward shared memory: [barriers 256 | bias 1024 | ring | x tiles x2 |
 // h tiles x2 | residual staging (hs, cs, gates of the CTA's channels)].
+// K5's x tiles hold x_t and x_{t+1} (a zero row for absent positions); K6
+// has none (x_tiles false): its threads hold their cells of xg in registers.
 struct FwdSmem {
   int ring, xt, ht, stage, slot, xtile, htile, stages, total;
 };
-__host__ __device__ inline FwdSmem fwd_smem_layout(int C, int F) {
+__host__ __device__ inline FwdSmem fwd_smem_layout(int C, int F, bool x_tiles = true) {
   FwdSmem s;
   s.slot = FWD_ROWS * 2 * F * 2;
-  s.xtile = round128((MROWS + 1) * (C + 8) * 2);
+  s.xtile = x_tiles ? round128((MROWS + 1) * (C + 8) * 2) : 0;
   s.htile = round128((MROWS + 1) * F * 2);
   const int fixed = 1280 + 2 * s.xtile + 2 * s.htile + MROWS * 3 * F * 2;
   s.stages = (SMEM_LIMIT - fixed) / s.slot;
@@ -65,31 +77,41 @@ __host__ __device__ inline FwdSmem fwd_smem_layout(int C, int F) {
 }
 
 // Backward shared memory: [barriers 256 | ring | dgates tile | residuals
-// (c_t, c_{t-1}, gates) | dbx warp partials].
+// (c_t, c_{t-1}, gates) | tail].  K5: slots of BWD_ROWS x DX_BLOCK (its dx
+// blocks are its widest products), the tail its dbx warp partials.  K6:
+// slots of BWD_ROWS x F/2; the tail, for a time-constant xg, the f32 sum
+// over t of the dgates of the CTA's 2F columns (none when streaming).
 struct BwdSmem {
-  int ring, dg, res, wpart, slot, stages, total;
+  int ring, dg, res, tail, slot, stages, total;
 };
-__host__ __device__ inline BwdSmem bwd_smem_layout(int F) {
+__host__ __device__ inline BwdSmem bwd_layout(int F, int slot, int tail) {
   BwdSmem s;
-  s.slot = BWD_ROWS * DX_BLOCK * 2;  // HF <= 64 = DX_BLOCK columns
+  s.slot = slot;
   const int dg = round128((MROWS + 1) * 4 * F * 2);
-  const int fixed = 256 + dg + MROWS * 3 * F * 2 + 4 * 2 * F * 4;
+  const int fixed = 256 + dg + MROWS * 3 * F * 2 + tail;
   s.stages = (SMEM_LIMIT - fixed) / s.slot;
   s.stages = s.stages > MAX_STAGES ? MAX_STAGES : s.stages;
   s.ring = 256;
   s.dg = s.ring + s.stages * s.slot;
   s.res = s.dg + dg;
-  s.wpart = s.res + MROWS * 3 * F * 2;
-  s.total = s.wpart + 4 * 2 * F * 4;
+  s.tail = s.res + MROWS * 3 * F * 2;
+  s.total = s.tail + tail;
   return s;
 }
+__host__ __device__ inline BwdSmem bwd_smem_layout(int F) {
+  return bwd_layout(F, BWD_ROWS * DX_BLOCK * 2, 4 * 2 * F * 4);
+}
+__host__ __device__ inline BwdSmem scan_bwd_smem_layout(int F, bool const_x) {
+  return bwd_layout(F, BWD_ROWS * F, const_x ? MROWS * 2 * F * 4 : 0);
+}
 
-// The LSTM cell and its backward as in convlstm_mma.cuh, with the
-// exponential and the reciprocal from the special-function unit (__expf,
-// __fdividef) in place of the IEEE-exact expf, division and tanhf: a few
-// f32 ulps, far below the bf16 rounding that follows, and about a fifth of
-// the instructions, which matters here because one warpgroup of a CTA runs
-// the whole cell between two steps.
+// The LSTM cell with the pointwise chain rounded to the gate dtype G as
+// torch's ops in G round, from pre-activations already rounded to G, and its
+// f32 backward from the saved post-activation gates.  The exponential and
+// the reciprocal come from the special-function unit (__expf, __fdividef):
+// a few f32 ulps, far below the bf16 rounding that follows, and about a
+// fifth of the instructions of IEEE expf, division and tanhf, which matters
+// here because one warpgroup of a CTA runs the whole cell between two steps.
 __device__ __forceinline__ float sigm_fast(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
 __device__ __forceinline__ float tanh_fast(float v) {
   return 1.f - __fdividef(2.f, 1.f + __expf(2.f * v));
@@ -105,6 +127,7 @@ __device__ __forceinline__ Cell lstm_cell_fast(float pi, float pf, float pg, flo
   r.h = round_to<G>(r.o * round_to<G>(tanh_fast(r.c)));
   return r;
 }
+// dgates (i, f, g, o pre-activation) into gq; returns dc_{t-1}.
 __device__ __forceinline__ float lstm_cell_bwd_fast(float dh, float dc, float ct, float cp,
                                                     float ai, float af, float ag, float ao,
                                                     float (&gq)[4]) {
@@ -122,24 +145,31 @@ __device__ __forceinline__ float lstm_cell_bwd_fast(float dh, float dc, float ct
 // Forward
 // ---------------------------------------------------------------------------
 
-// gates_t = x_t @ Wx + bx + conv3x3(h_{t-1}, W) and the cell, for all T
-// steps of sample blockIdx.x / 2.  wpk: per cluster rank, the CTA's 2F
+// All T steps of sample blockIdx.x / 2.  K5 (!XG): gates_t = x_t @ Wx + bx +
+// conv3x3(h_{t-1}, W), x (B, T, HW, C).  K6 (XG, C = 0): gates_t =
+// G(G(conv3x3(h_{t-1}, W)) + xg_t) with xg (B, xg_steps, HW, 4F), read at
+// step 0 throughout when xg_steps is 1 (a time-constant input); each
+// consumer thread loads its cells of xg_{t+1} into registers once it has
+// used those of xg_t, so the loads run under a whole step's products (a
+// time-constant xg is loaded once).  wpk: per cluster rank, the CTA's 2F
 // columns of [Wx; W] (K = C + 9F rows) packed as K-major cores
 // [K/8][2F/8][8][8].
-template <typename G, bool SAVE, int F>
+template <typename G, int MODE, int F, bool XG>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
-    proj_fwd_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
-                          const bf16* __restrict__ bx, const bf16* __restrict__ c0,
-                          const bf16* __restrict__ h0, bf16* __restrict__ out_h,
-                          bf16* __restrict__ out_c, bf16* __restrict__ out_g, int Tn, int H, int W,
-                          int C) {
+    rec_fwd_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
+                         const bf16* __restrict__ bx, const bf16* __restrict__ c0,
+                         const bf16* __restrict__ h0, bf16* __restrict__ out_h,
+                         bf16* __restrict__ out_c, bf16* __restrict__ out_g, int Tn, int H, int W,
+                         int C, int xg_steps) {
   // Warpgroup wg owns HFW of the CTA's HF channels, all four gates: NW of
   // the CTA's N gate columns, which the packing puts together.
   constexpr int NWG = rec_wgs(F), NCONS = 128 * NWG, NTHREADS = NCONS + 32;
   constexpr int HF = F / 2, HFW = HF / NWG, N = 2 * F, NW = N / NWG;
   constexpr int J8 = HFW / 8, JC = HF / 8, NCELL = HFW / 2;
+  constexpr int SEG0 = XG ? 1 : 0;                // K6 has no x segment
+  constexpr int NSTAGED = MODE == kSave ? 6 : 1;  // staged tensors (h, c, 4 gates)
   extern __shared__ __align__(128) unsigned char smem[];
-  const FwdSmem L = fwd_smem_layout(C, F);
+  const FwdSmem L = fwd_smem_layout(C, F, !XG);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + MAX_STAGES;
   uint64_t* xfull = empty + MAX_STAGES;  // [2]
@@ -173,23 +203,30 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
     mbar_init(&hready[1], 2 * NCONS);
     mbar_init_fence();
   }
-  for (int i = tid; i < N; i += NTHREADS) {  // in the packed column order
-    const int w = i / NW, q = (i - w * NW) / HFW, c = i - w * NW - q * HFW;
-    bias[i] = to_f(bx[q * F + rank * HF + w * HFW + c]);
+  if constexpr (!XG) {
+    for (int i = tid; i < N; i += NTHREADS) {  // in the packed column order
+      const int w = i / NW, q = (i - w * NW) / HFW, c = i - w * NW - q * HFW;
+      bias[i] = to_f(bx[q * F + rank * HF + w * HFW + c]);
+    }
   }
   // The ring starts zeroed: a slab shorter than a slot leaves older, finite
   // contents behind it, which zero A fragments then multiply.
   for (int i = tid; i < stages * L.slot / 16; i += NTHREADS)
     reinterpret_cast<uint4*>(ring)[i] = make_uint4(0u, 0u, 0u, 0u);
   // Zero rows (row MROWS stands in for masked taps and absent positions).
-  for (int i = tid; i < 2 * (C + 8); i += NTHREADS)
-    xt[i / (C + 8)][MROWS * xrow + i % (C + 8)] = from_f<bf16>(0.f);
+  if constexpr (!XG) {
+    for (int i = tid; i < 2 * (C + 8); i += NTHREADS)
+      xt[i / (C + 8)][MROWS * xrow + i % (C + 8)] = from_f<bf16>(0.f);
+  }
   for (int i = tid; i < 2 * F; i += NTHREADS) *ht[i / F].at(MROWS, i % F) = from_f<bf16>(0.f);
-  // x_0 and h_0 (all F channels), both rounded as the reference rounds them.
-  const int cch = C / 8;
-  for (int i = tid; i < HW * cch; i += NTHREADS)
-    *reinterpret_cast<uint4*>(xt[0] + (i / cch) * xrow + (i % cch) * 8) =
-        *reinterpret_cast<const uint4*>(x + (b * Tn * HW + i / cch) * C + (i % cch) * 8);
+  if constexpr (!XG) {
+    // x_0, rounded as the reference rounds it.
+    const int cch = C / 8;
+    for (int i = tid; i < HW * cch; i += NTHREADS)
+      *reinterpret_cast<uint4*>(xt[0] + (i / cch) * xrow + (i % cch) * 8) =
+          *reinterpret_cast<const uint4*>(x + (b * Tn * HW + i / cch) * C + (i % cch) * 8);
+  }
+  // h_0 (all F channels).
   for (int i = tid; i < HW * F; i += NTHREADS)
     *ht[0].at(i / F, i % F) = from_f<bf16>(round_to<G>(to_f(h0[b * HW * F + i])));
   cluster_sync();
@@ -200,10 +237,10 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
       const bf16* wsrc = wpk + (size_t)rank * K * N;
       int slot = 0;
       uint32_t ph = 0;
-      // The consumers' order: the x segment (K = C), then the 9 taps (K = F
-      // each), in FWD_ROWS-row slabs (a 16-row tail where a segment ends).
+      // The consumers' order: K5's x segment (K = C), then the 9 taps (K =
+      // F each), in FWD_ROWS-row slabs (a 16-row tail where a segment ends).
       for (int t = 0; t < Tn; ++t)
-        for (int seg = 0; seg < 10; ++seg) {
+        for (int seg = SEG0; seg < 10; ++seg) {
           const int seglen = seg == 0 ? C : F, k0 = seg == 0 ? 0 : C + (seg - 1) * F;
           for (int off = 0; off < seglen; off += FWD_ROWS) {
             const uint32_t bytes = min(FWD_ROWS, seglen - off) * N * 2;
@@ -231,38 +268,60 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
         }
     const int p = 16 * wq + (lane & 15), py = p / W, px = p % W;
     const int srow_x = p < HW ? p : MROWS;
+    // K6: the thread's cells of xg_t, bf16 pairs of channels, per (gate, j8, hr).
+    uint32_t xr[4][J8][2];
+    auto load_xg = [&](int t) {
+#pragma unroll
+      for (int j8 = 0; j8 < J8; ++j8)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = 16 * wq + g + 8 * hr, ch = rank * HF + wg * HFW + 8 * j8 + 2 * tq;
+          const bf16* src = x + ((b * xg_steps + t) * HW + r) * 4 * F + ch;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            xr[q][j8][hr] = r < HW ? *reinterpret_cast<const uint32_t*>(src + q * F) : 0u;
+        }
+    };
+    if constexpr (XG) load_xg(0);
 
     int slot = 0;
     uint32_t ph = 0;
     for (int t = 0; t < Tn; ++t) {
       const int cur = t & 1, nxt = cur ^ 1;
       if (t > 0) mbar_wait_cluster(&hready[cur], ((t - 1) >> 1) & 1);
-      if (t + 1 < Tn && warp == 0) {
-        // x_{t+1} into the other x tile, one bulk copy a row.
-        if (lane == 0) mbar_expect_tx(&xfull[nxt], HW * C * 2);
-        __syncwarp();
-        for (int r = lane; r < HW; r += 32)
-          bulk_g2s(xt[nxt] + r * xrow, x + ((b * Tn + t + 1) * HW + r) * C, C * 2, &xfull[nxt]);
+      if constexpr (!XG) {
+        if (t + 1 < Tn && warp == 0) {
+          // x_{t+1} into the other x tile, one bulk copy a row.
+          if (lane == 0) mbar_expect_tx(&xfull[nxt], HW * C * 2);
+          __syncwarp();
+          for (int r = lane; r < HW; r += 32)
+            bulk_g2s(xt[nxt] + r * xrow, x + ((b * Tn + t + 1) * HW + r) * C, C * 2, &xfull[nxt]);
+        }
+        if (t > 0) mbar_wait(&xfull[cur], ((t - 1) >> 1) & 1);
       }
-      if (t > 0) mbar_wait(&xfull[cur], ((t - 1) >> 1) & 1);
 
       float acc[NW / 2];
+      if constexpr (XG) {
 #pragma unroll
-      for (int j = 0; j < NW / 8; ++j) {
-        const float2 bv = *reinterpret_cast<const float2*>(&bias[wg * NW + 8 * j + 2 * tq]);
-        acc[4 * j + 0] = bv.x;
-        acc[4 * j + 1] = bv.y;
-        acc[4 * j + 2] = bv.x;
-        acc[4 * j + 3] = bv.y;
+        for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+      } else {
+#pragma unroll
+        for (int j = 0; j < NW / 8; ++j) {
+          const float2 bv = *reinterpret_cast<const float2*>(&bias[wg * NW + 8 * j + 2 * tq]);
+          acc[4 * j + 0] = bv.x;
+          acc[4 * j + 1] = bv.y;
+          acc[4 * j + 2] = bv.x;
+          acc[4 * j + 3] = bv.y;
+        }
       }
       fence_regs(acc);
-      // The K loop: the x segment, then the 9 taps, each in FWD_ROWS-row
+      // The K loop: K5's x segment, then the 9 taps, each in FWD_ROWS-row
       // slabs; a slab's k16 steps run back to back, and the wait at its end
       // frees its A registers and its ring slot.
       const uint32_t xrow_addr = smem_u32(xt[cur] + srow_x * xrow) + (lane >> 4) * 16;
       wgmma_fence();
-      for (int seg = 0; seg < 10; ++seg) {
-        const bool is_x = seg == 0;
+      for (int seg = SEG0; seg < 10; ++seg) {
+        const bool is_x = !XG && seg == 0;
         int hrow = MROWS;
         if (!is_x) {
           const int yy = py + (seg - 1) / 3 - 1, xx = px + (seg - 1) % 3 - 1;
@@ -309,7 +368,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
       fence_regs(acc);
 
       // The cell; h_t into both CTAs' next h tile, residuals into staging.
-      if (SAVE) named_sync(1, NCONS);  // the last step's staging is written out
+      if (MODE != kLast) named_sync(1, NCONS);  // the last step's staging is written out
       const uint32_t hnext_peer = map_rank(ht[nxt].base, peer);
 #pragma unroll
       for (int j8 = 0; j8 < J8; ++j8)
@@ -317,15 +376,26 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
         for (int hr = 0; hr < 2; ++hr) {
           const int r = 16 * wq + g + 8 * hr;
           if (r >= HW) continue;
+          const int lc = wg * HFW + 8 * j8 + 2 * tq, ch = rank * HF + lc;
+          float pre[4][2];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) pre[q][e] = round_to<G>(acc[4 * (q * J8 + j8) + 2 * hr + e]);
+          if constexpr (XG) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float2 xv =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr[q][j8][hr]));
+              pre[q][0] = round_to<G>(pre[q][0] + xv.x);
+              pre[q][1] = round_to<G>(pre[q][1] + xv.y);
+            }
+          }
           float hv[2], cv[2], gv[4][2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int k = 2 * hr + e;
             float& cr = creg[(j8 * 2 + hr) * 2 + e];
-            const Cell cl = lstm_cell_fast<G>(round_to<G>(acc[4 * (0 * J8 + j8) + k]),
-                                         round_to<G>(acc[4 * (1 * J8 + j8) + k]),
-                                         round_to<G>(acc[4 * (2 * J8 + j8) + k]),
-                                         round_to<G>(acc[4 * (3 * J8 + j8) + k]), cr);
+            const Cell cl = lstm_cell_fast<G>(pre[0][e], pre[1][e], pre[2][e], pre[3][e], cr);
             cr = cl.c;
             hv[e] = cl.h;
             cv[e] = cl.c;
@@ -334,33 +404,34 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
             gv[2][e] = cl.g;
             gv[3][e] = cl.o;
           }
-          const int lc = wg * HFW + 8 * j8 + 2 * tq, ch = rank * HF + lc;
           const uint32_t hp = pack_bf16(hv[0], hv[1]);
           bf16* own = ht[nxt].at(r, ch);
           *reinterpret_cast<uint32_t*>(own) = hp;
           st_cluster_b32(hnext_peer + (uint32_t)((own - ht[nxt].base) * 2), hp);
-          if (SAVE) {
-            *reinterpret_cast<uint32_t*>(st_h + r * HF + lc) = hp;
+          if (MODE != kLast) *reinterpret_cast<uint32_t*>(st_h + r * HF + lc) = hp;
+          if (MODE == kSave) {
             *reinterpret_cast<uint32_t*>(st_c + r * HF + lc) = pack_bf16(cv[0], cv[1]);
 #pragma unroll
             for (int q = 0; q < 4; ++q)
               *reinterpret_cast<uint32_t*>(st_g + r * 4 * HF + q * HF + lc) =
                   pack_bf16(gv[q][0], gv[q][1]);
           } else if (t == Tn - 1) {
-            *reinterpret_cast<uint32_t*>(out_h + (b * HW + r) * F + ch) = hp;
+            if (MODE == kLast) *reinterpret_cast<uint32_t*>(out_h + (b * HW + r) * F + ch) = hp;
             *reinterpret_cast<uint32_t*>(out_c + (b * HW + r) * F + ch) = pack_bf16(cv[0], cv[1]);
           }
         }
       if (t + 1 < Tn) {
         mbar_arrive_remote(map_rank(&hready[nxt], rank));
         mbar_arrive_remote(map_rank(&hready[nxt], peer));
+        if (XG && xg_steps > 1) load_xg(t + 1);
       }
-      if (SAVE) {
-        // The CTA's channels of hs_t, cs_t and gates_t, 16 bytes a store.
+      if (MODE != kLast) {
+        // The CTA's channels of hs_t (and of cs_t and gates_t when saving),
+        // 16 bytes a store.
         named_sync(1, NCONS);
         const size_t o = (b * Tn + t) * HW;
-        for (int i = tid; i < HW * 6 * JC; i += NCONS) {
-          const int r = i / (6 * JC), c = i - r * (6 * JC);
+        for (int i = tid; i < HW * NSTAGED * JC; i += NCONS) {
+          const int r = i / (NSTAGED * JC), c = i - r * (NSTAGED * JC);
           const bf16* src;
           bf16* dst;
           if (c < JC) {
@@ -387,9 +458,10 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
 // Backward recurrence (BPTT)
 // ---------------------------------------------------------------------------
 
-// Backward stages of a step: 9 taps x 4F/BWD_ROWS slabs of W^T (N = HF),
-// then, for each DX_BLOCK-column block of the CTA's C/2 columns of dx,
-// 4F/BWD_ROWS slabs of Wx^T (N = DX_BLOCK, zero-padded past C/2).
+// K5's backward stages of a step: 9 taps x 4F/BWD_ROWS slabs of W^T (N =
+// HF), then, for each DX_BLOCK-column block of the CTA's C/2 columns of dx,
+// 4F/BWD_ROWS slabs of Wx^T (N = DX_BLOCK, zero-padded past C/2).  K6's: the
+// 9 taps alone.
 __host__ __device__ inline int bwd_dx_blocks(int C) { return (C / 2 + DX_BLOCK - 1) / DX_BLOCK; }
 
 // One backward slab: wait for ring slot `slot`, acc (+)= its `ksteps` k16
@@ -430,23 +502,31 @@ __device__ __forceinline__ void bwd_slab(float (&acc)[N / 2], uint64_t* full, ui
 // Per step: the cell backward of the CTA's cells from the saved c_t,
 // c_{t-1} and gates (bulk-copied a step ahead); bf16 dgates into both CTAs'
 // dgates tiles, and the CTA's columns of them into the bf16 scratch dG;
-// dbx partials of the unrounded dgates (fixed-order sums); then dh_{t-1}
-// (the transposed 3x3 conv, K = 9 x 4F) and dx_t = dgates_t @ Wx^T for the
-// CTA's C/2 columns, both on wgmma from the dgates tile.
+// then dh_{t-1} (the transposed 3x3 conv, K = 9 x 4F) on wgmma from the
+// dgates tile.
+// K5 (PROJ): dh_T (dhs, (B, HW, F)) enters once; dbx partials of the
+// unrounded dgates (fixed-order sums) and dx_t = dgates_t @ Wx^T for the
+// CTA's C/2 columns, on wgmma from the dgates tile.
+// K6 (!PROJ, C = 0): dhs is dh_T when `last_only`, else the per-step
+// cotangent of hs (B, T, HW, F), added to dh_t.  With a time-constant xg
+// (dxg_sum given) the CTA sums its unrounded dgates over t in f32 shared
+// memory, in step order, and writes dxg = that sum once; a streaming xg's
+// dxg is the bf16 scratch dG itself.
 // wtpk: per rank, W^T rows (tap, n), the CTA's HF columns, K-major cores
-// [9*4F/8][HF/8][8][8]; wxpk: per rank, [C/2 blocks of 64][4F/8][8][8][8].
-template <int F>
+// [9*4F/8][HF/8][8][8]; wxpk (K5): per rank, [C/2 blocks of 64][4F/8][8][8][8].
+template <int F, bool PROJ>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
-    proj_bwd_wgmma_kernel(const bf16* __restrict__ wtpk, const bf16* __restrict__ wxpk,
-                          const bf16* __restrict__ c0, const bf16* __restrict__ cs,
-                          const bf16* __restrict__ ga, const bf16* __restrict__ dhl,
-                          const bf16* __restrict__ dcl, bf16* __restrict__ dG,
-                          bf16* __restrict__ dx, float* __restrict__ dbx_part,
-                          bf16* __restrict__ dc0, bf16* __restrict__ dh0, int Tn, int H, int W,
-                          int C) {
+    rec_bwd_wgmma_kernel(const bf16* __restrict__ wtpk, const bf16* __restrict__ wxpk,
+                         const bf16* __restrict__ c0, const bf16* __restrict__ cs,
+                         const bf16* __restrict__ ga, const bf16* __restrict__ dhs,
+                         const bf16* __restrict__ dcl, bf16* __restrict__ dG,
+                         bf16* __restrict__ dx, float* __restrict__ dbx_part,
+                         bf16* __restrict__ dxg_sum, bf16* __restrict__ dc0,
+                         bf16* __restrict__ dh0, int Tn, int H, int W, int C, int last_only) {
   constexpr int HF = F / 2, F4 = 4 * F, J8 = HF / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdSmem L = bwd_smem_layout(F);
+  const bool const_x = !PROJ && dxg_sum != nullptr;
+  const BwdSmem L = PROJ ? bwd_smem_layout(F) : scan_bwd_smem_layout(F, const_x);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + MAX_STAGES;
   uint64_t* ready = empty + MAX_STAGES;
@@ -457,13 +537,19 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
   bf16* res_c = reinterpret_cast<bf16*>(smem + L.res);  // (64, HF) c_t
   bf16* res_p = res_c + MROWS * HF;                      // (64, HF) c_{t-1}
   bf16* res_g = res_p + MROWS * HF;                      // (64, 4 HF) gates
-  float* wpart = reinterpret_cast<float*>(smem + L.wpart);  // (4 warps, 4 HF)
+  float* wpart = reinterpret_cast<float*>(smem + L.tail);  // K5: (4 warps, 4 HF)
+  // K6's f32 dgates sum, (64, 2F): column c of row r at c ^ 8 (r & 3), so
+  // that the float2 accesses of a half-warp (4 rows) hit 32 distinct banks.
+  float* dxs = reinterpret_cast<float*>(smem + L.tail);
+  auto dxs_at = [&](int r, int c) {
+    return reinterpret_cast<float2*>(dxs + r * 2 * F + (c ^ ((r & 3) << 3)));
+  };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
   const uint32_t rank = cluster_rank(), peer = rank ^ 1;
   const size_t b = blockIdx.x >> 1;
-  const int HW = H * W, C2 = C / 2, NXB = bwd_dx_blocks(C);
+  const int HW = H * W, C2 = C / 2, NXB = PROJ ? bwd_dx_blocks(C) : 0;
   const int stages = L.stages;
 
   if (tid == 0) {
@@ -479,12 +565,14 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
   for (int i = tid; i < F4; i += BWD_THREADS) *dgs.at(MROWS, i) = from_f<bf16>(0.f);
   for (int i = tid; i < stages * L.slot / 16; i += BWD_THREADS)  // see the forward's ring
     reinterpret_cast<uint4*>(ring)[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (const_x)
+    for (int i = tid; i < MROWS * 2 * F; i += BWD_THREADS) dxs[i] = 0.f;
   cluster_sync();
 
   if (warp == 4) {
     if (lane == 0) {
       const bf16* wt = wtpk + (size_t)rank * 9 * F4 * HF;
-      const bf16* wx = wxpk + (size_t)rank * NXB * F4 * DX_BLOCK;
+      const bf16* wx = PROJ ? wxpk + (size_t)rank * NXB * F4 * DX_BLOCK : nullptr;
       int slot = 0;
       uint32_t ph = 0;
       for (int t = 0; t < Tn; ++t)
@@ -523,7 +611,9 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
     };
     if (warp == 0) load_res(Tn - 1);
 
-    // dh and dc of the CTA's cells, in the accumulator layout of N = HF.
+    // dh and dc of the CTA's cells, in the accumulator layout of N = HF: dh
+    // starts as dh_T, or as dhs_{T-1} when the cotangent comes per step.
+    const size_t dh_row0 = last_only ? b * HW : (b * Tn + Tn - 1) * HW;
     float dh[HF / 2], dc[HF / 2];
 #pragma unroll
     for (int j8 = 0; j8 < J8; ++j8)
@@ -533,7 +623,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
         for (int e = 0; e < 2; ++e) {
           const int r = 16 * warp + g + 8 * hr, ch = rank * HF + 8 * j8 + 2 * tq + e;
           const int k = 4 * j8 + 2 * hr + e;
-          dh[k] = r < HW ? to_f(dhl[(b * HW + r) * F + ch]) : 0.f;
+          dh[k] = r < HW ? to_f(dhs[(dh_row0 + r) * F + ch]) : 0.f;
           dc[k] = r < HW ? to_f(dcl[(b * HW + r) * F + ch]) : 0.f;
         }
     float dbx_run[2] = {0.f, 0.f};
@@ -549,7 +639,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
       const int it = Tn - 1 - t;
       mbar_wait(rfull, it & 1);
       if (it > 0) mbar_wait_cluster(freeb, (it - 1) & 1);  // both tiles read out
-      // Cell backward; bf16 dgates into both tiles; dbx warp partials.
+      // Cell backward; bf16 dgates into both tiles; K5's dbx warp partials,
+      // K6's dgates sum.
 #pragma unroll
       for (int j8 = 0; j8 < J8; ++j8) {
         float colsum[4][2];
@@ -570,35 +661,46 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
           }
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            colsum[q][0] += gq[0][q];
-            colsum[q][1] += gq[1][q];
+            if constexpr (PROJ) {
+              colsum[q][0] += gq[0][q];
+              colsum[q][1] += gq[1][q];
+            }
             const uint32_t v = pack_bf16(gq[0][q], gq[1][q]);
             bf16* own = dgs.at(r, q * F + rank * HF + lc);
             *reinterpret_cast<uint32_t*>(own) = v;
             st_cluster_b32(dg_peer + (uint32_t)((own - dgs.base) * 2), v);
+            if (const_x) {
+              float2* s = dxs_at(r, q * HF + lc);
+              s->x += gq[0][q];
+              s->y += gq[1][q];
+            }
           }
         }
+        if constexpr (PROJ) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
+          for (int q = 0; q < 4; ++q)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float v = colsum[q][e];
-            v += __shfl_xor_sync(0xffffffffu, v, 4);
-            v += __shfl_xor_sync(0xffffffffu, v, 8);
-            v += __shfl_xor_sync(0xffffffffu, v, 16);
-            if (g == 0) wpart[warp * 4 * HF + q * HF + 8 * j8 + 2 * tq + e] = v;
-          }
+            for (int e = 0; e < 2; ++e) {
+              float v = colsum[q][e];
+              v += __shfl_xor_sync(0xffffffffu, v, 4);
+              v += __shfl_xor_sync(0xffffffffu, v, 8);
+              v += __shfl_xor_sync(0xffffffffu, v, 16);
+              if (g == 0) wpart[warp * 4 * HF + q * HF + 8 * j8 + 2 * tq + e] = v;
+            }
+        }
       }
       mbar_arrive_remote(map_rank(ready, rank));
       mbar_arrive_remote(map_rank(ready, peer));
       mbar_wait_cluster(ready, it & 1);  // both CTAs' dgates_t are in the tile
       if (t > 0 && warp == 0) load_res(t - 1);
-      if (tid < 4 * HF)
-        dbx_run[0] += ((wpart[tid] + wpart[4 * HF + tid]) + wpart[8 * HF + tid]) +
-                      wpart[12 * HF + tid];
-      if (tid + BWD_CONS < 4 * HF) {
-        const int c = tid + BWD_CONS;
-        dbx_run[1] += ((wpart[c] + wpart[4 * HF + c]) + wpart[8 * HF + c]) + wpart[12 * HF + c];
+      if constexpr (PROJ) {
+        if (tid < 4 * HF)
+          dbx_run[0] += ((wpart[tid] + wpart[4 * HF + tid]) + wpart[8 * HF + tid]) +
+                        wpart[12 * HF + tid];
+        if (tid + BWD_CONS < 4 * HF) {
+          const int c = tid + BWD_CONS;
+          dbx_run[1] += ((wpart[c] + wpart[4 * HF + c]) + wpart[8 * HF + c]) + wpart[12 * HF + c];
+        }
       }
       // The CTA's columns of dgates_t into the bf16 scratch, 16 bytes a store.
       for (int i = tid; i < HW * 4 * J8; i += BWD_CONS) {
@@ -606,6 +708,22 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
         const int col = q * F + rank * HF + 8 * c8;
         *reinterpret_cast<uint4*>(dG + ((b * Tn + t) * HW + r) * F4 + col) =
             *reinterpret_cast<const uint4*>(dgs.chunk(r, col / 8));
+      }
+      // K6 with per-step cotangents: dhs_{t-1}, loaded while the products
+      // run and added to dh_{t-1} after them.
+      uint32_t dnext[HF / 4];
+      const bool add_dhs = !PROJ && !last_only && t > 0;
+      if (add_dhs) {
+#pragma unroll
+        for (int j8 = 0; j8 < J8; ++j8)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = 16 * warp + g + 8 * hr, ch = rank * HF + 8 * j8 + 2 * tq;
+            dnext[2 * j8 + hr] =
+                r < HW ? *reinterpret_cast<const uint32_t*>(
+                             dhs + ((b * Tn + t - 1) * HW + r) * F + ch)
+                       : 0u;
+          }
       }
 
       // dh_{t-1} for the CTA's channels: 9 taps x K = 4F.
@@ -623,51 +741,72 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
       }
       fence_regs(acc);
 
-      // dx_t = bf16(dgates_t) @ Wx^T: the centre tap's rows, K = 4F.
-      const size_t orow = (b * Tn + t) * HW;
-      for (int cb = 0; cb < NXB; ++cb) {
-        float xacc[DX_BLOCK / 2];
+      if constexpr (PROJ) {
+        // dx_t = bf16(dgates_t) @ Wx^T: the centre tap's rows, K = 4F.
+        const size_t orow = (b * Tn + t) * HW;
+        for (int cb = 0; cb < NXB; ++cb) {
+          float xacc[DX_BLOCK / 2];
 #pragma unroll
-        for (int i = 0; i < DX_BLOCK / 2; ++i) xacc[i] = 0.f;
-        fence_regs(xacc);
-        const uint32_t row_addr = smem_u32(dgs.base + (size_t)srow[4] * F4);
-        wgmma_fence();
-        for (int off = 0; off < F4; off += BWD_ROWS)
-          bwd_slab<DX_BLOCK>(xacc, full, empty, slot, ph, stages, ring, L.slot, row_addr,
-                             srow[4] & dgs.mask, off, min(BWD_ROWS, F4 - off) / 16, lane);
-        fence_regs(xacc);
+          for (int i = 0; i < DX_BLOCK / 2; ++i) xacc[i] = 0.f;
+          fence_regs(xacc);
+          const uint32_t row_addr = smem_u32(dgs.base + (size_t)srow[4] * F4);
+          wgmma_fence();
+          for (int off = 0; off < F4; off += BWD_ROWS)
+            bwd_slab<DX_BLOCK>(xacc, full, empty, slot, ph, stages, ring, L.slot, row_addr,
+                               srow[4] & dgs.mask, off, min(BWD_ROWS, F4 - off) / 16, lane);
+          fence_regs(xacc);
 #pragma unroll
-        for (int j = 0; j < DX_BLOCK / 8; ++j)
+          for (int j = 0; j < DX_BLOCK / 8; ++j)
 #pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            const int r = 16 * warp + g + 8 * hr, c = cb * DX_BLOCK + 8 * j + 2 * tq;
-            if (r < HW && c < C2)
-              *reinterpret_cast<uint32_t*>(dx + (orow + r) * C + rank * C2 + c) =
-                  pack_bf16(xacc[4 * j + 2 * hr], xacc[4 * j + 2 * hr + 1]);
-          }
+            for (int hr = 0; hr < 2; ++hr) {
+              const int r = 16 * warp + g + 8 * hr, c = cb * DX_BLOCK + 8 * j + 2 * tq;
+              if (r < HW && c < C2)
+                *reinterpret_cast<uint32_t*>(dx + (orow + r) * C + rank * C2 + c) =
+                    pack_bf16(xacc[4 * j + 2 * hr], xacc[4 * j + 2 * hr + 1]);
+            }
+        }
       }
       mbar_arrive_remote(map_rank(freeb, rank));
       mbar_arrive_remote(map_rank(freeb, peer));
+      if (add_dhs) {
 #pragma unroll
-      for (int i = 0; i < HF / 2; ++i) dh[i] = acc[i];
+        for (int i = 0; i < HF / 4; ++i) {
+          const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dnext[i]));
+          dh[2 * i] = acc[2 * i] + d.x;
+          dh[2 * i + 1] = acc[2 * i + 1] + d.y;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < HF / 2; ++i) dh[i] = acc[i];
+      }
     }
 
 #pragma unroll
     for (int j8 = 0; j8 < J8; ++j8)
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        const int r = 16 * warp + g + 8 * hr, ch = rank * HF + 8 * j8 + 2 * tq;
+        const int r = 16 * warp + g + 8 * hr, lc = 8 * j8 + 2 * tq, ch = rank * HF + lc;
         const int k = 4 * j8 + 2 * hr;
         if (r >= HW) continue;
         *reinterpret_cast<uint32_t*>(dh0 + (b * HW + r) * F + ch) = pack_bf16(dh[k], dh[k + 1]);
         *reinterpret_cast<uint32_t*>(dc0 + (b * HW + r) * F + ch) = pack_bf16(dc[k], dc[k + 1]);
-      }
+        if (const_x) {
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int lc = tid + k * BWD_CONS;
-      if (lc < 4 * HF) {
-        const int q = lc / HF, ch = lc - q * HF;
-        dbx_part[b * F4 + q * F + rank * HF + ch] = dbx_run[k];
+          for (int q = 0; q < 4; ++q) {
+            const float2 s = *dxs_at(r, q * HF + lc);
+            *reinterpret_cast<uint32_t*>(dxg_sum + (b * HW + r) * F4 + q * F + ch) =
+                pack_bf16(s.x, s.y);
+          }
+        }
+      }
+    if constexpr (PROJ) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int lc = tid + k * BWD_CONS;
+        if (lc < 4 * HF) {
+          const int q = lc / HF, ch = lc - q * HF;
+          dbx_part[b * F4 + q * F + rank * HF + ch] = dbx_run[k];
+        }
       }
     }
   }
@@ -680,12 +819,13 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
 
 // part[z][m][n] = sum over rows r of split z of A(m, r) * dG[r][n], with
 // A(m, r) row m of [Wx; W]'s input (x_t[p][m] for m < C, else h_{t-1} at the
-// shift of tap (m - C) / F) and dG the bf16 dgates scratch (R x 4F).  CTA
-// tile 128 x BN over WW_BK rows of r a stage, two consumer warpgroups of
-// 64 x BN, WW_STAGES stages of cp.async (A gathered with zero fill at the
-// image border).  A reaches wgmma in registers through ldmatrix.trans from
-// a [r][m] tile; B is read from shared memory as MN-major cores.  A stage's
-// loads are issued while the products of the stage before run.
+// shift of tap (m - C) / F) and dG the bf16 dgates scratch (R x 4F); C = 0
+// gives K6's dW alone.  CTA tile 128 x BN over WW_BK rows of r a stage, two
+// consumer warpgroups of 64 x BN, WW_STAGES stages of cp.async (A gathered
+// with zero fill at the image border).  A reaches wgmma in registers through
+// ldmatrix.trans from a [r][m] tile; B is read from shared memory as MN-major
+// cores.  A stage's loads are issued while the products of the stage before
+// run.
 constexpr int WW_BM = 128, WW_BK = 64, WW_STAGES = 4;
 
 __host__ __device__ inline int wgrad_bn(int F) { return 4 * F >= 256 ? 256 : 64; }
@@ -820,5 +960,44 @@ __global__ void __launch_bounds__(256, 1) wgrad_wgmma_kernel(
     }
 }
 
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+// Launch `kern` on `ctas` CTAs in clusters of 2.
+inline cudaError_t cluster_launch(const void* kern, int ctas, int threads, int smem,
+                                  cudaStream_t stream, void** args) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelExC(&cfg, kern, args);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace mmvae
+
+// F (a multiple of 16 up to 128) as a compile-time constant FF.
+#define MMVAE_FOR_F(F, CALL)          \
+  switch (F) {                        \
+    case 16: { constexpr int FF = 16; CALL; } \
+    case 32: { constexpr int FF = 32; CALL; } \
+    case 48: { constexpr int FF = 48; CALL; } \
+    case 64: { constexpr int FF = 64; CALL; } \
+    case 80: { constexpr int FF = 80; CALL; } \
+    case 96: { constexpr int FF = 96; CALL; } \
+    case 112: { constexpr int FF = 112; CALL; } \
+    case 128: { constexpr int FF = 128; CALL; } \
+    default: return (int)cudaErrorInvalidValue; \
+  }

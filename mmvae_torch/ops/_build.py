@@ -42,13 +42,13 @@ _SIGNATURES = {
     "mmvae_preprocess_gather": [_P, _P, _P, _LL, _LL, _LL, _U, _I, _I, _P],
     "mmvae_convlstm_proj_fwd": [_P] * 8 + [_I] * 8 + [_P],
     "mmvae_convlstm_proj_bwd": [_P] * 13 + [_I] * 6 + [_P],
-    "mmvae_convlstm_proj_wgrad": [_P] * 6 + [_I] * 7 + [_P],
+    "mmvae_convlstm_wgrad": [_P] * 6 + [_I] * 7 + [_P],
     "mmvae_convlstm_proj_layout": [_I, _I, _P],
     "mmvae_convlstm_scan_fwd": [_P] * 7 + [_I] * 8 + [_P],
-    "mmvae_convlstm_scan_bwd": [_P] * 14 + [_I] * 8 + [_P],
-    "mmvae_convlstm_scan_smem": [_I],
+    "mmvae_convlstm_scan_bwd": [_P] * 10 + [_I] * 7 + [_P],
+    "mmvae_convlstm_scan_layout": [_I, _P],
 }
-_RESTYPES = {"mmvae_convlstm_proj_layout": None, "mmvae_convlstm_scan_smem": _LL}
+_RESTYPES = {"mmvae_convlstm_proj_layout": None, "mmvae_convlstm_scan_layout": None}
 
 
 class KernelLibrary:

@@ -9,11 +9,14 @@ the CUDA kernels of `csrc/convlstm_proj.cu` (see its header for the design):
 
 `convlstm_scan_proj` returns only the terminal state (c_T, h_T), the
 encoder's shape.  K6 replaces `convlstm_scan_pallas` with the kernels of
-`csrc/convlstm_scan.cu`: `convlstm_scan` takes xg (the hoisted projection,
-bias included) streaming (B, T, H, W, 4F) or time-constant (B, 1, H, W, 4F)
-with `length=T`, and returns ((c_T, h_T), hs) or, `last_only`, ((c_T, h_T),
-None); gates_t = xg_t + conv3x3_SAME(h_{t-1}, w), the two added in the gate
-dtype as the TPU kernel adds them.
+`csrc/convlstm_scan.cu`, which are K5's Hopper kernels
+(`csrc/convlstm_wgmma.cuh`) without the x segment: `convlstm_scan` takes xg
+(the hoisted projection, bias included) streaming (B, T, H, W, 4F) or
+time-constant (B, 1, H, W, 4F) with `length=T`, and returns ((c_T, h_T), hs)
+or, `last_only`, ((c_T, h_T), None); gates_t = xg_t + conv3x3_SAME(h_{t-1},
+w), the two added in the gate dtype as the TPU kernel adds them.  Both
+kernels' backward passes write their dgates in bf16 for one weight-gradient
+GEMM (`mmvae_convlstm_wgrad`); a streaming xg's dxg is that bf16 scratch.
 
 Inputs share one activation dtype T, which is also the matmul operand dtype;
 accumulation is f32; the pointwise chain and the cell state run in
@@ -40,7 +43,6 @@ import torch.nn.functional as F
 from mmvae_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SMEM = 227 * 1024
 
 
 def _split_gates(gates: torch.Tensor, feat: int):
@@ -158,16 +160,19 @@ def _require_bf16_cuda(what, named):
                             f"bfloat16 activations")
 
 
-# K5's launch geometry, as `csrc/convlstm_wgmma.cuh` (fwd_smem_layout,
-# bwd_smem_layout, wgrad_bn, wgrad_smem) computes it: a change to one is
-# made in both; `_check_cuda` holds them equal, asking the library once per
-# (C, F) (`_layouts`).  One 2-CTA cluster per sample; shared memory
-# per CTA for the forward (weight ring of FWD_ROWS-row slabs, two x tiles,
-# two h tiles, residual staging), the BPTT (ring of BWD_ROWS-row slabs, the
-# dgates tile, the residuals, dbx warp partials) and the weight gradient.
+# The launch geometry of K5 and K6, as `csrc/convlstm_wgmma.cuh`
+# (fwd_smem_layout, bwd_layout, wgrad_bn, wgrad_smem) computes it: a change to
+# one is made in both; the wrappers hold them equal, asking the library once
+# per (C, F) for K5 (`_layouts`) and once per F for K6 (`_scan_layouts`).
+# One 2-CTA cluster per sample; shared memory per CTA for the forward
+# (weight ring of FWD_ROWS-row slabs, K5's two x tiles, two h tiles,
+# residual staging; K6 holds xg in registers), the BPTT (ring, the dgates
+# tile, the residuals, K5's dbx warp partials or the f32 dgates sum of K6's
+# time-constant xg) and the weight gradient.
 SMEM_LIMIT = 232448  # bytes one CTA may use on the H100 (227 KB)
 SMS = 132
 _MROWS, _MIN_STAGES, _MAX_STAGES = 64, 4, 8
+SCAN_BWD_MIN_STAGES = 3  # K6's BPTT with a time-constant xg
 _FWD_ROWS, _BWD_ROWS, _DX_BLOCK = 32, 128, 64
 _WG_BM, _WG_BK, _WG_STAGES = 128, 64, 4
 
@@ -176,23 +181,43 @@ def _round128(v: int) -> int:
     return (v + 127) // 128 * 128
 
 
+def _stages(fixed: int, slot: int) -> int:
+    return min(_MAX_STAGES, (SMEM_LIMIT - fixed) // slot)
+
+
+def _fwd_fixed(cin: int, feat: int, x_tiles: bool = True) -> int:
+    """The forward's shared memory besides its ring (K6 has no x tiles)."""
+    inputs = 2 * _round128((_MROWS + 1) * (cin + 8) * 2) if x_tiles else 0
+    return 1280 + inputs + 2 * _round128((_MROWS + 1) * feat * 2) + _MROWS * 3 * feat * 2
+
+
+def _bwd_fixed(feat: int, tail: int) -> int:
+    """The BPTT's shared memory besides its ring."""
+    return 256 + _round128((_MROWS + 1) * 4 * feat * 2) + _MROWS * 3 * feat * 2 + tail
+
+
+def _wgrad_geometry(rows: int, m: int, feat: int) -> dict:
+    """The weight GEMM over `rows` rows of the dgates scratch for an M x 4F
+    gradient: tile width, tiles, split-K (as many splits as fill the card's
+    SMs, at least 8 stages of rows each) and shared memory."""
+    bn = 256 if 4 * feat >= 256 else 64
+    tiles = -(-m // _WG_BM) * -(-4 * feat // bn)
+    splits = max(1, min(SMS // tiles, rows // (8 * _WG_BK)))
+    return {
+        "wgrad_bn": bn, "wgrad_tiles": tiles, "wgrad_splits": splits,
+        "wgrad_rows_per_split": -(-(-(-rows // splits)) // _WG_BK) * _WG_BK,
+        "wgrad_smem": _WG_STAGES * (_WG_BK * _WG_BM * 2 + _WG_BK * bn * 2) + 256,
+    }
+
+
 @functools.lru_cache(maxsize=None)
 def proj_geometry(batch, t_len, height, width, cin, feat) -> dict:
     """The K5 kernels' launch geometry at (B, T, H, W, C, F): CTAs, ring
     stages and bytes, shared memory per CTA, the weight GEMM's tile width
     and split-K.  Cached: callers read the dict and never change it."""
-    f_slot = _FWD_ROWS * 2 * feat * 2
-    f_fixed = (1280 + 2 * _round128((_MROWS + 1) * (cin + 8) * 2)
-               + 2 * _round128((_MROWS + 1) * feat * 2) + _MROWS * 3 * feat * 2)
-    f_stages = min(_MAX_STAGES, (SMEM_LIMIT - f_fixed) // f_slot)
-    b_slot = _BWD_ROWS * _DX_BLOCK * 2
-    b_fixed = (256 + _round128((_MROWS + 1) * 4 * feat * 2) + _MROWS * 3 * feat * 2
-               + 4 * 2 * feat * 4)
-    b_stages = min(_MAX_STAGES, (SMEM_LIMIT - b_fixed) // b_slot)
-    bn = 256 if 4 * feat >= 256 else 64
-    m, rows = cin + 9 * feat, batch * t_len * height * width
-    tiles = -(-m // _WG_BM) * -(-4 * feat // bn)
-    splits = max(1, min(SMS // tiles, rows // (8 * _WG_BK)))
+    f_slot, f_fixed = _FWD_ROWS * 2 * feat * 2, _fwd_fixed(cin, feat)
+    b_slot, b_fixed = _BWD_ROWS * _DX_BLOCK * 2, _bwd_fixed(feat, 4 * 2 * feat * 4)
+    f_stages, b_stages = _stages(f_fixed, f_slot), _stages(b_fixed, b_slot)
     return {
         "clusters": batch, "ctas": 2 * batch,
         "fwd_stages": f_stages, "fwd_slot_bytes": f_slot,
@@ -200,9 +225,29 @@ def proj_geometry(batch, t_len, height, width, cin, feat) -> dict:
         "bwd_stages": b_stages, "bwd_slot_bytes": b_slot,
         "bwd_ring_bytes": b_stages * b_slot, "bwd_smem": b_fixed + b_stages * b_slot,
         "dx_blocks": -(-(cin // 2) // _DX_BLOCK),
-        "wgrad_bn": bn, "wgrad_tiles": tiles, "wgrad_splits": splits,
-        "wgrad_rows_per_split": -(-(-(-rows // splits)) // _WG_BK) * _WG_BK,
-        "wgrad_smem": _WG_STAGES * (_WG_BK * _WG_BM * 2 + _WG_BK * bn * 2) + 256,
+        **_wgrad_geometry(batch * t_len * height * width, cin + 9 * feat, feat),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def scan_geometry(batch, t_len, height, width, feat, const_input) -> dict:
+    """The K6 kernels' launch geometry at (B, T, H, W, F) for a
+    time-constant xg (the BPTT keeps a (64, 2F) f32 dgates sum) or a
+    streaming one: CTAs, ring stages and bytes, shared memory per CTA, the
+    fewest BPTT stages the kernel takes, and the weight GEMM's (K5's with
+    C = 0).  Cached like `proj_geometry`."""
+    f_slot, f_fixed = _FWD_ROWS * 2 * feat * 2, _fwd_fixed(0, feat, x_tiles=False)
+    b_slot = _BWD_ROWS * feat  # rows of the CTA's F/2 columns
+    b_fixed = _bwd_fixed(feat, _MROWS * 2 * feat * 4 if const_input else 0)
+    f_stages, b_stages = _stages(f_fixed, f_slot), _stages(b_fixed, b_slot)
+    return {
+        "clusters": batch, "ctas": 2 * batch,
+        "fwd_stages": f_stages, "fwd_slot_bytes": f_slot,
+        "fwd_ring_bytes": f_stages * f_slot, "fwd_smem": f_fixed + f_stages * f_slot,
+        "bwd_stages": b_stages, "bwd_slot_bytes": b_slot,
+        "bwd_ring_bytes": b_stages * b_slot, "bwd_smem": b_fixed + b_stages * b_slot,
+        "bwd_min_stages": SCAN_BWD_MIN_STAGES if const_input else _MIN_STAGES,
+        **_wgrad_geometry(batch * t_len * height * width, 9 * feat, feat),
     }
 
 
@@ -285,18 +330,25 @@ def pack_proj_forward(wx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return pack_cores(per_rank.reshape(2, k, 2 * feat))
 
 
-def pack_proj_backward(wx: torch.Tensor, w: torch.Tensor):
-    """The BPTT's two slabs per rank: W^T with rows (tap, n) and the rank's
-    F/2 columns, (2, 9*4F/8, F/16, 8, 8); Wx^T (rows n) with the rank's C/2
-    columns in zero-padded blocks of 64, (2, blocks, 4F/8, 8, 8, 8)."""
-    cin, f4 = wx.shape
-    feat, c2 = f4 // 4, cin // 2
+def pack_hidden_backward(w: torch.Tensor) -> torch.Tensor:
+    """The BPTT's dh slabs per rank (K5 and K6): W^T with rows (tap, n) and
+    the rank's F/2 columns, (2, 9*4F/8, F/16, 8, 8)."""
+    f4 = w.shape[-1]
+    feat = f4 // 4
     wt = w.reshape(9, feat, f4).transpose(1, 2).reshape(9 * f4, feat)
-    wt = wt.view(9 * f4, 2, feat // 2).permute(1, 0, 2)
+    return pack_cores(wt.view(9 * f4, 2, feat // 2).permute(1, 0, 2))
+
+
+def pack_proj_backward(wx: torch.Tensor, w: torch.Tensor):
+    """K5's BPTT slabs per rank: `pack_hidden_backward(w)`, and Wx^T (rows
+    n) with the rank's C/2 columns in zero-padded blocks of 64, (2, blocks,
+    4F/8, 8, 8, 8)."""
+    cin, f4 = wx.shape
+    c2 = cin // 2
     blocks = -(-c2 // _DX_BLOCK)
     wxt = wx.t().reshape(f4, 2, c2).permute(1, 0, 2)
     wxt = F.pad(wxt, (0, blocks * _DX_BLOCK - c2)).view(2, f4, blocks, _DX_BLOCK)
-    return pack_cores(wt), pack_cores(wxt.permute(0, 2, 1, 3))
+    return pack_hidden_backward(w), pack_cores(wxt.permute(0, 2, 1, 3))
 
 
 def proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
@@ -362,7 +414,7 @@ def proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
     m, splits = cin + 9 * feat, geo["wgrad_splits"]
     dw_part = torch.empty(splits, m, f4, device=dev, dtype=torch.float32)
     dw_out = torch.empty(m, f4, device=dev, dtype=torch.float32)
-    err = lib.mmvae_convlstm_proj_wgrad(
+    err = lib.mmvae_convlstm_wgrad(
         x.data_ptr(), hs.data_ptr(), h0.data_ptr(), d_gates.data_ptr(), dw_part.data_ptr(),
         dw_out.data_ptr(), batch, t_len, height, width, cin, feat, splits, stream,
     )
@@ -376,13 +428,6 @@ def proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
         dc0.view(c0.shape),
         dh0.view(h0.shape),
     )
-
-
-def _pack_mma_b(mat: torch.Tensor) -> torch.Tensor:
-    """K6's operands: (K, N) -> mma.m16n8k16 B fragments: [K/16][N/8][lane
-    g*4+t][k-half][pair], lane (g, t) holding B[16kb + 8h + 2t + p][8nb + g]."""
-    k, n = mat.shape
-    return mat.reshape(k // 16, 2, 4, 2, n // 8, 8).permute(0, 4, 5, 2, 1, 3).contiguous()
 
 
 def convlstm_proj_forward(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
@@ -540,36 +585,54 @@ def scan_backward_plain(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
     )
 
 
-def _check_scan(w, c0, h0, **more):
+def _check_scan(w, c0, h0, t_len, const_input, **more):
     """Raise unless the tensors suit the K6 kernels (bf16 activations, F a
-    multiple of 16, F <= 128, at most 64 positions); return the library."""
+    multiple of 16, F <= 128, at most 64 positions, enough ring stages);
+    return the library and the geometry."""
     _require_bf16_cuda("convlstm_scan", (("w", w), ("c0", c0), ("h0", h0), *more.items()))
-    height, width, feat = c0.shape[1:]
+    batch, height, width, feat = c0.shape
     if w.shape != (3, 3, feat, 4 * feat) or h0.shape != c0.shape:
         raise ValueError(f"convlstm_scan: inconsistent shapes w {tuple(w.shape)} "
                          f"c0 {tuple(c0.shape)} h0 {tuple(h0.shape)}")
     if feat % 16 or feat > 128 or height * width > 64:
         raise ValueError(f"convlstm_scan: the CUDA kernels need F a multiple of 16, "
                          f"F <= 128 and H*W <= 64; got F={feat}, H*W={height * width}")
+    geo = scan_geometry(batch, t_len, height, width, feat, const_input)
+    if geo["fwd_stages"] < _MIN_STAGES or geo["bwd_stages"] < geo["bwd_min_stages"]:
+        raise ValueError(f"convlstm_scan: F={feat} leaves too few weight stages in one "
+                         f"CTA's shared memory")
     lib = _build.library()
-    smem = lib.mmvae_convlstm_scan_smem(feat)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"convlstm_scan: F={feat} needs {smem} bytes of shared memory, "
-                         f"more than one CTA has")
-    return lib
+    got, want = _scan_layouts(feat)
+    if got != want:
+        raise RuntimeError(f"convlstm_scan: kernel geometry {got} differs from the "
+                           f"wrapper's {want}")
+    return lib, geo
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_layouts(feat: int):
+    """(the K6 kernels' shared-memory layout at F, `scan_geometry`'s): the
+    forward's stages and bytes, then the BPTT's for a time-constant and for a
+    streaming xg; asked of the library once per F."""
+    got = (ctypes.c_int * 6)()
+    _build.library().mmvae_convlstm_scan_layout(feat, got)
+    const, stream = (scan_geometry(1, 1, 8, 8, feat, c) for c in (True, False))
+    want = (const["fwd_stages"], const["fwd_smem"], const["bwd_stages"], const["bwd_smem"],
+            stream["bwd_stages"], stream["bwd_smem"])
+    return tuple(got), want
 
 
 def scan_forward_cuda(xg, w, c0, h0, length, gate_dtype, mode: str):
     """CUDA forward; same contract as `scan_forward_plain`."""
-    lib = _check_scan(w, c0, h0, xg=xg)
+    batch, t_in, height, width, f4 = xg.shape
+    lib, _ = _check_scan(w, c0, h0, length, t_in == 1, xg=xg)
     if gate_dtype not in _DTYPE_CODE:
         raise TypeError(f"convlstm_scan: gate dtype {gate_dtype} not supported")
-    batch, t_in, height, width, f4 = xg.shape
     feat = f4 // 4
     hw = height * width
-    if (batch, height, width, feat) != tuple(c0.shape):
+    if (batch, height, width, feat) != tuple(c0.shape) or t_in not in (1, length):
         raise ValueError(f"convlstm_scan: xg {tuple(xg.shape)} does not fit c0 "
-                         f"{tuple(c0.shape)}")
+                         f"{tuple(c0.shape)} and length {length}")
     xg, c0, h0 = (t.contiguous() for t in (xg, c0, h0))
     kw = dict(device=xg.device, dtype=xg.dtype)
     if mode == "save":
@@ -581,11 +644,11 @@ def scan_forward_cuda(xg, w, c0, h0, length, gate_dtype, mode: str):
     else:
         outs = (torch.empty(batch, hw, feat, **kw), torch.empty(batch, hw, feat, **kw))
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
-    wpk = _pack_mma_b(w.reshape(9 * feat, f4))
+    wpk = pack_proj_forward(w.new_empty(0, f4), w)
     err = lib.mmvae_convlstm_scan_fwd(
         xg.data_ptr(), wpk.data_ptr(), c0.data_ptr(), h0.data_ptr(), *ptrs,
-        batch, length, int(t_in == 1 and length > 1), height, width, feat,
-        _DTYPE_CODE[gate_dtype], _SCAN_MODES[mode], _build.stream_ptr(xg.device),
+        batch, length, t_in, height, width, feat, _DTYPE_CODE[gate_dtype], _SCAN_MODES[mode],
+        _build.stream_ptr(xg.device),
     )
     _build.check(err, "convlstm_scan_fwd")
     convlstm_scan_forward.launches += 1
@@ -596,33 +659,47 @@ def scan_backward_cuda(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
                        last_only: bool):
     """CUDA backward (BPTT, then the weight-gradient GEMM); same contract as
     `scan_backward_plain`."""
-    lib = _check_scan(w, c0, h0, hs=hs, cs=cs, ga=ga)
     batch, t_len, hw, feat = hs.shape
+    lib, geo = _check_scan(w, c0, h0, t_len, const_input, hs=hs, cs=cs, ga=ga)
     height, width = c0.shape[1:3]
     f4 = 4 * feat
     act = hs.dtype
-    wtpk = _pack_mma_b(w.reshape(9, feat, f4).transpose(1, 2).reshape(9 * f4, feat))
     c0, h0, hs, cs, ga = (t.contiguous() for t in (c0, h0, hs, cs, ga))
     dhs = dh.to(act).contiguous()
     dcl = dc_last.to(act).contiguous()
+    if (cs.shape != hs.shape or ga.shape != (batch, t_len, hw, f4)
+            or hw != height * width or c0.shape[0] != batch
+            or dhs.numel() != batch * (1 if last_only else t_len) * hw * feat
+            or dcl.numel() != batch * hw * feat):
+        raise ValueError(f"convlstm_scan: residuals {tuple(hs.shape)}, {tuple(cs.shape)}, "
+                         f"{tuple(ga.shape)} or cotangents {tuple(dh.shape)}, "
+                         f"{tuple(dc_last.shape)} do not fit c0 {tuple(c0.shape)}")
     dev = hs.device
-    rows = batch * t_len * hw
-    splits = max(1, min(8, rows // 8192))
-    d_gates = torch.empty(batch, t_len, hw, f4, device=dev, dtype=torch.float32)
-    dxg = torch.empty(batch, 1 if const_input else t_len, height, width, f4, device=dev,
-                      dtype=act)
+    stream = _build.stream_ptr(dev)
+    wtpk = pack_hidden_backward(w)
+    if const_input:
+        dxg = torch.empty(batch, 1, height, width, f4, device=dev, dtype=act)
+        d_gates = torch.empty(batch, t_len, hw, f4, device=dev, dtype=torch.bfloat16)
+    else:
+        # the bf16 dgates the weight GEMM reads are dxg itself
+        dxg = torch.empty(batch, t_len, height, width, f4, device=dev, dtype=act)
+        d_gates = dxg
     dc0 = torch.empty(batch, hw, feat, device=dev, dtype=act)
     dh0 = torch.empty_like(dc0)
-    dw_part = torch.empty(splits, 9 * feat, f4, device=dev, dtype=torch.float32)
-    dw_out = torch.empty(9 * feat, f4, device=dev, dtype=torch.float32)
     err = lib.mmvae_convlstm_scan_bwd(
-        wtpk.data_ptr(), c0.data_ptr(), h0.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-        ga.data_ptr(), dhs.data_ptr(), dcl.data_ptr(), d_gates.data_ptr(), dxg.data_ptr(),
-        dc0.data_ptr(), dh0.data_ptr(), dw_part.data_ptr(), dw_out.data_ptr(),
-        batch, t_len, height, width, feat, int(const_input), int(last_only), splits,
-        _build.stream_ptr(dev),
+        wtpk.data_ptr(), c0.data_ptr(), cs.data_ptr(), ga.data_ptr(), dhs.data_ptr(),
+        dcl.data_ptr(), d_gates.data_ptr(), dxg.data_ptr(), dc0.data_ptr(), dh0.data_ptr(),
+        batch, t_len, height, width, feat, int(const_input), int(last_only), stream,
     )
     _build.check(err, "convlstm_scan_bwd")
+    splits = geo["wgrad_splits"]
+    dw_part = torch.empty(splits, 9 * feat, f4, device=dev, dtype=torch.float32)
+    dw_out = torch.empty(9 * feat, f4, device=dev, dtype=torch.float32)
+    err = lib.mmvae_convlstm_wgrad(  # C = 0: hs stands in for the x it never reads
+        hs.data_ptr(), hs.data_ptr(), h0.data_ptr(), d_gates.data_ptr(), dw_part.data_ptr(),
+        dw_out.data_ptr(), batch, t_len, height, width, 0, feat, splits, stream,
+    )
+    _build.check(err, "convlstm_wgrad")
     convlstm_scan_backward.launches += 1
     return (
         dxg,

@@ -144,6 +144,21 @@ def proj_backward_repeatable(dev, shape, seed: int = 12) -> dict:
             for n, a, b in zip(("dx", "dWx", "dbx", "dW", "dc0", "dh0"), first, second)}
 
 
+def scan_backward_repeatable(dev, shape, const: bool, seed: int = 14) -> dict:
+    """K6's backward twice on the same inputs (bf16 gates, per-step dhs) at
+    shape (B, T, H, W, F), time-constant or streaming xg: {gradient name:
+    bit-identical}.  The kernels sum in fixed orders, without float atomics."""
+    b, t, h, w, f = shape
+    xg, wh, c0, h0 = scan_inputs(dev, b, 1 if const else t, h, w, f, seed)
+    res = ck.scan_forward_cuda(xg, wh, c0, h0, t, torch.bfloat16, "save")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dhs = torch.randn(res[0].shape, generator=g, device=dev)
+    dc = torch.randn(c0.shape, generator=g, device=dev)
+    first = ck.scan_backward_cuda(wh, c0, h0, *res, dhs, dc, const, False)
+    second = ck.scan_backward_cuda(wh, c0, h0, *res, dhs, dc, const, False)
+    return {n: torch.equal(a, b_) for n, a, b_ in zip(("dxg", "dW", "dc0", "dh0"), first, second)}
+
+
 def compare_scan(dev, shape, const: bool, gate_dtype, seed: int = 8) -> Comparison:
     """K6 at shape (B, T, H, W, F) with a time-constant or streaming xg: the
     saving forward, the two residual-free ones (every h_t; last-only), and

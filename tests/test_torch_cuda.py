@@ -141,6 +141,24 @@ def test_scan_kernel_matches_plain(dev, shape, const, gate_dtype):
     kernel_checks.compare_scan(dev, shape, const, gate_dtype).check(f"convlstm_scan {shape}")
 
 
+@pytest.mark.parametrize("const", [True, False])
+@pytest.mark.parametrize("shape", [(3, 7, 5, 6, 32), (64, 10, 8, 8, 128)])
+def test_scan_backward_is_bit_reproducible(dev, shape, const):
+    """Two K6 backward calls on the same inputs give bit-identical gradients
+    (dW and a time-constant xg's dxg sum included), at an unaligned shape
+    and at config 4's decoder."""
+    same = kernel_checks.scan_backward_repeatable(dev, shape, const)
+    assert all(same.values()), same
+
+
+@pytest.mark.parametrize("feat", [128, 112, 64, 48, 32, 16])
+def test_scan_layout_matches_the_wrapper(dev, feat):
+    """K6's shared-memory layout as the library computes it, for a
+    time-constant and a streaming xg, equals `scan_geometry`'s."""
+    got, want = ck._scan_layouts(feat)
+    assert got == want
+
+
 def test_scan_kernel_refuses_f32_activations(dev):
     xg, wh, c0, h0 = (t.float() for t in kernel_checks.scan_inputs(dev, 2, 1, 4, 4, 16, 11))
     with pytest.raises(TypeError, match="bfloat16"):
