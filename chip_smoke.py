@@ -21,25 +21,30 @@ Phases, each raising on failure (the script catches nothing):
    share of it; K1, K2 and K3, which take tens of microseconds, timed on
    the device by replaying a CUDA graph of 20 calls (the host's launch
    path is longer than they are; K1 and K3 on a cold L2), K1 beside the
-   one PyTorch call that computes its BCE sum (`library_ms`); K5's and
-   K6's backward (K6 with a time-constant and a streaming xg) run twice and
-   required bit-identical; then each config's
-   full-width model (seq_vae;
-   pred_vae and hier_vae with fused=true), forward and gradients on a small
-   input, on the card through the kernels against the CPU through the plain
-   versions;
+   one PyTorch call that computes its BCE sum (`library_ms`); the fused
+   Gaussian head and sample (`head_sample_forward` / `_backward`, which
+   replace K2 on the train steps) at each sampling site, timed in CUDA
+   graphs beside the route they replace (a cast, two F.linear and K2, with
+   its autograd backward: `library_ms`); K5's, K6's and the head's backward
+   (K6 with a time-constant and a streaming xg) run twice and required
+   bit-identical; then each config's full-width model (seq_vae; pred_vae
+   and hier_vae with fused=true), forward and gradients on a small input,
+   eps injected through the train step's sample function, on the card
+   through the kernels against the CPU through the plain versions;
 4. the slices through `run_benchmark` at full width, each with the launch
    counters set to 0 just before it and read just after: config 3
-   `seq_vae` (64 clips x 20 frames, its five kernels; K6 not launched),
-   config 4 `pred_vae` and config 5 `hier_vae` (16 clips x 100 frames) with
-   `model.kwargs.fused=true` (K1, K2, K3, K5 and K6), 3 timed windows of 20
-   train steps after 5 warmup steps, losses finite and falling; then config
-   3 with fused=true once more, timed beside the default, as a measurement
-   of the decoder policy (not adopted).  No jax imported.
+   `seq_vae` (64 clips x 20 frames: K1, K3, K5 and the head; K6 not
+   launched), config 4 `pred_vae` and config 5 `hier_vae` (16 clips x 100
+   frames) with `model.kwargs.fused=true` (K1, K3, K5, K6 and the head),
+   the standalone K2 launched on none, 3 timed windows of 20 train steps
+   after 5 warmup steps, losses finite and falling; then config 3 with
+   fused=true once more, timed beside the default, as a measurement of the
+   decoder policy (not adopted).  No jax imported.
 The last three lines are the card, the kernels' JSON line (`launches`: the
-count from the kernel's own path, config 3 for K1-K5 and config 4 for K6;
-`launches_by_path`: each path's run), and {"ok": true, "device": {...}}.  Exits
-non-zero with no result when CUDA is not available.
+count from the kernel's own path, config 3 for K1, K3, K5 and the head,
+config 4 for K6, 0 for the standalone K2; `launches_by_path`: each path's
+run), and {"ok": true, "device": {...}}.  Exits non-zero with no result when
+CUDA is not available.
 """
 
 from __future__ import annotations
@@ -58,6 +63,10 @@ _KERNELS = {
                     "mmvae_tpu/ops/elbo_pallas.py:173"),
     "reparameterize": ("triton", "mmvae_torch/ops/elbo_kernels.py",
                        "mmvae_tpu/ops/elbo_pallas.py:272"),
+    "head_sample_forward": ("cuda", "mmvae_torch/csrc/head_sample.cu",
+                            "mmvae_tpu/ops/elbo_pallas.py:272"),
+    "head_sample_backward": ("cuda", "mmvae_torch/csrc/head_sample.cu",
+                             "mmvae_tpu/ops/elbo_pallas.py:261"),
     "convlstm_proj_forward": ("cuda", "mmvae_torch/csrc/convlstm_proj.cu",
                               "mmvae_tpu/ops/convlstm_pallas.py:760"),
     "convlstm_proj_backward": ("cuda", "mmvae_torch/csrc/convlstm_proj.cu",
@@ -69,7 +78,11 @@ _KERNELS = {
 }
 _K5 = ("convlstm_proj_forward", "convlstm_proj_backward")
 _K6 = ("convlstm_scan_forward", "convlstm_scan_backward")
-_STEP = ("preprocess_gather", "elbo_reduce", "reparameterize")
+_HEAD = ("head_sample_forward", "head_sample_backward")
+_STEP = ("preprocess_gather", "elbo_reduce") + _HEAD
+# The standalone sampling kernel: for a bare (mu, logvar); the train steps
+# sample through the fused head and must not launch it.
+_K2 = ("reparameterize",)
 
 
 def _require(cond: bool, what: str) -> None:
@@ -96,34 +109,9 @@ _GRAPH_CALLS = 20
 
 
 def _graph_ms(calls, reps: int = 10) -> float:
-    """Device time of one call: a CUDA graph of the calls in `calls`, in
-    order, replayed `reps` times between two CUDA events, so the host's
-    launch path is not timed (the tiny kernels take tens of microseconds,
-    less than a launch from Python).  Where each call reads its own copy of
-    the inputs, the 19 calls between two reads of one copy move more than
-    the card's 50 MB of L2, so every call reads its inputs from HBM, as the
-    bound counts them; one call repeated reads them from L2."""
-    import torch
+    from mmvae_torch.bench.ab import graph_ms
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for fn in calls[:3]:
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for fn in calls:
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (len(calls) * reps)
+    return graph_ms(calls, reps)
 
 
 def _bound(name: str, shape) -> tuple:
@@ -199,10 +187,13 @@ def path_shapes() -> dict:
     {kernel: {shape: [the runs that give it]}}.  preprocess: (clips in the
     resident set, frames a clip, batch); elbo: (logits, mu); reparameterize:
     (shape, salt); convlstm_proj: (B, T, H, W, C, F); convlstm_scan: (B, T,
-    H, W, F), time-constant xg."""
+    H, W, F), time-constant xg; head: (M, K, N, x dtype) of each sampling
+    site."""
+    import torch
+
     from mmvae_torch.configs import get_config
 
-    out = {k: {} for k in ("preprocess", "elbo", "reparam", "proj", "scan")}
+    out = {k: {} for k in ("preprocess", "elbo", "reparam", "head", "proj", "scan")}
     for name, overrides, launched, _ in (*_SLICES, _POLICY):
         cfg = get_config(name, overrides)
         kw = _model_kwargs(cfg)
@@ -217,13 +208,20 @@ def path_shapes() -> dict:
             k = t // kw["chunk_len"]
             enc = dec = (b * k, kw["chunk_len"])
             samples = [((b, kw["global_latent"]), 0), ((b * k, kw["chunk_latent"]), 1)]
+            # the global head reads the pooled chunk features, the chunk
+            # head q_hidden's 256 outputs, both f32
+            heads = [(b, kw["chunk_feature"], kw["global_latent"], torch.float32),
+                     (b * k, 256, kw["chunk_latent"], torch.float32)]
         else:
             samples = [((b, kw["latent_dim"]), 0)]
+            heads = [(b, grid * grid * feat, kw["latent_dim"],
+                      {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.model.dtype])]
         clips = max(int(cfg.data.num_sequences * cfg.data.train_fraction), b)
         groups = {
             "preprocess": [(clips, t, b)],
             "elbo": [((b, scored, size, size), samples[0][0])],
             "reparam": samples,
+            "head": heads,
             "proj": [(*enc, grid, grid, kw["enc_channels"][-1], feat)],
             "scan": [(*dec, grid, grid, feat)] if _K6[0] in launched else [],
         }
@@ -418,6 +416,94 @@ def check_reparam(dev, shapes) -> dict:
             "bound_by": by, "library_ms": None}
 
 
+def check_head_sample(dev, shapes) -> tuple:
+    """The fused Gaussian head and sample at each sampling site's (M, K, N,
+    x dtype) and at two unaligned shapes: forward with eps injected and the
+    three gradients against the plain version (`kernel_checks.compare_head`
+    and its tolerances); at the sites eps's moments, seeds that decide eps,
+    the backward bit-identical over two calls, and the time of both kernels
+    (CUDA graphs, every call on its own copy of the inputs: cold L2) beside
+    the parent route's on the same inputs (a cast, two F.linear and the
+    Triton K2; its backward through autograd, timed as forward+backward less
+    forward), as `library_ms`."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmvae_torch.ops import head_kernels as hk
+    from mmvae_torch.ops import kernel_checks as kc
+    from mmvae_torch.ops import seeds
+    from mmvae_torch.ops.elbo_kernels import reparameterize
+
+    worst_f = worst_b = 0.0
+    for shape in (*shapes, (5, 37, 3, torch.bfloat16), (70, 300, 21, torch.float32)):
+        cmp = kc.compare_head(dev, shape)
+        print(f"[kernel] head_sample {shape}: {cmp.text()}")
+        cmp.check(f"head_sample {shape}")
+        worst_f, worst_b = max(worst_f, cmp.fwd_err), max(worst_b, cmp.bwd_err)
+    first = None
+    for shape, runs in shapes.items():
+        m, k, n, xdt = shape
+        seed = seeds.stream_seed(1234, seeds.STREAM_REPARAM)
+        eps = kc.head_eps(dev, shape, 30, seed)
+        cnt = eps.numel()
+        mean, var = eps.mean().item(), eps.var().item()
+        _require(abs(mean) <= 5 / math.sqrt(cnt) and abs(var - 1) <= 5 * math.sqrt(2 / cnt),
+                 f"head_sample {shape} eps moments mean {mean:.4f} var {var:.4f}")
+        _require(torch.equal(eps, kc.head_eps(dev, shape, 30, seed))
+                 and not torch.equal(eps, kc.head_eps(dev, shape, 30, seed + 1)),
+                 f"head_sample {shape}: the seed does not determine eps")
+        same = kc.head_backward_repeatable(dev, shape)
+        _require(all(same.values()), f"head_sample backward at {shape} differs between two "
+                                     f"calls: {same}")
+        copies = [kc.head_inputs(dev, m, k, n, xdt, 40 + i) for i in range(_GRAPH_CALLS)]
+        cots = kc.head_cotangents(dev, m, n, 41)[1:]
+        diffs = [hk.head_sample_forward_cuda(*c, seed)[3] for c in copies]
+        fwd_ms = _graph_ms([lambda c=c: hk.head_sample_forward_cuda(*c, seed) for c in copies])
+        bwd_ms = _graph_ms([lambda c=c, d=d: hk.head_sample_backward_cuda(
+            c[0], c[1], c[3], d, *cots) for c, d in zip(copies, diffs)])
+        leaves = [[t.detach().clone().requires_grad_() for t in c] for c in copies]
+        del diffs
+
+        def parent(c, backward):  # the route before the fusion, in the models' order
+            xf = c[0].float()
+            mu, lv = F.linear(xf, c[1], c[2]), F.linear(xf, c[3], c[4])
+            z = reparameterize(mu, lv, seed)
+            if backward:
+                torch.autograd.backward((mu, lv, z), cots)
+
+        def fused(c):
+            torch.autograd.backward(hk.gaussian_head_sample(*c, seed), cots)
+
+        lib_fwd = _graph_ms([lambda c=c: parent(c, False) for c in leaves])
+        lib_fb = _graph_ms([lambda c=c: parent(c, True) for c in leaves])
+        fused_fb = _graph_ms([lambda c=c: fused(c) for c in leaves])
+        del leaves, copies
+        x, w_mu, b_mu, w_lv, b_lv = kc.head_inputs(dev, m, k, n, xdt, 40)
+        d = hk.head_sample_forward_plain(x, w_mu, b_mu, w_lv, b_lv, seed)[3]
+        plain = (_time_ms(lambda: hk.head_sample_forward_plain(x, w_mu, b_mu, w_lv, b_lv,
+                                                               seed), 20),
+                 _time_ms(lambda: hk.head_sample_backward_plain(x, w_mu, w_lv, d, *cots), 20))
+        lib_bwd = lib_fb - lib_fwd
+        bkey = (m, k, n, torch.finfo(xdt).bits // 8)
+        first = first or (fwd_ms, bwd_ms, plain, lib_fwd, lib_bwd, bkey)
+        print(f"[kernel] head_sample {shape} ({_runs(runs)}): eps mean {mean:.4f} var {var:.4f} "
+              f"(limits 5 sigma: {5 / math.sqrt(cnt):.4f}, {5 * math.sqrt(2 / cnt):.4f}); "
+              f"backward bit-identical over two calls ({', '.join(same)}); forward "
+              f"{fwd_ms:.4f} ms on the device (CUDA graph, cold L2), "
+              f"{_share(fwd_ms, 'head_sample_forward', bkey)}; backward {bwd_ms:.4f} ms, "
+              f"{_share(bwd_ms, 'head_sample_backward', bkey)}; plain {plain[0]:.4f} / "
+              f"{plain[1]:.4f} ms; parent route (cast, 2 F.linear, Triton K2) forward "
+              f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms (forward+backward {lib_fb:.4f} "
+              f"against the fused op's {fused_fb:.4f})")
+    fwd_ms, bwd_ms, plain, lib_fwd, lib_bwd, bkey = first
+    fb, fby = _bound("head_sample_forward", bkey)
+    bb, bby = _bound("head_sample_backward", bkey)
+    return ({"max_abs_err": worst_f, "ms": fwd_ms, "plain_ms": plain[0], "bound_ms": fb,
+             "bound_by": fby, "library_ms": lib_fwd},
+            {"max_abs_err": worst_b, "ms": bwd_ms, "plain_ms": plain[1], "bound_ms": bb,
+             "bound_by": bby, "library_ms": lib_bwd})
+
+
 def check_convlstm(dev, shapes) -> tuple:
     """K5 (bf16 activations, the only ones its kernels take) at each path's
     (B, T, H, W, C, F) and at an unaligned one (5x6 positions, odd T), both
@@ -539,7 +625,8 @@ def _rel_l2(a, b) -> float:
 def check_model(dev, name: str, frames: int, overrides=()) -> None:
     """A config's model at full width on a small input (2 clips x `frames`
     frames): forward and every parameter gradient on the card, through the
-    kernels, against the same model on the CPU, through the plain versions.
+    kernels (the heads through the fused head and sample, eps injected),
+    against the same model on the CPU, through the plain versions.
     The kernels take bf16 activations, so the card runs bf16 with f32 gates
     and with bf16 gates (production).  The two devices round different
     partial sums to bf16, so each tensor is held to the CPU's f32 result:
@@ -550,23 +637,24 @@ def check_model(dev, name: str, frames: int, overrides=()) -> None:
     import torch
 
     from mmvae_torch.configs import get_config
+    from mmvae_torch.ops.dispatch import make_sample_fn
     from mmvae_torch.ops.elbo_kernels import elbo_reduce
     from mmvae_torch.train.loop import build_model
 
     g = torch.Generator().manual_seed(7)
     x = (torch.rand(2, frames, 64, 64, generator=g) < 0.35).float()
-    noise = {}
-
-    def sample(device):
-        # eps per sampling call (salt), drawn once on the CPU and injected
-        def fn(m, v, salt=0):
-            if salt not in noise:
-                noise[salt] = torch.randn(m.shape, generator=g)
-            return m + torch.exp(0.5 * v) * noise[salt].to(device)
-        return fn
+    # eps per sampling site (salt), drawn once on the CPU and injected through
+    # the train step's sample function, so every head runs the fused op
+    kw = _model_kwargs(get_config(name, overrides))
+    if name == "hier_vae":
+        sites = {0: (2, kw["global_latent"]),
+                 1: (2 * (frames // kw["chunk_len"]), kw["chunk_latent"])}
+    else:
+        sites = {0: (2, kw["latent_dim"])}
+    noise = {salt: torch.randn(shape, generator=g) for salt, shape in sites.items()}
 
     def run(model, device):
-        out = model(x.to(device), sample(device))
+        out = model(x.to(device), make_sample_fn(0, noise))
         bce, kl = elbo_reduce(out.logits, out.target, out.mu, out.logvar)
         ((bce + kl + out.extra_kl) / 2).backward()
         res = {"logits": out.logits, "mu": out.mu, "logvar": out.logvar}
@@ -604,10 +692,13 @@ def phase_kernels(dev) -> dict:
     shapes = path_shapes()
     fwd, bwd = check_convlstm(dev, shapes["proj"])
     sfwd, sbwd = check_convlstm_scan(dev, shapes["scan"])
+    hfwd, hbwd = check_head_sample(dev, shapes["head"])
     return {
         "preprocess_gather": check_preprocess(dev, shapes["preprocess"]),
         "elbo_reduce": check_elbo(dev, shapes["elbo"]),
         "reparameterize": check_reparam(dev, shapes["reparam"]),
+        "head_sample_forward": hfwd,
+        "head_sample_backward": hbwd,
         "convlstm_proj_forward": fwd,
         "convlstm_proj_backward": bwd,
         "convlstm_scan_forward": sfwd,
@@ -623,12 +714,12 @@ def phase_models(dev) -> None:
 
 # (config, overrides, kernels that must launch, kernels that must not)
 _SLICES = (
-    ("seq_vae", (), _STEP + _K5, _K6),
-    ("pred_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, ()),
-    ("hier_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, ()),
+    ("seq_vae", (), _STEP + _K5, _K6 + _K2),
+    ("pred_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, _K2),
+    ("hier_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, _K2),
 )
 # Policy measurement, recorded and not adopted: config 3's decoder through K6.
-_POLICY = ("seq_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, ())
+_POLICY = ("seq_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, _K2)
 
 
 def run_slice(card: str, name: str, overrides, launched, idle) -> dict:
@@ -671,11 +762,12 @@ def phase_slice(card: str) -> dict:
             for name, overrides, launched, idle in (*_SLICES, _POLICY)}
 
 
-def _own_path(kernel: str) -> str:
+def _own_path(kernel: str):
     """The first slice whose path launches `kernel`: config 3 (the main
-    path) for K1-K5, config 4 fused for K6."""
-    return next(_tag(name, overrides) for name, overrides, launched, _ in _SLICES
-                if kernel in launched)
+    path) for K1, K3, K5 and the head, config 4 fused for K6; None for the
+    standalone K2, which no train step launches."""
+    return next((_tag(name, overrides) for name, overrides, launched, _ in _SLICES
+                 if kernel in launched), None)
 
 
 def main() -> int:
@@ -698,7 +790,7 @@ def main() -> int:
     for name, (route, source, replaces) in _KERNELS.items():
         own = _own_path(name)
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": by_path[own][name], "launches_path": own,
+                        "launches": by_path[own][name] if own else 0, "launches_path": own,
                         "launches_by_path": {tag: c[name] for tag, c in by_path.items()},
                         **checks[name]})
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -9,13 +9,16 @@ milliseconds against the published peaks of one H100 SXM (NVIDIA's data
 sheet, dense, at the full 700 W power limit): the larger of operations over
 the peak rate of their type and bytes over the memory rate.  The ConvLSTM
 kernels (K5, K6) run their products on the tensor cores in bf16; the others
-do elementwise f32 work outside them.
+do f32 work outside them (the Gaussian head's products too: full f32, as
+the reference computes the posterior).
 
 Shapes, as `chip_smoke.path_shapes` keys them:
 
     preprocess_gather        (clips in the set, frames a clip, batch)
     elbo_reduce              ((logits shape), (mu shape))
     reparameterize           (mu shape)
+    head_sample_forward      (M, K, N, bytes of an x element): x (M, K), latent N
+    head_sample_backward     (M, K, N, bytes of an x element)
     convlstm_proj_forward    (B, T, H, W, C, F), saving residuals
     convlstm_proj_backward   (B, T, H, W, C, F)
     convlstm_scan_forward    (B, T, H, W, F, const), saving residuals
@@ -66,6 +69,16 @@ def kernel_work(name: str, shape) -> Tuple[float, float]:
     if name == "reparameterize":
         n = _n(shape)
         return float(n * _REPARAM_OPS), float(3 * n * 4)  # mu, logvar in; z out
+    if name.startswith("head_sample"):
+        m, k, n, xb = shape
+        x, w, mn = m * k * xb, 2 * n * k * 4, m * n * 4
+        products = 2.0 * m * k * 2 * n  # x against W_mu and W_lv
+        if name == "head_sample_forward":
+            # x, both weights and biases in; mu, logvar, z and z - mu out
+            return products + m * n * (_REPARAM_OPS + 2), float(x + w + 2 * n * 4 + 4 * mn)
+        # x, weights, z - mu and the three cotangents in; dx, dW, db out: dx
+        # and dW each the products' count again, plus the dmu/dlv prologue
+        return 2 * products + m * n * 4, float(x + w + 4 * mn + x + w + 2 * n * 4)
     if name.startswith("convlstm_proj"):
         b, t, h, w, c, f = shape
         rows, f4, k = b * t * h * w, 4 * f, c + 9 * f

@@ -21,24 +21,10 @@
 // load when rows are 16-byte multiples, 16-byte stores, and four Philox
 // calls.  The Philox counter is the element's offset in the batch and the key
 // the stream seed, so the bits do not depend on the launch shape.
-#include "common.cuh"
+#include "philox.cuh"
 
 namespace mmvae {
 namespace {
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
-  constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-  constexpr uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(M0, ctr.x), lo0 = M0 * ctr.x;
-    const uint32_t hi1 = __umulhi(M1, ctr.z), lo1 = M1 * ctr.z;
-    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
-    key.x += W0;
-    key.y += W1;
-  }
-  return ctr;
-}
 
 constexpr int EPT = 16;  // output elements per thread
 
@@ -79,9 +65,7 @@ __global__ void preprocess_gather_kernel(const uint8_t* __restrict__ data,
     const float scale = 16777216.0f / 255.0f;
 #pragma unroll
     for (int g = 0; g < EPT / 4; ++g) {
-      const unsigned long long c = (unsigned long long)(e0 / 4 + g);
-      const uint4 r = philox4x32_10(make_uint4((uint32_t)c, (uint32_t)(c >> 32), 0u, 0u),
-                                    make_uint2(seed, 0x6D6D7661u));
+      const uint4 r = philox_draw((unsigned long long)(e0 / 4 + g), seed);
       const uint32_t words[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {

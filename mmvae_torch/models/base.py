@@ -20,6 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mmvae_torch.ops.head_kernels import gaussian_head_sample
+
 # sample_fn(mu, logvar, salt=0) -> z
 SampleFn = Callable[..., torch.Tensor]
 
@@ -113,6 +115,26 @@ def linear_f32(x, lin: nn.Linear):
     return F.linear(x.float(), lin.weight, lin.bias)
 
 
+def head_and_sample(x, lin_mu: nn.Linear, lin_lv: nn.Linear, sample_fn: SampleFn,
+                    salt: int = 0):
+    """(mu, logvar, z) of a sampling site: mu and logvar are f32 Linears of
+    x (B, K), z their sample.  A sample function that names its stream seed
+    (`dispatch.make_sample_fn`'s) takes the fused head and sample
+    (`ops.head_kernels.gaussian_head_sample`: one kernel each way on the
+    card), with its injected eps where it carries one; any other callable
+    gets two `linear_f32` and `sample_fn(mu, logvar, salt=salt)`."""
+    stream_seed = getattr(sample_fn, "stream_seed", None)
+    if stream_seed is None:
+        xf = x.float()  # one cast: dx sums in f32 and rounds once, as the fused op
+        mu, logvar = linear_f32(xf, lin_mu), linear_f32(xf, lin_lv)
+        return mu, logvar, sample_fn(mu, logvar, salt=salt)
+    eps = sample_fn.noise(salt)
+    if eps is not None:
+        eps = eps.to(x.device, torch.float32).contiguous()
+    return gaussian_head_sample(x.contiguous(), lin_mu.weight, lin_mu.bias, lin_lv.weight,
+                                lin_lv.bias, stream_seed(salt), eps)
+
+
 class ConvEncoder(nn.Module):
     """4x4 / stride-2 conv + relu stack: (N, 1, 64, 64) -> (N, C_last, 8, 8)."""
 
@@ -181,3 +203,8 @@ class GaussianHead(nn.Module):
     def forward(self, h_nhwc):
         flat = h_nhwc.reshape(h_nhwc.shape[0], -1).float()
         return linear_f32(flat, self.mu), linear_f32(flat, self.logvar)
+
+    def sample(self, h_nhwc, sample_fn: SampleFn):
+        """(mu, logvar, z) through `head_and_sample`; x keeps its dtype."""
+        return head_and_sample(h_nhwc.reshape(h_nhwc.shape[0], -1), self.mu, self.logvar,
+                               sample_fn)

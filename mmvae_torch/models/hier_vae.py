@@ -32,6 +32,7 @@ from mmvae_torch.models.base import (
     RecurrentLinear,
     SampleFn,
     VAEOutput,
+    head_and_sample,
     linear_f32,
 )
 from mmvae_torch.models.convlstm import ConvLSTM
@@ -184,17 +185,15 @@ class HierVideoVAE(nn.Module):
         cf = self.chunk_features(x)  # (B, K, chunk_feature)
         k = cf.shape[1]
         pooled = cf.mean(dim=1)
-        mu_g, logvar_g = linear_f32(pooled, self.g_mu), linear_f32(pooled, self.g_logvar)
-        z_g = sample_fn(mu_g, logvar_g)
+        mu_g, logvar_g, z_g = head_and_sample(pooled, self.g_mu, self.g_logvar, sample_fn)
 
         zg_rep = z_g[:, None].expand(b, k, z_g.shape[-1])
         qin = torch.cat([cf, zg_rep], dim=-1).reshape(b * k, -1)
         hq = torch.tanh(linear_f32(qin, self.q_hidden))
-        mu_c = linear_f32(hq, self.q_mu).reshape(b, k, self.chunk_latent)
-        logvar_c = linear_f32(hq, self.q_logvar).reshape(b, k, self.chunk_latent)
-        z_c = sample_fn(
-            mu_c.reshape(b * k, -1), logvar_c.reshape(b * k, -1), salt=1
-        ).reshape(b, k, self.chunk_latent)
+        mu_c, logvar_c, z_c = (
+            t.reshape(b, k, self.chunk_latent)
+            for t in head_and_sample(hq, self.q_mu, self.q_logvar, sample_fn, salt=1)
+        )
 
         mu_p, logvar_p = self.prior_params(z_g, z_c)
         extra_kl = gaussian_kl(mu_c, logvar_c, mu_p, logvar_p)

@@ -74,14 +74,19 @@ class PredSeqVAE(nn.Module):
             device=device,
         )
 
-    def encode_context(self, ctx: torch.Tensor):
-        """(B, Tc, H, W) -> (terminal state (c_T, h_T), (mu, logvar))."""
+    def context_state(self, ctx: torch.Tensor):
+        """(B, Tc, H, W) -> the encoder's terminal state (c_T, h_T)."""
         b, t = ctx.shape[:2]
         feats = self.frame_enc(ctx.reshape(b * t, 1, *ctx.shape[2:]))
         feats = feats.permute(0, 2, 3, 1).reshape(b, t, self.grid, self.grid, -1)
         zeros = torch.zeros(b, self.grid, self.grid, self.lstm_features,
                             device=ctx.device, dtype=self.dtype)
         state_t, _ = self.enc_lstm((zeros, zeros), feats, need_hs=False)
+        return state_t
+
+    def encode_context(self, ctx: torch.Tensor):
+        """(B, Tc, H, W) -> (terminal state (c_T, h_T), (mu, logvar))."""
+        state_t = self.context_state(ctx)
         return state_t, self.head(state_t[1])
 
     def encode(self, x: torch.Tensor):
@@ -100,8 +105,8 @@ class PredSeqVAE(nn.Module):
 
     def forward(self, x: torch.Tensor, sample_fn: SampleFn) -> VAEOutput:
         ctx, future = x[:, : self.context_len], x[:, self.context_len:]
-        state_t, (mu, logvar) = self.encode_context(ctx)
-        z = sample_fn(mu, logvar)
+        state_t = self.context_state(ctx)
+        mu, logvar, z = self.head.sample(state_t[1], sample_fn)
         logits = self.rollout(state_t, z, future.shape[1])
         return VAEOutput(
             logits=logits, target=future, mu=mu, logvar=logvar, z=z,

@@ -76,13 +76,17 @@ class ConvLSTMSeqVAE(nn.Module):
         feats = self.frame_enc(x.reshape(b * t, 1, *x.shape[2:]))
         return feats.permute(0, 2, 3, 1).reshape(b, t, self.grid, self.grid, -1)
 
-    def encode(self, x: torch.Tensor):
+    def encode_state(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W) -> the encoder's terminal h (B, g, g, F), NHWC."""
         feats = self.encode_features(x)
         b = x.shape[0]
         zeros = torch.zeros(b, self.grid, self.grid, self.lstm_features,
                             device=x.device, dtype=self.dtype)
         (_, h_t), _ = self.enc_lstm((zeros, zeros), feats, need_hs=False)
-        return self.head(h_t)
+        return h_t
+
+    def encode(self, x: torch.Tensor):
+        return self.head(self.encode_state(x))
 
     def _init_decoder(self, z: torch.Tensor):
         b = z.shape[0]
@@ -101,8 +105,7 @@ class ConvLSTMSeqVAE(nn.Module):
         return logits.reshape(b, t, self.image_size, self.image_size)
 
     def forward(self, x: torch.Tensor, sample_fn: SampleFn) -> VAEOutput:
-        mu, logvar = self.encode(x)
-        z = sample_fn(mu, logvar)
+        mu, logvar, z = self.head.sample(self.encode_state(x), sample_fn)
         logits = self.decode(z, x.shape[1])
         return VAEOutput(
             logits=logits, target=x, mu=mu, logvar=logvar, z=z,

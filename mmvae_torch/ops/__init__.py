@@ -2,7 +2,8 @@
 
 Every kernel wrapper counts its launches in a `launches` attribute:
 `preprocess_gather`, `elbo_reduce`, `reparameterize`,
-`convlstm_proj_forward`, `convlstm_proj_backward` (K5),
+`head_sample_forward`, `head_sample_backward` (the Gaussian head and its
+sample, fused), `convlstm_proj_forward`, `convlstm_proj_backward` (K5),
 `convlstm_scan_forward` and `convlstm_scan_backward` (K6).
 """
 
@@ -15,12 +16,19 @@ from mmvae_torch.ops.convlstm_kernels import (
     convlstm_scan_proj,
 )
 from mmvae_torch.ops.elbo_kernels import elbo_reduce, reparameterize
+from mmvae_torch.ops.head_kernels import (
+    gaussian_head_sample,
+    head_sample_backward,
+    head_sample_forward,
+)
 from mmvae_torch.ops.preprocess_kernels import preprocess_gather
 
 KERNEL_WRAPPERS = {
     "preprocess_gather": preprocess_gather,
     "elbo_reduce": elbo_reduce,
     "reparameterize": reparameterize,
+    "head_sample_forward": head_sample_forward,
+    "head_sample_backward": head_sample_backward,
     "convlstm_proj_forward": convlstm_proj_forward,
     "convlstm_proj_backward": convlstm_proj_backward,
     "convlstm_scan_forward": convlstm_scan_forward,
@@ -46,6 +54,9 @@ __all__ = [
     "convlstm_scan_forward",
     "convlstm_scan_proj",
     "elbo_reduce",
+    "gaussian_head_sample",
+    "head_sample_backward",
+    "head_sample_forward",
     "launch_counts",
     "preprocess_gather",
     "reparameterize",

@@ -47,8 +47,12 @@ _SIGNATURES = {
     "mmvae_convlstm_scan_fwd": [_P] * 7 + [_I] * 8 + [_P],
     "mmvae_convlstm_scan_bwd": [_P] * 10 + [_I] * 7 + [_P],
     "mmvae_convlstm_scan_layout": [_I, _P],
+    "mmvae_head_sample_fwd": [_P] * 12 + [_I] * 4 + [_U, _P],
+    "mmvae_head_sample_bwd": [_P] * 12 + [_I] * 4 + [_P],
+    "mmvae_head_sample_layout": [_I] * 4 + [_P],
 }
-_RESTYPES = {"mmvae_convlstm_proj_layout": None, "mmvae_convlstm_scan_layout": None}
+_RESTYPES = {"mmvae_convlstm_proj_layout": None, "mmvae_convlstm_scan_layout": None,
+             "mmvae_head_sample_layout": None}
 
 
 class KernelLibrary:

@@ -8,11 +8,11 @@ version.  This module adds the step's stream seeds (ops.seeds).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from mmvae_torch.ops import elbo_kernels, preprocess_kernels, seeds
+from mmvae_torch.ops import elbo_kernels, elbo_ref, preprocess_kernels, seeds
 
 
 def preprocess_gather(
@@ -29,15 +29,36 @@ def preprocess_gather(
                                                 out_dtype=out_dtype)
 
 
-def make_sample_fn(seed: int):
+class StepSampler:
     """`sample_fn(mu, logvar, salt=0) -> z` for one step: eps is drawn from
-    the REPARAM stream of the step seed (ops.seeds)."""
+    the REPARAM stream of the step seed (ops.seeds), by the standalone
+    sampling kernel for a bare (mu, logvar).  `stream_seed(salt)` names the
+    stream, so a model that holds the head's input takes the fused head and
+    sample instead (models.base.head_and_sample).  `eps`, {salt: tensor},
+    replaces the draw for those salts (the model checks inject their noise
+    so; a bare call then computes mu + exp(logvar / 2) eps in plain ops)."""
 
-    def sample_fn(mu, logvar, salt=0):
-        s = seeds.stream_seed(seed, seeds.STREAM_REPARAM, salt)
-        return elbo_kernels.reparameterize(mu, logvar, s)
+    def __init__(self, seed: int, eps: Optional[Dict[int, torch.Tensor]] = None):
+        self.seed = seed
+        self.eps = dict(eps or {})
 
-    return sample_fn
+    def stream_seed(self, salt: int = 0) -> int:
+        return seeds.stream_seed(self.seed, seeds.STREAM_REPARAM, salt)
+
+    def noise(self, salt: int = 0) -> Optional[torch.Tensor]:
+        return self.eps.get(salt)
+
+    def __call__(self, mu, logvar, salt=0):
+        eps = self.noise(salt)
+        if eps is not None:
+            return elbo_ref.reparameterize_ref(mu.float(), logvar.float(), 0,
+                                               eps.to(mu.device, torch.float32))
+        return elbo_kernels.reparameterize(mu, logvar, self.stream_seed(salt))
+
+
+def make_sample_fn(seed: int, eps: Optional[Dict[int, torch.Tensor]] = None) -> StepSampler:
+    """The step's sample function (`StepSampler`)."""
+    return StepSampler(seed, eps)
 
 
 def elbo_parts(

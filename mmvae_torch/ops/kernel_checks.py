@@ -1,4 +1,5 @@
-"""The ConvLSTM kernels (K5, K6) held against their plain versions on the card.
+"""The ConvLSTM kernels (K5, K6) and the Gaussian head's kernels held against
+their plain versions on the card.
 
 One place for the inputs (made on the card from a seed), the comparisons and
 their tolerances; `chip_smoke.py` and `tests/test_torch_cuda.py` both call
@@ -15,7 +16,10 @@ operands to bf16, the one activation dtype the kernels take:
   differences forward (about 3 ulps of |ref| after 20 steps on the H100);
 - the residual-free forwards equal to the saving one exactly;
 - both backward passes from the same residuals (an f32 chain whatever the
-  gate dtype): each gradient within 2 bf16 ulps of its largest |ref|.
+  gate dtype): each gradient within 2 bf16 ulps of its largest |ref|;
+- the Gaussian head and its sample (f32 products in another order than
+  cuBLAS's): mu, logvar, z (eps injected), z - mu and every f32 gradient
+  within 2 bf16 ulps of its largest |ref|; a bf16 dx within 0.05.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import List, NamedTuple
 import torch
 
 from mmvae_torch.ops import convlstm_kernels as ck
+from mmvae_torch.ops import head_kernels as hk
 
 CS_RTOL = 2.0 ** -6  # K6's cs bound with bf16 gates: 0.05 + CS_RTOL |ref|
 BF16_ATOL = 0.05
@@ -189,3 +194,80 @@ def compare_scan(dev, shape, const: bool, gate_dtype, seed: int = 8) -> Comparis
             rd.append(_ulps(n, a, b_))
         bwd_err = max(bwd_err, max(max_abs_err(a, b_) for a, b_ in zip(gk, gp)))
     return Comparison(rd, max(max_abs_err(a, b_) for a, b_ in zip(outs_k, outs_p)), bwd_err)
+
+
+HEAD_GRADS = ("dx", "dW_mu", "db_mu", "dW_logvar", "db_logvar")
+
+
+def head_inputs(dev, m, k, n, x_dtype, seed):
+    """The head's (x, w_mu, b_mu, w_lv, b_lv): x (m, k) in `x_dtype`, the
+    rest f32 at nn.Linear's scale."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    return (r(m, k).to(x_dtype), r(n, k, scale=k ** -0.5), r(n, scale=0.1),
+            r(n, k, scale=k ** -0.5), r(n, scale=0.1))
+
+
+def head_cotangents(dev, m, n, seed):
+    """(eps, g_mu, g_logvar, g_z), each (m, n) f32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(m, n, generator=g, device=dev) for _ in range(4))
+
+
+def _head_grad_readings(prefix, gk, gp, x_dtype) -> List[Reading]:
+    rd = []
+    for name, a, b in zip(HEAD_GRADS, gk, gp):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"head {name}: {tuple(a.shape)} {a.dtype} vs "
+                                 f"{tuple(b.shape)} {b.dtype}")
+        name = f"{prefix}{name}"
+        rd.append(_scaled(name, a, b, 0.0) if name.endswith("dx") and x_dtype == torch.bfloat16
+                  else _ulps(name, a, b))
+    return rd
+
+
+def compare_head(dev, shape, seed: int = 20) -> Comparison:
+    """The head at (M, K, N, x dtype): the forward kernel with eps injected
+    against the plain version, then the op's backward through autograd
+    with cotangents on mu, logvar and z, and the backward kernel with g_mu
+    absent (None), each against the plain backward."""
+    m, k, n, x_dtype = shape
+    x, w_mu, b_mu, w_lv, b_lv = head_inputs(dev, m, k, n, x_dtype, seed)
+    eps, *cot = head_cotangents(dev, m, n, seed + 1)
+    outs_k = hk.head_sample_forward_cuda(x, w_mu, b_mu, w_lv, b_lv, 0, eps)
+    outs_p = hk.head_sample_forward_plain(x, w_mu, b_mu, w_lv, b_lv, 0, eps)
+    rd = [_ulps(nm, a, b) for nm, a, b in zip(("mu", "logvar", "z", "z-mu"), outs_k, outs_p)]
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w_mu, b_mu, w_lv, b_lv)]
+    torch.autograd.backward(hk.gaussian_head_sample(*leaves, 0, eps), cot)
+    gk = [leaves[i].grad for i in range(5)]
+    gp = hk.head_sample_backward_plain(x, w_mu, w_lv, outs_p[3], *cot)
+    rd += _head_grad_readings("", gk, gp, x_dtype)
+    gk2 = hk.head_sample_backward_cuda(x, w_mu, w_lv, outs_p[3], None, cot[1], cot[2])
+    gp2 = hk.head_sample_backward_plain(x, w_mu, w_lv, outs_p[3], None, cot[1], cot[2])
+    rd += _head_grad_readings("no g_mu: ", gk2, gp2, x_dtype)
+    return Comparison(rd, max(max_abs_err(a, b) for a, b in zip(outs_k, outs_p)),
+                      max(max_abs_err(a, b) for a, b in zip((*gk, *gk2), (*gp, *gp2))))
+
+
+def head_backward_repeatable(dev, shape, seed: int = 24) -> dict:
+    """The head's backward kernel twice on the same inputs: {gradient name:
+    bit-identical}.  Every sum runs in a fixed order, without atomics."""
+    m, k, n, x_dtype = shape
+    x, w_mu, b_mu, w_lv, b_lv = head_inputs(dev, m, k, n, x_dtype, seed)
+    eps, *cot = head_cotangents(dev, m, n, seed + 1)
+    diff = hk.head_sample_forward_cuda(x, w_mu, b_mu, w_lv, b_lv, 0, eps)[3]
+    first = hk.head_sample_backward_cuda(x, w_mu, w_lv, diff, *cot)
+    second = hk.head_sample_backward_cuda(x, w_mu, w_lv, diff, *cot)
+    return {nm: torch.equal(a, b) for nm, a, b in zip(HEAD_GRADS, first, second)}
+
+
+def head_eps(dev, shape, seed: int, stream_seed: int) -> torch.Tensor:
+    """The eps the forward kernel draws from `stream_seed`, recovered as
+    (z - mu) / exp(logvar / 2)."""
+    m, k, n, x_dtype = shape
+    x, w_mu, b_mu, w_lv, b_lv = head_inputs(dev, m, k, n, x_dtype, seed)
+    mu, logvar, z, diff = hk.head_sample_forward_cuda(x, w_mu, b_mu, w_lv, b_lv, stream_seed)
+    return diff / torch.exp(0.5 * logvar)

@@ -14,7 +14,8 @@ import torch
 from mmvae_torch import ops
 from mmvae_torch.configs import get_config
 from mmvae_torch.ops import convlstm_kernels as ck
-from mmvae_torch.ops import elbo_kernels, kernel_checks, preprocess_kernels
+from mmvae_torch.ops import elbo_kernels, head_kernels, kernel_checks, preprocess_kernels
+from mmvae_torch.ops import seeds
 from mmvae_torch.train.loop import build_model, make_train_step
 from mmvae_torch.train.state import create_train_state
 
@@ -127,8 +128,10 @@ def test_train_step_launches_every_kernel(dev):
     losses = [float(step(state, data)["loss"]) for _ in range(2)]
     assert all(torch.isfinite(torch.tensor(losses)))
     counts = ops.launch_counts()
-    # the decoder runs eagerly under the default (auto) policy: K6 stays idle
+    # the decoder runs eagerly under the default (auto) policy: K6 stays idle;
+    # the head samples through the fused op, never the standalone K2
     assert counts.pop("convlstm_scan_forward") == counts.pop("convlstm_scan_backward") == 0
+    assert counts.pop("reparameterize") == 0
     assert all(n == 2 for n in counts.values()), counts
 
 
@@ -181,6 +184,57 @@ def test_fused_train_steps_launch_k5_and_k6(dev, name):
     losses = [float(step(state, data)["loss"]) for _ in range(3)]
     assert all(torch.isfinite(torch.tensor(losses)))
     counts = ops.launch_counts()
-    # hier_vae samples twice a step (z_g, then the chunk latents with salt 1)
-    assert counts.pop("reparameterize") == (6 if name == "hier_vae" else 3)
+    # hier_vae samples twice a step (z_g, then the chunk latents with salt 1),
+    # each through the fused head and sample
+    assert counts.pop("reparameterize") == 0
+    for kernel in ("head_sample_forward", "head_sample_backward"):
+        assert counts.pop(kernel) == (6 if name == "hier_vae" else 3)
     assert all(n == 3 for n in counts.values()), counts
+
+
+# The sampling sites at full width (M, K, N, x dtype), and unaligned shapes.
+HEAD_SHAPES = [(64, 8192, 128, torch.bfloat16), (16, 256, 128, torch.float32),
+               (160, 256, 64, torch.float32), (5, 37, 3, torch.bfloat16),
+               (70, 300, 21, torch.float32), (3, 1100, 9, torch.float32)]
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES, ids=str)
+def test_head_kernels_match_plain(dev, shape):
+    """The fused head's forward (eps injected) and backward against the plain
+    version, with the smoke's comparison and tolerances
+    (`kernel_checks.compare_head`)."""
+    kernel_checks.compare_head(dev, shape).check(f"head_sample {shape}")
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES[:3], ids=str)
+def test_head_backward_is_bit_reproducible(dev, shape):
+    same = kernel_checks.head_backward_repeatable(dev, shape)
+    assert all(same.values()), same
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES, ids=str)
+def test_head_layout_matches_the_wrapper(dev, shape):
+    m, k, n, x_dtype = shape
+    geo = head_kernels.head_geometry(m, k, n, torch.finfo(x_dtype).bits // 8)
+    want = (geo["fwd_splits"], geo["fwd_kslice"], geo["fwd_smem"], geo["bwd_smem"],
+            geo["bwd_grid"][1])
+    assert head_kernels.library_layout(m, k, n, x_dtype) == want
+
+
+def test_head_eps_is_normal_and_follows_the_seed(dev):
+    shape = (64, 8192, 128, torch.bfloat16)
+    seed = seeds.stream_seed(99, seeds.STREAM_REPARAM)
+    eps = kernel_checks.head_eps(dev, shape, 3, seed)
+    n = eps.numel()  # 8192 draws: 5 sigma of the mean 0.055, of the variance 0.078
+    assert abs(float(eps.mean())) <= 5 / n ** 0.5
+    assert abs(float(eps.var()) - 1) <= 5 * (2 / n) ** 0.5
+    assert torch.equal(eps, kernel_checks.head_eps(dev, shape, 3, seed))
+    assert not torch.equal(eps, kernel_checks.head_eps(dev, shape, 3, seed + 1))
+
+
+def test_head_kernel_refuses_other_layouts(dev):
+    x, w_mu, b_mu, w_lv, b_lv = kernel_checks.head_inputs(dev, 4, 32, 8, torch.float32, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        head_kernels.head_sample_forward_cuda(x.t().contiguous().t(), w_mu, b_mu, w_lv, b_lv, 0)
+    with pytest.raises(TypeError, match="float32"):
+        head_kernels.head_sample_forward_cuda(x, w_mu.half(), b_mu, w_lv, b_lv, 0)

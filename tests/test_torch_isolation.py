@@ -55,6 +55,7 @@ def test_port_imports_with_the_jax_package_refused():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
     assert {"mmvae_torch.configs", "mmvae_torch.ops.convlstm_kernels",
+            "mmvae_torch.ops.head_kernels",
             "mmvae_torch.bench.roofline", "mmvae_torch.train.loop"} <= set(res["modules"])
 
 

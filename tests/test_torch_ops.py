@@ -21,6 +21,7 @@ from mmvae_tpu.ops.elbo_pallas import elbo_reduce_pallas
 from mmvae_tpu.ops.preprocess_pallas import preprocess_packed_pallas, preprocess_pallas
 from mmvae_torch.data import transforms
 from mmvae_torch.ops import convlstm_kernels, dispatch, elbo_kernels, preprocess_kernels, seeds
+from mmvae_torch.ops import head_kernels
 
 # The shapes of tests/test_elbo.py, including the deliberately unaligned one.
 SHAPES = [
@@ -156,6 +157,12 @@ _CUDA_PATHS = {
         torch.zeros(2, 3), torch.zeros(2, 3), torch.zeros(2, 1), torch.zeros(2, 1)),
     "reparameterize": lambda: elbo_kernels._reparameterize_cuda(
         torch.zeros(2, 1), torch.zeros(2, 1), 0),
+    "head_sample_forward": lambda: head_kernels.head_sample_forward_cuda(
+        torch.zeros(2, 8), torch.zeros(3, 8), torch.zeros(3), torch.zeros(3, 8), torch.zeros(3),
+        0),
+    "head_sample_backward": lambda: head_kernels.head_sample_backward_cuda(
+        torch.zeros(2, 8), torch.zeros(3, 8), torch.zeros(3, 8), torch.zeros(2, 3), None,
+        None, torch.zeros(2, 3)),
     "convlstm_proj_forward": lambda: convlstm_kernels.proj_forward_cuda(
         *_proj_args(), torch.float32, True),
     "convlstm_proj_backward": lambda: convlstm_kernels.proj_backward_cuda(
