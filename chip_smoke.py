@@ -23,11 +23,13 @@ Phases, each raising on failure (the script catches nothing):
    path is longer than they are; K1 and K3 on a cold L2), K1 beside the
    one PyTorch call that computes its BCE sum (`library_ms`); the fused
    Gaussian head and sample (`head_sample_forward` / `_backward`, which
-   replace K2 on the train steps) at each sampling site, timed in CUDA
-   graphs beside the route they replace (a cast, two F.linear and K2, with
-   its autograd backward: `library_ms`); K5's, K6's and the head's backward
-   (K6 with a time-constant and a streaming xg) run twice and required
-   bit-identical; then each config's full-width model (seq_vae; pred_vae
+   replace K2 on the train steps) at each sampling site and at larger
+   batches, its f32 outputs in f32 units that a TF32 control must fail,
+   its forward bit-identical over many launches (warm, cold, two streams),
+   timed in CUDA graphs beside the route it replaces (a cast, two F.linear
+   and K2, with its autograd backward: `library_ms`); K5's, K6's and the
+   head's backward (K6 with a time-constant and a streaming xg) run twice
+   and required bit-identical; then each config's full-width model (seq_vae; pred_vae
    and hier_vae with fused=true), forward and gradients on a small input,
    eps injected through the train step's sample function, on the card
    through the kernels against the CPU through the plain versions;
@@ -91,25 +93,16 @@ def _require(cond: bool, what: str) -> None:
 
 
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
+    from mmvae_torch.bench.timing import event_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return event_ms(fn, iters, warmup)
 
 
 _GRAPH_CALLS = 20
 
 
 def _graph_ms(calls, reps: int = 10) -> float:
-    from mmvae_torch.bench.ab import graph_ms
+    from mmvae_torch.bench.timing import graph_ms
 
     return graph_ms(calls, reps)
 
@@ -416,28 +409,43 @@ def check_reparam(dev, shapes) -> dict:
             "bound_by": by, "library_ms": None}
 
 
+# Head shapes beyond the sampling sites: unaligned ones, and the batches the
+# configs offer beyond their defaults (config 3 at 256, config 5 at 32),
+# whose backward runs the batch in several blocks.
+_HEAD_EXTRA = ((5, 37, 3, "bfloat16"), (70, 300, 21, "float32"), (256, 8192, 128, "bfloat16"),
+               (32, 256, 128, "float32"), (320, 256, 64, "float32"))
+
+
 def check_head_sample(dev, shapes) -> tuple:
     """The fused Gaussian head and sample at each sampling site's (M, K, N,
-    x dtype) and at two unaligned shapes: forward with eps injected and the
-    three gradients against the plain version (`kernel_checks.compare_head`
-    and its tolerances); at the sites eps's moments, seeds that decide eps,
-    the backward bit-identical over two calls, and the time of both kernels
-    (CUDA graphs, every call on its own copy of the inputs: cold L2) beside
-    the parent route's on the same inputs (a cast, two F.linear and the
-    Triton K2; its backward through autograd, timed as forward+backward less
-    forward), as `library_ms`."""
+    x dtype) and at `_HEAD_EXTRA`: forward with eps injected and the three
+    gradients against the plain version (`kernel_checks.compare_head` and
+    its tolerances; at the sites also the TF32 control, which the f32
+    limit must reject); at the sites eps's moments, seeds that decide eps,
+    the backward bit-identical over two calls, the forward bit-identical
+    over 200 launches warm, cold and on two streams, and the time of both
+    kernels beside the parent route's on the same inputs (a cast, two
+    F.linear and the Triton K2, with its autograd backward: `library_ms`),
+    by `bench/timing.head_region_ms`; the larger batches timed so too."""
     import torch
-    import torch.nn.functional as F
 
+    from mmvae_torch.bench.timing import head_region_ms
     from mmvae_torch.ops import head_kernels as hk
     from mmvae_torch.ops import kernel_checks as kc
     from mmvae_torch.ops import seeds
-    from mmvae_torch.ops.elbo_kernels import reparameterize
 
     worst_f = worst_b = 0.0
-    for shape in (*shapes, (5, 37, 3, torch.bfloat16), (70, 300, 21, torch.float32)):
+    extra = tuple((*s[:3], getattr(torch, s[3])) for s in _HEAD_EXTRA)
+    for shape in (*shapes, *extra):
         cmp = kc.compare_head(dev, shape)
-        print(f"[kernel] head_sample {shape}: {cmp.text()}")
+        txt = cmp.text()
+        if shape in shapes:
+            ctrl = kc.head_tf32_control(dev, shape)
+            txt += "; TF32 control " + ", ".join(f"{k} {v:.1f}" for k, v in ctrl.items())
+            _require(min(ctrl.values()) > kc.F32_UNITS,
+                     f"head_sample {shape}: the f32 limit {kc.F32_UNITS} does not reject the "
+                     f"TF32 control {ctrl}")
+        print(f"[kernel] head_sample {shape}: {txt} (limit {kc.F32_UNITS:g} f32 units)")
         cmp.check(f"head_sample {shape}")
         worst_f, worst_b = max(worst_f, cmp.fwd_err), max(worst_b, cmp.bwd_err)
     first = None
@@ -455,53 +463,43 @@ def check_head_sample(dev, shapes) -> tuple:
         same = kc.head_backward_repeatable(dev, shape)
         _require(all(same.values()), f"head_sample backward at {shape} differs between two "
                                      f"calls: {same}")
-        copies = [kc.head_inputs(dev, m, k, n, xdt, 40 + i) for i in range(_GRAPH_CALLS)]
-        cots = kc.head_cotangents(dev, m, n, 41)[1:]
-        diffs = [hk.head_sample_forward_cuda(*c, seed)[3] for c in copies]
-        fwd_ms = _graph_ms([lambda c=c: hk.head_sample_forward_cuda(*c, seed) for c in copies])
-        bwd_ms = _graph_ms([lambda c=c, d=d: hk.head_sample_backward_cuda(
-            c[0], c[1], c[3], d, *cots) for c, d in zip(copies, diffs)])
-        leaves = [[t.detach().clone().requires_grad_() for t in c] for c in copies]
-        del diffs
-
-        def parent(c, backward):  # the route before the fusion, in the models' order
-            xf = c[0].float()
-            mu, lv = F.linear(xf, c[1], c[2]), F.linear(xf, c[3], c[4])
-            z = reparameterize(mu, lv, seed)
-            if backward:
-                torch.autograd.backward((mu, lv, z), cots)
-
-        def fused(c):
-            torch.autograd.backward(hk.gaussian_head_sample(*c, seed), cots)
-
-        lib_fwd = _graph_ms([lambda c=c: parent(c, False) for c in leaves])
-        lib_fb = _graph_ms([lambda c=c: parent(c, True) for c in leaves])
-        fused_fb = _graph_ms([lambda c=c: fused(c) for c in leaves])
-        del leaves, copies
+        rep = kc.head_forward_repeatable(dev, shape)
+        _require(all(rep.values()), f"head_sample forward at {shape} differs between launches: "
+                                    f"{rep}")
+        t = head_region_ms(dev, shape, seed)
         x, w_mu, b_mu, w_lv, b_lv = kc.head_inputs(dev, m, k, n, xdt, 40)
+        cots = kc.head_cotangents(dev, m, n, 41)[1:]
         d = hk.head_sample_forward_plain(x, w_mu, b_mu, w_lv, b_lv, seed)[3]
         plain = (_time_ms(lambda: hk.head_sample_forward_plain(x, w_mu, b_mu, w_lv, b_lv,
                                                                seed), 20),
                  _time_ms(lambda: hk.head_sample_backward_plain(x, w_mu, w_lv, d, *cots), 20))
-        lib_bwd = lib_fb - lib_fwd
         bkey = (m, k, n, torch.finfo(xdt).bits // 8)
-        first = first or (fwd_ms, bwd_ms, plain, lib_fwd, lib_bwd, bkey)
+        first = first or (t, plain, bkey)
         print(f"[kernel] head_sample {shape} ({_runs(runs)}): eps mean {mean:.4f} var {var:.4f} "
               f"(limits 5 sigma: {5 / math.sqrt(cnt):.4f}, {5 * math.sqrt(2 / cnt):.4f}); "
               f"backward bit-identical over two calls ({', '.join(same)}); forward "
-              f"{fwd_ms:.4f} ms on the device (CUDA graph, cold L2), "
-              f"{_share(fwd_ms, 'head_sample_forward', bkey)}; backward {bwd_ms:.4f} ms, "
-              f"{_share(bwd_ms, 'head_sample_backward', bkey)}; plain {plain[0]:.4f} / "
-              f"{plain[1]:.4f} ms; parent route (cast, 2 F.linear, Triton K2) forward "
-              f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms (forward+backward {lib_fb:.4f} "
-              f"against the fused op's {fused_fb:.4f})")
-    fwd_ms, bwd_ms, plain, lib_fwd, lib_bwd, bkey = first
+              f"bit-identical over {', '.join(rep)} launches; forward "
+              f"{t['fused_fwd']:.4f} ms on the device (CUDA graph, cold L2), "
+              f"{_share(t['fused_fwd'], 'head_sample_forward', bkey)}; backward "
+              f"{t['fused_bwd']:.4f} ms, {_share(t['fused_bwd'], 'head_sample_backward', bkey)}; "
+              f"plain {plain[0]:.4f} / {plain[1]:.4f} ms; parent route (cast, 2 F.linear, "
+              f"Triton K2) forward {t['parent_fwd']:.4f} ms, backward {t['parent_bwd']:.4f} ms "
+              f"(forward+backward {t['parent_fwd_bwd']:.4f} against the fused op's "
+              f"{t['fused_fwd_bwd']:.4f})")
+    for shape in extra[2:]:  # the larger batches, timed as the sites are
+        t = head_region_ms(dev, shape, 1)
+        bkey = (*shape[:3], torch.finfo(shape[3]).bits // 8)
+        print(f"[kernel] head_sample {shape}: forward {t['fused_fwd']:.4f} ms, "
+              f"{_share(t['fused_fwd'], 'head_sample_forward', bkey)}; backward "
+              f"{t['fused_bwd']:.4f} ms, {_share(t['fused_bwd'], 'head_sample_backward', bkey)}; "
+              f"parent route forward {t['parent_fwd']:.4f} ms, backward {t['parent_bwd']:.4f} ms")
+    t, plain, bkey = first
     fb, fby = _bound("head_sample_forward", bkey)
     bb, bby = _bound("head_sample_backward", bkey)
-    return ({"max_abs_err": worst_f, "ms": fwd_ms, "plain_ms": plain[0], "bound_ms": fb,
-             "bound_by": fby, "library_ms": lib_fwd},
-            {"max_abs_err": worst_b, "ms": bwd_ms, "plain_ms": plain[1], "bound_ms": bb,
-             "bound_by": bby, "library_ms": lib_bwd})
+    return ({"max_abs_err": worst_f, "ms": t["fused_fwd"], "plain_ms": plain[0], "bound_ms": fb,
+             "bound_by": fby, "library_ms": t["parent_fwd"]},
+            {"max_abs_err": worst_b, "ms": t["fused_bwd"], "plain_ms": plain[1], "bound_ms": bb,
+             "bound_by": bby, "library_ms": t["parent_bwd"]})
 
 
 def check_convlstm(dev, shapes) -> tuple:

@@ -11,21 +11,21 @@ calls, bf16 gates) and hashes K5's outputs (forward and gradients, from
 seeded inputs) so that the two checkouts' K5 can be held bit-identical; the
 wall time of a K5 forward and backward call at one step of one sample,
 where the wrappers' host work and the launches take the time; the
-Gaussian head region at each sampling site (`HEAD_SHAPES`), timed in CUDA
-graphs of 20 calls each on its own copy of the inputs (cold L2): the route
-before the fusion (a cast, two F.linear and the Triton K2, with its
-autograd backward) in every checkout, and where the checkout has it the
-fused op (`ops.head_kernels`: each kernel alone, and forward+backward
-through autograd); and `bench.profile.profile_train_step` of each path
-(config 3; configs 4 and 5 with fused=true; config 3 with fused=true).
-Each run prints one JSON line, then one line per path sums it up.  Fails
-without a CUDA device.
+Gaussian head region at each sampling site (`HEAD_SHAPES`), where the
+checkout has the fused head (`bench/timing.head_region_ms`: each kernel
+alone, the op through autograd, and the route it replaced, a cast, two
+F.linear and the Triton K2, on the same inputs); and
+`bench.profile.profile_train_step` of each path (config 3; configs 4 and 5
+with fused=true; config 3 with fused=true).  Every run times with this
+tree's `bench/timing.py`, loaded by path.  Each run prints one JSON line,
+then one line per path sums it up.  Fails without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -42,24 +42,19 @@ K6_SHAPES = ((64, 10, 8, 8, 128, True), (160, 10, 8, 8, 128, True), (64, 20, 8, 
 # (M, K, N, x dtype): the heads of configs 3 and 4, config 5's global and chunk heads
 HEAD_SHAPES = ((64, 8192, 128, "bfloat16"), (16, 256, 128, "float32"),
                (160, 256, 64, "float32"))
-GRAPH_CALLS = 20
 PATHS = (("seq_vae", ()), ("pred_vae", ("model.kwargs.fused=true",)),
          ("hier_vae", ("model.kwargs.fused=true",)), ("seq_vae", ("model.kwargs.fused=true",)))
 
 
-def _time_ms(fn, iters: int = 20) -> float:
-    import torch
+# this tree's timers, whichever checkout the worker imports the package from
+_spec = importlib.util.spec_from_file_location("_mmvae_bench_timing",
+                                               Path(__file__).with_name("timing.py"))
+timing = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(timing)
 
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+
+def _time_ms(fn) -> float:
+    return timing.event_ms(fn, 20)
 
 
 def _host_ms(fn, iters: int = 200) -> float:
@@ -73,92 +68,6 @@ def _host_ms(fn, iters: int = 200) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / iters * 1e3
-
-
-def graph_ms(calls, reps: int = 10) -> float:
-    """Device time of one call: a CUDA graph of the calls in `calls`, in
-    order, replayed `reps` times between two CUDA events, so the host's
-    launch path is not timed (the tiny kernels take tens of microseconds,
-    less than a launch from Python).  Where each call reads its own copy of
-    the inputs, the 19 calls between two reads of one copy move more than
-    the card's 50 MB of L2, so every call reads its inputs from HBM, as the
-    bound counts them; one call repeated reads them from L2."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for fn in calls[:3]:
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for fn in calls:
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (len(calls) * reps)
-
-
-def head_inputs(dev, m, k, n, dtype):
-    """GRAPH_CALLS copies of the head's (x, w_mu, b_mu, w_lv, b_lv), x (m, k)
-    in `dtype` ("bfloat16" or "float32"), and cotangents on (mu, logvar, z)."""
-    import torch
-
-    g = torch.Generator(device=dev).manual_seed(m + k + n)
-
-    def r(*shape, scale=1.0):
-        return torch.randn(shape, generator=g, device=dev) * scale
-
-    copies = [(r(m, k).to(getattr(torch, dtype)), r(n, k, scale=k ** -0.5), r(n, scale=0.1),
-               r(n, k, scale=k ** -0.5), r(n, scale=0.1)) for _ in range(GRAPH_CALLS)]
-    return copies, (r(m, n), r(m, n), r(m, n))
-
-
-def head_times(dev) -> dict:
-    """{shape: {route: ms}} of the head region at `HEAD_SHAPES`: the route
-    before the fusion ("parent_fwd", "parent_fwd_bwd") and, where the
-    checkout has it, the fused op ("fused_fwd", "fused_bwd": the kernels
-    alone; "fused_fwd_bwd": through autograd)."""
-    import torch
-    import torch.nn.functional as F
-
-    from mmvae_torch.ops.elbo_kernels import reparameterize
-
-    try:
-        from mmvae_torch.ops import head_kernels as hk
-    except ImportError:  # a checkout from before the fusion
-        hk = None
-    seed, out = 12345, {}
-    for m, k, n, dtype in HEAD_SHAPES:
-        copies, cots = head_inputs(dev, m, k, n, dtype)
-        leaves = [[t.clone().requires_grad_() for t in c] for c in copies]
-
-        def parent(c, backward):
-            xf = c[0].float()
-            mu, lv = F.linear(xf, c[1], c[2]), F.linear(xf, c[3], c[4])
-            z = reparameterize(mu, lv, seed)
-            if backward:
-                torch.autograd.backward((mu, lv, z), cots)
-
-        res = {"parent_fwd": graph_ms([lambda c=c: parent(c, False) for c in leaves]),
-               "parent_fwd_bwd": graph_ms([lambda c=c: parent(c, True) for c in leaves])}
-        if hk is not None:
-            diffs = [hk.head_sample_forward_cuda(*c, seed)[3] for c in copies]
-            res["fused_fwd"] = graph_ms([lambda c=c: hk.head_sample_forward_cuda(*c, seed)
-                                         for c in copies])
-            res["fused_bwd"] = graph_ms([lambda c=c, d=d: hk.head_sample_backward_cuda(
-                c[0], c[1], c[3], d, *cots) for c, d in zip(copies, diffs)])
-            res["fused_fwd_bwd"] = graph_ms([lambda c=c: torch.autograd.backward(
-                hk.gaussian_head_sample(*c, seed), cots) for c in leaves])
-        out[str((m, k, n, dtype))] = {key: round(v, 5) for key, v in res.items()}
-    return out
 
 
 def measure(steps: int) -> dict:
@@ -206,7 +115,11 @@ def measure(steps: int) -> dict:
         _host_ms(lambda: ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True)),
         _host_ms(lambda: ck.proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh, dh)),
     ]
-    out["head_ms"] = head_times(dev)
+    heads = {str(shape): timing.head_region_ms(dev, (*shape[:3], getattr(torch, shape[3])))
+             for shape in HEAD_SHAPES}
+    if all(heads.values()):
+        out["head_ms"] = {key: {k: round(v, 5) for k, v in res.items()}
+                          for key, res in heads.items()}
     for name, overrides in PATHS:
         res = profile_train_step(get_config(name, overrides), steps=steps, top=6)
         out["profiles"][" ".join((name, *overrides))] = res
@@ -249,9 +162,9 @@ def main(argv=None) -> None:
     same = all(r["k5_sha256"] == runs[0]["k5_sha256"] for r in runs)
     print(f"[ab] K5 outputs (forward and gradients, bf16 gates) at {len(K5_SHAPES)} shapes: "
           f"{'bit-identical in every run' if same else 'DIFFER between runs'}")
-    for shape in runs[0]["head_ms"]:
+    for shape in next((r["head_ms"] for r in runs if "head_ms" in r), {}):
         print(f"[ab] head {shape} ms: " + "; ".join(
-            f"{Path(r['root']).name}: {r['head_ms'][shape]}" for r in runs))
+            f"{Path(r['root']).name}: {r['head_ms'][shape]}" for r in runs if "head_ms" in r))
     for kernel in ("k5", "k6"):
         for shape in runs[0][f"{kernel}_fwd_bwd_ms"]:
             print(f"[ab] {kernel.upper()} {shape} fwd, bwd ms: " + "; ".join(

@@ -50,14 +50,18 @@
 // dx[:, slice] = D [W_mu; W_lv][:, slice] and dW[:, slice] = D^T x[:, slice]
 // over the whole batch, D = [dmu | dlv] (M x 2N), which each CTA forms
 // itself from the cotangents while its x and W slices land (cp.async; dW
-// runs while W is still on its way).  Every sum runs in a fixed order: dx
-// over the 2N columns of D, dW and db over the batch.  The first row of
-// CTAs also writes db.
+// runs while W is still on its way).  The batch runs in as few blocks of
+// rows as shared memory allows (one at every sampling site), so it has no
+// ceiling: each block's D and x tiles replace the last one's, W stays.
+// Every sum runs in a fixed order: dx over the 2N columns of D, dW and db
+// over the batch, one chain in row order that each block takes up from the
+// output where the last one left it.  The first row of CTAs also writes db.
 //
-// Shapes: any M, K, N whose backward tiles fit in shared memory (M x 2N
-// about 40k values at most: the wrapper checks).  16-byte copies need K *
-// the element size a multiple of 16 bytes and 16-byte aligned tensors;
-// other shapes load their tiles with plain loads (the same arithmetic).
+// Shapes: any M; N up to 656, past which the W tile and 8 rows of D
+// outgrow shared memory (the wrapper checks).  16-byte
+// copies need K * the element size a multiple of 16 bytes and 16-byte
+// aligned tensors; other shapes load their tiles with plain loads (the same
+// arithmetic).
 #include "hopper.cuh"
 #include "philox.cuh"
 
@@ -83,6 +87,7 @@ constexpr int FW_RS = 2 * FW_NT + 1;      // row stride of the warps' partials (
 constexpr int BW_KT = 32;        // K columns a CTA owns
 constexpr int BW_FILL = 132;     // CTAs that fill the card (one per SM)
 constexpr int BW_MAX_PARTS = 32;
+constexpr int BW_SMEM = 232448;  // shared bytes a block can use on the H100
 
 __host__ __device__ constexpr int fw_xs(int esize) { return FW_KC + 16 / esize; }
 __host__ __device__ constexpr int fw_stage_bytes(int esize) {
@@ -95,17 +100,23 @@ static_assert(fw_stage_bytes(2) % 16 == 0 && fw_stage_bytes(4) % 16 == 0, "slot 
 static_assert(HS_WARPS * FW_MT * FW_RS * 4 <= FW_STAGES * fw_stage_bytes(2),
               "the warps' partials alias the ring");
 
-// Backward geometry (shared with ops/head_kernels.py::head_geometry).
+// Backward geometry (shared with ops/head_kernels.py::head_geometry).  The
+// batch runs in blocks of mr rows: the whole batch where its D and x tiles
+// fit beside W, else the fewest blocks that fit, of equal size.
 struct BwdGeo {
-  int mr, ds, wr, xs, smem;  // rows of D / x, D row stride, weight rows, x row stride (elements)
+  int mr, ds, wr, xs, smem;  // rows of a D / x block, D row stride, weight rows, x row stride
 };
 __host__ __device__ inline BwdGeo bwd_geo(int M, int N, int esize) {
   BwdGeo g;
-  g.mr = (M + 7) / 8 * 8;
   g.ds = (2 * N + 7) / 8 * 8 + 4;
   g.wr = (2 * N + 7) / 8 * 8;
   g.xs = BW_KT + 16 / esize;
-  g.smem = g.mr * g.ds * 4 + g.wr * (BW_KT + 4) * 4 + g.mr * g.xs * esize;
+  const int fixed = g.wr * (BW_KT + 4) * 4, row = g.ds * 4 + g.xs * esize;
+  int cap = (BW_SMEM - fixed) / row / 8 * 8;
+  cap = cap < 8 ? 8 : cap;  // N too large: the launch refuses the shared bytes
+  const int blocks = (M + cap - 1) / cap;
+  g.mr = ((M + blocks - 1) / blocks + 7) / 8 * 8;
+  g.smem = fixed + g.mr * row;
   return g;
 }
 
@@ -212,7 +223,9 @@ __device__ __forceinline__ void fw_kstep(float (&acc)[4][8], const X* xr, const 
 }
 
 // grid (K splits, N tiles, M tiles); `partials` holds (tiles, splits, 64,
-// 16) floats, `tickets` one int a tile, zero between launches.
+// 16) floats, `tickets` one int a tile, zero between launches.  Two launches
+// in flight at once must not share `tickets` (the wrapper keeps one buffer
+// a stream).
 template <typename X, bool VEC>
 __global__ void __launch_bounds__(HS_THREADS)
 head_sample_fwd_kernel(const X* __restrict__ x, const float* __restrict__ w_mu,
@@ -334,7 +347,11 @@ head_sample_fwd_kernel(const X* __restrict__ x, const float* __restrict__ w_mu,
 
 // grid (ceil(K / 32), parts); CTAs (b, *) own columns [32 b, 32 b + 32) of
 // K and share its dx and dW tiles between them (parts > 1 only where K has
-// too few columns of 32 to fill the card).
+// too few columns of 32 to fill the card).  The batch runs in blocks of
+// geo.mr rows: each block's D and x tiles replace the last one's in shared
+// memory; dW and db carry their running sums from block to block through
+// the output itself, each element always by the same thread, so every sum
+// over the batch is one chain in row order whatever the block size.
 template <typename X, bool VEC>
 __global__ void __launch_bounds__(HS_THREADS)
 head_sample_bwd_kernel(const X* __restrict__ x, const float* __restrict__ w_mu,
@@ -352,150 +369,175 @@ head_sample_bwd_kernel(const X* __restrict__ x, const float* __restrict__ w_mu,
   X* xs = reinterpret_cast<X*>(W + geo.wr * WS);                   // [mr][xs]
   const int k0 = blockIdx.x * BW_KT, kv = min(BW_KT, K - k0), n2 = 2 * N;
   const int tid = threadIdx.x;
-
-  // the W and x tiles, zeros past K, 2N and M (the dx sums read them):
-  // 16-byte cp.async by every thread (VEC), landing under the prologue, or
-  // plain loads
-  if (VEC) {  // x first (dW needs it first), then W: two groups
-    constexpr int WP = BW_KT * 4 / 16, XP = BW_KT * sizeof(X) / 16;  // 16-byte pieces a row
-    for (int i = tid; i < geo.mr * XP; i += HS_THREADS) {
-      const int r = i / XP, p = i % XP;
-      const bool ok = r < M && p * 16 < kv * (int)sizeof(X);
-      cp_async16(reinterpret_cast<unsigned char*>(xs + r * geo.xs) + 16 * p,
-                 x + (size_t)(ok ? r : 0) * K + k0 + (ok ? p * 16 / sizeof(X) : 0), ok);
-    }
-    cp_async_commit();
-    for (int i = tid; i < geo.wr * WP; i += HS_THREADS) {
-      const int r = i / WP, p = i % WP;
-      const bool ok = r < n2 && p * 4 < kv;
-      const float* src = (r < N ? w_mu + (size_t)r * K : w_lv + (size_t)(ok ? r - N : 0) * K);
-      cp_async16(W + r * WS + 4 * p, src + k0 + (ok ? 4 * p : 0), ok);
-    }
-    cp_async_commit();
-  } else {
-    for (int i = tid; i < geo.wr * BW_KT; i += HS_THREADS) {
-      const int r = i / BW_KT, k = i % BW_KT;
-      float v = 0.f;
-      if (r < n2 && k < kv) v = (r < N ? w_mu + (size_t)r * K : w_lv + (size_t)(r - N) * K)[k0 + k];
-      W[r * WS + k] = v;
-    }
-    for (int i = tid; i < geo.mr * BW_KT; i += HS_THREADS) {
-      const int m = i / BW_KT, k = i % BW_KT;
-      xs[m * geo.xs + k] = m < M && k < kv ? x[(size_t)m * K + k0 + k] : from_f<X>(0.f);
-    }
-  }
-  // the prologue, under the copies: D = [dmu | dlv].  Each thread loads the
-  // cotangents of HS_UNROLL elements before it writes any, so their L2
-  // round trips overlap.
-  const int mn = M * N, dm = HS_THREADS / N, dn = HS_THREADS % N;
-  int m = tid / N, n = tid % N;  // element base + u * HS_THREADS, advanced in step
-  for (int base = tid; base < mn; base += HS_THREADS * HS_UNROLL) {
-    float gm[HS_UNROLL], gl[HS_UNROLL], gz[HS_UNROLL], df[HS_UNROLL];
-#pragma unroll
-    for (int u = 0; u < HS_UNROLL; ++u) {
-      const int e = base + u * HS_THREADS;
-      const bool ok = e < mn;
-      gm[u] = ok && g_mu ? g_mu[e] : 0.f;
-      gl[u] = ok && g_lv ? g_lv[e] : 0.f;
-      gz[u] = ok && g_z ? g_z[e] : 0.f;
-      df[u] = ok && g_z ? diff[e] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < HS_UNROLL; ++u) {
-      if (base + u * HS_THREADS < mn) {
-        D[m * geo.ds + n] = __fadd_rn(gm[u], gz[u]);
-        D[m * geo.ds + N + n] = __fadd_rn(gl[u], __fmul_rn(__fmul_rn(0.5f, gz[u]), df[u]));
-      }
-      m += dm;
-      n += dn;
-      if (n >= N) {
-        n -= N;
-        ++m;
-      }
-    }
-  }
-  // zeros past 2N and M: the dx sums read them
-  const int padc = geo.ds - n2;
-  for (int i = tid; i < geo.mr * padc; i += HS_THREADS) D[i / padc * geo.ds + n2 + i % padc] = 0.f;
-  for (int i = tid; i < (geo.mr - M) * n2; i += HS_THREADS) D[(M + i / n2) * geo.ds + i % n2] = 0.f;
-  cp_async_wait<1>();  // x has landed (W may still be on its way)
-  __syncthreads();
-  // db, as batch sums in row order, spread over the first row of CTAs
-  if (blockIdx.y == 0) {
-    for (int c = blockIdx.x + tid * gridDim.x; c < n2; c += HS_THREADS * gridDim.x) {
-      float sum = 0.f;
-      for (int r = 0; r < M; ++r) sum += D[r * geo.ds + c];
-      (c < N ? db_mu : db_lv)[c < N ? c : c - N] = sum;
-    }
-  }
-
-  // dW[n][k] = sum over m of D[m][n] x[m][k]: 8 x 8 tiles
   const int first = blockIdx.y * HS_THREADS + tid, stride = gridDim.y * HS_THREADS;
-  const int dw_items = geo.wr / 8 * (BW_KT / 8);
-  for (int it = first; it < dw_items; it += stride) {
-    const int kg = it % (BW_KT / 8), ng = it / (BW_KT / 8);
-    float acc[8][8] = {};
-#pragma unroll 4
-    for (int r = 0; r < M; ++r) {
-      float dv[8], xv[8];
-      load4<float>(*reinterpret_cast<float(*)[4]>(dv), D + r * geo.ds + 8 * ng);
-      load4<float>(*reinterpret_cast<float(*)[4]>(dv + 4), D + r * geo.ds + 8 * ng + 4);
-      load4<X>(*reinterpret_cast<float(*)[4]>(xv), xs + r * geo.xs + 8 * kg);
-      load4<X>(*reinterpret_cast<float(*)[4]>(xv + 4), xs + r * geo.xs + 8 * kg + 4);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(dv[i], xv[c], acc[i][c]);
+
+  for (int r0 = 0; r0 < M; r0 += geo.mr) {
+    const int rows = min(geo.mr, M - r0), head = r0 == 0;
+    if (!head) __syncthreads();  // the last block's D and x are read
+    // this block's x tile and, with the first block, the W tile, zeros past
+    // K, 2N and the block's rows (the dx sums read them): 16-byte cp.async
+    // by every thread (VEC), landing under the prologue, or plain loads
+    if (VEC) {  // x first (dW needs it first), then W: two groups
+      constexpr int WP = BW_KT * 4 / 16, XP = BW_KT * sizeof(X) / 16;  // 16-byte pieces a row
+      for (int i = tid; i < geo.mr * XP; i += HS_THREADS) {
+        const int r = i / XP, p = i % XP;
+        const bool ok = r < rows && p * 16 < kv * (int)sizeof(X);
+        cp_async16(reinterpret_cast<unsigned char*>(xs + r * geo.xs) + 16 * p,
+                   x + (size_t)(r0 + (ok ? r : 0)) * K + k0 + (ok ? p * 16 / sizeof(X) : 0), ok);
+      }
+      cp_async_commit();
+      if (head) {
+        for (int i = tid; i < geo.wr * WP; i += HS_THREADS) {
+          const int r = i / WP, p = i % WP;
+          const bool ok = r < n2 && p * 4 < kv;
+          const float* src = (r < N ? w_mu + (size_t)r * K : w_lv + (size_t)(ok ? r - N : 0) * K);
+          cp_async16(W + r * WS + 4 * p, src + k0 + (ok ? 4 * p : 0), ok);
+        }
+        cp_async_commit();
+      }
+    } else {
+      if (head) {
+        for (int i = tid; i < geo.wr * BW_KT; i += HS_THREADS) {
+          const int r = i / BW_KT, k = i % BW_KT;
+          float v = 0.f;
+          if (r < n2 && k < kv)
+            v = (r < N ? w_mu + (size_t)r * K : w_lv + (size_t)(r - N) * K)[k0 + k];
+          W[r * WS + k] = v;
+        }
+      }
+      for (int i = tid; i < geo.mr * BW_KT; i += HS_THREADS) {
+        const int m = i / BW_KT, k = i % BW_KT;
+        xs[m * geo.xs + k] = m < rows && k < kv ? x[(size_t)(r0 + m) * K + k0 + k] : from_f<X>(0.f);
+      }
     }
+    // the prologue, under the copies: D = [dmu | dlv] of the block's rows.
+    // Each thread loads the cotangents of HS_UNROLL elements before it
+    // writes any, so their L2 round trips overlap.
+    const int mn = rows * N, dm = HS_THREADS / N, dn = HS_THREADS % N;
+    const size_t e0 = (size_t)r0 * N;
+    int m = tid / N, n = tid % N;  // element base + u * HS_THREADS, advanced in step
+    for (int base = tid; base < mn; base += HS_THREADS * HS_UNROLL) {
+      float gm[HS_UNROLL], gl[HS_UNROLL], gz[HS_UNROLL], df[HS_UNROLL];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int nn = 8 * ng + i;
-      if (nn >= n2) continue;
-      float* row = (nn < N ? dw_mu + (size_t)nn * K : dw_lv + (size_t)(nn - N) * K) + k0;
+      for (int u = 0; u < HS_UNROLL; ++u) {
+        const int e = base + u * HS_THREADS;
+        const bool ok = e < mn;
+        gm[u] = ok && g_mu ? g_mu[e0 + e] : 0.f;
+        gl[u] = ok && g_lv ? g_lv[e0 + e] : 0.f;
+        gz[u] = ok && g_z ? g_z[e0 + e] : 0.f;
+        df[u] = ok && g_z ? diff[e0 + e] : 0.f;
+      }
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = 8 * kg + 4 * h;
-        if (VEC) {  // K % 4 == 0 and the tensors 16-byte aligned
-          if (k < kv)
-            *reinterpret_cast<float4*>(row + k) =
-                make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
-        } else {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (k + c < kv) row[k + c] = acc[i][4 * h + c];
+      for (int u = 0; u < HS_UNROLL; ++u) {
+        if (base + u * HS_THREADS < mn) {
+          D[m * geo.ds + n] = __fadd_rn(gm[u], gz[u]);
+          D[m * geo.ds + N + n] = __fadd_rn(gl[u], __fmul_rn(__fmul_rn(0.5f, gz[u]), df[u]));
+        }
+        m += dm;
+        n += dn;
+        if (n >= N) {
+          n -= N;
+          ++m;
         }
       }
     }
-  }
-  cp_async_wait<0>();  // W has landed
-  __syncthreads();
-
-  // dx[m][k] = sum over n < 2N of D[m][n] W[n][k]: 4 x 4 tiles
-  const int dx_items = (M + 3) / 4 * (BW_KT / 4);
-  for (int it = first; it < dx_items; it += stride) {
-    const int kg = it % (BW_KT / 4), mg = it / (BW_KT / 4);
-    float acc[4][4] = {};
-#pragma unroll 2
-    for (int n = 0; n < n2; n += 4) {
-      float dv[4][4], wv[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) load4<float>(dv[r], D + (4 * mg + r) * geo.ds + n);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) load4<float>(wv[q], W + (n + q) * WS + 4 * kg);
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(dv[r][q], wv[q][c], acc[r][c]);
+    // zeros past 2N and the block's rows: the dx sums read them
+    const int padc = geo.ds - n2;
+    for (int i = tid; i < geo.mr * padc; i += HS_THREADS) D[i / padc * geo.ds + n2 + i % padc] = 0.f;
+    for (int i = tid; i < (geo.mr - rows) * n2; i += HS_THREADS)
+      D[(rows + i / n2) * geo.ds + i % n2] = 0.f;
+    if (head)
+      cp_async_wait<1>();  // x has landed (W may still be on its way)
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    // db, as batch sums in row order, spread over the first row of CTAs
+    if (blockIdx.y == 0) {
+      for (int c = blockIdx.x + tid * gridDim.x; c < n2; c += HS_THREADS * gridDim.x) {
+        float* out = (c < N ? db_mu : db_lv) + (c < N ? c : c - N);
+        float sum = head ? 0.f : *out;
+        for (int r = 0; r < rows; ++r) sum += D[r * geo.ds + c];
+        *out = sum;
+      }
     }
+
+    // dW[n][k] += sum over the block's rows m of D[m][n] x[m][k]: 8 x 8 tiles
+    const int dw_items = geo.wr / 8 * (BW_KT / 8);
+    for (int it = first; it < dw_items; it += stride) {
+      const int kg = it % (BW_KT / 8), ng = it / (BW_KT / 8);
+      float acc[8][8];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int mm = 4 * mg + r;
+      for (int i = 0; i < 8; ++i) {
+        const int nn = 8 * ng + i;
+        const float* row = (nn < N ? dw_mu + (size_t)nn * K : dw_lv + (size_t)(nn - N) * K) + k0;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int k = 4 * kg + c;
-        if (mm < M && k < kv) dx[(size_t)mm * K + k0 + k] = from_f<X>(acc[r][c]);
+        for (int c = 0; c < 8; ++c)
+          acc[i][c] = !head && nn < n2 && 8 * kg + c < kv ? row[8 * kg + c] : 0.f;
+      }
+#pragma unroll 4
+      for (int r = 0; r < rows; ++r) {
+        float dv[8], xv[8];
+        load4<float>(*reinterpret_cast<float(*)[4]>(dv), D + r * geo.ds + 8 * ng);
+        load4<float>(*reinterpret_cast<float(*)[4]>(dv + 4), D + r * geo.ds + 8 * ng + 4);
+        load4<X>(*reinterpret_cast<float(*)[4]>(xv), xs + r * geo.xs + 8 * kg);
+        load4<X>(*reinterpret_cast<float(*)[4]>(xv + 4), xs + r * geo.xs + 8 * kg + 4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(dv[i], xv[c], acc[i][c]);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int nn = 8 * ng + i;
+        if (nn >= n2) continue;
+        float* row = (nn < N ? dw_mu + (size_t)nn * K : dw_lv + (size_t)(nn - N) * K) + k0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = 8 * kg + 4 * h;
+          if (VEC) {  // K % 4 == 0 and the tensors 16-byte aligned
+            if (k < kv)
+              *reinterpret_cast<float4*>(row + k) = make_float4(
+                  acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (k + c < kv) row[k + c] = acc[i][4 * h + c];
+          }
+        }
+      }
+    }
+    if (head) {
+      cp_async_wait<0>();  // W has landed
+      __syncthreads();
+    }
+
+    // dx[m][k] = sum over n < 2N of D[m][n] W[n][k] for the block's rows: 4 x 4 tiles
+    const int dx_items = (rows + 3) / 4 * (BW_KT / 4);
+    for (int it = first; it < dx_items; it += stride) {
+      const int kg = it % (BW_KT / 4), mg = it / (BW_KT / 4);
+      float acc[4][4] = {};
+#pragma unroll 2
+      for (int n = 0; n < n2; n += 4) {
+        float dv[4][4], wv[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) load4<float>(dv[r], D + (4 * mg + r) * geo.ds + n);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) load4<float>(wv[q], W + (n + q) * WS + 4 * kg);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(dv[r][q], wv[q][c], acc[r][c]);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int mm = 4 * mg + r;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int k = 4 * kg + c;
+          if (mm < rows && k < kv) dx[(size_t)(r0 + mm) * K + k0 + k] = from_f<X>(acc[r][c]);
+        }
       }
     }
   }
@@ -561,7 +603,7 @@ template <typename X>
 cudaError_t bwd(const void* x, const void* w_mu, const void* w_lv, const void* diff,
                 const void* g_mu, const void* g_lv, const void* g_z, void* dx, void* dw_mu,
                 void* dw_lv, void* db_mu, void* db_lv, int M, int K, int N, cudaStream_t stream) {
-  if (bwd_geo(M, N, sizeof(X)).smem > 232448) return cudaErrorInvalidValue;
+  if (bwd_geo(M, N, sizeof(X)).smem > BW_SMEM) return cudaErrorInvalidValue;
   const bool vec = K % (16 / (int)sizeof(X)) == 0 && aligned16(x) && aligned16(w_mu) &&
                    aligned16(w_lv) && aligned16(dw_mu) && aligned16(dw_lv);
   return vec ? bwd_launch<X, true>(x, w_mu, w_lv, diff, g_mu, g_lv, g_z, dx, dw_mu, dw_lv,
@@ -577,7 +619,8 @@ extern "C" {
 
 // x_dtype: 0 f32, 1 bf16.  eps may be null (drawn from `seed`).  partials:
 // (N tiles x M tiles x splits x 1024) floats of scratch; tickets: one int a
-// tile, zero, and left zero.
+// tile, zero, and left zero; not shared with a launch that may run at the
+// same time.
 int mmvae_head_sample_fwd(const void* x, const void* w_mu, const void* b_mu, const void* w_lv,
                           const void* b_lv, const void* eps, void* mu, void* logvar, void* z,
                           void* diff, void* partials, void* tickets, int M, int K, int N,

@@ -12,7 +12,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from mmvae_torch.ops import elbo_kernels, elbo_ref, preprocess_kernels, seeds
+from mmvae_torch.ops import elbo_kernels, preprocess_kernels, seeds
 
 
 def preprocess_gather(
@@ -35,8 +35,8 @@ class StepSampler:
     sampling kernel for a bare (mu, logvar).  `stream_seed(salt)` names the
     stream, so a model that holds the head's input takes the fused head and
     sample instead (models.base.head_and_sample).  `eps`, {salt: tensor},
-    replaces the draw for those salts (the model checks inject their noise
-    so; a bare call then computes mu + exp(logvar / 2) eps in plain ops)."""
+    is what `noise(salt)` hands that fused op in place of the draw (the
+    model checks inject their noise so); a bare call always draws."""
 
     def __init__(self, seed: int, eps: Optional[Dict[int, torch.Tensor]] = None):
         self.seed = seed
@@ -49,10 +49,6 @@ class StepSampler:
         return self.eps.get(salt)
 
     def __call__(self, mu, logvar, salt=0):
-        eps = self.noise(salt)
-        if eps is not None:
-            return elbo_ref.reparameterize_ref(mu.float(), logvar.float(), 0,
-                                               eps.to(mu.device, torch.float32))
         return elbo_kernels.reparameterize(mu, logvar, self.stream_seed(salt))
 
 

@@ -51,19 +51,25 @@ def _up(v: int, m: int) -> int:
 def head_geometry(m: int, k: int, n: int, x_itemsize: int) -> dict:
     """The kernels' launch geometry at x (m, k), latent n: the forward's
     K splits (CTAs a tile), its K slice a CTA, its grid and shared bytes;
-    the backward's grid (K tiles of 32 columns, CTAs sharing each tile) and
-    shared bytes (it must fit the card)."""
+    the backward's grid (K tiles of 32 columns, CTAs sharing each tile),
+    the rows of the batch a block holds (the whole batch where it fits,
+    else the fewest equal blocks that do) and shared bytes (they must fit
+    the card: only the latent width can outgrow it)."""
     splits = min(max(-(-k // _FW_KC), 1), _FW_MAX_SPLIT)
     stage = _FW_MT * (_FW_KC + 16 // x_itemsize) * x_itemsize + (2 * _FW_NT * (_FW_KC + 4) + 16) * 4
-    mr, wr, tiles = _up(m, 8), _up(2 * n, 8), -(-k // _BW_KT)
+    wr, tiles = _up(2 * n, 8), -(-k // _BW_KT)
+    fixed, row = wr * (_BW_KT + 4) * 4, (wr + 4) * 4 + (_BW_KT + 16 // x_itemsize) * x_itemsize
+    cap = max((SMEM_LIMIT - fixed) // row // 8 * 8, 8)
+    blocks = -(-m // cap)
+    rows = _up(-(-m // blocks), 8)
     return {
         "fwd_splits": splits,
         "fwd_kslice": _up(-(-k // splits), _FW_KC),
         "fwd_grid": (splits, -(-n // _FW_NT), -(-m // _FW_MT)),
         "fwd_smem": _FW_STAGES * stage,
         "bwd_grid": (tiles, min(max(_BW_FILL // tiles, 1), _BW_MAX_PARTS)),
-        "bwd_smem": (mr * (wr + 4) * 4 + wr * (_BW_KT + 4) * 4
-                     + mr * (_BW_KT + 16 // x_itemsize) * x_itemsize),
+        "bwd_rows": rows,
+        "bwd_smem": fixed + rows * row,
     }
 
 
@@ -139,7 +145,7 @@ def _check(what, x, w_mu, w_lv, **others):
         raise ValueError(f"{what}: empty shape (M, K, N) = ({m}, {k}, {n})")
     smem = head_geometry(m, k, n, x.element_size())["bwd_smem"]
     if smem > SMEM_LIMIT:
-        raise ValueError(f"{what}: (M, N) = ({m}, {n}) needs {smem} bytes of shared memory in "
+        raise ValueError(f"{what}: latent width N = {n} needs {smem} bytes of shared memory in "
                          f"the backward, the card has {SMEM_LIMIT}")
     return m, k, n
 
@@ -147,13 +153,18 @@ def _check(what, x, w_mu, w_lv, **others):
 _TICKETS = {}
 
 
-def tickets(device, count: int) -> torch.Tensor:
-    """The forward's tile tickets on `device`: int32 zeros, which every
-    launch leaves zero (its last CTA a tile resets its ticket), so one
-    buffer serves every call on the device's stream."""
-    buf = _TICKETS.get(device)
+def tickets(device, stream: int, count: int) -> torch.Tensor:
+    """The forward's tile tickets for launches on `stream` (a CUDA stream
+    handle) of `device`: int32 zeros, which every launch leaves zero (its
+    last CTA a tile resets its ticket).  Launches on one stream run one
+    after another, so they can share a buffer; two streams never do, so
+    forwards in flight on two streams at once keep their sums apart.  A
+    CUDA graph keeps the buffer of the stream it was captured on: graphs
+    captured on one stream are replayed one at a time."""
+    buf = _TICKETS.get((device, stream))
     if buf is None or buf.numel() < count:
-        buf = _TICKETS[device] = torch.zeros(max(count, 64), device=device, dtype=torch.int32)
+        buf = torch.zeros(max(count, 64), device=device, dtype=torch.int32)
+        _TICKETS[(device, stream)] = buf
     return buf
 
 
@@ -166,11 +177,12 @@ def head_sample_forward_cuda(x, w_mu, b_mu, w_lv, b_lv, seed: int,
     f32 = dict(device=x.device, dtype=torch.float32)
     outs = tuple(torch.empty(m, n, **f32) for _ in range(4))
     partials = torch.empty(tiles_n * tiles_m * splits * _FW_MT * 2 * _FW_NT, **f32)
+    stream = _build.stream_ptr(x.device)
     err = _build.library().mmvae_head_sample_fwd(
         x.data_ptr(), w_mu.data_ptr(), b_mu.data_ptr(), w_lv.data_ptr(), b_lv.data_ptr(),
         None if eps is None else eps.data_ptr(), *(o.data_ptr() for o in outs),
-        partials.data_ptr(), tickets(x.device, tiles_n * tiles_m).data_ptr(), m, k, n,
-        _DTYPE_CODE[x.dtype], int(seed) & 0xFFFFFFFF, _build.stream_ptr(x.device),
+        partials.data_ptr(), tickets(x.device, stream, tiles_n * tiles_m).data_ptr(), m, k, n,
+        _DTYPE_CODE[x.dtype], int(seed) & 0xFFFFFFFF, stream,
     )
     _build.check(err, "head_sample_forward")
     head_sample_forward.launches += 1

@@ -192,10 +192,14 @@ def test_fused_train_steps_launch_k5_and_k6(dev, name):
     assert all(n == 3 for n in counts.values()), counts
 
 
-# The sampling sites at full width (M, K, N, x dtype), and unaligned shapes.
+# The sampling sites at full width (M, K, N, x dtype), unaligned shapes, and
+# batches past one 64-row block of the backward (config 3 at batch 256,
+# config 5 at batch 32; an unaligned 150 rows).
 HEAD_SHAPES = [(64, 8192, 128, torch.bfloat16), (16, 256, 128, torch.float32),
                (160, 256, 64, torch.float32), (5, 37, 3, torch.bfloat16),
-               (70, 300, 21, torch.float32), (3, 1100, 9, torch.float32)]
+               (70, 300, 21, torch.float32), (3, 1100, 9, torch.float32),
+               (256, 8192, 128, torch.bfloat16), (320, 256, 64, torch.float32),
+               (150, 300, 21, torch.float32)]
 
 
 @pytest.mark.parametrize("shape", HEAD_SHAPES, ids=str)
@@ -210,6 +214,22 @@ def test_head_kernels_match_plain(dev, shape):
 def test_head_backward_is_bit_reproducible(dev, shape):
     same = kernel_checks.head_backward_repeatable(dev, shape)
     assert all(same.values()), same
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES[:3] + HEAD_SHAPES[6:8], ids=str)
+def test_head_forward_is_bit_reproducible(dev, shape):
+    """200 launches warm, cold (a CUDA graph over 20 input copies) and on
+    two streams at once, each bit-identical to the first launch."""
+    same = kernel_checks.head_forward_repeatable(dev, shape)
+    assert all(same.values()), same
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES[:3], ids=str)
+def test_head_tolerance_rejects_tf32(dev, shape):
+    """The f32 limit of `compare_head` rejects the same products with their
+    operands rounded to TF32, and the kernels pass it."""
+    ctrl = kernel_checks.head_tf32_control(dev, shape)
+    assert min(ctrl.values()) > kernel_checks.F32_UNITS, ctrl
 
 
 @pytest.mark.parametrize("shape", HEAD_SHAPES, ids=str)
