@@ -43,7 +43,7 @@
 // distributed shared memory, ran 0.0259 ms against 0.0154 for the same
 // kernel launched without the cluster and without its sum, and 0.0314 with
 // one CTA an SM forced: the clusters' placement cost it, not the sum;
-// `python -m mmvae_torch.bench.head_ab`, H100 SXM at 700 W.)
+// PERF.md section 6, PR 5: H100 SXM at 700 W.)
 //
 // Design, backward: one launch, no reduction across CTAs.  Each CTA owns 32
 // columns of K (two CTAs an SM at the flagship head) and computes
