@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke of the PyTorch / CUDA port: configs 3, 4 and 5 training.
+"""On-card smoke of the PyTorch / CUDA port: configs 3, 4 and 5 and the
+recommended quality recipe training.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -29,15 +30,24 @@ Phases, each raising on failure (the script catches nothing):
    timed in CUDA graphs beside the route it replaces (a cast, two F.linear
    and K2, with its autograd backward: `library_ms`); K5's, K6's and the
    head's backward (K6 with a time-constant and a streaming xg) run twice
-   and required bit-identical; then each config's full-width model (seq_vae; pred_vae
-   and hier_vae with fused=true), forward and gradients on a small input,
-   eps injected through the train step's sample function, on the card
-   through the kernels against the CPU through the plain versions;
+   and required bit-identical; then each config's full-width model (seq_vae
+   with the default and the recipe's `fast_mid` decoder; pred_vae and
+   hier_vae with fused=true), forward and gradients on a small input, eps
+   injected through the train step's sample function, on the card through
+   the kernels against the CPU through the plain versions; the frame
+   decoder alone in its four other modes, card against CPU; on-card clip
+   generation (`data.ongen`): byte-identical to the CPU from the same
+   draws with TF32 off and on, and from its own generator at 64 clips x 20
+   frames every sprite inside the canvas and the mean intensity within 5 %
+   of the host generator's;
 4. the slices through `run_benchmark` at full width, each with the launch
    counters set to 0 just before it and read just after: config 3
    `seq_vae` (64 clips x 20 frames: K1, K3, K5 and the head; K6 not
    launched), config 4 `pred_vae` and config 5 `hier_vae` (16 clips x 100
    frames) with `model.kwargs.fused=true` (K1, K3, K5, K6 and the head),
+   the recommended recipe (config 3 with `fast_mid`, clips generated on the
+   card every step and a parameter EMA: K1, K3, K5 and the head; K6 not
+   launched; the EMA moved off both the initial and the live parameters),
    the standalone K2 launched on none, 3 timed windows of 20 train steps
    after 5 warmup steps, losses finite and falling; then config 3 with
    fused=true once more, timed beside the default, as a measurement of the
@@ -181,7 +191,7 @@ def path_shapes() -> dict:
     resident set, frames a clip, batch); elbo: (logits, mu); reparameterize:
     (shape, salt); convlstm_proj: (B, T, H, W, C, F); convlstm_scan: (B, T,
     H, W, F), time-constant xg; head: (M, K, N, x dtype) of each sampling
-    site."""
+    site.  The preprocess key of an ongen run is its generated batch."""
     import torch
 
     from mmvae_torch.configs import get_config
@@ -209,7 +219,9 @@ def path_shapes() -> dict:
             samples = [((b, kw["latent_dim"]), 0)]
             heads = [(b, grid * grid * feat, kw["latent_dim"],
                       {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.model.dtype])]
-        clips = max(int(cfg.data.num_sequences * cfg.data.train_fraction), b)
+        # an ongen step gathers all of its generated batch
+        clips = b if cfg.data.on_device_generate else max(
+            int(cfg.data.num_sequences * cfg.data.train_fraction), b)
         groups = {
             "preprocess": [(clips, t, b)],
             "elbo": [((b, scored, size, size), samples[0][0])],
@@ -686,6 +698,115 @@ def check_model(dev, name: str, frames: int, overrides=()) -> None:
               f"result over its limit {worst[0]:.3f} (must be <= 1) at {worst[1]}")
 
 
+def check_decoder_modes(dev) -> None:
+    """The frame decoder alone in each mode the recipe does not run, at
+    seq_vae's channels on (16, 128, 8, 8): logits and every gradient (input
+    and parameters) on the card (cuDNN) against the CPU, held as
+    `check_model` holds a model: bf16 on each device against the CPU's f32,
+    the card's relative L2 distance at most max(2 x the CPU bf16 one's, 0.05)."""
+    import copy
+
+    import torch
+
+    from mmvae_torch.models.base import ConvDecoder, flax_init_
+
+    g = torch.Generator().manual_seed(9)
+    h = torch.randn(16, 128, 8, 8, generator=g)
+    cot = torch.randn(16, 1, 64, 64, generator=g)
+    for mode in ("fast_midw", "fast_hq", "fast_k4tail", "transpose"):
+        def decoder(dtype):  # the same seed: the same f32 weights for every dtype
+            return flax_init_(ConvDecoder(128, (128, 64, 32), dtype=dtype, upsample=mode),
+                              torch.Generator().manual_seed(4))
+
+        def run(m, device):
+            m = copy.deepcopy(m).to(device)
+            x = h.to(device).detach().requires_grad_()  # a leaf on every device
+            out = m(x)
+            (out * cot.to(device)).sum().backward()
+            res = {"logits": out, "d input": x.grad}
+            res.update((f"d {n}", p.grad) for n, p in m.named_parameters())
+            return {n: t.detach().float().cpu() for n, t in res.items()}
+
+        truth = run(decoder(torch.float32), "cpu")
+        bf16 = decoder(torch.bfloat16)
+        plain, kern = run(bf16, "cpu"), run(bf16, dev)
+        worst = (0.0, "")
+        for name, b in plain.items():
+            e_k, e_p = _rel_l2(kern[name], truth[name]), _rel_l2(b, truth[name])
+            lim = max(2 * e_p, 0.05)
+            _require(e_k <= lim, f"decoder {mode} {name}: rel L2 to f32 {e_k:.3f} on the card, "
+                                 f"{e_p:.3f} on the CPU (limit {lim:.3f})")
+            worst = max(worst, (e_k / lim, f"{name} (card {e_k:.4f}, CPU {e_p:.4f})"))
+        print(f"[model] ConvDecoder upsample={mode} bf16 (16 x 128 x 8 x 8 -> 64x64), card vs "
+              f"CPU over {len(plain)} tensors: worst rel L2 to the f32 result over its limit "
+              f"{worst[0]:.3f} (must be <= 1) at {worst[1]}")
+
+
+def check_ongen(dev) -> None:
+    """On-card clip generation (`data.ongen`) at the recipe's batch, 64 clips
+    x 20 frames: from the same draws byte-identical to the CPU, with TF32
+    off and then on; from the train step's own generator (the clip function
+    a step calls, seeded as step 0 seeds it) every sprite's corner inside
+    [0, lim] at every frame, every frame holding at least one sprite's
+    mass, and the mean intensity within 5 % of the host generator's over
+    the same count of clips; the time of one batch."""
+    import torch
+
+    from mmvae_torch.data import loader, ongen
+    from mmvae_torch.ops.seeds import STREAM_ONGEN, step_seed, stream_seed
+
+    b, t = 64, 20
+    cpu, card = ongen.Canvas(b, t, 64, device="cpu"), ongen.Canvas(b, t, 64, device=dev)
+    draws = cpu.draw(torch.Generator().manual_seed(11), 2)
+    want = cpu.render(draws)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+            got = card.render(ongen.Draws(*(d.to(dev) for d in draws))).cpu()
+            diff = int((got.int() - want.int()).abs().max())
+            _require(diff == 0, f"ongen: the card's clips differ from the CPU's by up to {diff} "
+                                f"with allow_tf32={tf32}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    seed = stream_seed(step_seed(0), STREAM_ONGEN)
+    fn = ongen.clip_batch_fn(b, (t, 64, 64), device=dev)
+    clips = fn(seed)
+    own = card.draw(torch.Generator(device=dev).manual_seed(seed & 0xFFFFFFFF), 2)
+    _require(torch.equal(card.render(own), clips), "ongen: the clip function's clips are not "
+                                                    "those of its seed's draws")
+    yx = card.positions(own)
+    _require(clips.dtype == torch.uint8 and clips.shape == (b, t, 64, 64)
+             and int(clips.max()) > 0, f"ongen: clips {clips.dtype} {tuple(clips.shape)}")
+    _require(int(yx.min()) >= 0 and int(yx.max()) <= card.lim,
+             f"ongen: a corner outside [0, {card.lim}]: {int(yx.min())} .. {int(yx.max())}")
+    mass = clips.float().sum(dim=(2, 3))
+    least = 255.0 * float(ongen.sprite_table().sum(axis=(1, 2)).min())
+    _require(bool((mass >= least).all()), "ongen: a frame lost a digit's mass")
+    mean = clips.double().mean().item()
+    host = float(loader.generate_moving_mnist(b, seq_len=t, seed=0).mean(dtype="float64"))
+    rel = abs(mean - host) / host
+    _require(rel < 0.05, f"ongen: mean intensity {mean:.3f} against the host's {host:.3f}")
+    ms = _time_ms(lambda: fn(seed), 20)
+    busy, launches = _device_ms(lambda: fn(seed), 20)
+    print(f"[ongen] {b} x {t} x 64x64 u8: byte-identical to the CPU from the same draws with "
+          f"TF32 off and on; corners in [{int(yx.min())}, {int(yx.max())}] (limit 0..{card.lim:g}); "
+          f"least frame mass {float(mass.min()):.0f} (>= {least:.0f}); mean intensity {mean:.3f} "
+          f"against the host generator's {host:.3f} ({100 * rel:.2f} %, limit 5 %); one batch "
+          f"{busy:.4f} ms busy on the device in {launches:.0f} launches (profiler), {ms:.4f} ms "
+          f"back to back from the host (CUDA events)")
+
+
+def _device_ms(fn, calls: int) -> tuple:
+    """(device-busy ms a call, kernel launches a call) of `fn` over `calls`
+    calls, after one warm call (`bench.profile`'s profiler reading)."""
+    from mmvae_torch.bench.profile import device_busy_ms, device_kernels
+
+    fn()
+    kernels = device_kernels(fn, calls)
+    return device_busy_ms(kernels) / calls, len(kernels) / calls
+
+
 def phase_kernels(dev) -> dict:
     shapes = path_shapes()
     fwd, bwd = check_convlstm(dev, shapes["proj"])
@@ -706,15 +827,24 @@ def phase_kernels(dev) -> dict:
 
 def phase_models(dev) -> None:
     check_model(dev, "seq_vae", 4)
+    check_model(dev, "seq_vae", 4, _RECIPE[:1])
     check_model(dev, "pred_vae", 20, ("model.kwargs.fused=true",))
     check_model(dev, "hier_vae", 20, ("model.kwargs.fused=true",))
+    check_decoder_modes(dev)
+    check_ongen(dev)
 
 
+# The reference's recommended quality configuration (README.md:98,
+# docs/RESULTS.md:891-896): config 3 with the fast_mid decoder, clips
+# generated on the card every step, and a parameter EMA.
+_RECIPE = ("model.kwargs.dec_upsample=fast_mid", "data.on_device_generate=true",
+           "optim.ema_decay=0.999")
 # (config, overrides, kernels that must launch, kernels that must not)
 _SLICES = (
     ("seq_vae", (), _STEP + _K5, _K6 + _K2),
     ("pred_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, _K2),
     ("hier_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, _K2),
+    ("seq_vae", _RECIPE, _STEP + _K5, _K6 + _K2),
 )
 # Policy measurement, recorded and not adopted: config 3's decoder through K6.
 _POLICY = ("seq_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, _K2)
@@ -732,10 +862,12 @@ def run_slice(card: str, name: str, overrides, launched, idle) -> dict:
     _require(cfg.data.batch_size == base.data.batch_size and cfg.data.seq_len == base.data.seq_len
              and cfg.model.dtype == "bfloat16", f"{name} is not the full-width config")
     ops.reset_launch_counts()
-    res = run_benchmark(cfg, steps=20, warmup=5)
+    res, state = run_benchmark(cfg, steps=20, warmup=5, return_state=True)
     counts = ops.launch_counts()
     losses = res.pop("losses")
     tag = _tag(name, overrides)
+    if cfg.optim.ema_decay:
+        _check_ema(tag, cfg, state)
     _require(all(math.isfinite(v) for v in losses), f"{tag}: non-finite loss in {losses}")
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
     _require(last < first, f"{tag}: loss did not fall: first 5 mean {first:.1f}, last 5 {last:.1f}")
@@ -744,9 +876,31 @@ def run_slice(card: str, name: str, overrides, launched, idle) -> dict:
     print(f"[slice] {tag}: {len(losses)} train steps, loss first-5 mean {first:.2f} -> "
           f"last-5 mean {last:.2f}; launches {counts}")
     print(f"[slice] {json.dumps(res)}")
+    per_step = sum(counts.values()) / len(losses)
     print(f"[slice] {tag}: {res['value']} frames/s/GPU (min {res['value_min']}, max "
-          f"{res['value_max']}, spread {res['spread_pct']}%) on {card}")
+          f"{res['value_max']}, spread {res['spread_pct']}%), {per_step:.2f} kernel-wrapper "
+          f"launches a step, on {card}")
     return counts
+
+
+def _check_ema(tag: str, cfg, state) -> None:
+    """After the run the EMA differs from the initial parameters (the
+    config's seed rebuilds them) and from the live ones, and is finite."""
+    import torch
+
+    from mmvae_torch.train.loop import build_model
+
+    init = {n: p.detach() for n, p in build_model(cfg, "cpu").named_parameters()}
+    live = dict(state.model.named_parameters())
+    ema = {n: e.detach().cpu() for n, e in state.ema_params.items()}
+    _require(set(ema) == set(live), f"{tag}: the EMA's names differ from the parameters'")
+    _require(all(bool(torch.isfinite(e).all()) for e in ema.values()), f"{tag}: EMA not finite")
+    off_init = max(float((e - init[n]).abs().max()) for n, e in ema.items())
+    off_live = max(float((e - live[n].detach().cpu()).abs().max()) for n, e in ema.items())
+    _require(off_init > 0 and off_live > 0, f"{tag}: the EMA did not move off the initial "
+                                            f"({off_init}) or the live ({off_live}) parameters")
+    print(f"[slice] {tag}: after {state.step} steps the EMA lies up to {off_init:.3e} from the "
+          f"initial parameters and up to {off_live:.3e} from the live ones")
 
 
 def _tag(name: str, overrides) -> str:

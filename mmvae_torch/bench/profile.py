@@ -3,8 +3,9 @@
     python -m mmvae_torch.bench.profile [--config seq_vae] [--steps 10]
                                         [--set model.kwargs.remat=false ...]
 
-Runs real train steps of the config at full width on a resident u8 dataset
-(`bench.throughput.setup_resident_training`), then prints one JSON line: the step time on the
+Runs real train steps of the config at full width on the data path it names
+(a resident u8 dataset, or clips generated on the card under
+`data.on_device_generate`: `bench.throughput.setup_resident_training`), then prints one JSON line: the step time on the
 host clock (steps ended by `torch.cuda.synchronize()`), the device-busy time
 per step from `torch.profiler` (the union of kernel intervals on the card),
 the idle share (1 - busy / step), the kernel launches per step, and the
@@ -36,9 +37,24 @@ def _busy_ms(intervals) -> float:
     return total / 1e3
 
 
-def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12) -> dict:
+def device_kernels(fn, calls: int) -> list:
+    """The CUDA kernel events (torch.profiler) of `calls` calls of `fn`,
+    ended by a synchronize."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_busy_ms(kernels) -> float:
+    """Device-busy ms of kernel events: the union of their intervals."""
+    return _busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
+
+
+def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12) -> dict:
     from mmvae_torch.bench.throughput import setup_resident_training
 
     if not torch.cuda.is_available():
@@ -53,15 +69,11 @@ def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12) 
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step(state, data)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(lambda: step(state, data), steps)
     by_name = defaultdict(float)
     for e in kernels:
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
-    busy = _busy_ms((e.time_range.start, e.time_range.end) for e in kernels) / steps
+    busy = device_busy_ms(kernels) / steps
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {
         "config": cfg.name,

@@ -1,7 +1,9 @@
 """Training throughput on one GPU: frames/s (port of mmvae_tpu/bench/throughput.py).
 
-Real train steps (forward, backward, Adam) on a u8 dataset resident on the
-card at the config's production size, each step gathering its batch there.
+Real train steps (forward, backward, the optimizer) on the data path the
+config names: a u8 dataset resident on the card at the config's production
+size, each step gathering its batch there, or with `data.on_device_generate`
+clips generated on the card every step (`data.ongen`) and no dataset.
 Warmup is left out; three timed windows of `steps` steps, each ended by
 `torch.cuda.synchronize()`; frames/s is reported as the median window with
 min, max and spread.  Same JSON keys as the JAX bench; `mfu` and
@@ -20,31 +22,54 @@ NORTH_STAR_FRAMES_PER_SEC = 50_000.0
 
 
 def setup_resident_training(cfg, dev: torch.device):
-    """(state, dataset, step_fn) for the config on `dev`: TF32 off, the
-    flax-initialized model with Adam, a u8 dataset of the config's train
-    split made on the card from seed 0, and the resident train step."""
-    from mmvae_torch.train.loop import build_model, make_train_step
+    """(state, data, step_fn) for the config on `dev`: TF32 off, the
+    flax-initialized model with its optimizer, and the config's train step
+    (its KL weight and sampling options too).  `data` is a u8 dataset of the
+    config's train split made on the card from seed 0, or None under
+    `data.on_device_generate`, whose step generates its clips (from
+    `data.sprite_bank` where one is named).  `train.steps_per_call` > 1
+    raises: the port runs one step a call."""
+    from mmvae_torch.train.loop import _sample_shape, build_model, make_train_step
     from mmvae_torch.train.state import create_train_state
 
     if cfg.train.use_pallas is False:
         raise ValueError("train.use_pallas=false: the port has no plain path on the "
                          "card; its kernels always run there")
+    if cfg.train.steps_per_call > 1:
+        raise NotImplementedError(f"train.steps_per_call={cfg.train.steps_per_call}: the "
+                                  "port runs one train step a call (chunking is not ported)")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     state = create_train_state(build_model(cfg, dev), cfg.optim)
+    ongen = cfg.data.on_device_generate
+    sprites = None
+    if ongen and cfg.data.sprite_bank:
+        from mmvae_torch.data.loader import load_sprite_bank
+
+        sprites = load_sprite_bank(cfg.data.sprite_bank)
+    sample_shape = _sample_shape(cfg)[1:]
+    step_fn = make_train_step(
+        state.model, binarize=cfg.data.binarize, per_frame=cfg.data.per_frame,
+        resident_batch=None if ongen else cfg.data.batch_size,
+        ongen_batch=cfg.data.batch_size if ongen else None, ongen_shape=sample_shape,
+        ongen_num_digits=cfg.data.num_digits, ongen_sprites=sprites,
+        beta=cfg.optim.beta, kl_warmup_steps=cfg.optim.kl_warmup_steps,
+        resident_epochs=cfg.data.resident_epochs, resident_seed=cfg.data.seed,
+    )
+    if ongen:
+        return state, None, step_fn
     n_clips = max(int(cfg.data.num_sequences * cfg.data.train_fraction),
                   cfg.data.batch_size)
     gen = torch.Generator(device=dev).manual_seed(0)
-    data = torch.randint(0, 256, (n_clips, max(cfg.data.seq_len, 1), 64, 64),
-                         generator=gen, device=dev, dtype=torch.uint8)
-    step_fn = make_train_step(
-        state.model, binarize=cfg.data.binarize, resident_batch=cfg.data.batch_size,
-    )
+    data = torch.randint(0, 256, (n_clips, *sample_shape), generator=gen, device=dev,
+                         dtype=torch.uint8)
     return state, data, step_fn
 
 
 def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
-                  device: Optional[str] = None) -> Dict:
+                  device: Optional[str] = None, return_state: bool = False):
+    """The bench's result dict; with `return_state`, (result, the trained
+    TrainState)."""
     from mmvae_torch.train.loop import _sample_shape
 
     if not torch.cuda.is_available():
@@ -72,7 +97,7 @@ def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
     fps = frames_per_step * steps / dt
     fps_all = sorted(frames_per_step * steps / w for w in windows)
     loss_values = torch.stack(losses).float().cpu().tolist()
-    return {
+    res = {
         "metric": f"training frames/sec/GPU ({cfg.data.seq_len}-frame clips)"
         if not cfg.data.per_frame
         else "training frames/sec/GPU (single frames)",
@@ -80,6 +105,7 @@ def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
         "unit": "frames/sec/GPU",
         "vs_baseline": round(fps / NORTH_STAR_FRAMES_PER_SEC, 4),
         "config": cfg.name,
+        "data": "on_device_generate" if cfg.data.on_device_generate else "resident",
         "batch_frames": frames_per_step,
         "steps": steps,
         "wall_sec": round(dt, 3),
@@ -95,3 +121,4 @@ def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
         "mfu": None,
         "losses": loss_values,
     }
+    return (res, state) if return_state else res

@@ -9,7 +9,9 @@ Layout mappings (flax -> torch):
 - Conv kernel HWIO -> Conv2d weight OIHW.
 - ConvTranspose kernel (kh, kw, in, out) -> ConvTranspose2d weight
   (in, out, kh, kw): flipped in space, then permuted (2, 3, 0, 1).  With
-  k == stride == 2 flax's SAME padding is torch's padding 0.
+  k == stride == 2 flax's SAME padding is torch's padding 0, at k4/s2 it is
+  padding 1.  `_is_transposed` names the owners: `ConvTranspose_i` and
+  the `fast_k4tail` decoder's `k4_tail`.
 - A ConvLSTM whose input kernel is 1x1 (the encoder, kernel path):
   `input/kernel` (1, 1, C, 4F) -> a (C, 4F) matrix, and
   `step/hidden/kernel` stays HWIO (3, 3, F, 4F).  Otherwise (the decoder)
@@ -33,6 +35,12 @@ def _flatten(tree: Mapping, prefix=()):
             yield path, np.asarray(val)
 
 
+def _is_transposed(owner: str) -> bool:
+    """Whether `owner`'s 4-D kernel is a transposed conv's: flax's
+    `ConvTranspose_i` (and `Upsample2x2`, named so) or `k4_tail`."""
+    return owner.startswith("ConvTranspose_") or owner == "k4_tail"
+
+
 def _is_proj_lstm(leaves: Dict[tuple, np.ndarray], lstm: tuple) -> bool:
     k = leaves.get(lstm + ("input", "kernel"))
     return k is not None and k.ndim == 4 and k.shape[:2] == (1, 1)
@@ -52,7 +60,7 @@ def _map_leaf(path: tuple, arr: np.ndarray, leaves) -> np.ndarray:
         return arr.reshape(arr.shape[2], arr.shape[3])
     if path[-3:-1] == ("step", "hidden") and _is_proj_lstm(leaves, path[:-3]):
         return arr
-    if owner.startswith("ConvTranspose"):
+    if _is_transposed(owner):
         return arr[::-1, ::-1].transpose(2, 3, 0, 1)
     return arr.transpose(3, 2, 0, 1)
 

@@ -156,40 +156,87 @@ class ConvEncoder(nn.Module):
         return h
 
 
+DECODER_MODES = ("fast", "fast_k4tail", "fast_mid", "fast_midw", "fast_hq", "transpose")
+
+
 class ConvDecoder(nn.Module):
-    """Frame decoder in flax's "fast" layout: 2x2/stride-2 transposed convs,
-    one 3x3 mixing conv after the first upsample, a final 2x2 transpose to
-    1-channel float32 logits.  Input (N, C, g, g) -> (N, 1, 64, 64)."""
+    """Frame decoder, every `upsample` mode of flax's ConvDecoder, with its
+    parameter names.  Input (N, C, g, g) -> (N, 1, 64, 64) float32 logits;
+    each layer runs in the activation dtype, only the logits are cast.  With
+    chs = `channels`:
+
+    - "fast": 2x2/s2 transposes (`ConvTranspose_i`) to chs[0], a 3x3 mix
+      (`Conv_0`) to chs[1] after the first, transposes to chs[2:], a final
+      2x2 transpose to 1 channel;
+    - "fast_k4tail": "fast" with the final transpose a 4x4/s2 SAME one
+      (`k4_tail`, torch padding 1);
+    - "fast_mid" / "fast_midw": "fast" plus a 3x3 conv (`mid_mix`) before the
+      final transpose, to max(chs[-1] // 2, 8) / chs[-1] channels;
+    - "fast_hq": 2x2 transposes over chs[:-1], `Conv_0` to chs[-1], the
+      final transpose;
+    - "transpose": 4x4/s2 SAME transposes over chs, then `Conv_0`, a 3x3
+      conv to 1 channel.
+
+    Every layer but the last is followed by a relu.  Other names raise (the
+    reference takes any other name as "transpose")."""
 
     def __init__(self, cin: int, channels: Sequence[int] = (128, 64, 32),
                  dtype=torch.float32, upsample: str = "fast", device=None):
         super().__init__()
-        if upsample != "fast":
-            raise NotImplementedError(f"dec_upsample={upsample!r}: only 'fast' is ported")
+        if upsample not in DECODER_MODES:
+            raise ValueError(f"dec_upsample={upsample!r}: not one of {DECODER_MODES}")
         self.dtype = dtype
-        chs = list(channels)
-        self.n_mid = len(chs[2:])
-        up = [chs[0], *chs[2:], 1]
-        prev = cin
-        for i, ch in enumerate(up):
-            self.add_module(f"ConvTranspose_{i}",
-                            nn.ConvTranspose2d(prev, ch, 2, stride=2, device=device))
-            prev = ch
-            if i == 0:
-                mix = chs[1] if len(chs) > 1 else chs[0]
-                self.Conv_0 = nn.Conv2d(prev, mix, 3, padding=1, device=device)
-                prev = mix
+        self.layers = []  # module names in forward order
+        cur = cin
 
-    def _up(self, i, h):
-        m = getattr(self, f"ConvTranspose_{i}")
-        return F.conv_transpose2d(h, m.weight.to(self.dtype), m.bias.to(self.dtype), stride=2)
+        def add(name: str, mod: nn.Module) -> None:
+            nonlocal cur
+            self.add_module(name, mod)
+            self.layers.append(name)
+            cur = mod.out_channels
+
+        def up(ch: int, k: int = 2) -> None:
+            # `ConvTranspose_i`: k x k, stride 2, flax SAME = torch padding (k - 2) / 2
+            add(f"ConvTranspose_{sum(n.startswith('ConvTranspose_') for n in self.layers)}",
+                nn.ConvTranspose2d(cur, ch, k, stride=2, padding=(k - 2) // 2, device=device))
+
+        def conv(name: str, ch: int) -> None:
+            add(name, nn.Conv2d(cur, ch, 3, padding=1, device=device))
+
+        chs = list(channels)
+        if upsample == "transpose":
+            for ch in chs:
+                up(ch, 4)
+            conv("Conv_0", 1)
+        elif upsample == "fast_hq":
+            for ch in chs[:-1]:
+                up(ch)
+            conv("Conv_0", chs[-1])
+            up(1)
+        else:
+            up(chs[0])
+            conv("Conv_0", chs[1] if len(chs) > 1 else chs[0])
+            for ch in chs[2:]:
+                up(ch)
+            if upsample in ("fast_mid", "fast_midw"):
+                conv("mid_mix", chs[-1] if upsample == "fast_midw" else max(chs[-1] // 2, 8))
+            if upsample == "fast_k4tail":
+                add("k4_tail", nn.ConvTranspose2d(cur, 1, 4, stride=2, padding=1, device=device))
+            else:
+                up(1)
 
     def forward(self, h):
-        h = F.relu(self._up(0, h.to(self.dtype)))
-        h = F.relu(conv2d(h, self.Conv_0, self.dtype, padding=1))
-        for i in range(1, 1 + self.n_mid):
-            h = F.relu(self._up(i, h))
-        return self._up(1 + self.n_mid, h).float()
+        h = h.to(self.dtype)
+        for i, name in enumerate(self.layers):
+            m = getattr(self, name)
+            if isinstance(m, nn.ConvTranspose2d):
+                h = F.conv_transpose2d(h, m.weight.to(self.dtype), m.bias.to(self.dtype),
+                                       stride=2, padding=m.padding)
+            else:
+                h = conv2d(h, m, self.dtype, padding=1)
+            if i + 1 < len(self.layers):
+                h = F.relu(h)
+        return h.float()
 
 
 class GaussianHead(nn.Module):

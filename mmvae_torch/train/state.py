@@ -1,40 +1,136 @@
-"""Train state: model, Adam and a step counter (port of mmvae_tpu/train/state.py).
+"""Train state: model, optimizer, EMA and a step counter (port of
+mmvae_tpu/train/state.py).
 
-Adam at a constant learning rate with optax's b1, b2 and eps (1e-8, no
-eps_root), which is torch.optim.Adam's update.  LR schedules, AdamW, grad
-clipping and EMA are not ported yet and are refused rather than ignored.
-The step counter is a host int: every per-step seed derives from it.
+The update follows optax's chain: clip by global norm (`grad_clip`), then
+Adam, or AdamW with decoupled decay on every parameter (`weight_decay`),
+at the rate of the schedule (`make_lr`) for the update's count, then the
+parameter EMA (`ema_decay`).  torch.optim.Adam / AdamW compute optax's
+adam / adamw update (eps 1e-8, no eps_root).  The step counter is a host
+int: every per-step seed and the rate derive from it, so a step makes no
+host sync.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Callable, Dict, Optional
 
 import torch
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule(init, end, steps): held at `init` for steps <= 0."""
+    if steps <= 0:
+        return lambda count: init
+    return lambda count: (init - end) * (1.0 - min(max(count, 0), steps) / steps) + end
+
+
+def _cosine(init: float, steps: int, alpha: float) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule(init, steps, alpha)."""
+    if steps <= 0:
+        raise ValueError(f"The cosine_decay_schedule requires positive decay_steps, got "
+                         f"decay_steps={steps}.")
+
+    def sched(count):
+        c = 0.5 * (1.0 + math.cos(math.pi * min(count, steps) / steps))
+        return init * ((1.0 - alpha) * c + alpha)
+
+    return sched
+
+
+def _join(first, second, boundary: int) -> Callable[[int], float]:
+    """optax.join_schedules([first, second], [boundary])."""
+    return lambda count: first(count) if count < boundary else second(count - boundary)
+
+
+def make_lr(optim_cfg) -> Callable[[int], float]:
+    """The learning rate as a host function of the update's count (0 for the
+    first update), as `mmvae_tpu.train.state.make_lr`'s optax schedule: constant,
+    constant after a linear warmup, `cosine` (warmup_cosine_decay_schedule
+    from 0 to lr, down to lr * lr_end_ratio at lr_decay_steps) or `linear`
+    (a ramp to lr over the warmup, then a fall to the end rate over
+    lr_decay_steps - warmup)."""
+    lr, sched = optim_cfg.lr, optim_cfg.lr_schedule
+    warmup = optim_cfg.lr_warmup_steps
+    if sched == "constant":
+        return _linear(0.0, lr, warmup) if warmup > 0 else (lambda count: lr)
+    decay = optim_cfg.lr_decay_steps
+    if decay <= 0:
+        raise ValueError(f"optim.lr_schedule={sched!r} needs optim.lr_decay_steps > 0 "
+                         "(get_config defaults it to train.steps)")
+    end = lr * optim_cfg.lr_end_ratio
+    if sched == "cosine":
+        alpha = 0.0 if lr == 0.0 else end / lr
+        return _join(_linear(0.0, lr, warmup), _cosine(lr, decay - warmup, alpha), warmup)
+    if sched == "linear":
+        fall = _linear(lr, end, decay - warmup)
+        return _join(_linear(0.0, lr, max(warmup, 1)), fall, warmup) if warmup > 0 else fall
+    raise ValueError(f"unknown optim.lr_schedule {sched!r}; use constant | cosine | linear")
+
+
+def make_optimizer(params, optim_cfg) -> torch.optim.Optimizer:
+    """Adam, or AdamW under `weight_decay` (decay on every parameter, as
+    optax.adamw without a mask), at the schedule's first rate."""
+    lr = make_lr(optim_cfg)(0)
+    betas = (optim_cfg.b1, optim_cfg.b2)
+    if optim_cfg.weight_decay:
+        return torch.optim.AdamW(params, lr=lr, betas=betas, eps=1e-8,
+                                 weight_decay=optim_cfg.weight_decay)
+    return torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-8)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: every gradient scaled by
+    max_norm / ||g|| where ||g|| >= max_norm, else kept.  The decision stays
+    on the device."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_mul_(grads, torch.where(norm < max_norm, torch.ones_like(norm),
+                                           max_norm / norm))
 
 
 @dataclasses.dataclass
 class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
+    lr_fn: Callable[[int], float]  # the rate of an update's count (make_lr)
     step: int = 0
+    grad_clip: Optional[float] = None
+    # f32 EMA of the parameters by name (optim.ema_decay > 0), else None
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
+    ema_decay: float = 0.0
 
-
-def make_optimizer(params, optim_cfg) -> torch.optim.Optimizer:
-    unsupported = {
-        "lr_schedule": optim_cfg.lr_schedule != "constant",
-        "lr_warmup_steps": optim_cfg.lr_warmup_steps > 0,
-        "weight_decay": bool(optim_cfg.weight_decay),
-        "grad_clip": bool(optim_cfg.grad_clip),
-        "ema_decay": bool(optim_cfg.ema_decay),
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"optim options not ported yet: {', '.join(bad)}")
-    return torch.optim.Adam(
-        params, lr=optim_cfg.lr, betas=(optim_cfg.b1, optim_cfg.b2), eps=1e-8
-    )
+    @torch.no_grad()
+    def apply_gradients(self) -> None:
+        """One update from the parameters' `.grad`: clip, the optimizer at
+        this step's rate, the EMA, step += 1 (optax's chain and
+        `mmvae_tpu.train.state.TrainState.apply_gradients`)."""
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        if self.grad_clip:
+            clip_by_global_norm_([p.grad for p in params if p.grad is not None],
+                                 self.grad_clip)
+        lr = self.lr_fn(self.step)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        if self.ema_params is not None:
+            d = self.ema_decay
+            ema = list(self.ema_params.values())
+            torch._foreach_mul_(ema, d)
+            torch._foreach_add_(ema, [p for _, p in self.model.named_parameters()],
+                                alpha=1.0 - d)
+        self.step += 1
 
 
 def create_train_state(model: torch.nn.Module, optim_cfg) -> TrainState:
-    return TrainState(model=model, optimizer=make_optimizer(model.parameters(), optim_cfg))
+    ema_decay = float(optim_cfg.ema_decay)
+    return TrainState(
+        model=model,
+        optimizer=make_optimizer(model.parameters(), optim_cfg),
+        lr_fn=make_lr(optim_cfg),
+        grad_clip=optim_cfg.grad_clip,
+        ema_params={n: p.detach().float().clone() for n, p in model.named_parameters()}
+        if ema_decay > 0 else None,
+        ema_decay=ema_decay,
+    )

@@ -135,6 +135,45 @@ def test_train_step_launches_every_kernel(dev):
     assert all(n == 2 for n in counts.values()), counts
 
 
+def test_recipe_train_step_generates_and_keeps_an_ema(dev):
+    """The recommended recipe (fast_mid, clips generated on the card, EMA) at
+    small widths: finite losses, K1, K3, K5 and the head once a step, K6 and
+    the standalone K2 never, and an EMA off the live parameters."""
+    from mmvae_torch.bench.throughput import setup_resident_training
+
+    cfg = get_config("seq_vae", ("model.kwargs.dec_upsample=fast_mid",
+                                 "data.on_device_generate=true", "optim.ema_decay=0.999",
+                                 "data.batch_size=2", "data.seq_len=4"))
+    cfg.model.kwargs.update(latent_dim=8, enc_channels=(16, 32, 32), lstm_features=16)
+    state, data, step = setup_resident_training(cfg, dev)
+    assert data is None
+    ops.reset_launch_counts()
+    losses = [float(step(state, data)["loss"]) for _ in range(3)]
+    assert all(torch.isfinite(torch.tensor(losses)))
+    counts = ops.launch_counts()
+    assert counts.pop("convlstm_scan_forward") == counts.pop("convlstm_scan_backward") == 0
+    assert counts.pop("reparameterize") == 0
+    assert all(n == 3 for n in counts.values()), counts
+    live = dict(state.model.named_parameters())
+    assert any(not torch.equal(e, live[n]) for n, e in state.ema_params.items())
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_ongen_clips_equal_the_cpus(dev, tf32):
+    """From the same draws the card's clips equal the CPU's byte for byte,
+    whatever the TF32 settings."""
+    from mmvae_torch.data import ongen
+
+    cpu, card = ongen.Canvas(8, 20, 64, device="cpu"), ongen.Canvas(8, 20, 64, device=dev)
+    draws = cpu.draw(torch.Generator().manual_seed(2), 2)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+        got = card.render(ongen.Draws(*(d.to(dev) for d in draws)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    assert torch.equal(got.cpu(), cpu.render(draws))
+
+
 @pytest.mark.parametrize("gate_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("const", [True, False])
 @pytest.mark.parametrize("shape", [(3, 7, 5, 6, 32), (2, 4, 7, 9, 16)])

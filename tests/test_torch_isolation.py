@@ -56,7 +56,8 @@ def test_port_imports_with_the_jax_package_refused():
     assert res["loaded"] == []
     assert {"mmvae_torch.configs", "mmvae_torch.ops.convlstm_kernels",
             "mmvae_torch.ops.head_kernels",
-            "mmvae_torch.bench.roofline", "mmvae_torch.train.loop"} <= set(res["modules"])
+            "mmvae_torch.bench.roofline", "mmvae_torch.train.loop", "mmvae_torch.train.state",
+            "mmvae_torch.data.loader", "mmvae_torch.data.ongen"} <= set(res["modules"])
 
 
 # Calls whose string arguments name a file or module to load.

@@ -118,11 +118,63 @@ def test_train_step_on_resident_u8_cpu():
     assert again == metrics
 
 
-def test_optimizer_refuses_unported_options():
+def test_make_optimizer_builds_adamw_and_refuses_unknown_schedules():
+    """Every optimizer option is ported: Adam by default, weight_decay makes
+    AdamW (decay on every parameter), and an unknown lr_schedule raises as
+    the reference's make_lr does."""
+    from mmvae_torch.train.state import make_optimizer
+
     cfg = _tiny_cfg()
-    cfg.optim.ema_decay = 0.999
-    with pytest.raises(NotImplementedError, match="ema_decay"):
-        create_train_state(build_model(cfg, device="cpu"), cfg.optim)
+    model = build_model(cfg, device="cpu")
+    assert type(make_optimizer(model.parameters(), cfg.optim)) is torch.optim.Adam
+    cfg.optim.weight_decay = 1e-4
+    opt = make_optimizer(model.parameters(), cfg.optim)
+    assert type(opt) is torch.optim.AdamW
+    assert [g["weight_decay"] for g in opt.param_groups] == [1e-4]
+    assert len(opt.param_groups[0]["params"]) == len(list(model.parameters()))
+    cfg.optim.lr_schedule, cfg.optim.lr_decay_steps = "exponential", 100
+    with pytest.raises(ValueError, match="unknown optim.lr_schedule"):
+        make_optimizer(model.parameters(), cfg.optim)
+
+
+def test_bench_refuses_steps_per_call():
+    """setup_resident_training (run_benchmark's and bench.profile's) raises for
+    train.steps_per_call > 1, which the port does not chunk, rather than
+    time one step a call under the config's name."""
+    from mmvae_torch.bench.throughput import setup_resident_training
+
+    cfg = get_config("seq_vae", ("train.steps_per_call=4",))
+    cfg.model.kwargs.update(TINY)
+    with pytest.raises(NotImplementedError, match="steps_per_call=4"):
+        setup_resident_training(cfg, torch.device("cpu"))
+
+
+def test_bench_ongen_step_generates_its_batch(monkeypatch):
+    """Under data.on_device_generate the bench's step generates its clips:
+    no dataset is made, every step gathers all of a fresh (B, T, 64, 64) u8
+    batch through the preprocess wrapper, and two steps draw different clips."""
+    from mmvae_torch.bench.throughput import setup_resident_training
+    from mmvae_torch.train import loop
+
+    cfg = get_config("seq_vae", ("data.on_device_generate=true", "data.batch_size=2",
+                                 "data.seq_len=3"))
+    cfg.model.kwargs.update(TINY)
+    state, data, step = setup_resident_training(cfg, torch.device("cpu"))
+    assert data is None
+    seen = []
+    real = loop.dispatch.preprocess_gather
+
+    def recording(batch, idx, seed, **kw):
+        seen.append((batch.clone(), idx.clone()))
+        return real(batch, idx, seed, **kw)
+
+    monkeypatch.setattr(loop.dispatch, "preprocess_gather", recording)
+    metrics = [step(state, data) for _ in range(2)]
+    assert all(np.isfinite(float(m["loss"])) for m in metrics)
+    (a, ia), (b, ib) = seen
+    assert a.shape == b.shape == (2, 3, 64, 64) and a.dtype == torch.uint8
+    assert ia.tolist() == ib.tolist() == [0, 1]
+    assert int(a.max()) > 0 and not torch.equal(a, b)
 
 
 def test_build_model_defaults_to_the_card():
