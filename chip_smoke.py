@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke of the PyTorch / CUDA port: configs 3, 4 and 5 and the
-recommended quality recipe training.
+"""On-card smoke of the PyTorch / CUDA port: every config training, through
+the bench and through the training loop (`fit`).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -15,28 +15,30 @@ Phases, each raising on failure (the script catches nothing):
    ptxas serializing a kernel's wgmma (C7513 / C7520); the Triton kernels at
    first launch;
 3. each kernel against its plain PyTorch version on the card, at every
-   shape the runs of phase 4 give it (`path_shapes`, from their configs)
-   and at one unaligned shape, with its tolerance (K5 and K6 through
-   `mmvae_torch.ops.kernel_checks`), and the time of both at each path's
-   shape beside the kernel's bound (`mmvae_torch.bench.roofline`) and its
-   share of it; K1, K2 and K3, which take tens of microseconds, timed on
-   the device by replaying a CUDA graph of 20 calls (the host's launch
-   path is longer than they are; K1 and K3 on a cold L2), K1 beside the
-   one PyTorch call that computes its BCE sum (`library_ms`); the fused
-   Gaussian head and sample (`head_sample_forward` / `_backward`, which
-   replace K2 on the train steps) at each sampling site and at larger
-   batches, its f32 outputs in f32 units that a TF32 control must fail,
-   its forward bit-identical over many launches (warm, cold, two streams),
-   timed in CUDA graphs beside the route it replaces (a cast, two F.linear
-   and K2, with its autograd backward: `library_ms`); K5's, K6's and the
-   head's backward (K6 with a time-constant and a streaming xg) run twice
-   and required bit-identical; then each config's full-width model (seq_vae
-   with the default and the recipe's `fast_mid` decoder; pred_vae and
-   hier_vae with fused=true), forward and gradients on a small input, eps
-   injected through the train step's sample function, on the card through
-   the kernels against the CPU through the plain versions; the frame
-   decoder alone in its four other modes, card against CPU; on-card clip
-   generation (`data.ongen`): byte-identical to the CPU from the same
+   shape the runs of phases 4 and 5 give it (`path_shapes`, from their
+   configs: the per-frame configs' frame rows, heads and logits and the
+   streamed batch included) and at one unaligned shape, with its tolerance
+   (K5 and K6 through `mmvae_torch.ops.kernel_checks`), and the time of
+   both at each path's shape beside the kernel's bound
+   (`mmvae_torch.bench.roofline`) and its share of it; K1, K2 and K3, which
+   take tens of microseconds, timed on the device by replaying a CUDA graph
+   of 20 calls (the host's launch path is longer than they are; K1 and K3
+   on a cold L2), K1 beside the one PyTorch call that computes its BCE sum
+   (`library_ms`); the fused Gaussian head and sample
+   (`head_sample_forward` / `_backward`, which replace K2 on the train
+   steps) at each sampling site and at larger batches, its f32 outputs in
+   f32 units that a TF32 control must fail, its forward bit-identical over
+   many launches (warm, cold, two streams), timed in CUDA graphs beside the
+   route it replaces (a cast, two F.linear and K2, with its autograd
+   backward: `library_ms`); K5's, K6's and the head's backward (K6 with a
+   time-constant and a streaming xg) run twice and required bit-identical;
+   then each config's full-width model (mlp_vae and conv_vae in f32;
+   seq_vae with the default and the recipe's `fast_mid` decoder; pred_vae
+   and hier_vae with fused=true), forward and gradients on a small input,
+   eps injected through the train step's sample function, on the card
+   through the kernels against the CPU through the plain versions; the
+   frame decoder alone in its four other modes, card against CPU; on-card
+   clip generation (`data.ongen`): byte-identical to the CPU from the same
    draws with TF32 off and on, and from its own generator at 64 clips x 20
    frames every sprite inside the canvas and the mean intensity within 5 %
    of the host generator's;
@@ -51,12 +53,25 @@ Phases, each raising on failure (the script catches nothing):
    the standalone K2 launched on none, 3 timed windows of 20 train steps
    after 5 warmup steps, losses finite and falling; then config 3 with
    fused=true once more, timed beside the default, as a measurement of the
-   decoder policy (not adopted).  No jax imported.
+   decoder policy (not adopted);
+5. the training loop `fit` at full width (its one cut: a 2,000-clip
+   procedural set), each run with the launch counters set to 0 just before
+   it and read just after and held to its path's equations (K5's forward
+   once a train step and once an eval batch, its backward once a train
+   step, the standalone K2 never): config 3 streamed from the host through
+   `DeviceFeed` (60 steps, an eval pass and a checkpoint every 20; every
+   batch handed over checked against the host's stream; the checkpoint
+   restored bit for bit; standalone `evaluate` against the in-training val
+   metrics; one eval pass and one checkpoint save timed), then resumed to
+   80 steps on the host batches an uninterrupted run would draw; configs 1
+   and 2 resident (40 steps, one eval pass); config 4 with fused=true (20
+   steps, one eval pass: K6's forward without residuals under eval); the
+   recipe (40 steps, one eval pass raw and under the EMA).  No jax imported.
 The last three lines are the card, the kernels' JSON line (`launches`: the
 count from the kernel's own path, config 3 for K1, K3, K5 and the head,
 config 4 for K6, 0 for the standalone K2; `launches_by_path`: each path's
-run), and {"ok": true, "device": {...}}.  Exits non-zero with no result when
-CUDA is not available.
+run, the fit runs' included), and {"ok": true, "device": {...}}.  Exits
+non-zero with no result when CUDA is not available.
 """
 
 from __future__ import annotations
@@ -184,55 +199,75 @@ def _model_kwargs(cfg) -> dict:
     return {**{k: p.default for k, p in params.items()}, **cfg.model.kwargs}
 
 
-def path_shapes() -> dict:
-    """The shapes each kernel is given in the phase-4 runs (_SLICES and
-    _POLICY), from their configs and the models' defaults:
-    {kernel: {shape: [the runs that give it]}}.  preprocess: (clips in the
-    resident set, frames a clip, batch); elbo: (logits, mu); reparameterize:
-    (shape, salt); convlstm_proj: (B, T, H, W, C, F); convlstm_scan: (B, T,
-    H, W, F), time-constant xg; head: (M, K, N, x dtype) of each sampling
-    site.  The preprocess key of an ongen run is its generated batch."""
+def _run_shapes(name: str, overrides) -> dict:
+    """{kernel kind: [shapes]} that one run of `name` under `overrides`
+    gives the kernels (see `path_shapes`)."""
     import torch
 
     from mmvae_torch.configs import get_config
 
-    out = {k: {} for k in ("preprocess", "elbo", "reparam", "head", "proj", "scan")}
-    for name, overrides, launched, _ in (*_SLICES, _POLICY):
-        cfg = get_config(name, overrides)
-        kw = _model_kwargs(cfg)
-        b, t, size = cfg.data.batch_size, cfg.data.seq_len, kw["image_size"]
-        grid, feat = size // 2 ** len(kw["enc_channels"]), kw["lstm_features"]
-        enc = dec = (b, t)
-        scored = t
-        if name == "pred_vae":
-            ctx = kw["context_len"]
-            enc, dec, scored = (b, ctx), (b, t - ctx), t - ctx
-        if name == "hier_vae":
-            k = t // kw["chunk_len"]
-            enc = dec = (b * k, kw["chunk_len"])
-            samples = [((b, kw["global_latent"]), 0), ((b * k, kw["chunk_latent"]), 1)]
-            # the global head reads the pooled chunk features, the chunk
-            # head q_hidden's 256 outputs, both f32
-            heads = [(b, kw["chunk_feature"], kw["global_latent"], torch.float32),
-                     (b * k, 256, kw["chunk_latent"], torch.float32)]
-        else:
-            samples = [((b, kw["latent_dim"]), 0)]
-            heads = [(b, grid * grid * feat, kw["latent_dim"],
-                      {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.model.dtype])]
-        # an ongen step gathers all of its generated batch
-        clips = b if cfg.data.on_device_generate else max(
-            int(cfg.data.num_sequences * cfg.data.train_fraction), b)
-        groups = {
-            "preprocess": [(clips, t, b)],
-            "elbo": [((b, scored, size, size), samples[0][0])],
-            "reparam": samples,
-            "head": heads,
+    cfg = get_config(name, overrides)
+    kw = _model_kwargs(cfg)
+    b, t, size = cfg.data.batch_size, cfg.data.seq_len, kw["image_size"]
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.model.dtype]
+    # the frames' element bytes (train.loop.make_loss_fn: bf16 for a bf16
+    # model's binarized frames, else f32)
+    fb = 2 if cfg.data.binarize and dtype == torch.bfloat16 else 4
+    # an ongen or streamed step gathers all of the batch it was given
+    streamed = cfg.data.on_device_generate or cfg.data.device_resident is False
+    clips = b if streamed else max(int(cfg.data.num_sequences * cfg.data.train_fraction), b)
+    if cfg.data.per_frame:
+        latent = kw["latent_dim"]
+        if name == "mlp_vae":
+            k = kw["hidden_dim"]
+        else:  # conv_vae: the head reads the encoder's NHWC flatten
+            k = (size // 2 ** len(kw["channels"])) ** 2 * kw["channels"][-1]
+        rows = b if streamed else clips * t  # a per-frame set's rows are frames
+        return {"preprocess": [(rows, 1, b, fb)], "elbo": [((b, size, size), (b, latent), fb)],
+                "reparam": [((b, latent), 0)], "head": [(b, k, latent, dtype)],
+                "proj": [], "scan": []}
+    grid, feat = size // 2 ** len(kw["enc_channels"]), kw["lstm_features"]
+    enc = dec = (b, t)
+    scored = t
+    if name == "pred_vae":
+        ctx = kw["context_len"]
+        enc, dec, scored = (b, ctx), (b, t - ctx), t - ctx
+    if name == "hier_vae":
+        k = t // kw["chunk_len"]
+        enc = dec = (b * k, kw["chunk_len"])
+        samples = [((b, kw["global_latent"]), 0), ((b * k, kw["chunk_latent"]), 1)]
+        # the global head reads the pooled chunk features, the chunk head
+        # q_hidden's 256 outputs, both f32
+        heads = [(b, kw["chunk_feature"], kw["global_latent"], torch.float32),
+                 (b * k, 256, kw["chunk_latent"], torch.float32)]
+    else:
+        samples = [((b, kw["latent_dim"]), 0)]
+        heads = [(b, grid * grid * feat, kw["latent_dim"], dtype)]
+    fused = cfg.model.kwargs.get("fused") is True
+    return {"preprocess": [(clips, t, b, fb)],
+            "elbo": [((b, scored, size, size), samples[0][0], fb)],
+            "reparam": samples, "head": heads,
             "proj": [(*enc, grid, grid, kw["enc_channels"][-1], feat)],
-            "scan": [(*dec, grid, grid, feat)] if _K6[0] in launched else [],
-        }
-        for kind, keys in groups.items():
+            "scan": [(*dec, grid, grid, feat)] if fused else []}
+
+
+def path_shapes() -> dict:
+    """The shapes each kernel is given in the runs of phases 4 and 5 (_SLICES,
+    _POLICY and _FIT_PATHS), from their configs and the models' defaults:
+    {kernel: {shape: [the runs that give it]}}.  preprocess: (rows in the
+    set, frames a row, batch, bytes of a frame element); elbo: (logits, mu,
+    bytes of an x element); reparameterize: (shape, salt); convlstm_proj:
+    (B, T, H, W, C, F); convlstm_scan: (B, T, H, W, F), time-constant xg;
+    head: (M, K, N, x dtype) of each sampling site.  The preprocess key of
+    an ongen or streamed run is its batch."""
+    out = {k: {} for k in ("preprocess", "elbo", "reparam", "head", "proj", "scan")}
+    runs = [(name, overrides, _tag(name, overrides))
+            for name, overrides, _, _ in (*_SLICES, _POLICY)]
+    runs += [(name, overrides, tag) for tag, name, overrides in _FIT_PATHS]
+    for name, overrides, tag in runs:
+        for kind, keys in _run_shapes(name, overrides).items():
             for key in keys:
-                out[kind].setdefault(key, []).append(" ".join((name, *overrides)))
+                out[kind].setdefault(key, []).append(tag)
     return out
 
 
@@ -241,10 +276,12 @@ def _runs(tags) -> str:
 
 
 def check_preprocess(dev, shapes) -> dict:
-    """K3 at each path's resident set: binarize=False exact (both output
-    dtypes, and at an odd shape with out-of-range rows), binarize=True hit
-    rates per u8 value within 5 sigma of u8/255 (each clip one ramp over the
-    u8 values), seeds that decide the bits, and the time of both versions."""
+    """K3 at each path's set (a resident set of clips or of frames, or a
+    streamed or generated batch gathered whole): binarize=False exact (both
+    output dtypes, and at an odd shape with out-of-range rows),
+    binarize=True hit rates per u8 value within 5 sigma of u8/255 (each row
+    one ramp over the u8 values), seeds that decide the bits, and the time
+    of both versions."""
     import torch
 
     from mmvae_torch.ops.preprocess_kernels import preprocess_gather, preprocess_gather_plain
@@ -258,9 +295,13 @@ def check_preprocess(dev, shapes) -> dict:
     ob = preprocess_gather(odd, oidx, 3, binarize=True)
     _require(bool(((ob == 0) | (ob == 1)).all()), "preprocess: non-binary output")
     first = None
-    for (n, t, b), runs in shapes.items():
-        data = torch.randint(0, 256, (n, t, 64, 64), generator=g, device=dev, dtype=torch.uint8)
-        idx = torch.randint(0, n, (b,), generator=g, device=dev)
+    for (n, t, b, fb), runs in shapes.items():
+        row = (64, 64) if t == 1 else (t, 64, 64)  # a per-frame set's rows are frames
+        out_dt = torch.bfloat16 if fb == 2 else torch.float32
+        data = torch.randint(0, 256, (n, *row), generator=g, device=dev, dtype=torch.uint8)
+        # a streamed or generated batch is gathered whole (idx = arange)
+        idx = (torch.arange(b, device=dev) if n == b
+               else torch.randint(0, n, (b,), generator=g, device=dev))
         for dt in (torch.bfloat16, torch.float32):
             err = max(err, _maxerr(preprocess_gather(data, idx, 7, binarize=False, out_dtype=dt),
                                    preprocess_gather_plain(data, idx, 7, binarize=False,
@@ -269,10 +310,10 @@ def check_preprocess(dev, shapes) -> dict:
                              f"(tolerance 0)")
         del data
         ramp = (torch.arange(t * 64 * 64, device=dev) % 256).to(torch.uint8)
-        ramp_set = ramp.view(1, t, 64, 64).expand(n, t, 64, 64).contiguous()
-        b1 = preprocess_gather(ramp_set, idx, 12345, binarize=True, out_dtype=torch.bfloat16)
-        b2 = preprocess_gather(ramp_set, idx, 12345, binarize=True, out_dtype=torch.bfloat16)
-        b3 = preprocess_gather(ramp_set, idx, 54321, binarize=True, out_dtype=torch.bfloat16)
+        ramp_set = ramp.view(1, *row).expand(n, *row).contiguous()
+        b1 = preprocess_gather(ramp_set, idx, 12345, binarize=True, out_dtype=out_dt)
+        b2 = preprocess_gather(ramp_set, idx, 12345, binarize=True, out_dtype=out_dt)
+        b3 = preprocess_gather(ramp_set, idx, 54321, binarize=True, out_dtype=out_dt)
         _require(torch.equal(b1, b2), "preprocess: same seed gave different bits")
         _require(not torch.equal(b1, b3), "preprocess: different seeds gave the same bits")
         vals = ramp.long().repeat(b)
@@ -283,22 +324,28 @@ def check_preprocess(dev, shapes) -> dict:
         z = ((hits / counts - p).abs() / sigma).max().item()
         _require(z <= 5.0, f"preprocess ({n}, {t}, {b}) binarize hit rates off by {z:.2f} "
                            f"sigma (limit 5)")
-        def kern(rows=idx):
-            return preprocess_gather(ramp_set, rows, 5, binarize=True, out_dtype=torch.bfloat16)
+        def kern(rows=idx, src=ramp_set):
+            return preprocess_gather(src, rows, 5, binarize=True, out_dtype=out_dt)
 
-        # each graph call gathers its own clips from the set (far larger than L2)
-        cold = [lambda r=torch.randint(0, n, (b,), generator=g, device=dev): kern(r)
-                for _ in range(_GRAPH_CALLS)]
+        # each graph call gathers its own rows from the set (far larger than
+        # L2), or from its own copy of a streamed batch: cold L2
+        if n == b:
+            cold = [lambda c=ramp_set.clone(): kern(idx, c) for _ in range(_GRAPH_CALLS)]
+        else:
+            cold = [lambda r=torch.randint(0, n, (b,), generator=g, device=dev): kern(r)
+                    for _ in range(_GRAPH_CALLS)]
         ms, host_ms = _graph_ms(cold), _time_ms(kern, 50)
+        del cold
         plain_ms = _time_ms(lambda: preprocess_gather_plain(ramp_set, idx, 5, binarize=True,
-                                                            out_dtype=torch.bfloat16), 50)
+                                                            out_dtype=out_dt), 50)
         del ramp_set
-        first = first or (ms, plain_ms, (n, t, b))
-        print(f"[kernel] preprocess_gather {b} of {n} clips x {t} frames ({_runs(runs)}): "
-              f"binarize=False max|err| {err} (tolerance 0, exact); binarize=True worst "
-              f"hit-rate deviation {z:.2f} sigma (limit 5); {ms:.4f} ms on the device (CUDA "
-              f"graph, cold L2; {host_ms:.4f} ms back to back from the host), "
-              f"{_share(ms, 'preprocess_gather', (n, t, b))}; plain {plain_ms:.4f} ms; "
+        key = (n, t, b, fb)
+        first = first or (ms, plain_ms, key)
+        print(f"[kernel] preprocess_gather {b} of {n} rows x {t} frames, {out_dt} out "
+              f"({_runs(runs)}): binarize=False max|err| {err} (tolerance 0, exact); "
+              f"binarize=True worst hit-rate deviation {z:.2f} sigma (limit 5); {ms:.4f} ms on "
+              f"the device (CUDA graph, cold L2; {host_ms:.4f} ms back to back from the host), "
+              f"{_share(ms, 'preprocess_gather', key)}; plain {plain_ms:.4f} ms; "
               f"library: none (no one PyTorch call gathers and binarizes)")
     b_ms, by = _bound("preprocess_gather", first[2])
     return {"max_abs_err": err, "ms": first[0], "plain_ms": first[1], "bound_ms": b_ms,
@@ -316,9 +363,10 @@ def check_elbo(dev, shapes) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(2)
     worst, first = 0.0, None
-    for big, small in (*shapes, ((3, 17), (3, 5))):
+    for big, small, xb in (*shapes, ((3, 17), (3, 5), 2)):
         logits = (torch.randn(big, generator=g, device=dev) * 2).requires_grad_()
-        x = (torch.rand(big, generator=g, device=dev) < 0.4).to(torch.bfloat16)
+        x = (torch.rand(big, generator=g, device=dev) < 0.4).to(
+            torch.bfloat16 if xb == 2 else torch.float32)
         mu = torch.randn(small, generator=g, device=dev).requires_grad_()
         lv = (torch.randn(small, generator=g, device=dev) * 0.5).requires_grad_()
         bk, kk = elbo_reduce(logits, x, mu, lv)
@@ -338,7 +386,7 @@ def check_elbo(dev, shapes) -> dict:
                  f"elbo {big}: rel err bce {rb:.2e} (2e-5) kl {rk:.2e} (1e-5) grad {ge:.2e} (1e-6)")
         worst = max(worst, abs(bk.item() - bp.item()), abs(kk.item() - kp.item()))
         timing = ""
-        if (big, small) in shapes:
+        if (big, small, xb) in shapes:
             l, m = logits.detach(), mu.detach()
             # one copy of the inputs for each graph call: cold L2, as the bound
             # counts it (in the step the decoder has just written part of them)
@@ -349,13 +397,15 @@ def check_elbo(dev, shapes) -> dict:
                 c[0], c[1], reduction="sum") for c in copies])
             del copies
             plain_ms = _time_ms(lambda: elbo_reduce_plain(l, x, m, m), 50)
-            first = first or (ms, plain_ms, lib_ms, (big, small))
+            first = first or (ms, plain_ms, lib_ms, (big, small, xb))
             timing = (f"; {ms:.4f} ms on the device (CUDA graph, cold L2; {host_ms:.4f} ms "
-                      f"back to back from the host), {_share(ms, 'elbo_reduce', (big, small))}; "
+                      f"back to back from the host), "
+                      f"{_share(ms, 'elbo_reduce', (big, small, xb))}; "
                       f"library F.binary_cross_entropy_with_logits(logits, x, reduction='sum') "
                       f"{lib_ms:.4f} ms (CUDA graph, cold L2; BCE only, no KL); plain "
-                      f"{plain_ms:.4f} ms ({_runs(shapes[(big, small)])})")
-        print(f"[kernel] elbo_reduce {big}, {small}: bce rel err {rb:.2e} (tolerance 2e-5), "
+                      f"{plain_ms:.4f} ms ({_runs(shapes[(big, small, xb)])})")
+        print(f"[kernel] elbo_reduce {big}, {small}, x {x.dtype}: bce rel err {rb:.2e} "
+              f"(tolerance 2e-5), "
               f"kl rel err {rk:.2e} (1e-5), grads max|err| {ge:.2e} (1e-6){timing}")
     ms, plain_ms, lib_ms, shape = first
     print(f"[kernel] elbo_reduce at the main path's shape: kernel {ms:.4f} ms against the "
@@ -698,6 +748,46 @@ def check_model(dev, name: str, frames: int, overrides=()) -> None:
               f"result over its limit {worst[0]:.3f} (must be <= 1) at {worst[1]}")
 
 
+def check_perframe_model(dev, name: str) -> None:
+    """Config 1 or 2 at full width in its own dtype (f32) on a small input
+    (4 frames): forward and every parameter gradient on the card, through
+    the kernels (the head through the fused head and sample, eps injected),
+    against the same model on the CPU through the plain versions.  TF32 is
+    off, so both run f32 throughout and differ only in summation order:
+    each tensor's relative L2 distance at most 1e-4."""
+    import copy
+
+    import torch
+
+    from mmvae_torch.configs import get_config
+    from mmvae_torch.ops.dispatch import make_sample_fn
+    from mmvae_torch.ops.elbo_kernels import elbo_reduce
+    from mmvae_torch.train.loop import build_model
+
+    g = torch.Generator().manual_seed(8)
+    cfg = get_config(name)
+    _require(cfg.model.dtype == "float32", f"{name}: expected an f32 config")
+    x = (torch.rand(4, 64, 64, generator=g) < 0.35).float()
+    noise = {0: torch.randn(4, _model_kwargs(cfg)["latent_dim"], generator=g)}
+
+    def run(model, device):
+        out = model(x.to(device), make_sample_fn(0, noise))
+        bce, kl = elbo_reduce(out.logits, out.target, out.mu, out.logvar)
+        ((bce + kl) / 4).backward()
+        res = {"logits": out.logits, "mu": out.mu, "logvar": out.logvar, "z": out.z}
+        res.update((n, p.grad) for n, p in model.named_parameters())
+        return {n: t.detach().float().cpu() for n, t in res.items()}
+
+    model = build_model(cfg, device="cpu")
+    plain = run(model, torch.device("cpu"))
+    kern = run(copy.deepcopy(model).to(dev), dev)
+    worst = max((_rel_l2(kern[n], b), n) for n, b in plain.items())
+    _require(worst[0] <= 1e-4, f"model {name}: {worst[1]} rel L2 card vs CPU {worst[0]:.2e} "
+                               f"(limit 1e-4)")
+    print(f"[model] {name} f32 (4 x 64x64), card with kernels vs CPU with plain versions, "
+          f"over {len(plain)} tensors: worst rel L2 {worst[0]:.2e} at {worst[1]} (limit 1e-4)")
+
+
 def check_decoder_modes(dev) -> None:
     """The frame decoder alone in each mode the recipe does not run, at
     seq_vae's channels on (16, 128, 8, 8): logits and every gradient (input
@@ -826,6 +916,8 @@ def phase_kernels(dev) -> dict:
 
 
 def phase_models(dev) -> None:
+    check_perframe_model(dev, "mlp_vae")
+    check_perframe_model(dev, "conv_vae")
     check_model(dev, "seq_vae", 4)
     check_model(dev, "seq_vae", 4, _RECIPE[:1])
     check_model(dev, "pred_vae", 20, ("model.kwargs.fused=true",))
@@ -848,6 +940,18 @@ _SLICES = (
 )
 # Policy measurement, recorded and not adopted: config 3's decoder through K6.
 _POLICY = ("seq_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, _K2)
+
+# The fit runs' one cut: a 2,000-clip procedural set (data generation ~3 s).
+_CUT = ("data.num_sequences=2000",)
+_STREAMING = ("data.device_resident=false",)
+# The paths the fit phase drives: (tag, config, overrides that set a shape).
+_FIT_PATHS = (
+    ("fit seq_vae streaming", "seq_vae", _CUT + _STREAMING),
+    ("fit mlp_vae", "mlp_vae", _CUT),
+    ("fit conv_vae", "conv_vae", _CUT),
+    ("fit pred_vae fused", "pred_vae", _CUT + ("model.kwargs.fused=true",)),
+    ("fit recipe", "seq_vae", _CUT + _RECIPE),
+)
 
 
 def run_slice(card: str, name: str, overrides, launched, idle) -> dict:
@@ -914,6 +1018,242 @@ def phase_slice(card: str) -> dict:
             for name, overrides, launched, idle in (*_SLICES, _POLICY)}
 
 
+# --- phase 5: fit --------------------------------------------------------------
+
+
+def _checksums(batch):
+    """Two position-weighted int64 sums of a u8 batch, on its device."""
+    import torch
+
+    flat = batch.reshape(-1).long()
+    w = torch.arange(flat.numel(), device=flat.device) % 65521 + 1
+    return torch.stack([flat.sum(), (flat * w).sum()])
+
+
+def _host_checksums(batch) -> list:
+    import numpy as np
+
+    flat = batch.reshape(-1).astype(np.int64)
+    w = np.arange(flat.size, dtype=np.int64) % 65521 + 1
+    return [int(flat.sum()), int((flat * w).sum())]
+
+
+def _checked_feed():
+    """A DeviceFeed that sums each batch it hands over on the consumer's
+    stream (no host sync); `sums` holds them in order."""
+    from mmvae_torch.data.feed import DeviceFeed
+
+    class CheckedFeed(DeviceFeed):
+        sums: list = []
+
+        def __next__(self):
+            batch = super().__next__()
+            CheckedFeed.sums.append(_checksums(batch))
+            return batch
+
+    return CheckedFeed
+
+
+def _fit(card: str, tag: str, cfg, steps: int, want: dict, device) -> tuple:
+    """One `fit` run with the launch counters set to 0 just before it and
+    read just after; `want` maps kernel wrappers to the count the run must
+    launch (every other kernel: 0).  Returns (state, history, counts)."""
+    import torch
+
+    from mmvae_torch import ops
+    from mmvae_torch.train.loop import fit
+
+    print(f"[fit] {tag}: {steps} steps (to {steps}), on {card}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, history = fit(cfg, max_steps=steps, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    _require(all(counts[k] == want.get(k, 0) for k in counts),
+             f"{tag}: launches {counts}, expected {want} (others 0)")
+    _require(history and all(math.isfinite(h["loss"]) for h in history),
+             f"{tag}: a non-finite loss in {history}")
+    fps = [h["frames_per_sec"] for h in history if "frames_per_sec" in h]
+    print(f"[fit] {tag}: {len(history)} lines logged, {wall:.2f} s wall (set-up and data "
+          f"included); frames/s from the logger's windows {[round(v, 1) for v in fps]}; "
+          f"launches {counts}")
+    return state, history, counts
+
+
+def _fit_cfg(name: str, overrides, *cadence):
+    from mmvae_torch.configs import get_config
+
+    cfg = get_config(name, (*overrides, *cadence))
+    base = get_config(name)
+    _require(cfg.data.batch_size == base.data.batch_size and cfg.data.seq_len == base.data.seq_len
+             and cfg.model.dtype == base.model.dtype and cfg.model.kwargs.items()
+             >= base.model.kwargs.items(), f"fit {name} is not the full-width config")
+    return cfg
+
+
+def _step_counts(train: int, evals: int, k5: bool = True, k6: bool = False) -> dict:
+    """The launches of `train` train steps and `evals` eval batches of a
+    path with one sampling site: K1, K3 and the head's forward once a train
+    step and once an eval batch, the backwards once a train step; K5 and K6
+    where the path runs them."""
+    want = {"preprocess_gather": train + evals, "elbo_reduce": train + evals,
+            "head_sample_forward": train + evals, "head_sample_backward": train}
+    if k5:
+        want.update(convlstm_proj_forward=train + evals, convlstm_proj_backward=train)
+    if k6:
+        want.update(convlstm_scan_forward=train + evals, convlstm_scan_backward=train)
+    return want
+
+
+def _state_tensors(state) -> dict:
+    """Parameters, the optimizer's per-parameter state and the EMA, by name."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    out = {f"param {n}": p.detach() for n, p in state.model.named_parameters()}
+    for p, st in state.optimizer.state.items():
+        out.update((f"{k} {names[id(p)]}", v) for k, v in st.items())
+    out.update((f"ema {n}", e) for n, e in (state.ema_params or {}).items())
+    return out
+
+
+def fit_streaming_and_resume(card: str, dev, workdir: str) -> dict:
+    """Config 3 streamed from the host through DeviceFeed: 60 steps with an
+    eval pass of 2 batches every 20 and a checkpoint every 20; every batch
+    the feed hands over summed on the card against the host's stream; the
+    checkpoint restored into a fresh state bit for bit; standalone
+    `evaluate` at step 60 against the in-training val metrics; the time of
+    one eval pass and one checkpoint save; then a resume to 80 steps, fed
+    the host batches 60-79 and logging from step 70.  Returns the launch
+    counts of both runs."""
+    import itertools
+    import os
+
+    import torch
+
+    import mmvae_torch.train.loop as loop
+    from mmvae_torch.data.loader import load_or_generate
+    from mmvae_torch.train import checkpoint as ckpt
+    from mmvae_torch.train.loop import evaluate, make_eval_step
+    from mmvae_torch.train.state import create_train_state
+
+    ckdir = os.path.join(workdir, "seq_vae_streaming")
+    cfg = _fit_cfg("seq_vae", _CUT + _STREAMING, "train.log_every=10", "train.eval_every=20",
+                   "train.eval_batches=2", "train.checkpoint_every=20",
+                   f"train.checkpoint_dir={ckdir}")
+    feed = _checked_feed()
+    real_feed, loop.DeviceFeed = loop.DeviceFeed, feed
+    try:
+        tag = "fit seq_vae streaming"
+        state, history, counts = _fit(card, tag, cfg, 60, _step_counts(60, 3 * 2), dev)
+        sums, feed.sums[:] = torch.stack(feed.sums).cpu().tolist(), []
+        data = dict(num_sequences=cfg.data.num_sequences, seq_len=cfg.data.seq_len,
+                    seed=cfg.data.seed)
+        split = load_or_generate(None, **data)
+        host = [_host_checksums(b) for b in itertools.islice(
+            split.batches(cfg.data.batch_size, seed=cfg.data.seed), 80)]
+        _require(sums == host[:60], f"{tag}: of {len(sums)} batches handed over, "
+                                    f"{sum(a != b for a, b in zip(sums, host))} differ from the "
+                                    f"host's")
+        print(f"[fit] {tag}: all {len(sums)} batches the feed handed over equal the host "
+              f"stream's (two position-weighted sums each, taken on the card)")
+        _require([h["step"] for h in history] == [10, 20, 30, 40, 50, 60]
+                 and all("val_loss" in history[i] for i in (1, 3, 5)),
+                 f"{tag}: logged {[sorted(h) for h in history]}")
+
+        fresh, step, data_step = ckpt.restore_latest(
+            ckdir, create_train_state(loop.build_model(cfg, dev), cfg.optim))
+        want, got = _state_tensors(state), _state_tensors(fresh)
+        _require((step, data_step, fresh.step) == (60, 60, 60) and set(want) == set(got)
+                 and all(torch.equal(want[k], got[k].to(want[k].device)) for k in want),
+                 f"{tag}: the restored state differs from the saved one (step {step}, data "
+                 f"{data_step}; {[k for k in want if not torch.equal(want[k], got[k])]})")
+        print(f"[fit] {tag}: checkpoint of step 60 restored bit-identical over {len(want)} "
+              f"tensors (parameters, Adam moments and step counts), data cursor 60")
+
+        res = evaluate(cfg, ckdir, max_batches=2, device=dev)
+        logged = history[-1]
+        rel = max(abs(res[k] - logged[k]) / abs(logged[k]) for k in ("val_loss", "val_bce",
+                                                                       "val_kl"))
+        _require(res["step"] == 60 and res["batches"] == 2 and rel <= 1e-5,
+                 f"{tag}: evaluate {res} against the in-training {logged} (rel {rel:.2e})")
+        print(f"[fit] {tag}: standalone evaluate at step 60 {res}; against the in-training "
+              f"val metrics worst rel diff {rel:.2e} (limit 1e-5)")
+
+        # one eval pass (2 staged batches) and one checkpoint save, timed
+        eval_step = make_eval_step(state.model, binarize=cfg.data.binarize)
+        val = [(torch.from_numpy(b).to(dev), 1 + n) for n, b in zip(range(2), load_or_generate(
+            None, train=False, **data).batches(cfg.data.batch_size, seed=1, num_epochs=1))]
+        passes = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.stack([eval_step(None, vb, sd)["loss"] for vb, sd in val]).tolist()
+            passes.append(1e3 * (time.perf_counter() - t0))
+        spare = os.path.join(workdir, "timed_save")
+        t0 = time.perf_counter()
+        ckpt.save(spare, state, 60, data_step=60)
+        t1 = time.perf_counter()
+        ckpt.wait_until_finished(spare)
+        t2 = time.perf_counter()
+        size = os.path.getsize(os.path.join(spare, "60", "state.pt")) / 2 ** 20
+        print(f"[fit] {tag}: one eval pass of 2 batches x {cfg.data.batch_size} x "
+              f"{cfg.data.seq_len} frames {sorted(passes)[2]:.2f} "
+              f"ms (median of 5, host clock to a synchronize); one checkpoint save "
+              f"{1e3 * (t1 - t0):.1f} ms on the train loop (host copies) + "
+              f"{1e3 * (t2 - t1):.1f} ms on the writer thread ({size:.1f} MiB), on {card}")
+
+        cfg.train.resume = True
+        _, resumed, counts2 = _fit(card, tag + " resumed", cfg, 80, _step_counts(20, 2), dev)
+        sums = torch.stack(feed.sums).cpu().tolist()
+        _require(sums == host[60:80], f"{tag} resumed: the feed did not hand over the host "
+                                      f"batches 60-79")
+        _require([h["step"] for h in resumed] == [70, 80] and "val_loss" in resumed[-1],
+                 f"{tag} resumed: logged {[h['step'] for h in resumed]}")
+        print(f"[fit] {tag} resumed: fed the host batches 60-79, logged steps 70 and 80")
+    finally:
+        loop.DeviceFeed = real_feed
+    return {tag: counts, tag + " resumed": counts2}
+
+
+def phase_fit(card: str, dev) -> dict:
+    """`fit` at full width on the card (the one cut: a 2,000-clip procedural
+    set), each run with the launch equations of its path: config 3 streamed
+    through DeviceFeed with checkpoints, restore, `evaluate` and a resume;
+    configs 1 and 2 resident, 40 steps and one eval pass; config 4 with
+    fused=true, 20 steps and one eval pass (K6's no-residual forward under
+    eval); the recipe, 40 steps and one eval pass raw and under the EMA.
+    Returns {path: that run's launch counts}."""
+    import tempfile
+
+    print(f"[fit] the fit runs' one cut: {_CUT[0]} (procedural data), nothing else")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        out.update(fit_streaming_and_resume(card, dev, workdir))
+    cadence = ("train.log_every=10", "train.eval_batches=2")
+    for tag, name, overrides in _FIT_PATHS[1:]:
+        steps = 20 if name == "pred_vae" else 40
+        cfg = _fit_cfg(name, overrides, *cadence, f"train.eval_every={steps}")
+        ema = bool(cfg.optim.ema_decay)
+        evals = 2 * (2 if ema else 1)
+        want = _step_counts(steps, evals, k5=name not in ("mlp_vae", "conv_vae"),
+                            k6=name == "pred_vae")
+        state, history, counts = _fit(card, tag, cfg, steps, want, dev)
+        last = history[-1]
+        _require(history[-1]["loss"] < history[0]["loss"],
+                 f"{tag}: loss did not fall: {[round(h['loss'], 1) for h in history]}")
+        keys = ("val_loss", "val_loss_ema") if ema else ("val_loss",)
+        _require(all(math.isfinite(last.get(k, math.nan)) for k in keys),
+                 f"{tag}: the last line lacks {keys}: {last}")
+        if ema:
+            _require(last["val_loss"] != last["val_loss_ema"], f"{tag}: the EMA scores as the "
+                                                               f"live parameters")
+        print(f"[fit] {tag}: loss {history[0]['loss']:.2f} at step {history[0]['step']} -> "
+              f"{last['loss']:.2f} at {last['step']}; "
+              + ", ".join(f"{k} {last[k]:.2f}" for k in keys))
+        out[tag] = counts
+    return out
+
+
 def _own_path(kernel: str):
     """The first slice whose path launches `kernel`: config 3 (the main
     path) for K1, K3, K5 and the head, config 4 fused for K6; None for the
@@ -936,6 +1276,7 @@ def main() -> int:
     checks = phase_kernels(dev)
     phase_models(dev)
     by_path = phase_slice(card)
+    by_path.update(phase_fit(card, dev))
     _require("jax" not in sys.modules and "mmvae_tpu" not in sys.modules,
              "jax or mmvae_tpu was imported")
     kernels = []

@@ -9,7 +9,8 @@ flax.  Its main path is the config-3 (`seq_vae`) train step:
                             head + sampling (ops.elbo_kernels, Triton),
                             decoder ConvLSTM + frame decoder (cuDNN, eager)
     ops.elbo_kernels        BCE + KL reduce (Triton)
-    train.loop              loss, backward, Adam
+    train.loop              loss, backward, Adam; `fit` (eval, checkpoints,
+                            resume, the streaming data.feed) and `evaluate`
     bench.throughput        frames/s/GPU
 
 Every kernel has a plain PyTorch version beside it, used for CPU tensors and

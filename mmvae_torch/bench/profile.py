@@ -56,6 +56,7 @@ def device_busy_ms(kernels) -> float:
 
 def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12) -> dict:
     from mmvae_torch.bench.throughput import setup_resident_training
+    from mmvae_torch.train.loop import frames_per_step
 
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train_step measures a CUDA device; none is available")
@@ -80,7 +81,7 @@ def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12) 
         "model_kwargs": {k: v for k, v in cfg.model.kwargs.items()},
         "device": torch.cuda.get_device_name(),
         "step_ms": round(step_ms, 3),
-        "frames_per_sec": round(cfg.data.batch_size * cfg.data.seq_len / step_ms * 1e3, 1),
+        "frames_per_sec": round(frames_per_step(cfg) / step_ms * 1e3, 1),
         "device_busy_ms": round(busy, 3),
         "idle_share": round(1.0 - busy / step_ms, 4),
         "kernel_launches_per_step": round(len(kernels) / steps, 1),

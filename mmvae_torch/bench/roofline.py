@@ -14,8 +14,10 @@ the reference computes the posterior).
 
 Shapes, as `chip_smoke.path_shapes` keys them:
 
-    preprocess_gather        (clips in the set, frames a clip, batch)
-    elbo_reduce              ((logits shape), (mu shape))
+    preprocess_gather        (rows in the set, frames a row, batch[, bytes of an
+                             output element, default 2: bf16])
+    elbo_reduce              ((logits shape), (mu shape)[, bytes of an x element,
+                             default 2: bf16])
     reparameterize           (mu shape)
     head_sample_forward      (M, K, N, bytes of an x element): x (M, K), latent N
     head_sample_backward     (M, K, N, bytes of an x element)
@@ -58,14 +60,16 @@ def _taps(h: int, w: int) -> int:
 def kernel_work(name: str, shape) -> Tuple[float, float]:
     """(operations, bytes) of one call of kernel wrapper `name` at `shape`."""
     if name == "preprocess_gather":
-        clips, t, b = shape
+        _, t, b, *out_bytes = shape
         n = b * t * 64 * 64
-        return float(n * _BINARIZE_OPS), float(n * 1 + n * 2 + b * 8)  # u8 in, bf16 out
+        ob = out_bytes[0] if out_bytes else 2
+        return float(n * _BINARIZE_OPS), float(n * 1 + n * ob + b * 8)  # u8 in, frames out
     if name == "elbo_reduce":
-        big, small = shape
+        big, small, *x_bytes = shape
         n, k = _n(big), _n(small)
+        xb = x_bytes[0] if x_bytes else 2
         return (float(n * _BCE_OPS + k * _KL_OPS),
-                float(n * 4 + n * 2 + 2 * k * 4 + 2 * 4))  # f32 logits, bf16 x, f32 mu/lv
+                float(n * 4 + n * xb + 2 * k * 4 + 2 * 4))  # f32 logits, x, f32 mu/lv
     if name == "reparameterize":
         n = _n(shape)
         return float(n * _REPARAM_OPS), float(3 * n * 4)  # mu, logvar in; z out

@@ -24,20 +24,14 @@ NORTH_STAR_FRAMES_PER_SEC = 50_000.0
 def setup_resident_training(cfg, dev: torch.device):
     """(state, data, step_fn) for the config on `dev`: TF32 off, the
     flax-initialized model with its optimizer, and the config's train step
-    (its KL weight and sampling options too).  `data` is a u8 dataset of the
-    config's train split made on the card from seed 0, or None under
-    `data.on_device_generate`, whose step generates its clips (from
-    `data.sprite_bank` where one is named).  `train.steps_per_call` > 1
-    raises: the port runs one step a call."""
-    from mmvae_torch.train.loop import _sample_shape, build_model, make_train_step
+    (its KL weight and sampling options too).  `data` is `resident_set`, or
+    None under `data.on_device_generate`, whose step generates its clips
+    (from `data.sprite_bank` where one is named).  An option the port does
+    not run raises (`train.loop.check_supported`)."""
+    from mmvae_torch.train.loop import build_model, check_supported, make_config_step
     from mmvae_torch.train.state import create_train_state
 
-    if cfg.train.use_pallas is False:
-        raise ValueError("train.use_pallas=false: the port has no plain path on the "
-                         "card; its kernels always run there")
-    if cfg.train.steps_per_call > 1:
-        raise NotImplementedError(f"train.steps_per_call={cfg.train.steps_per_call}: the "
-                                  "port runs one train step a call (chunking is not ported)")
+    check_supported(cfg)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     state = create_train_state(build_model(cfg, dev), cfg.optim)
@@ -47,36 +41,35 @@ def setup_resident_training(cfg, dev: torch.device):
         from mmvae_torch.data.loader import load_sprite_bank
 
         sprites = load_sprite_bank(cfg.data.sprite_bank)
-    sample_shape = _sample_shape(cfg)[1:]
-    step_fn = make_train_step(
-        state.model, binarize=cfg.data.binarize, per_frame=cfg.data.per_frame,
-        resident_batch=None if ongen else cfg.data.batch_size,
-        ongen_batch=cfg.data.batch_size if ongen else None, ongen_shape=sample_shape,
-        ongen_num_digits=cfg.data.num_digits, ongen_sprites=sprites,
-        beta=cfg.optim.beta, kl_warmup_steps=cfg.optim.kl_warmup_steps,
-        resident_epochs=cfg.data.resident_epochs, resident_seed=cfg.data.seed,
-    )
+    step_fn = make_config_step(cfg, state.model, resident=True, sprites=sprites)
     if ongen:
         return state, None, step_fn
+    return state, resident_set(cfg, dev), step_fn
+
+
+def resident_set(cfg, dev: torch.device) -> torch.Tensor:
+    """The bench's resident u8 set on `dev`, made from seed 0 at the size of
+    the config's train split: its clips (N, T, 64, 64), or for a per-frame
+    config every frame of them as a row (N * T, 64, 64), as the JAX bench
+    packs it."""
     n_clips = max(int(cfg.data.num_sequences * cfg.data.train_fraction),
                   cfg.data.batch_size)
+    t = max(cfg.data.seq_len, 1)
+    shape = (n_clips * t, 64, 64) if cfg.data.per_frame else (n_clips, t, 64, 64)
     gen = torch.Generator(device=dev).manual_seed(0)
-    data = torch.randint(0, 256, (n_clips, *sample_shape), generator=gen, device=dev,
-                         dtype=torch.uint8)
-    return state, data, step_fn
+    return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
 
 
 def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
                   device: Optional[str] = None, return_state: bool = False):
     """The bench's result dict; with `return_state`, (result, the trained
     TrainState)."""
-    from mmvae_torch.train.loop import _sample_shape
+    from mmvae_torch.train.loop import frames_per_step
 
     if not torch.cuda.is_available():
         raise RuntimeError("run_benchmark measures a CUDA device; none is available")
     dev = torch.device(device or "cuda")
     state, data, step_fn = setup_resident_training(cfg, dev)
-    shape = _sample_shape(cfg)
 
     losses = []
     for _ in range(max(warmup, 1)):
@@ -93,9 +86,9 @@ def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
     windows_sorted = sorted(windows)
     dt = windows_sorted[1]
 
-    frames_per_step = shape[0] if cfg.data.per_frame else shape[0] * shape[1]
-    fps = frames_per_step * steps / dt
-    fps_all = sorted(frames_per_step * steps / w for w in windows)
+    frames = frames_per_step(cfg)
+    fps = frames * steps / dt
+    fps_all = sorted(frames * steps / w for w in windows)
     loss_values = torch.stack(losses).float().cpu().tolist()
     res = {
         "metric": f"training frames/sec/GPU ({cfg.data.seq_len}-frame clips)"
@@ -106,7 +99,7 @@ def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
         "vs_baseline": round(fps / NORTH_STAR_FRAMES_PER_SEC, 4),
         "config": cfg.name,
         "data": "on_device_generate" if cfg.data.on_device_generate else "resident",
-        "batch_frames": frames_per_step,
+        "batch_frames": frames,
         "steps": steps,
         "wall_sec": round(dt, 3),
         "windows_sec": [round(w, 3) for w in windows],

@@ -111,6 +111,11 @@ def conv2d(x, conv: nn.Conv2d, dtype, stride=1, padding=0):
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), b, stride=stride, padding=padding)
 
 
+def linear(x, lin: nn.Linear, dtype):
+    """flax nn.Dense(dtype=...): input, kernel and bias cast to `dtype`."""
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
 def linear_f32(x, lin: nn.Linear):
     return F.linear(x.float(), lin.weight, lin.bias)
 

@@ -1,26 +1,36 @@
-"""Loss and train step (port of mmvae_tpu/train/loop.py:32-251, 312-324).
+"""Loss, train and eval steps and the training loop (port of
+mmvae_tpu/train/loop.py).
 
 One train step: derive the step seed from the host step counter, get the
 batch's u8 clips (rows of the resident set by index, uniform with
-replacement or by shuffled epochs, or clips generated on the card by
-`data.ongen`), binarize them on the card (preprocess kernel), run the model
-with kernel-sampled latents, reduce the ELBO (kernel) with the KL weight of
-the step, backward, and `TrainState.apply_gradients` (clip, Adam or AdamW
-at the step's rate, EMA).  No host sync: metrics come back as device
-tensors.
+replacement or by shuffled epochs, a batch streamed from the host by
+`data.feed.DeviceFeed`, or clips generated on the card by `data.ongen`),
+binarize them on the card (preprocess kernel), run the model with
+kernel-sampled latents, reduce the ELBO (kernel) with the KL weight of the
+step, backward, and `TrainState.apply_gradients` (clip, Adam or AdamW at
+the step's rate, EMA).  No host sync: metrics come back as device tensors.
+`fit` drives the steps with eval, EMA eval, metrics, checkpoints, resume
+and the SIGTERM save; `evaluate` scores a checkpoint on the val split.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import dataclasses
+import sys
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mmvae_torch.data.feed import DeviceFeed
+from mmvae_torch.data.loader import load_or_generate, load_sprite_bank
 from mmvae_torch.models import MODEL_REGISTRY, flax_init_
 from mmvae_torch.ops import dispatch
 from mmvae_torch.ops.seeds import STREAM_ONGEN, step_seed, stream_seed
-from mmvae_torch.train.state import TrainState
+from mmvae_torch.train import checkpoint as ckpt
+from mmvae_torch.train.metrics import MetricsLogger
+from mmvae_torch.train.state import TrainState, create_train_state
+from mmvae_torch.utils.debug import debug_nans, install_sigterm_checkpoint
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -28,20 +38,27 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def make_loss_fn(model, *, binarize: bool):
-    """loss_fn(data_u8, idx, seed, beta=1.0) -> (loss per sample, metrics).
+    """loss_fn(data_u8, idx, seed, beta=1.0, params=None) -> (loss per
+    sample, metrics).
 
-    `data_u8[idx]` are the batch's clips.  Loss = (BCE sum + beta * KL sum) / B;
-    the metrics report the unscaled ELBO terms per sample."""
+    `data_u8[idx]` are the batch's clips; `params` ({name: tensor}, e.g. the
+    EMA) stand in for the model's own parameters where given.
+    Loss = (BCE sum + beta * KL sum) / B; the metrics report the unscaled
+    ELBO terms per sample."""
     # Binarized {0, 1} frames are exact in bf16: a bf16 model gets bf16 frames.
     frame_dtype = (
         torch.bfloat16 if binarize and model.dtype == torch.bfloat16 else torch.float32
     )
 
-    def loss_fn(data_u8, idx, seed: int, beta: float = 1.0):
+    def loss_fn(data_u8, idx, seed: int, beta: float = 1.0, params=None):
         x = dispatch.preprocess_gather(
             data_u8, idx, seed, binarize=binarize, out_dtype=frame_dtype
         )
-        out = model(x, dispatch.make_sample_fn(seed))
+        sample_fn = dispatch.make_sample_fn(seed)
+        if params is None:
+            out = model(x, sample_fn)
+        else:
+            out = torch.func.functional_call(model, params, (x, sample_fn))
         bce, kl = dispatch.elbo_parts(out.logits, out.target, out.mu, out.logvar)
         b = out.mu.shape[0]
         kl_total = kl + out.extra_kl
@@ -154,6 +171,24 @@ def make_train_step(
     return step
 
 
+def make_config_step(cfg, model, *, resident: bool, sprites=None):
+    """The config's train step for `model` (`make_train_step` with the
+    config's data path, KL weight and sampling options): clips generated on
+    the card under `data.on_device_generate` (from `sprites` where given),
+    else rows of a resident set when `resident`, else the batch it is
+    handed."""
+    ongen = cfg.data.on_device_generate
+    batch = cfg.data.batch_size
+    return make_train_step(
+        model, binarize=cfg.data.binarize, per_frame=cfg.data.per_frame,
+        resident_batch=batch if resident and not ongen else None,
+        ongen_batch=batch if ongen else None, ongen_shape=_sample_shape(cfg)[1:],
+        ongen_num_digits=cfg.data.num_digits, ongen_sprites=sprites,
+        beta=cfg.optim.beta, kl_warmup_steps=cfg.optim.kl_warmup_steps,
+        resident_epochs=cfg.data.resident_epochs, resident_seed=cfg.data.seed,
+    )
+
+
 def build_model(cfg, device="cuda", generator: Optional[torch.Generator] = None):
     """The config's model on `device` (the card unless the caller names the
     CPU) with flax-style init from `generator` (default: a CPU generator
@@ -165,8 +200,284 @@ def build_model(cfg, device="cuda", generator: Optional[torch.Generator] = None)
     return flax_init_(model, generator)
 
 
+def frames_per_step(cfg) -> int:
+    """Frames a train step consumes: the batch of single frames of a
+    per-frame config, batch x clip length otherwise."""
+    if cfg.data.per_frame:
+        return cfg.data.batch_size
+    return cfg.data.batch_size * cfg.data.seq_len
+
+
 def _sample_shape(cfg) -> tuple:
     s = 64
     if cfg.data.per_frame:
         return (cfg.data.batch_size, s, s)
     return (cfg.data.batch_size, cfg.data.seq_len, s, s)
+
+
+def check_supported(cfg) -> None:
+    """Raise for a config option the port does not run."""
+    if cfg.train.use_pallas is False:
+        raise ValueError("train.use_pallas=false: the port has no plain path on the "
+                         "card; its kernels always run there")
+    if cfg.train.steps_per_call > 1:
+        raise NotImplementedError(f"train.steps_per_call={cfg.train.steps_per_call}: the "
+                                  "port runs one train step a call (chunking is not "
+                                  "ported: ROADMAP item 6)")
+    if cfg.train.multihost:
+        raise NotImplementedError("train.multihost=true: multi-host training is not ported "
+                                  "(data parallelism is ROADMAP item 12)")
+    if cfg.train.transfer_guard:
+        raise ValueError("train.transfer_guard=true: dropped in the port (ROADMAP, the drop "
+                         "list): its step makes no implicit host sync to guard; the only "
+                         "host reads are the metrics, one log interval late")
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device={device!r} but CUDA is not available; pass "
+                               "device='cpu' to run on the CPU")
+        # The f32 heads and decoders run in full f32, as the bench runs them.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return dev
+
+
+def _load_split(cfg, sprites, train: bool = True):
+    return load_or_generate(
+        cfg.data.path, num_sequences=cfg.data.num_sequences, seq_len=cfg.data.seq_len,
+        num_digits=cfg.data.num_digits, seed=cfg.data.seed,
+        train_fraction=cfg.data.train_fraction, sprites=sprites, train=train,
+    )
+
+
+def _val_batches(cfg, val_dataset, batch: int, seed: int):
+    """The val split once, every row, the short tail batch included."""
+    if cfg.data.per_frame:
+        return val_dataset.frame_batches(batch, seed=seed, num_epochs=1, drop_remainder=False)
+    return val_dataset.batches(batch, seed=seed, num_epochs=1, drop_remainder=False)
+
+
+def _val_rows(cfg, val_dataset) -> int:
+    if cfg.data.per_frame:
+        return len(val_dataset) * max(val_dataset.data.shape[1], 1)
+    return len(val_dataset)
+
+
+def make_eval_step(model, *, binarize: bool = True):
+    """eval_step(params, batch_u8, seed) -> metrics (device tensors): the
+    loss terms per sample of the whole u8 batch under `torch.no_grad()`, so
+    the recurrences take their kernels' forward without residuals.
+    `params` ({name: tensor}, e.g. the EMA) stand in for the model's own
+    where given; None scores the model's own."""
+    loss_fn = make_loss_fn(model, binarize=binarize)
+
+    @torch.no_grad()
+    def eval_step(params, batch_u8: torch.Tensor, seed: int) -> Metrics:
+        idx = torch.arange(batch_u8.shape[0], device=batch_u8.device)
+        return loss_fn(batch_u8, idx, seed, params=params)[1]
+
+    return eval_step
+
+
+def _weighted_mean(parts) -> Dict[str, float]:
+    """{key: mean per sample} of [(rows b, metrics per sample)], each batch
+    weighted by its rows (a short tail batch counts by its size); one host
+    read."""
+    keys = list(parts[0][1])
+    total = torch.stack([torch.stack([m[k].float() * b for k in keys]) for b, m in parts])
+    seen = sum(b for b, _ in parts)
+    return {k: v / seen for k, v in zip(keys, total.sum(0).tolist())}
+
+
+def evaluate(cfg, ckpt_dir: Optional[str] = None, *, params=None,
+             max_batches: Optional[int] = None, seed: int = 1, use_ema: bool = False,
+             device="cuda") -> dict:
+    """Val-split ELBO, BCE and KL (sum per sample) of a checkpoint: the whole
+    split once by default, the short tail batch weighted by its size.  Batch
+    n is scored with seed `seed + n`, the in-training eval's stream, so at
+    step N this reproduces the in-training val metrics when the batch size
+    matches.  Raises FileNotFoundError when `ckpt_dir` holds no checkpoint;
+    `params` ({name: tensor}) scores those weights instead (step -1).
+    `use_ema` scores the checkpoint's EMA (the parameters themselves for a
+    checkpoint without one) and leaves `cfg` as it was.  Returns {"step",
+    "batches", "samples", "val_loss", "val_bce", "val_kl"}."""
+    dev = _device(device)
+    model = build_model(cfg, dev)
+    if params is None:
+        if not ckpt_dir:
+            raise ValueError("evaluate() needs ckpt_dir or params")
+        if ckpt.latest_step(ckpt_dir) is None:
+            raise FileNotFoundError(f"no checkpoint found in {ckpt_dir!r}")
+        optim_cfg = cfg.optim
+        if use_ema and not optim_cfg.ema_decay:
+            # a state that keeps an EMA, to take the checkpoint's; a copy, so
+            # a later fit(cfg) does not train with an EMA
+            optim_cfg = dataclasses.replace(optim_cfg, ema_decay=0.999)
+        state, step, _ = ckpt.restore_latest(ckpt_dir, create_train_state(model, optim_cfg))
+        params = state.ema_params if use_ema else None
+    else:
+        step = -1
+        params = {k: v.to(dev) for k, v in params.items()}
+    sprites = load_sprite_bank(cfg.data.sprite_bank) if cfg.data.sprite_bank else None
+    val_dataset = _load_split(cfg, sprites, train=False)
+    avail = _val_rows(cfg, val_dataset)
+    vbs = min(cfg.data.batch_size, avail)
+    if vbs == 0:
+        return {"step": step, "batches": 0, "samples": 0}
+    n_batches = -(-avail // vbs)
+    if max_batches is not None:
+        n_batches = min(n_batches, max_batches)
+    eval_step = make_eval_step(model, binarize=cfg.data.binarize)
+    parts = []
+    for n, vb in zip(range(n_batches), _val_batches(cfg, val_dataset, vbs, seed)):
+        parts.append((vb.shape[0], eval_step(params, torch.from_numpy(vb).to(dev), seed + n)))
+    out = {"step": int(step), "batches": len(parts), "samples": sum(b for b, _ in parts)}
+    out.update({f"val_{k}": v for k, v in _weighted_mean(parts).items()})
+    return out
+
+
+def _check_ongen_val(cfg, dataset, sprite_bank) -> None:
+    """On-card generation draws sprites while the val split resolved to the
+    canonical file (real digits): with the built-in font that is a train/val
+    mismatch, refused when an eval would run."""
+    if not (cfg.data.on_device_generate and dataset.source == "canonical"):
+        return
+    if sprite_bank is None:
+        if cfg.train.eval_every:
+            raise ValueError(
+                "data.on_device_generate=true trains on the built-in font sprites, but the "
+                "validation split resolved to the canonical Moving MNIST file "
+                f"({cfg.data.path or 'auto-detected'}): real digit crops the font can never "
+                "match.  Provide a real digit bank via data.sprite_bank=<path to (K,S,S) "
+                ".npy>, disable on_device_generate to train on the canonical data, or point "
+                "data.path elsewhere.")
+        print("warning: on_device_generate with the built-in font sprites while the "
+              "canonical file is present; eval is disabled (train.eval_every=0) so "
+              "proceeding, but any later eval against this val split would be a train/val "
+              "mismatch.", file=sys.stderr)
+    else:
+        print("warning: on_device_generate trains on the data.sprite_bank sprites while "
+              "validation uses the canonical file; ensure the bank holds real digit crops "
+              "from a matching distribution.", file=sys.stderr)
+
+
+def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainState, List[dict]]:
+    """Train `cfg` for `max_steps` (default `train.steps`) on `device` (the
+    card unless the caller names the CPU); returns (state, history), the
+    history one dict a logged line.
+
+    Data: clips generated on the card every step (`data.on_device_generate`),
+    the train split resident on the card (`data.device_resident`, by default
+    when the device is a card and the split fits
+    `data.device_resident_max_bytes`; a per-frame config's rows are frames),
+    or batches streamed from the host through `DeviceFeed`.  Every
+    `eval_every` steps the first `eval_batches` val batches (staged on the
+    device once, seeds 1 + n) are scored, and with an EMA scored again under
+    it (`val_*_ema`).  Metrics are read one log interval late.  Every
+    `checkpoint_every` steps a checkpoint is written in the background
+    (data cursor = step), and the last step always; `train.resume` restores
+    the newest and a streaming run skips the batches it consumed.  SIGTERM
+    saves the last whole step and ends the process."""
+    check_supported(cfg)
+    dev = _device(device)
+    if dev.type == "cuda" and cfg.train.data_parallel and torch.cuda.device_count() > 1:
+        raise NotImplementedError("train.data_parallel=true on more than one card: data "
+                                  "parallelism is ROADMAP item 12; set "
+                                  "train.data_parallel=false to train on one card")
+    steps = max_steps or cfg.train.steps
+    model = build_model(cfg, dev)
+    ongen = cfg.data.on_device_generate
+    sprite_bank = load_sprite_bank(cfg.data.sprite_bank) if cfg.data.sprite_bank else None
+    dataset = _load_split(cfg, sprite_bank)
+    _check_ongen_val(cfg, dataset, sprite_bank)
+    state = create_train_state(model, cfg.optim)
+    start_step = data_step = 0
+    if cfg.train.resume and cfg.train.checkpoint_dir:
+        state, start_step, data_step = ckpt.restore_latest(cfg.train.checkpoint_dir, state)
+
+    split = dataset.split_data
+    resident = cfg.data.device_resident
+    if resident is None:
+        resident = dev.type == "cuda" and split.nbytes <= cfg.data.device_resident_max_bytes
+    resident = resident and not ongen
+    step_fn = make_config_step(cfg, model, resident=resident, sprites=sprite_bank)
+    batch = cfg.data.batch_size
+    data_dev, host_iter = None, None
+    if resident:
+        rows = split.reshape(-1, *split.shape[2:]) if cfg.data.per_frame else split
+        data_dev = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+    elif not ongen:
+        # skip what the run being resumed consumed: resume == uninterrupted
+        batches = dataset.frame_batches if cfg.data.per_frame else dataset.batches
+        host_iter = batches(batch, seed=cfg.data.seed, skip_batches=data_step)
+
+    val_dataset = _load_split(cfg, sprite_bank, train=False)
+    eval_step = make_eval_step(model, binarize=cfg.data.binarize)
+    val_cache: list = []  # (rows, batch on the device, seed), staged by the first pass
+
+    def run_eval(params) -> Dict[str, float]:
+        if not val_cache:
+            vbs = min(batch, _val_rows(cfg, val_dataset))
+            if vbs == 0:
+                return {}
+            for n, vb in zip(range(cfg.train.eval_batches),
+                             _val_batches(cfg, val_dataset, vbs, seed=1)):
+                val_cache.append((vb.shape[0], torch.from_numpy(vb).to(dev), 1 + n))
+        if not val_cache:
+            return {}
+        parts = [(b, eval_step(params, vb, seed)) for b, vb, seed in val_cache]
+        return {f"val_{k}": v for k, v in _weighted_mean(parts).items()}
+
+    logger = MetricsLogger(csv_path=cfg.train.metrics_csv,
+                           frames_per_step=frames_per_step(cfg),
+                           tensorboard_dir=cfg.train.tensorboard_dir,
+                           append=cfg.train.resume and start_step > 0)
+    history: List[dict] = []
+    ckpt_dir = cfg.train.checkpoint_dir
+
+    def forced_save(step: int) -> None:
+        if ckpt_dir:
+            ckpt.save(ckpt_dir, state, step, data_step=step, force=True, wait=True)
+
+    sigterm = install_sigterm_checkpoint() if ckpt_dir else None
+    feed = (DeviceFeed(host_iter, dev, depth=cfg.data.prefetch_depth)
+            if host_iter is not None else None)
+    try:
+        with debug_nans(cfg.train.debug_nans):
+            pending = None  # (step, metrics), read one interval late: no sync stall
+            val_metrics: Dict[str, float] = {}
+            for end in range(start_step + 1, steps + 1):
+                metrics = step_fn(state, data_dev if feed is None else next(feed))
+                if sigterm is not None and sigterm.requested:
+                    sigterm.save_and_exit(lambda: forced_save(end))
+                if end % cfg.train.log_every == 0 or end == steps:
+                    if pending is not None:
+                        history.append(logger.log(pending[0], {**pending[1], **val_metrics}))
+                        val_metrics = {}
+                    pending = (end, metrics)
+                if cfg.train.eval_every and end % cfg.train.eval_every == 0:
+                    val_metrics = run_eval(None)
+                    if state.ema_params is not None:
+                        # the same batches and seeds: only the parameters differ
+                        val_metrics.update({f"{k}_ema": v
+                                            for k, v in run_eval(state.ema_params).items()})
+                if ckpt_dir and end % cfg.train.checkpoint_every == 0:
+                    # one host batch a step: the data cursor is the step
+                    ckpt.save(ckpt_dir, state, end, data_step=end)
+            if pending is not None:
+                # read right after the last step: no throughput for this window
+                history.append(logger.log(pending[0], {**pending[1], **val_metrics},
+                                          throughput=False))
+        forced_save(steps)
+        if sigterm is not None and sigterm.requested:
+            sigterm.save_and_exit(lambda: forced_save(steps))
+    finally:
+        if feed is not None:
+            feed.stop()
+        if sigterm is not None:
+            sigterm.uninstall()
+        logger.close()
+    return state, history

@@ -8,6 +8,7 @@ neither jax nor mmvae_tpu, so it runs on a GPU host that has only PyTorch:
 (`--noconftest`: tests/conftest.py sets up jax for the JAX package's tests.)
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -231,14 +232,16 @@ def test_fused_train_steps_launch_k5_and_k6(dev, name):
     assert all(n == 3 for n in counts.values()), counts
 
 
-# The sampling sites at full width (M, K, N, x dtype), unaligned shapes, and
-# batches past one 64-row block of the backward (config 3 at batch 256,
-# config 5 at batch 32; an unaligned 150 rows).
-HEAD_SHAPES = [(64, 8192, 128, torch.bfloat16), (16, 256, 128, torch.float32),
-               (160, 256, 64, torch.float32), (5, 37, 3, torch.bfloat16),
-               (70, 300, 21, torch.float32), (3, 1100, 9, torch.float32),
-               (256, 8192, 128, torch.bfloat16), (320, 256, 64, torch.float32),
-               (150, 300, 21, torch.float32)]
+# The sampling sites at full width (M, K, N, x dtype): configs 3, 5 (two),
+# 1 and 2; then unaligned shapes, and batches past one 64-row block of the
+# backward (config 3 at batch 256, config 5 at batch 32; an unaligned 150
+# rows).
+SITES = [(64, 8192, 128, torch.bfloat16), (16, 256, 128, torch.float32),
+         (160, 256, 64, torch.float32), (64, 512, 20, torch.float32),
+         (128, 4096, 64, torch.float32)]
+HEAD_SHAPES = SITES + [(5, 37, 3, torch.bfloat16), (70, 300, 21, torch.float32),
+                       (3, 1100, 9, torch.float32), (256, 8192, 128, torch.bfloat16),
+                       (320, 256, 64, torch.float32), (150, 300, 21, torch.float32)]
 
 
 @pytest.mark.parametrize("shape", HEAD_SHAPES, ids=str)
@@ -249,13 +252,13 @@ def test_head_kernels_match_plain(dev, shape):
     kernel_checks.compare_head(dev, shape).check(f"head_sample {shape}")
 
 
-@pytest.mark.parametrize("shape", HEAD_SHAPES[:3], ids=str)
+@pytest.mark.parametrize("shape", SITES, ids=str)
 def test_head_backward_is_bit_reproducible(dev, shape):
     same = kernel_checks.head_backward_repeatable(dev, shape)
     assert all(same.values()), same
 
 
-@pytest.mark.parametrize("shape", HEAD_SHAPES[:3] + HEAD_SHAPES[6:8], ids=str)
+@pytest.mark.parametrize("shape", SITES + HEAD_SHAPES[8:10], ids=str)
 def test_head_forward_is_bit_reproducible(dev, shape):
     """200 launches warm, cold (a CUDA graph over 20 input copies) and on
     two streams at once, each bit-identical to the first launch."""
@@ -263,7 +266,7 @@ def test_head_forward_is_bit_reproducible(dev, shape):
     assert all(same.values()), same
 
 
-@pytest.mark.parametrize("shape", HEAD_SHAPES[:3], ids=str)
+@pytest.mark.parametrize("shape", SITES, ids=str)
 def test_head_tolerance_rejects_tf32(dev, shape):
     """The f32 limit of `compare_head` rejects the same products with their
     operands rounded to TF32, and the kernels pass it."""
@@ -297,3 +300,53 @@ def test_head_kernel_refuses_other_layouts(dev):
         head_kernels.head_sample_forward_cuda(x.t().contiguous().t(), w_mu, b_mu, w_lv, b_lv, 0)
     with pytest.raises(TypeError, match="float32"):
         head_kernels.head_sample_forward_cuda(x, w_mu.half(), b_mu, w_lv, b_lv, 0)
+
+
+def test_feed_on_the_card_hands_over_every_batch_intact(dev):
+    """DeviceFeed on the card: 60 batches, each handed over while the
+    consumer's stream is still busy, read there only after that work and
+    then dropped (so the allocator may reuse its memory for a later copy),
+    equal the host's bytes: the pinned ring, the copy events and
+    `record_stream` hold."""
+    from mmvae_torch.data.feed import DeviceFeed
+
+    rng = np.random.default_rng(0)
+    host = [rng.integers(0, 256, (16, 20, 64, 64), dtype=np.uint8) for _ in range(60)]
+    weight = torch.arange(host[0][0].size, device=dev).view(host[0][0].shape)
+    busy = torch.randn(2048, 2048, device=dev)
+    sums = []
+    with DeviceFeed(iter(host), dev, depth=2) as feed:
+        for batch in feed:
+            assert batch.is_cuda and batch.dtype == torch.uint8
+            for _ in range(4):  # delay this stream's read of the batch
+                busy = torch.tanh(busy @ busy)
+            sums.append(torch.stack([batch.long().sum(), (batch.long() * weight).sum()]))
+            del batch
+    want = [[int(h.sum(dtype=np.int64)),
+             int((h.astype(np.int64) * np.arange(h[0].size).reshape(h[0].shape)).sum())]
+            for h in host]
+    assert torch.stack(sums).cpu().tolist() == want
+
+
+def test_fit_on_the_card_evaluates_and_checkpoints(dev, tmp_path):
+    """`fit` of config 1 at small width on the card: resident by default,
+    the fused head once a train step and once an eval batch, the standalone
+    K2 never; a checkpoint that restores to the trained state bit for bit."""
+    from mmvae_torch.train import checkpoint as ckpt
+    from mmvae_torch.train.loop import fit
+
+    cfg = get_config("mlp_vae", ("model.kwargs.hidden_dim=64", "data.num_sequences=40",
+                                 "train.log_every=2", "train.eval_every=4",
+                                 "train.eval_batches=2", f"train.checkpoint_dir={tmp_path}"))
+    ops.reset_launch_counts()
+    state, history = fit(cfg, max_steps=4, device=dev)
+    counts = ops.launch_counts()
+    assert counts["reparameterize"] == 0
+    assert counts["head_sample_forward"] == 4 + 2 and counts["head_sample_backward"] == 4
+    assert counts["preprocess_gather"] == 4 + 2 and counts["elbo_reduce"] == 4 + 2
+    assert all(np.isfinite(h["loss"]) for h in history) and "val_loss" in history[-1]
+    again, step, data_step = ckpt.restore_latest(
+        str(tmp_path), create_train_state(build_model(cfg, dev), cfg.optim))
+    assert step == data_step == 4
+    for (n, p), (_, q) in zip(state.model.named_parameters(), again.model.named_parameters()):
+        assert torch.equal(p, q), n

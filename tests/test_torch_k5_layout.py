@@ -127,6 +127,11 @@ def test_kernel_work_matches_the_hand_counts():
     _, nbytes = kernel_work("preprocess_gather", (9000, 20, 64))
     assert nbytes == pytest.approx(5.2e6 + 10.5e6, rel=0.01)
     assert bound("preprocess_gather", (9000, 20, 64))[0] == pytest.approx(0.0047, rel=0.01)
+    # per-frame configs' f32 frames: 4 bytes out, and f32 x into the reduce
+    _, nbytes = kernel_work("preprocess_gather", (36000, 1, 64, 4))
+    assert nbytes == 64 * 4096 * (1 + 4) + 64 * 8
+    _, nbytes = kernel_work("elbo_reduce", ((64, 64, 64), (64, 20), 4))
+    assert nbytes == 64 * 4096 * (4 + 4) + 2 * 64 * 20 * 4 + 8
     k6 = (64, 10, 8, 8, 128, True)
     assert kernel_work("convlstm_scan_forward", k6)[0] == pytest.approx(40.60e9, rel=1e-3)
     assert bound("convlstm_scan_forward", k6) == (pytest.approx(0.0411, rel=0.01), "operations")

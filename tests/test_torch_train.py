@@ -149,6 +149,30 @@ def test_bench_refuses_steps_per_call():
         setup_resident_training(cfg, torch.device("cpu"))
 
 
+@pytest.mark.parametrize("name", ["mlp_vae", "seq_vae"])
+def test_bench_resident_set_has_the_train_splits_rows(name):
+    """The bench's resident set is the train split's size: clips for a
+    sequence config, every frame of them as a row for a per-frame one
+    (n_clips x seq_len frames, as mmvae_tpu/bench/throughput.py packs it)."""
+    from mmvae_torch.bench.throughput import resident_set
+
+    cfg = get_config(name, ("data.num_sequences=20",))
+    data = resident_set(cfg, torch.device("cpu"))
+    n_clips = max(int(20 * 0.9), cfg.data.batch_size)
+    want = (n_clips * 20, 64, 64) if name == "mlp_vae" else (n_clips, 20, 64, 64)
+    assert data.shape == want and data.dtype == torch.uint8
+
+
+def test_frames_per_step_counts_single_frames_for_a_per_frame_config():
+    """The frames a step consumes, which the bench, its profile and fit's
+    logger turn into frames/s: 64 single frames for config 1, 64 clips x 20
+    frames for config 3."""
+    from mmvae_torch.train.loop import frames_per_step
+
+    assert frames_per_step(get_config("mlp_vae")) == 64
+    assert frames_per_step(get_config("seq_vae")) == 64 * 20
+
+
 def test_bench_ongen_step_generates_its_batch(monkeypatch):
     """Under data.on_device_generate the bench's step generates its clips:
     no dataset is made, every step gathers all of a fresh (B, T, 64, 64) u8
