@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch / CUDA port: every config training, through
-the bench and through the training loop (`fit`).
+the bench and through the training loop (`fit`), then sampling and the CLI.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -66,11 +66,27 @@ Phases, each raising on failure (the script catches nothing):
    80 steps on the host batches an uninterrupted run would draw; configs 1
    and 2 resident (40 steps, one eval pass); config 4 with fused=true (20
    steps, one eval pass: K6's forward without residuals under eval); the
-   recipe (40 steps, one eval pass raw and under the EMA).  No jax imported.
+   recipe (40 steps, one eval pass raw and under the EMA);
+6. sampling (`mmvae_torch.sample.generate`) at full width, each model and
+   mode the CLI offers (configs 1 and 2: prior and reconstruct; config 3
+   default and fused, config 5 fused: prior and reconstruct; config 4 fused:
+   prior, reconstruct and rollout): on the card through the kernels against
+   the CPU through the plain versions from the same weights and injected
+   draws, each call held to its launch equations by kernel and mode (the
+   head's forward, K5 without residuals, K6 "hs"; no backward, no K1, no
+   standalone K2), and frames/s at the config's batch with each call's
+   kernel and copy time and the device's idle share (profiler); the forwards without
+   residuals timed at their sampling shapes beside their plain versions,
+   their bounds and the saving forward, and the head at the prior chain's
+   shape; then the CLI in this process on the fit phase's checkpoints:
+   `eval` (its JSON equal to `evaluate`'s), `sample` in every mode, `bench
+   --profile` (the trace names the head's and K1's kernels).  No jax
+   imported.
 The last three lines are the card, the kernels' JSON line (`launches`: the
 count from the kernel's own path, config 3 for K1, K3, K5 and the head,
 config 4 for K6, 0 for the standalone K2; `launches_by_path`: each path's
-run, the fit runs' included), and {"ok": true, "device": {...}}.  Exits
+run, the fit, sampling and CLI runs' included; `sampling`: the forwards'
+rows at the sampling shapes), and {"ok": true, "device": {...}}.  Exits
 non-zero with no result when CUDA is not available.
 """
 
@@ -878,23 +894,41 @@ def check_ongen(dev) -> None:
     rel = abs(mean - host) / host
     _require(rel < 0.05, f"ongen: mean intensity {mean:.3f} against the host's {host:.3f}")
     ms = _time_ms(lambda: fn(seed), 20)
-    busy, launches = _device_ms(lambda: fn(seed), 20)
+    prof = _device_profile(lambda: fn(seed), 20)
     print(f"[ongen] {b} x {t} x 64x64 u8: byte-identical to the CPU from the same draws with "
           f"TF32 off and on; corners in [{int(yx.min())}, {int(yx.max())}] (limit 0..{card.lim:g}); "
           f"least frame mass {float(mass.min()):.0f} (>= {least:.0f}); mean intensity {mean:.3f} "
           f"against the host generator's {host:.3f} ({100 * rel:.2f} %, limit 5 %); one batch "
-          f"{busy:.4f} ms busy on the device in {launches:.0f} launches (profiler), {ms:.4f} ms "
+          f"{prof['busy_ms']:.4f} ms busy on the device in {prof['kernels']:.0f} kernel launches "
+          f"(profiler), {ms:.4f} ms "
           f"back to back from the host (CUDA events)")
 
 
-def _device_ms(fn, calls: int) -> tuple:
-    """(device-busy ms a call, kernel launches a call) of `fn` over `calls`
-    calls, after one warm call (`bench.profile`'s profiler reading)."""
-    from mmvae_torch.bench.profile import device_busy_ms, device_kernels
+def _device_profile(fn, calls: int) -> dict:
+    """One warm call of `fn`, then `calls` calls under the profiler: ms a
+    call on the host's clock; the device's busy ms a call (the union of its
+    activity's intervals), its kernel-busy and copy-busy ms; kernel
+    launches a call; and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmvae_torch.bench.profile import device_busy_ms
 
     fn()
-    kernels = device_kernels(fn, calls)
-    return device_busy_ms(kernels) / calls, len(kernels) / calls
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / calls
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+    busy = device_busy_ms(events) / calls
+    return {"call_ms": wall, "busy_ms": busy, "kernel_ms": device_busy_ms(kernels) / calls,
+            "copy_ms": device_busy_ms(copies) / calls, "kernels": len(kernels) / calls,
+            "idle": 1 - busy / wall}
 
 
 def phase_kernels(dev) -> dict:
@@ -1021,6 +1055,14 @@ def phase_slice(card: str) -> dict:
 # --- phase 5: fit --------------------------------------------------------------
 
 
+def _ckpt_dir(workdir: str, name: str) -> str:
+    """Where the fit phase saves `name`'s run (config 3 streamed, config 4
+    fused), which the CLI phase samples from."""
+    import os
+
+    return os.path.join(workdir, {"seq_vae": "seq_vae_streaming", "pred_vae": "pred_vae"}[name])
+
+
 def _checksums(batch):
     """Two position-weighted int64 sums of a u8 batch, on its device."""
     import torch
@@ -1136,7 +1178,7 @@ def fit_streaming_and_resume(card: str, dev, workdir: str) -> dict:
     from mmvae_torch.train.loop import evaluate, make_eval_step
     from mmvae_torch.train.state import create_train_state
 
-    ckdir = os.path.join(workdir, "seq_vae_streaming")
+    ckdir = _ckpt_dir(workdir, "seq_vae")
     cfg = _fit_cfg("seq_vae", _CUT + _STREAMING, "train.log_every=10", "train.eval_every=20",
                    "train.eval_batches=2", "train.checkpoint_every=20",
                    f"train.checkpoint_dir={ckdir}")
@@ -1215,24 +1257,23 @@ def fit_streaming_and_resume(card: str, dev, workdir: str) -> dict:
     return {tag: counts, tag + " resumed": counts2}
 
 
-def phase_fit(card: str, dev) -> dict:
+def phase_fit(card: str, dev, workdir: str) -> dict:
     """`fit` at full width on the card (the one cut: a 2,000-clip procedural
     set), each run with the launch equations of its path: config 3 streamed
     through DeviceFeed with checkpoints, restore, `evaluate` and a resume;
     configs 1 and 2 resident, 40 steps and one eval pass; config 4 with
     fused=true, 20 steps and one eval pass (K6's no-residual forward under
-    eval); the recipe, 40 steps and one eval pass raw and under the EMA.
-    Returns {path: that run's launch counts}."""
-    import tempfile
-
+    eval) and its last step saved for the CLI phase (`_ckpt_dir`); the
+    recipe, 40 steps and one eval pass raw and under the EMA.  Returns
+    {path: that run's launch counts}."""
     print(f"[fit] the fit runs' one cut: {_CUT[0]} (procedural data), nothing else")
     out = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        out.update(fit_streaming_and_resume(card, dev, workdir))
+    out.update(fit_streaming_and_resume(card, dev, workdir))
     cadence = ("train.log_every=10", "train.eval_batches=2")
     for tag, name, overrides in _FIT_PATHS[1:]:
         steps = 20 if name == "pred_vae" else 40
-        cfg = _fit_cfg(name, overrides, *cadence, f"train.eval_every={steps}")
+        saves = (f"train.checkpoint_dir={_ckpt_dir(workdir, name)}",) if name == "pred_vae" else ()
+        cfg = _fit_cfg(name, overrides, *cadence, f"train.eval_every={steps}", *saves)
         ema = bool(cfg.optim.ema_decay)
         evals = 2 * (2 if ema else 1)
         want = _step_counts(steps, evals, k5=name not in ("mlp_vae", "conv_vae"),
@@ -1254,6 +1295,418 @@ def phase_fit(card: str, dev) -> dict:
     return out
 
 
+# --- phase 6: sampling and the CLI ------------------------------------------
+
+_FUSED = ("model.kwargs.fused=true",)
+# Every model and mode the CLI offers: (config, overrides, modes).
+_SAMPLE_PATHS = (
+    ("mlp_vae", (), ("prior", "reconstruct")),
+    ("conv_vae", (), ("prior", "reconstruct")),
+    ("seq_vae", (), ("prior", "reconstruct")),
+    ("seq_vae", _FUSED, ("prior", "reconstruct")),
+    ("pred_vae", _FUSED, ("prior", "reconstruct", "rollout")),
+    ("hier_vae", _FUSED, ("prior", "reconstruct")),
+)
+_SAMPLE_WINDOWS, _SAMPLE_CALLS, _SAMPLE_WARMUP = 3, 5, 2
+
+
+def _sample_want(cfg, mode: str, cli: bool = False) -> dict:
+    """One sampling call's launches by kernel and mode
+    (`ops.launch_counts_by_mode`; every key not named: 0).  A posterior
+    draw is one fused head forward (two on hier_vae: z_g and the chunks);
+    hier_vae's prior chain one a chunk; a sequence model's encoder K5
+    without residuals; a decoder under fused=true K6 in its "hs" mode; the
+    CLI's clips one K3 (u8 / 255)."""
+    name, kw = cfg.model.name, cfg.model.kwargs
+    seq = not cfg.data.per_frame
+    want = {}
+    if mode != "prior":
+        want["head_sample_forward"] = 2 if name == "hier_vae" else 1
+        if seq:
+            want["convlstm_proj_forward nores"] = 1
+        if cli:
+            want["preprocess_gather"] = 1
+    elif name == "hier_vae":
+        want["head_sample_forward"] = cfg.data.seq_len // kw["chunk_len"]
+    if seq and kw.get("fused") is True:
+        want["convlstm_scan_forward hs"] = 1
+    return want
+
+
+def _check_counts(tag: str, counts: dict, want: dict, calls: int = 1) -> None:
+    full = {k: calls * want.get(k, 0) for k in counts}
+    _require(set(want) <= set(counts) and counts == full,
+             f"{tag}: launches {counts}, expected {full}")
+
+
+def _sample_call(cfg, mode: str, batch: int, seed: int, g=None, device="cpu"):
+    """(`fn(model) -> frames`, frames a call): one call of the generate API
+    in `mode` at `batch`, as the CLI makes it (the prior over the config's
+    clip length; rollout from `context_len` frames to the clip's end), with
+    every draw injected from the CPU generator `g`, or drawn on the model's
+    device from `seed` when `g` is None.  Input frames are made on the CPU
+    and put on `device` once; a call moves them to its model's device."""
+    import torch
+
+    from mmvae_torch.models.hier_vae import CHAIN_SALT
+    from mmvae_torch.sample import generate as gen
+
+    kw = _model_kwargs(cfg)
+    t, name = cfg.data.seq_len, cfg.model.name
+    g0 = g or torch.Generator().manual_seed(seed)
+    latent = kw.get("latent_dim", kw.get("global_latent"))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g0) if g is not None else None
+
+    if mode == "prior":
+        seq_len = None if cfg.data.per_frame else t
+        if g is None:
+            draws = {}
+        elif name == "hier_vae":
+            draws = {"z_g": randn(batch, latent),
+                     "eps": {CHAIN_SALT + k: randn(batch, kw["chunk_latent"])
+                             for k in range(t // kw["chunk_len"])}}
+        else:
+            draws = {"z": randn(batch, latent)}
+        return (lambda m: gen.prior_sample(m, seed, batch, seq_len=seq_len, **draws),
+                batch * (seq_len or 1))
+    shape = (batch, 64, 64) if cfg.data.per_frame else (batch, t, 64, 64)
+    x = (torch.randint(0, 256, shape, generator=g0).float() / 255.0).to(device)  # u8 / 255
+    if mode == "reconstruct":
+        sites = {0: (batch, latent)}
+        if name == "hier_vae":
+            sites[1] = (batch * t // kw["chunk_len"], kw["chunk_latent"])
+        eps = None if g is None else {s: randn(*sh) for s, sh in sites.items()}
+        frames = batch * (t - kw["context_len"] if name == "pred_vae" else
+                          1 if cfg.data.per_frame else t)
+        return (lambda m: gen.reconstruct(m, x.to(next(m.parameters()).device), seed, eps=eps),
+                frames)
+    ctx = kw["context_len"]
+    eps = None if g is None else {0: randn(batch, latent)}
+    return (lambda m: gen.rollout(m, x[:, :ctx].to(next(m.parameters()).device), t - ctx,
+                                  seed, eps=eps), batch * (t - ctx))
+
+
+def check_sampling(card: str, dev, name: str, overrides, modes) -> dict:
+    """One model at full width, each mode: on the card through the kernels
+    against the CPU through the plain versions, from the same weights and
+    the same injected draws on 2 clips (configs 1 and 2, f32: relative L2 at
+    most 1e-4, as `check_perframe_model`; bf16 models: the card's relative
+    L2 to the CPU's f32 frames at most max(2 x the CPU bf16 one's, 0.05), as
+    `check_model`; frames held less 0.5), with that call's launch
+    equations; then frames/s at the config's batch, drawn on the card from
+    a seed, over 3 windows of 5 calls after 2 warmup calls (each call
+    copies its frames to the host), and the launch equations of those 17
+    calls.  Returns {path: counts}."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mmvae_torch import ops
+    from mmvae_torch.configs import get_config
+    from mmvae_torch.train.loop import build_model
+
+    cfg = get_config(name, overrides)
+    tag = _tag(name, overrides)
+    plain_model = build_model(cfg, device="cpu")
+    card_model = copy.deepcopy(plain_model).to(dev)
+    f32 = cfg.model.dtype == "float32"
+    if not f32:
+        truth_cfg = get_config(name, (*overrides, "model.dtype=float32"))
+        truth_cfg.model.kwargs["gate_bf16"] = False
+        truth_model = build_model(truth_cfg, device="cpu")
+    out = {}
+    for mode in modes:
+        want = _sample_want(cfg, mode)
+        fn, _ = _sample_call(cfg, mode, 2, 0, torch.Generator().manual_seed(21))
+        plain = torch.from_numpy(fn(plain_model))
+        ops.reset_launch_counts()
+        got = fn(card_model)
+        counts = ops.launch_counts_by_mode()
+        _check_counts(f"sample {tag} {mode}", counts, want)
+        _require(got.shape == tuple(plain.shape) and got.dtype == np.float32
+                 and bool(np.isfinite(got).all()) and got.min() >= 0 and got.max() <= 1,
+                 f"sample {tag} {mode}: frames {got.shape} {got.dtype} in "
+                 f"[{got.min()}, {got.max()}]")
+        # held less 0.5: an untrained model's frames lie near 0.5, which
+        # would hide a difference in the logits
+        got, plain = torch.from_numpy(got) - 0.5, plain - 0.5
+        if f32:
+            e = _rel_l2(got, plain)
+            _require(e <= 1e-4, f"sample {tag} {mode}: rel L2 card vs CPU {e:.2e} (1e-4)")
+            txt = f"rel L2 card vs CPU {e:.2e} (limit 1e-4)"
+        else:
+            truth = torch.from_numpy(fn(truth_model)) - 0.5
+            e_k, e_p = _rel_l2(got, truth), _rel_l2(plain, truth)
+            lim = max(2 * e_p, 0.05)
+            _require(e_k <= lim, f"sample {tag} {mode}: rel L2 to the CPU's f32 frames "
+                                 f"{e_k:.4f} on the card, {e_p:.4f} on the CPU (limit {lim:.4f})")
+            txt = (f"rel L2 to the CPU's f32 frames {e_k:.4f} on the card, {e_p:.4f} on the CPU "
+                   f"in bf16 (limit {lim:.4f}); card vs CPU bf16 {_rel_l2(got, plain):.4f}")
+        print(f"[sample] {tag} {mode}, {tuple(got.shape)} from injected draws: {txt}; "
+              f"launches {', '.join(f'{k} {v}' for k, v in counts.items() if v)} "
+              f"(all others 0)")
+
+        fn, frames = _sample_call(cfg, mode, cfg.data.batch_size, 3, device=dev)
+        ops.reset_launch_counts()
+        for _ in range(_SAMPLE_WARMUP):
+            fn(card_model)
+        fps = []
+        for _ in range(_SAMPLE_WINDOWS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(_SAMPLE_CALLS):
+                fn(card_model)
+            torch.cuda.synchronize()
+            fps.append(_SAMPLE_CALLS * frames / (time.perf_counter() - t0))
+        calls = _SAMPLE_WARMUP + _SAMPLE_WINDOWS * _SAMPLE_CALLS
+        counts = ops.launch_counts_by_mode()
+        _check_counts(f"sample {tag} {mode} timed", counts, want, calls)
+        out[f"sample {tag} {mode}"] = ops.launch_counts()
+        fps.sort()
+        prof = _device_profile(lambda: fn(card_model), 3)
+        print(f"[sample] {tag} {mode}: {fps[len(fps) // 2]:.1f} frames/s (min {fps[0]:.1f}, max "
+              f"{fps[-1]:.1f}; {frames} frames a call at batch {cfg.data.batch_size}, drawn on "
+              f"the card, frames copied to the host; median of {_SAMPLE_WINDOWS} windows of "
+              f"{_SAMPLE_CALLS} calls after {_SAMPLE_WARMUP}), "
+              f"{1e3 * frames / fps[len(fps) // 2]:.3f} ms a call; under the profiler (3 calls) "
+              f"{prof['call_ms']:.3f} ms a call: kernels {prof['kernel_ms']:.3f} ms in "
+              f"{prof['kernels']:.0f} launches, copies {prof['copy_ms']:.3f} ms, device idle "
+              f"share {prof['idle']:.4f}; launches over the {calls} calls held to {calls} x the "
+              f"equation, on {card}")
+    return out
+
+
+# The residual-free kernels at the sampling paths' shapes: (wrapper, mode,
+# shape, the paths that give it, launches a sampling call on them).
+_NORES = (
+    ("convlstm_proj_forward", "nores", (64, 20, 8, 8, 128, 128),
+     "config 3 reconstruct (B=64, T=20)", "1 a reconstruct or rollout of configs 3-5"),
+    ("convlstm_scan_forward", "hs", (64, 10, 8, 8, 128, True),
+     "config 4 fused decoder (B=64, T=10)", "1 a call of configs 3-5 fused"),
+    ("convlstm_scan_forward", "hs", (160, 10, 8, 8, 128, True),
+     "config 5 fused decoder (B=160, T=10)", "1 a call of configs 3-5 fused"),
+    ("convlstm_scan_forward", "last", (64, 20, 8, 8, 128, False),
+     "an enc_x_kernel=3 encoder (B=64, T=20), streaming", "0: no sampling path"),
+)
+_CHAIN_HEAD = (16, 256, 64, "float32")  # hier_vae's prior chain, one a chunk
+
+
+def check_sampling_kernels(card: str, dev) -> dict:
+    """The forwards without residuals at their sampling shapes (bf16 gates),
+    each against its plain version (`kernel_checks.residual_free_readings`;
+    phase 3 holds them equal to the saving forward at these shapes) and
+    timed by CUDA events over 5 calls beside the plain version and the bound
+    (`bench.roofline`: the saving forward's operations, fewer bytes); the
+    fused head forward at the prior chain's shape, held by
+    `kernel_checks.compare_head` and timed in CUDA graphs (cold L2) beside
+    its plain version and the route it replaced.  Returns {wrapper: its
+    sampling rows} for the kernels line."""
+    import torch
+
+    from mmvae_torch.bench.timing import head_region_ms
+    from mmvae_torch.ops import convlstm_kernels as ck
+    from mmvae_torch.ops import head_kernels as hk
+    from mmvae_torch.ops import kernel_checks as kc
+    from mmvae_torch.ops import seeds
+
+    rows = {}
+    bf16 = torch.bfloat16
+    for wrapper, mode, shape, where, launches in _NORES:
+        if wrapper == "convlstm_proj_forward":
+            args = (*kc.proj_inputs(dev, *shape, seed=6), bf16, False)
+            kern, plain = ck.proj_forward_cuda, ck.proj_forward_plain
+            names, rtol, bname = ("h_T", "c_T"), 0.0, "convlstm_proj_forward_nores"
+        else:
+            b, t, h, w, f, const = shape
+            xg, wh, c0, h0 = kc.scan_inputs(dev, b, 1 if const else t, h, w, f, seed=10)
+            args = (xg, wh, c0, h0, t, bf16, mode)
+            kern, plain = ck.scan_forward_cuda, ck.scan_forward_plain
+            names = ("hs", "c_T") if mode == "hs" else ("h_T", "c_T")
+            rtol, bname = kc.CS_RTOL, f"convlstm_scan_forward_{mode}"
+        outs_k, outs_p = kern(*args), plain(*args)
+        rd = kc.residual_free_readings(names, outs_k, outs_p, bf16, rtol)
+        kc.Comparison(rd, 0.0, 0.0).check(f"{wrapper} {mode} {shape}")
+        err = max(_maxerr(a, b) for a, b in zip(outs_k, outs_p))
+        # the saving forward on the same inputs, in turns: save, mode, mode, save
+        saving = (*args[:-1], True if wrapper == "convlstm_proj_forward" else "save")
+        turns = [_time_ms(lambda a=a: kern(*a), 20) for a in (saving, args, args, saving)]
+        ms, save_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        plain_ms = _time_ms(lambda: plain(*args), 5)
+        b_ms, by = _bound(bname, shape)
+        print(f"[sample-kernel] {wrapper} {mode} {shape} ({where}), bf16 gates: "
+              f"{', '.join(r.text for r in rd)}; {ms:.4f} ms (CUDA events, 20 calls, two "
+              f"turns {turns[1]:.4f} / {turns[2]:.4f}) against the saving forward's "
+              f"{save_ms:.4f} ({turns[0]:.4f} / {turns[3]:.4f}) on the same inputs, "
+              f"{_share(ms, bname, shape)}; plain {plain_ms:.3f} ms; launches: {launches}; "
+              f"library: none; on {card}")
+        rows.setdefault(wrapper, {})[mode] = {
+            "shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "max_abs_err": err, "library_ms": None, "saving_ms": save_ms}
+    shape = (*_CHAIN_HEAD[:3], getattr(torch, _CHAIN_HEAD[3]))
+    cmp = kc.compare_head(dev, shape)
+    cmp.check(f"head_sample {shape}")
+    seed = seeds.stream_seed(1234, seeds.STREAM_REPARAM)
+    t = head_region_ms(dev, shape, seed)
+    x, w_mu, b_mu, w_lv, b_lv = kc.head_inputs(dev, *shape, 40)
+    plain_ms = _time_ms(lambda: hk.head_sample_forward_plain(x, w_mu, b_mu, w_lv, b_lv, seed),
+                        20)
+    key = (*shape[:3], 4)
+    b_ms, by = _bound("head_sample_forward", key)
+    print(f"[sample-kernel] head_sample_forward {shape} (hier_vae's prior chain, one a chunk: "
+          f"10 a prior sample of config 5): {cmp.text()} (limit {kc.F32_UNITS:g} f32 units); "
+          f"{t['fused_fwd']:.4f} ms on the device (CUDA graph, cold L2), "
+          f"{_share(t['fused_fwd'], 'head_sample_forward', key)}; plain {plain_ms:.4f} ms; "
+          f"the route it replaced (cast, 2 F.linear, Triton K2) {t['parent_fwd']:.4f} ms; "
+          f"on {card}")
+    rows["head_sample_forward"] = {"prior_chain": {
+        "shape": list(_CHAIN_HEAD), "ms": t["fused_fwd"], "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": by, "max_abs_err": cmp.fwd_err,
+        "library_ms": t["parent_fwd"]}}
+    return rows
+
+
+def _cli(argv) -> tuple:
+    """(exit code, standard output) of `cli.main(argv)` in this process."""
+    import contextlib
+    import io
+
+    from mmvae_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    return rc, text
+
+
+def check_cli(card: str, dev, workdir: str) -> dict:
+    """`python -m mmvae_torch` in this process on the card, from the
+    checkpoints the fit phase wrote (config 3 streamed, config 4 fused):
+    `eval`, whose JSON line must equal `evaluate`'s; `sample` in every
+    mode (config 3: prior and reconstruct; config 4: all three), each with
+    its launch equations (K3 once for the clips), frames finite in [0, 1]
+    of the expected shape and equal to a second call's from the same seed;
+    `bench --profile`, whose trace must name the head's two kernels and
+    K1's.  The PNG / GIF writers run where PIL imports.  Returns {path:
+    counts}."""
+    import argparse
+    import importlib.util
+    import os
+
+    import numpy as np
+
+    from mmvae_torch import cli, ops
+    from mmvae_torch.configs import get_config
+    from mmvae_torch.sample import generate as gen
+    from mmvae_torch.train.loop import evaluate
+
+    have_pil = importlib.util.find_spec("PIL") is not None
+    paths = {"seq_vae": _CUT + _STREAMING, "pred_vae": _CUT + _FUSED}
+    out = {}
+
+    sets = [a for ov in paths["seq_vae"] for a in ("--set", ov)]
+    ck = _ckpt_dir(workdir, "seq_vae")
+    rc, text = _cli(["eval", "--config", "seq_vae", "--ckpt", ck, "--batches", "2", *sets])
+    got = json.loads(text.strip().splitlines()[-1])
+    want = evaluate(get_config("seq_vae", paths["seq_vae"]), ck, max_batches=2, device=dev)
+    _require(rc == 0 and got == want, f"cli eval: rc {rc}, {got} against evaluate's {want}")
+    print(f"[cli] eval --config seq_vae --ckpt <fit's checkpoint> --batches 2: rc 0, its JSON "
+          f"line equals evaluate's ({len(got)} keys, step {got['step']})")
+
+    written = []
+    real = {"save_grid": gen.save_grid, "save_gif": gen.save_gif}
+
+    def writer(kind):
+        def write(frames, path, *args, **kw):
+            written.append((kind, frames, path))
+            if have_pil:
+                real[kind](frames, path, *args, **kw)
+        return write
+
+    gen.save_grid, gen.save_gif = writer("save_grid"), writer("save_gif")
+    try:
+        for name, modes in (("seq_vae", ("prior", "reconstruct")),
+                            ("pred_vae", ("prior", "reconstruct", "rollout"))):
+            cfg = get_config(name, paths[name])
+            ck = _ckpt_dir(workdir, name)
+            for mode in modes:
+                target = os.path.join(workdir, f"{name}_{mode}.gif")
+                argv = ["sample", "--config", name, "--ckpt", ck, "--mode", mode, "--out",
+                        target, "--batch", "8", "--seed", "5"]
+                argv += [a for ov in paths[name] for a in ("--set", ov)]
+                ops.reset_launch_counts()
+                rc, _ = _cli(argv)
+                counts = ops.launch_counts_by_mode()
+                _require(rc == 0 and written and written[-1][2] == target,
+                         f"cli sample {name} {mode}: rc {rc}")
+                _check_counts(f"cli sample {name} {mode}", counts,
+                              _sample_want(cfg, mode, cli=True))
+                kind, frames, _ = written[-1]
+                t = cfg.data.seq_len
+                n = t - cfg.model.kwargs["context_len"] if (
+                    name == "pred_vae" and mode != "prior") else t
+                again = cli.sample_frames(cfg, argparse.Namespace(
+                    ckpt=ck, mode=mode, batch=8, seed=5, ema=False, allow_init=False,
+                    device="cuda"))
+                diff = float(np.abs(frames - again).max())
+                _require(frames.shape == (8, n, 64, 64) and frames.dtype == np.float32
+                         and bool(np.isfinite(frames).all()) and frames.min() >= 0
+                         and frames.max() <= 1 and kind == "save_gif" and diff <= 1e-5,
+                         f"cli sample {name} {mode}: {kind} of {frames.shape} {frames.dtype} "
+                         f"in [{frames.min()}, {frames.max()}], {diff} from a second call")
+                if have_pil:
+                    _require(os.path.getsize(target) > 0, f"cli sample: {target} not written")
+                print(f"[cli] sample --config {name} --mode {mode} --batch 8: rc 0, {kind} of "
+                      f"{frames.shape} f32 in [{frames.min():.4f}, {frames.max():.4f}], "
+                      f"{diff:.1e} from a second call from the same seed; launches "
+                      f"{', '.join(f'{k} {v}' for k, v in counts.items() if v)} (all others 0)")
+                out[f"cli sample {name} {mode}"] = ops.launch_counts()
+    finally:
+        gen.save_grid, gen.save_gif = real["save_grid"], real["save_gif"]
+    if not have_pil:
+        print("[cli] PIL does not import on this machine, so the PNG / GIF writers were not "
+              "run here: every sample mode ran up to its frames; the writers' tests run on "
+              "the CPU (tests/test_torch_sample.py, tests/test_torch_cli.py)")
+
+    prof = os.path.join(workdir, "profile")
+    ops.reset_launch_counts()
+    rc, text = _cli(["bench", "--config", "mlp_vae", "--steps", "20", "--warmup", "5",
+                     "--profile", prof])
+    out["cli bench mlp_vae"] = ops.launch_counts()
+    res = json.loads(text.strip().splitlines()[-1])
+    with open(res["trace"]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    named = {k: sum(k in n for n in kernels) for k in ("head_sample_fwd_kernel",
+                                                        "head_sample_bwd_kernel",
+                                                        "bce_partial_kernel")}
+    _require(rc == 0 and res["vs_baseline"] is None and os.path.dirname(res["trace"]) == prof
+             and all(named.values()),
+             f"cli bench --profile: rc {rc}, trace {res.get('trace')}, kernel names {named}")
+    print(f"[cli] bench --config mlp_vae --steps 20 --warmup 5 --profile DIR: rc 0, "
+          f"{res['value']} frames/s, vs_baseline null; the trace "
+          f"({os.path.getsize(res['trace'])} bytes, {len(kernels)} kernel names) names "
+          f"{', '.join(named)}; on {card}")
+    return out
+
+
+def phase_sample(card: str, dev, workdir: str) -> tuple:
+    """Sampling on the card: each model and mode against the CPU, with its
+    launch equations and frames/s; the residual-free kernels at their
+    sampling shapes; the CLI.  Returns ({path: counts}, {wrapper: sampling
+    rows})."""
+    out = {}
+    for name, overrides, modes in _SAMPLE_PATHS:
+        out.update(check_sampling(card, dev, name, overrides, modes))
+    rows = check_sampling_kernels(card, dev)
+    out.update(check_cli(card, dev, workdir))
+    return out, rows
+
+
 def _own_path(kernel: str):
     """The first slice whose path launches `kernel`: config 3 (the main
     path) for K1, K3, K5 and the head, config 4 fused for K6; None for the
@@ -1269,6 +1722,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a GPU",
               file=sys.stderr)
         return 1
+    import tempfile
+
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = phase_card()
@@ -1276,16 +1731,24 @@ def main() -> int:
     checks = phase_kernels(dev)
     phase_models(dev)
     by_path = phase_slice(card)
-    by_path.update(phase_fit(card, dev))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        by_path.update(phase_fit(card, dev, workdir))
+        t1 = time.perf_counter()
+        sampled, sampling_rows = phase_sample(card, dev, workdir)
+        by_path.update(sampled)
+        print(f"[sample] the sampling phase took {time.perf_counter() - t1:.1f} s")
     _require("jax" not in sys.modules and "mmvae_tpu" not in sys.modules,
              "jax or mmvae_tpu was imported")
     kernels = []
     for name, (route, source, replaces) in _KERNELS.items():
         own = _own_path(name)
-        kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": by_path[own][name] if own else 0, "launches_path": own,
-                        "launches_by_path": {tag: c[name] for tag, c in by_path.items()},
-                        **checks[name]})
+        row = {"name": name, "route": route, "source": source, "replaces": replaces,
+               "launches": by_path[own][name] if own else 0, "launches_path": own,
+               "launches_by_path": {tag: c[name] for tag, c in by_path.items()},
+               **checks[name]}
+        if name in sampling_rows:
+            row["sampling"] = sampling_rows[name]
+        kernels.append(row)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -22,9 +22,15 @@ Shapes, as `chip_smoke.path_shapes` keys them:
     head_sample_forward      (M, K, N, bytes of an x element): x (M, K), latent N
     head_sample_backward     (M, K, N, bytes of an x element)
     convlstm_proj_forward    (B, T, H, W, C, F), saving residuals
+    convlstm_proj_forward_nores  (B, T, H, W, C, F), no grad: (h_T, c_T) only
     convlstm_proj_backward   (B, T, H, W, C, F)
     convlstm_scan_forward    (B, T, H, W, F, const), saving residuals
+    convlstm_scan_forward_hs     (B, T, H, W, F, const), no grad: every h_t and c_T
+    convlstm_scan_forward_last   (B, T, H, W, F, const), no grad: (h_T, c_T) only
     convlstm_scan_backward   (B, T, H, W, F, const), per-step dhs
+
+A forward without residuals does the operations of the one that saves
+them; only its bytes are fewer.
 """
 
 from __future__ import annotations
@@ -43,8 +49,6 @@ _KL_OPS = 6       # 1 + lv - mu^2 - e^lv, summed
 _REPARAM_OPS = 24  # Philox-4x32 per 4 draws, Box-Muller, exp, fma
 _BINARIZE_OPS = 12  # Philox per 4 bytes, compare, convert
 
-_TENSOR_KERNELS = ("convlstm_proj_forward", "convlstm_proj_backward",
-                   "convlstm_scan_forward", "convlstm_scan_backward")
 
 
 def _n(shape) -> int:
@@ -93,6 +97,8 @@ def kernel_work(name: str, shape) -> Tuple[float, float]:
         proj, conv = 2.0 * rows * c * f4, 2.0 * b * t * _taps(h, w) * f * f4
         if name == "convlstm_proj_forward":
             return proj + conv, float(x + 2 * hs + gates + weights + state)
+        if name == "convlstm_proj_forward_nores":
+            return proj + conv, float(x + weights + state)
         # dh (transposed conv), dW, dWx, dx; x, hs, cs, gates in; dx out;
         # weights in, their f32 gradients out
         return 2 * conv + 2 * proj, float(2 * x + 2 * hs + gates + weights + k * f4 * 4
@@ -107,6 +113,10 @@ def kernel_work(name: str, shape) -> Tuple[float, float]:
         fwd = 2.0 * b * t * _taps(h, w) * f * f4
         if name == "convlstm_scan_forward":
             return fwd, float(xg + 2 * hs + gates + weights + state)
+        if name == "convlstm_scan_forward_hs":  # c0, h0 in; hs and c_T out
+            return fwd, float(xg + hs + weights + state * 3 // 4)
+        if name == "convlstm_scan_forward_last":
+            return fwd, float(xg + weights + state)
         # hs, cs, gates, dhs in; dxg (f32 sum for a const input) and dW out
         dxg = xg * (2 if const else 1)
         return 2 * fwd, float(3 * hs + gates + dxg + weights + 9 * f * f4 * 4 + state)
@@ -116,6 +126,7 @@ def kernel_work(name: str, shape) -> Tuple[float, float]:
 def bound(name: str, shape) -> Tuple[float, str]:
     """(least milliseconds, "bytes" or "operations") for one call."""
     ops, nbytes = kernel_work(name, shape)
-    peak = BF16_TENSOR_FLOPS if name in _TENSOR_KERNELS else F32_FLOPS
+    # the ConvLSTM kernels run their products on the tensor cores
+    peak = BF16_TENSOR_FLOPS if name.startswith("convlstm") else F32_FLOPS
     t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")

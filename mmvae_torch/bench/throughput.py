@@ -7,8 +7,11 @@ clips generated on the card every step (`data.ongen`) and no dataset.
 Warmup is left out; three timed windows of `steps` steps, each ended by
 `torch.cuda.synchronize()`; frames/s is reported as the median window with
 min, max and spread.  Same JSON keys as the JAX bench; `mfu` and
-`flops_per_step` are null until the port counts FLOPs.  TF32 is off for
-both cuDNN and matmuls (the f32 heads run in full f32).
+`flops_per_step` are null until the port counts FLOPs, and `vs_baseline` is
+null: the JAX bench divides by its north-star rate, which was set for a
+TPU.  With `profile_dir`, one window of min(steps, 20) steps after the
+warmup and outside the timed ones is traced (`utils.profiling.trace`).  TF32
+is off for both cuDNN and matmuls (the f32 heads run in full f32).
 """
 
 from __future__ import annotations
@@ -17,8 +20,6 @@ import time
 from typing import Dict, Optional
 
 import torch
-
-NORTH_STAR_FRAMES_PER_SEC = 50_000.0
 
 
 def setup_resident_training(cfg, dev: torch.device):
@@ -61,9 +62,11 @@ def resident_set(cfg, dev: torch.device) -> torch.Tensor:
 
 
 def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
-                  device: Optional[str] = None, return_state: bool = False):
+                  device: Optional[str] = None, return_state: bool = False,
+                  profile_dir: Optional[str] = None):
     """The bench's result dict; with `return_state`, (result, the trained
-    TrainState)."""
+    TrainState).  `profile_dir`: one traced window (its steps' losses are
+    kept with the others), the trace's path under "trace" in the result."""
     from mmvae_torch.train.loop import frames_per_step
 
     if not torch.cuda.is_available():
@@ -75,6 +78,15 @@ def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
     for _ in range(max(warmup, 1)):
         losses.append(step_fn(state, data)["loss"])
     torch.cuda.synchronize(dev)
+
+    trace_path = None
+    if profile_dir:
+        from mmvae_torch.utils.profiling import trace
+
+        with trace(profile_dir) as prof:
+            for _ in range(min(steps, 20)):
+                losses.append(step_fn(state, data)["loss"])
+        trace_path = prof.trace_path
 
     windows = []
     for _ in range(3):
@@ -96,7 +108,7 @@ def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
         else "training frames/sec/GPU (single frames)",
         "value": round(fps, 1),
         "unit": "frames/sec/GPU",
-        "vs_baseline": round(fps / NORTH_STAR_FRAMES_PER_SEC, 4),
+        "vs_baseline": None,
         "config": cfg.name,
         "data": "on_device_generate" if cfg.data.on_device_generate else "resident",
         "batch_frames": frames,
@@ -114,4 +126,6 @@ def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
         "mfu": None,
         "losses": loss_values,
     }
+    if trace_path:
+        res["trace"] = trace_path
     return (res, state) if return_state else res

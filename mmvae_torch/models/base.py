@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mmvae_torch.ops.dispatch import prior_normal
 from mmvae_torch.ops.head_kernels import gaussian_head_sample
 
 # sample_fn(mu, logvar, salt=0) -> z
@@ -138,6 +139,18 @@ def head_and_sample(x, lin_mu: nn.Linear, lin_lv: nn.Linear, sample_fn: SampleFn
         eps = eps.to(x.device, torch.float32).contiguous()
     return gaussian_head_sample(x.contiguous(), lin_mu.weight, lin_mu.bias, lin_lv.weight,
                                 lin_lv.bias, stream_seed(salt), eps)
+
+
+def prior_z(module: nn.Module, seed: int, shape, z=None) -> torch.Tensor:
+    """A prior-sampling protocol's z ~ N(0, I) of `shape` on the module's
+    device (`dispatch.prior_normal` from `seed`), or the injected `z`."""
+    dev = next(module.parameters()).device
+    if z is None:
+        return prior_normal(seed, shape, dev)
+    z = torch.as_tensor(z, dtype=torch.float32).to(dev)
+    if tuple(z.shape) != tuple(shape):
+        raise ValueError(f"prior z {tuple(z.shape)}, expected {tuple(shape)}")
+    return z
 
 
 class ConvEncoder(nn.Module):

@@ -4,7 +4,8 @@ encode: 4x4 / stride-2 convs 64 -> 4 (`ConvEncoder`, NCHW) -> the Gaussian
 head over the NHWC flatten (flax's order) and its sample;
 decode: `dec_in` (model dtype) + relu, reshaped to NHWC (g, g, C) as flax
 does and permuted to NCHW -> `ConvDecoder(upsample="transpose")`, one 4x4
-transpose per encoder stride and a 3x3 conv -> logits (B, H, W).
+transpose per encoder stride and a 3x3 conv -> logits (B, H, W);
+`prior_logits` decodes z ~ N(0, I).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from mmvae_torch.models.base import (
     SampleFn,
     VAEOutput,
     linear,
+    prior_z,
 )
 
 
@@ -54,6 +56,11 @@ class ConvVAE(nn.Module):
         h = F.relu(linear(z, self.dec_in, self.dtype))
         h = h.reshape(z.shape[0], self.grid, self.grid, self.channels[-1]).permute(0, 3, 1, 2)
         return self.decoder(h)[:, 0]
+
+    def prior_logits(self, seed: int, batch: int, seq_len=None, *, z=None) -> torch.Tensor:
+        """Prior-sampling protocol (sample.generate.prior_sample): z ~ N(0, I)
+        (`base.prior_z`: drawn from `seed`, or the injected (B, latent) `z`)."""
+        return self.decode(prior_z(self, seed, (batch, self.latent_dim), z))
 
     def forward(self, x: torch.Tensor, sample_fn: SampleFn) -> VAEOutput:
         mu, logvar, z = self.head.sample(self.encode_features(x), sample_fn)

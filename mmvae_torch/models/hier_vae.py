@@ -15,7 +15,9 @@ Clips of K chunks x Tc frames (default 10 x 10):
   steps from a state and a time-constant token made from (z_g, z_k).
 
 Under fused=True the chunk encoder runs K5 and the decoder K6 in its
-const-input mode.  `generate` and `prior_logits` wait for the sampling port.
+const-input mode.  `generate` (and `prior_logits`) samples the learned
+prior chain: z_g ~ N(0, I), then each chunk's latent through the fused head
+and sample, then the chunks decoded in parallel.
 """
 
 from __future__ import annotations
@@ -34,10 +36,16 @@ from mmvae_torch.models.base import (
     VAEOutput,
     head_and_sample,
     linear_f32,
+    prior_z,
 )
 from mmvae_torch.models.convlstm import ConvLSTM
+from mmvae_torch.ops.dispatch import make_sample_fn
 
 _TOKEN_CH = 16  # z-token channels (fixed in the JAX model)
+# Salt of chunk k's draw in the prior chain: CHAIN_SALT + k.  `forward`
+# draws with salts 0 (z_g) and 1 (the chunks), which a reconstruction from
+# the same seed runs, so the chain starts past them.
+CHAIN_SALT = 2
 
 
 def gaussian_kl(mu_q, logvar_q, mu_p, logvar_p) -> torch.Tensor:
@@ -179,6 +187,32 @@ class HierVideoVAE(nn.Module):
         flat = hs.reshape(b * k * tc, *hs.shape[2:]).permute(0, 3, 1, 2)
         logits = self.frame_dec(flat)[:, 0]
         return logits.reshape(b, k * tc, self.image_size, self.image_size)
+
+    def generate(self, seed: int, batch: int, n_chunks: int, *, z_g=None,
+                 eps=None) -> torch.Tensor:
+        """Prior sample: z_g ~ N(0, I) (`base.prior_z`), s = tanh(prior_init(z_g));
+        then for each chunk k, s = GRU(s, z_{k-1}) and z_k ~ N(p_mu(s),
+        exp(p_logvar(s))) through `head_and_sample` with salt CHAIN_SALT + k
+        of the step sampler of `seed` (on the card the fused head-and-sample
+        kernel, one launch a chunk); decode.  Injected draws: `z_g` (B, Lg)
+        and `eps`, {salt: (B, Lc)}.  Returns logits (B, n_chunks * Tc, H, W)."""
+        z_g = prior_z(self, seed, (batch, self.global_latent), z_g)
+        sample_fn = make_sample_fn(seed, eps)
+        s = torch.tanh(linear_f32(z_g, self.prior_init))
+        z_prev = torch.zeros(batch, self.chunk_latent, device=z_g.device)
+        zs = []
+        for k in range(n_chunks):
+            s = self.prior_gru(s, z_prev)
+            _, _, z_prev = head_and_sample(s, self.p_mu, self.p_logvar, sample_fn,
+                                           salt=CHAIN_SALT + k)
+            zs.append(z_prev)
+        return self.decode_chunks(z_g, torch.stack(zs, dim=1))
+
+    def prior_logits(self, seed: int, batch: int, seq_len=None, *, z_g=None,
+                     eps=None) -> torch.Tensor:
+        """Prior-sampling protocol: the learned autoregressive chunk prior over
+        (`seq_len` or 100) // chunk_len chunks (`generate`)."""
+        return self.generate(seed, batch, (seq_len or 100) // self.chunk_len, z_g=z_g, eps=eps)
 
     def forward(self, x: torch.Tensor, sample_fn: SampleFn) -> VAEOutput:
         b = x.shape[0]

@@ -2,7 +2,8 @@
 
 encode: flatten -> `enc_fc` (model dtype) + relu -> the Gaussian head
 (`enc_mu`, `enc_logvar`, f32) and its sample, through `head_and_sample`;
-decode: `dec_fc` (model dtype) + relu -> `dec_out` (f32) -> logits (B, H, W).
+decode: `dec_fc` (model dtype) + relu -> `dec_out` (f32) -> logits (B, H, W);
+`prior_logits` decodes z ~ N(0, I).
 """
 
 from __future__ import annotations
@@ -11,7 +12,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mmvae_torch.models.base import SampleFn, VAEOutput, head_and_sample, linear, linear_f32
+from mmvae_torch.models.base import (
+    SampleFn,
+    VAEOutput,
+    head_and_sample,
+    linear,
+    linear_f32,
+    prior_z,
+)
 
 
 class MLPVAE(nn.Module):
@@ -41,6 +49,11 @@ class MLPVAE(nn.Module):
         h = F.relu(linear(z, self.dec_fc, self.dtype))
         return linear_f32(h, self.dec_out).reshape(z.shape[0], self.image_size,
                                                    self.image_size)
+
+    def prior_logits(self, seed: int, batch: int, seq_len=None, *, z=None) -> torch.Tensor:
+        """Prior-sampling protocol (sample.generate.prior_sample): z ~ N(0, I)
+        (`base.prior_z`: drawn from `seed`, or the injected (B, latent) `z`)."""
+        return self.decode(prior_z(self, seed, (batch, self.latent_dim), z))
 
     def forward(self, x: torch.Tensor, sample_fn: SampleFn) -> VAEOutput:
         mu, logvar, z = head_and_sample(self.encode_hidden(x), self.enc_mu, self.enc_logvar,

@@ -8,7 +8,8 @@ deterministic motion pathway, and is driven by a time-constant z-token, the
 stochastic content pathway, for the future frames.  BCE scores only the
 future frames (`VAEOutput.target = x[:, context_len:]`).  Under fused=True
 the encoder runs K5 and the decoder K6, so K6's dc0 and dh0 flow into K5's
-backward as its (dc_T, dh_T).
+backward as its (dc_T, dh_T).  `prior_logits` rolls z ~ N(0, I) out from a
+zero state.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from mmvae_torch.models.base import (
     SampleFn,
     VAEOutput,
     linear_f32,
+    prior_z,
 )
 from mmvae_torch.models.convlstm import ConvLSTM
 
@@ -102,6 +104,17 @@ class PredSeqVAE(nn.Module):
         flat = hs.reshape(b * n_future, *hs.shape[2:]).permute(0, 3, 1, 2)
         logits = self.frame_dec(flat)[:, 0]
         return logits.reshape(b, n_future, self.image_size, self.image_size)
+
+    def prior_logits(self, seed: int, batch: int, seq_len=None, *, z=None) -> torch.Tensor:
+        """Prior-sampling protocol: z ~ N(0, I) (`base.prior_z`: drawn from
+        `seed`, or the injected (B, latent) `z`), rolled out `seq_len`
+        (default `context_len`) steps from a zero motion state.  Without
+        context frames there is no encoder terminal state, so the frames
+        are shaped by the stochastic content pathway alone."""
+        z = prior_z(self, seed, (batch, self.latent_dim), z)
+        zeros = torch.zeros(batch, self.grid, self.grid, self.lstm_features, device=z.device,
+                            dtype=self.dtype)
+        return self.rollout((zeros, zeros), z, seq_len or self.context_len)
 
     def forward(self, x: torch.Tensor, sample_fn: SampleFn) -> VAEOutput:
         ctx, future = x[:, : self.context_len], x[:, self.context_len:]

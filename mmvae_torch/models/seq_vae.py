@@ -5,7 +5,7 @@ state only, through the recurrence kernel) -> Gaussian head.
 decode: z -> initial (c, h) and a time-constant z-token -> decoder ConvLSTM
 over T steps -> batched frame decoder -> logits (B, T, H, W), float32.
 `fused` goes to both ConvLSTMs (see models/convlstm.py): None runs the
-decoder eagerly, True through K6.
+decoder eagerly, True through K6.  `prior_logits` decodes z ~ N(0, I).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from mmvae_torch.models.base import (
     SampleFn,
     VAEOutput,
     linear_f32,
+    prior_z,
 )
 from mmvae_torch.models.convlstm import ConvLSTM
 
@@ -103,6 +104,12 @@ class ConvLSTMSeqVAE(nn.Module):
         flat = hs.reshape(b * t, *hs.shape[2:]).permute(0, 3, 1, 2)
         logits = self.frame_dec(flat)[:, 0]
         return logits.reshape(b, t, self.image_size, self.image_size)
+
+    def prior_logits(self, seed: int, batch: int, seq_len=None, *, z=None) -> torch.Tensor:
+        """Prior-sampling protocol (sample.generate.prior_sample): z ~ N(0, I)
+        (`base.prior_z`: drawn from `seed`, or the injected (B, latent) `z`)
+        decoded over `seq_len` (default 20) steps."""
+        return self.decode(prior_z(self, seed, (batch, self.latent_dim), z), seq_len or 20)
 
     def forward(self, x: torch.Tensor, sample_fn: SampleFn) -> VAEOutput:
         mu, logvar, z = self.head.sample(self.encode_state(x), sample_fn)

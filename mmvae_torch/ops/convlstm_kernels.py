@@ -380,6 +380,7 @@ def proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
     )
     _build.check(err, "convlstm_proj_fwd")
     convlstm_proj_forward.launches += 1
+    convlstm_proj_forward.modes["save" if save else "nores"] += 1
     return outs
 
 
@@ -445,6 +446,9 @@ def convlstm_proj_backward(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
 
 
 convlstm_proj_forward.launches = 0
+# launches by forward mode: "save" keeps the residuals for a backward,
+# "nores" (no grad) only the terminal state
+convlstm_proj_forward.modes = {"save": 0, "nores": 0}
 convlstm_proj_backward.launches = 0
 
 
@@ -652,6 +656,7 @@ def scan_forward_cuda(xg, w, c0, h0, length, gate_dtype, mode: str):
     )
     _build.check(err, "convlstm_scan_fwd")
     convlstm_scan_forward.launches += 1
+    convlstm_scan_forward.modes[mode] += 1
     return outs
 
 
@@ -725,6 +730,7 @@ def convlstm_scan_backward(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool
 
 
 convlstm_scan_forward.launches = 0
+convlstm_scan_forward.modes = dict.fromkeys(_SCAN_MODES, 0)  # launches by forward mode
 convlstm_scan_backward.launches = 0
 
 

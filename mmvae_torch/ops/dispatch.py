@@ -3,7 +3,8 @@
 The JAX module picks Pallas or XLA by `use_pallas`.  Here each kernel
 wrapper decides by the device of its tensors alone: for CUDA tensors it
 launches its kernel or raises, for CPU tensors it runs its plain PyTorch
-version.  This module adds the step's stream seeds (ops.seeds).
+version.  This module adds the step's stream seeds (ops.seeds) and the
+sampling paths' prior draws (`prior_normal`).
 """
 
 from __future__ import annotations
@@ -62,3 +63,12 @@ def elbo_parts(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(bce_sum, kl_sum) from the ELBO reduce kernel."""
     return elbo_kernels.elbo_reduce(logits, x, mu, logvar)
+
+
+def prior_normal(seed: int, shape, device) -> torch.Tensor:
+    """z ~ N(0, I), f32, of `shape` on `device`, from the PRIOR stream of
+    `seed` (ops.seeds) by a generator on `device` itself: a draw for the
+    card never passes through the host."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seeds.stream_seed(seed, seeds.STREAM_PRIOR))
+    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)

@@ -97,6 +97,16 @@ def forward_readings(outs_k, outs_p, gate_dtype, cs_rtol) -> List[Reading]:
             for n, a, b in zip(names, outs_k, outs_p)]
 
 
+def residual_free_readings(names, outs_k, outs_p, gate_dtype, cs_rtol) -> List[Reading]:
+    """A residual-free forward's outputs (h_T or hs, then c_T) against the
+    plain version's, at the saving forward's tolerances: 2 bf16 ulps with
+    f32 gates; with bf16 gates 0.05, and 0.05 + cs_rtol |ref| for c_T."""
+    if gate_dtype == torch.float32:
+        return [_ulps(n, a, b) for n, a, b in zip(names, outs_k, outs_p)]
+    return [_scaled(n, a, b, cs_rtol if n.startswith("c") else 0.0)
+            for n, a, b in zip(names, outs_k, outs_p)]
+
+
 def _exact(name, pairs) -> Reading:
     e = max(max_abs_err(a, b) for a, b in pairs)
     return Reading(e, 0.0, f"{name} {e:.2e} from the saving forward")

@@ -13,6 +13,7 @@ from __future__ import annotations
 STREAM_PREPROCESS = 1   # Bernoulli binarization noise
 STREAM_REPARAM = 2      # posterior sampling eps (salt = draw index)
 STREAM_ONGEN = 3        # on-device clip generation
+STREAM_PRIOR = 4        # prior draws of the sampling paths (z ~ N(0, I))
 
 _LOW_MASK = 0x07FFFFFF
 

@@ -350,3 +350,30 @@ def test_fit_on_the_card_evaluates_and_checkpoints(dev, tmp_path):
     assert step == data_step == 4
     for (n, p), (_, q) in zip(state.model.named_parameters(), again.model.named_parameters()):
         assert torch.equal(p, q), n
+
+
+def test_hier_prior_sample_on_the_card(dev):
+    """`prior_sample` of config 5 with fused=true at full width: 16 clips of
+    100 frames through the prior chain, one fused head forward a chunk (10),
+    K6 once in its "hs" mode, no backward, no K1, no standalone K2; frames
+    finite in [0, 1]; with the draws injected, within 0.05 of the same
+    model's frames on the CPU (the bf16 rule of the port's sampling tests)."""
+    from mmvae_torch.models.hier_vae import CHAIN_SALT
+    from mmvae_torch.sample import generate as gen
+
+    cfg = get_config("hier_vae", ("model.kwargs.fused=true",))
+    model = build_model(cfg, dev)
+    ops.reset_launch_counts()
+    frames = gen.prior_sample(model, 3, 16, seq_len=100)
+    counts = ops.launch_counts_by_mode()
+    assert frames.shape == (16, 100, 64, 64) and frames.dtype == np.float32
+    assert np.isfinite(frames).all() and frames.min() >= 0 and frames.max() <= 1
+    want = dict.fromkeys(counts, 0)
+    want.update({"head_sample_forward": 10, "convlstm_scan_forward hs": 1})
+    assert counts == want
+    g = torch.Generator().manual_seed(0)
+    draws = dict(z_g=torch.randn(2, 128, generator=g),
+                 eps={CHAIN_SALT + k: torch.randn(2, 64, generator=g) for k in range(10)})
+    card = gen.prior_sample(model, 0, 2, seq_len=100, **draws)
+    cpu = gen.prior_sample(build_model(cfg, "cpu"), 0, 2, seq_len=100, **draws)
+    assert float(np.abs(card - cpu).max()) <= 0.05

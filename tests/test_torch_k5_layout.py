@@ -139,3 +139,27 @@ def test_kernel_work_matches_the_hand_counts():
     assert bound("reparameterize", (64, 128))[1] == "bytes"
     with pytest.raises(KeyError):
         kernel_work("nope", ())
+
+
+def test_kernel_work_of_the_forwards_without_residuals():
+    """A forward without residuals does the saving one's operations and moves
+    fewer bytes: K5 reads x, the weights and (c0, h0) and writes (h_T,
+    c_T); K6 "hs" writes every h_t and c_T, "last" (h_T, c_T)."""
+    k5 = (64, 20, 8, 8, 128, 128)
+    ops, nbytes = kernel_work("convlstm_proj_forward_nores", k5)
+    assert ops == kernel_work("convlstm_proj_forward", k5)[0]
+    rows, state = 64 * 20 * 64, 4 * 64 * 64 * 128 * 2
+    weights = (128 + 9 * 128) * 512 * 2 + 512 * 2
+    assert nbytes == rows * 128 * 2 + weights + state
+    assert bound("convlstm_proj_forward_nores", k5) == bound("convlstm_proj_forward", k5)
+    for shape in ((64, 10, 8, 8, 128, True), (160, 10, 8, 8, 128, True),
+                  (64, 20, 8, 8, 128, False)):
+        b, t, h, w, f, const = shape
+        xg = (b if const else b * t) * h * w * 4 * f * 2
+        weights, state, hs = 9 * f * 4 * f * 2, b * h * w * f * 2, b * t * h * w * f * 2
+        save_ops = kernel_work("convlstm_scan_forward", shape)[0]
+        assert kernel_work("convlstm_scan_forward_hs", shape) == (
+            save_ops, float(xg + hs + weights + 3 * state))
+        assert kernel_work("convlstm_scan_forward_last", shape) == (
+            save_ops, float(xg + weights + 4 * state))
+        assert bound("convlstm_scan_forward_hs", shape)[1] == "operations"
