@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch / CUDA port: every config training, through
-the bench and through the training loop (`fit`), then sampling and the CLI.
+the bench and through the training loop (`fit`), then sampling and the CLI,
+then data-parallel training.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -80,14 +81,28 @@ Phases, each raising on failure (the script catches nothing):
    their bounds and the saving forward, and the head at the prior chain's
    shape; then the CLI in this process on the fit phase's checkpoints:
    `eval` (its JSON equal to `evaluate`'s), `sample` in every mode, `bench
-   --profile` (the trace names the head's and K1's kernels).  No jax
-   imported.
+   --profile` (the trace names the head's and K1's kernels);
+7. data parallelism (`mmvae_torch.parallel`), two ranks spawned once for
+   the phase: NCCL, a card a rank, where the host has two cards; else both
+   ranks on this card over gloo (card tensors all-reduced through the
+   host), and a one-rank NCCL group in this process all-reducing a card
+   tensor.  Config 5 fused (16 clips, 8 a rank) and config 3 (64, 32 a
+   rank) at full width: one step with `binarize=false` and each rank's eps
+   injected, its averaged gradients bit-identical on the ranks and within
+   `_DP_GRAD_LIMIT` (rel L2) of one process's full-batch step on the card;
+   `fit` of config 3 on the resident path (20 steps, eval every 10 on 2
+   batches a rank, checkpoints from rank 0), its launch equations on each
+   rank (K5 forward = train steps + eval batches, backward = train steps),
+   parameters bit-identical and logged metrics equal on the ranks, the
+   logger's frames/s, the step's collective timed against the step; the
+   group's checkpoint scored by `evaluate` and sampled in this process.
+   No jax imported.
 The last three lines are the card, the kernels' JSON line (`launches`: the
 count from the kernel's own path, config 3 for K1, K3, K5 and the head,
 config 4 for K6, 0 for the standalone K2; `launches_by_path`: each path's
-run, the fit, sampling and CLI runs' included; `sampling`: the forwards'
-rows at the sampling shapes), and {"ok": true, "device": {...}}.  Exits
-non-zero with no result when CUDA is not available.
+run, the fit, sampling, CLI and data-parallel runs' included; `sampling`:
+the forwards' rows at the sampling shapes), and {"ok": true, "device":
+{...}}.  Exits non-zero with no result when CUDA is not available.
 """
 
 from __future__ import annotations
@@ -1124,9 +1139,11 @@ def _fit(card: str, tag: str, cfg, steps: int, want: dict, device) -> tuple:
 
 
 def _fit_cfg(name: str, overrides, *cadence):
+    """The full-width config of a fit run, in one process (on a host with
+    more cards too) unless `overrides` or `cadence` say otherwise."""
     from mmvae_torch.configs import get_config
 
-    cfg = get_config(name, (*overrides, *cadence))
+    cfg = get_config(name, ("train.data_parallel=false", *overrides, *cadence))
     base = get_config(name)
     _require(cfg.data.batch_size == base.data.batch_size and cfg.data.seq_len == base.data.seq_len
              and cfg.model.dtype == base.model.dtype and cfg.model.kwargs.items()
@@ -1707,6 +1724,347 @@ def phase_sample(card: str, dev, workdir: str) -> tuple:
     return out, rows
 
 
+# --- phase 7: data parallelism ------------------------------------------------
+
+# The data-parallel runs at full width: config 5 fused (16 clips -> 8 a rank)
+# and config 3 default (64 -> 32).
+_DP_CONFIGS = (("hier_vae", ("model.kwargs.fused=true",)), ("seq_vae", ()))
+# Rel L2 of the ranks' averaged gradients to one process's full-batch ones on
+# the card, a tensor at a time.  Both run the same bf16 kernels on the same
+# samples, but the split changes the batch the kernels and cuDNN see (their
+# partial sums, the weight GEMM's row order, the head's split-K), so bf16
+# roundings differ.  The worst case is a gradient summed in bf16 over a
+# recurrence: config 3's time-constant decoder token gets 20 per-step
+# contributions, added by autograd in bf16 (unit roundoff 2^-9), so each of
+# the two runs may be off by up to 20 x 2^-9 of its terms' size.  (The
+# ranks' mechanics are held exactly, against the same split run in one
+# process: `phase_dp`.)
+_DP_GRAD_LIMIT = 2 * 20 * 2 ** -9
+_DP_FIT_STEPS = 20
+
+
+def _dp_backend() -> tuple:
+    """(backend, the rank's device, "{rank}" filled in): NCCL, a card a rank,
+    where the host has two cards; else gloo, both ranks on card 0."""
+    import torch
+
+    if torch.cuda.device_count() >= 2:
+        return "nccl", "cuda:{rank}"
+    return "gloo", "cuda:0"
+
+
+def _digest(tensors: dict) -> str:
+    """sha256 of the tensors' bytes in name order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name in sorted(tensors):
+        t = tensors[name].detach().contiguous().cpu()
+        h.update(name.encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_inputs(name: str, overrides):
+    """(config, the global u8 batch, eps by sampling site) made from seed 11
+    on the CPU; a site's rows are batch-major (config 5's chunks too)."""
+    import torch
+
+    from mmvae_torch.configs import get_config
+
+    cfg = get_config(name, overrides)
+    kw, b = _model_kwargs(cfg), cfg.data.batch_size
+    if name == "hier_vae":
+        sites = {0: (b, kw["global_latent"]),
+                 1: (b * (cfg.data.seq_len // kw["chunk_len"]), kw["chunk_latent"])}
+    else:
+        sites = {0: (b, kw["latent_dim"])}
+    g = torch.Generator().manual_seed(11)
+    u8 = torch.randint(0, 256, (b, cfg.data.seq_len, 64, 64), generator=g, dtype=torch.uint8)
+    return cfg, u8, {salt: torch.randn(shape, generator=g) for salt, shape in sites.items()}
+
+
+def _grad_step(cfg, dev, u8, eps, sync=None) -> tuple:
+    """One train step of `cfg` on `dev` (`binarize=false`, `eps` injected
+    through the step's sample function; a rank's step with `sync`):
+    (the gradients its update sees, by name, on the host; its loss)."""
+    from mmvae_torch.ops import dispatch
+    from mmvae_torch.train.loop import build_model, make_train_step
+    from mmvae_torch.train.state import create_train_state
+
+    model = build_model(cfg, dev)
+    state = create_train_state(model, cfg.optim)
+    grads = {}
+    state.apply_gradients = lambda: grads.update(
+        (n, p.grad.detach().cpu()) for n, p in model.named_parameters())
+    real = dispatch.make_sample_fn
+    dispatch.make_sample_fn = lambda seed, e=None: real(seed, eps)
+    try:
+        metrics = make_train_step(model, binarize=False, sync=sync)(state, u8.to(dev))
+    finally:
+        dispatch.make_sample_fn = real
+    return grads, float(metrics["loss"])
+
+
+def _rank_eps(eps: dict, rank: int) -> dict:
+    """Rank `rank`'s share (of 2) of each site's batch-major eps rows."""
+    return {salt: e[rank * (e.shape[0] // 2):(rank + 1) * (e.shape[0] // 2)]
+            for salt, e in eps.items()}
+
+
+def _dp_fit_cfg(workdir: str):
+    import os
+
+    return _fit_cfg("seq_vae", _CUT + ("data.device_resident=true", "train.data_parallel=true"),
+                    "train.log_every=5", "train.eval_every=10", "train.eval_batches=2",
+                    "train.checkpoint_every=10",
+                    f"train.checkpoint_dir={os.path.join(workdir, 'dp_seq_vae')}")
+
+
+def _dp_rank(rank: int, backend: str, device: str, init_file: str, workdir: str) -> None:
+    """One rank of the phase (a spawned process): the gradient step of each
+    `_DP_CONFIGS` on its share with its eps, then `fit` of config 3 on the
+    resident path, then the step's collective timed; saves what the parent
+    checks to `workdir/dp.rank<rank>.pt`."""
+    import os
+
+    import torch
+
+    from mmvae_torch import ops, parallel
+    from mmvae_torch.train.loop import fit
+
+    dev = parallel.init_from_env(device.format(rank=rank), backend=backend,
+                                 init_method=f"file://{init_file}", rank=rank, world_size=2)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sync = parallel.grad_sync(dev)
+        out = {"grads": {}, "loss": {}, "digest": {}, "step_counts": {}}
+        for name, overrides in _DP_CONFIGS:
+            cfg, u8, eps = _dp_inputs(name, overrides)
+            b = u8.shape[0] // 2
+            ops.reset_launch_counts()
+            grads, loss = _grad_step(cfg, dev, u8[rank * b:(rank + 1) * b],
+                                     _rank_eps(eps, rank), sync)
+            tag = _tag(name, overrides)
+            out["step_counts"][tag] = ops.launch_counts()
+            out["loss"][tag], out["digest"][tag] = loss, _digest(grads)
+            if rank == 0:
+                out["grads"][tag] = grads
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, history = fit(_dp_fit_cfg(workdir), max_steps=_DP_FIT_STEPS, device=dev)
+        torch.cuda.synchronize(dev)
+        out["fit_seconds"] = time.perf_counter() - t0
+        out["counts"] = ops.launch_counts()
+        out["history"] = history
+        out["params"] = _digest(dict(state.model.named_parameters()))
+
+        # the step's collective on the last step's gradients: GradSync whole
+        # (flatten, all-reduce, copy back) and the bare all-reduce of its buffer
+        params = [p for p in state.model.parameters() if p.grad is not None]
+        metrics = {k: torch.zeros((), device=dev) for k in ("loss", "bce", "kl")}
+        buf = torch.cat([p.grad.reshape(-1).float() for p in params])
+        timed = {}
+        for what, fn in (("sync", lambda: sync(params, metrics)),
+                         ("all_reduce", lambda: torch.distributed.all_reduce(buf))):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize(dev)
+            timed[what] = 1e3 * (time.perf_counter() - t0) / 20
+        out["collective_ms"], out["grad_numel"] = timed, buf.numel()
+        torch.save(out, os.path.join(workdir, f"dp.rank{rank}.pt"))
+        parallel.barrier(dev)
+    finally:
+        parallel.shutdown()
+
+
+def _nccl_one_rank(dev, workdir: str) -> None:
+    """A one-rank NCCL group in this process: NCCL's init and an all-reduce
+    of 4 MiB on the card, equal to its input, and its time."""
+    import os
+
+    import torch
+
+    from mmvae_torch import parallel
+
+    parallel.init_from_env(dev, backend="nccl", rank=0, world_size=1,
+                           init_method=f"file://{os.path.join(workdir, 'nccl_init')}")
+    try:
+        x = torch.arange(1 << 20, device=dev, dtype=torch.float32)
+        want = x.clone()
+        torch.distributed.all_reduce(x)
+        torch.cuda.synchronize(dev)
+        _require(torch.equal(x, want), "a one-rank NCCL all-reduce changed its input")
+        ms = _time_ms(lambda: torch.distributed.all_reduce(x), 20)
+    finally:
+        parallel.shutdown()
+    version = torch.cuda.nccl.version()
+    version = version if isinstance(version, int) else ".".join(map(str, version))
+    print(f"[dp] NCCL {version}: a one-rank group on "
+          f"{dev} initialized and all-reduced 4 MiB on the card, equal to its input, "
+          f"{ms:.4f} ms a call")
+
+
+def phase_dp(card: str, dev, workdir: str) -> dict:
+    """Data parallelism, two ranks (spawned once for the phase; NCCL over two
+    cards where the host has them, else gloo with both on this card and a
+    one-rank NCCL group here): each `_DP_CONFIGS` step's averaged gradients
+    against one process's full-batch step on the card (`_DP_GRAD_LIMIT`),
+    bit-identical on the ranks; `fit` of config 3 on the resident path (20
+    steps, eval every 10 on 2 batches, checkpoints), its launch equations
+    on each rank, parameters bit-identical on the ranks, the metrics equal;
+    the step's collective timed; the group's checkpoint scored by
+    `evaluate` and sampled in this process.  Returns {path: launch counts}."""
+    import argparse
+    import os
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from mmvae_torch import cli
+    from mmvae_torch.train.loop import evaluate
+
+    backend, device = _dp_backend()
+    n_cards = torch.cuda.device_count()
+    print(f"[dp] backend {backend}, world size 2, {n_cards} card(s): "
+          + ("a card a rank" if backend == "nccl" else
+             "both ranks on cuda:0, all-reduced over gloo through the host"))
+    if backend == "gloo":
+        _nccl_one_rank(dev, workdir)
+
+    # in this process on the card: the full batch, each rank's half (half 0
+    # twice: the step's own repeatability) and their mean, the split's result
+    refs = {}
+    for name, overrides in _DP_CONFIGS:
+        cfg, u8, eps = _dp_inputs(name, overrides)
+        b = u8.shape[0] // 2
+        halves = [_grad_step(cfg, dev, u8[r * b:(r + 1) * b], _rank_eps(eps, r))
+                  for r in (0, 1, 0)]
+        split = {n: (g + halves[1][0][n]) / 2 for n, g in halves[0][0].items()}
+        floor = max(_rel_l2(g, halves[2][0][n]) for n, g in halves[0][0].items())
+        loss = float((torch.tensor(halves[0][1]) + torch.tensor(halves[1][1])) / 2)
+        refs[_tag(name, overrides)] = (_grad_step(cfg, dev, u8, eps), (split, loss), floor)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    init = os.path.join(workdir, "dp_init")
+    procs = [ctx.Process(target=_dp_rank, args=(r, backend, device, init, workdir))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=480)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    _require(all(p.exitcode == 0 for p in procs),
+             f"a data-parallel rank failed: exit codes {[p.exitcode for p in procs]}")
+    ranks = [torch.load(os.path.join(workdir, f"dp.rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    print(f"[dp] the two ranks ran in {time.perf_counter() - t0:.1f} s (spawn and start-up "
+          f"included)")
+
+    for tag, ((full, full_loss), (split, split_loss), floor) in refs.items():
+        _require(ranks[0]["digest"][tag] == ranks[1]["digest"][tag],
+                 f"dp {tag}: the ranks' averaged gradients differ")
+        got, dp_loss = ranks[0]["grads"][tag], ranks[0]["loss"][tag]
+        _require(set(got) == set(full) == set(split), f"dp {tag}: gradient names differ")
+        same = sum(torch.equal(got[n], w) for n, w in split.items())
+        off = max(_rel_l2(got[n], w) for n, w in split.items())
+        _require(off <= 2 * floor and (floor > 0 or dp_loss == split_loss),
+                 f"dp {tag}: the ranks' averaged gradients against the two halves' mean in "
+                 f"one process: worst rel L2 {off:.3e} (limit 2 x the step's own "
+                 f"repeatability, {floor:.3e}); loss {dp_loss} against {split_loss}")
+        print(f"[dp] {tag}: one step, the ranks' averaged gradients (bit-identical on both) "
+              f"against the mean of the same two halves stepped one after the other in this "
+              f"process: {same} of {len(split)} tensors bit-identical, worst rel L2 {off:.3e} "
+              f"(limit 2 x {floor:.3e}, the step's own repeatability); loss {dp_loss:.4f} "
+              f"against {split_loss:.4f}")
+        # a step of this path: K6 under config 5's fused decoder, a head each
+        # sampling site (config 5: two)
+        want = _step_counts(1, 0, k6="fused=true" in tag)
+        if tag.startswith("hier_vae"):
+            want.update(head_sample_forward=2, head_sample_backward=2)
+        for r, res in enumerate(ranks):
+            counts = res["step_counts"][tag]
+            _require(all(counts[k] == want.get(k, 0) for k in counts),
+                     f"dp step {tag} rank {r}: launches {counts}, expected {want} (others 0)")
+        print(f"[dp] {tag}: the step's launches on each rank "
+              f"{', '.join(f'{k} {v}' for k, v in want.items())} (all others 0)")
+        rel = sorted(((_rel_l2(got[n], w), n) for n, w in full.items()), reverse=True)
+        _require(rel[0][0] <= _DP_GRAD_LIMIT,
+                 f"dp {tag}: averaged gradients against the full batch's, worst rel L2 "
+                 f"{rel[0]} (limit {_DP_GRAD_LIMIT:.4f})")
+        print(f"[dp] {tag}: against one process's full-batch step on the card: worst rel L2 {rel[0][0]:.3e} at {rel[0][1]}, "
+              f"then {rel[1][0]:.3e} at {rel[1][1]}, median {rel[len(rel) // 2][0]:.3e} "
+              f"(limit {_DP_GRAD_LIMIT:.4f}, bf16); loss {dp_loss:.4f} against "
+              f"{full_loss:.4f}")
+
+    cfg = _dp_fit_cfg(workdir)
+    evals = 2 * 2  # two passes of 2 full batches of 32 (each rank's 100 val rows)
+    want = _step_counts(_DP_FIT_STEPS, evals)
+    for r, res in enumerate(ranks):
+        _require(all(res["counts"][k] == want.get(k, 0) for k in res["counts"]),
+                 f"dp fit rank {r}: launches {res['counts']}, expected {want} (others 0)")
+    _require(ranks[0]["params"] == ranks[1]["params"],
+             "dp fit: the ranks' parameters differ after fit")
+    plain = [[{k: v for k, v in h.items() if "per_sec" not in k} for h in res["history"]]
+             for res in ranks]
+    hist = ranks[0]["history"]
+    _require(plain[0] == plain[1] and [h["step"] for h in hist] == [5, 10, 15, 20]
+             and all(math.isfinite(h["val_loss"]) for h in hist[1::2]),
+             f"dp fit: histories {plain}")
+    fps = [round(h["frames_per_sec"], 1) for h in hist if "frames_per_sec" in h]
+    step_ms = 1e3 * cfg.data.batch_size * cfg.data.seq_len / float(np.median(fps))
+    coll = ranks[0]["collective_ms"]
+    print(f"[dp] fit seq_vae resident, {_DP_FIT_STEPS} steps of {cfg.data.batch_size} clips "
+          f"({cfg.data.batch_size // 2} a rank), eval "
+          f"every 10 on 2 batches a rank, checkpoints from rank 0: launches a rank held "
+          f"(K5 forward = {_DP_FIT_STEPS} train steps + {evals} eval batches, backward = "
+          f"{_DP_FIT_STEPS}; {ranks[0]['counts']}); parameters bit-identical on the ranks; "
+          f"logged metrics equal on both; loss {hist[0]['loss']:.2f} -> {hist[-1]['loss']:.2f}, "
+          f"val_loss {hist[-1]['val_loss']:.2f}; {ranks[0]['fit_seconds']:.2f} s wall a rank")
+    print(f"[dp] fit's logger: {fps} frames/s of the global batch, two ranks sharing one "
+          f"card ({backend}): not a scaling figure; on {card}" if backend == "gloo" else
+          f"[dp] fit's logger: {fps} frames/s of the global batch over {n_cards} cards "
+          f"({[round(v / 2, 1) for v in fps]} a card); on {card}")
+    print(f"[dp] the step's collective ({ranks[0]['grad_numel']:,} f32 gradients + 3 metrics "
+          f"+ the stop flag, {backend}): GradSync {coll['sync']:.3f} ms (flatten, all-reduce, "
+          f"copy back), the bare all-reduce {coll['all_reduce']:.3f} ms (host clock to a "
+          f"synchronize, mean of 20); {100 * coll['sync'] / step_ms:.1f} % of fit's "
+          f"{step_ms:.2f} ms step")
+
+    ckdir = cfg.train.checkpoint_dir
+    res = evaluate(cfg, ckdir, max_batches=2, device=dev)
+    frames = cli.sample_frames(cfg, argparse.Namespace(
+        ckpt=ckdir, mode="reconstruct", batch=8, seed=5, ema=False, allow_init=False,
+        device=str(dev)))
+    _require(res["step"] == _DP_FIT_STEPS and math.isfinite(res["val_loss"])
+             and frames.shape == (8, 20, 64, 64) and bool(np.isfinite(frames).all()),
+             f"dp checkpoint: evaluate {res}, sample {frames.shape}")
+    print(f"[dp] the group's checkpoint in this process: evaluate (2 batches) step "
+          f"{res['step']}, val_loss {res['val_loss']:.2f}; sample reconstruct 8 x 20 frames "
+          f"finite in [{frames.min():.4f}, {frames.max():.4f}]")
+    out = {}
+    for r, res in enumerate(ranks):
+        out.update((f"dp step {tag} rank {r}", c) for tag, c in res["step_counts"].items())
+        out[f"dp fit seq_vae rank {r}"] = res["counts"]
+    return out
+
+
 def _own_path(kernel: str):
     """The first slice whose path launches `kernel`: config 3 (the main
     path) for K1, K3, K5 and the head, config 4 fused for K6; None for the
@@ -1737,6 +2095,9 @@ def main() -> int:
         sampled, sampling_rows = phase_sample(card, dev, workdir)
         by_path.update(sampled)
         print(f"[sample] the sampling phase took {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        by_path.update(phase_dp(card, dev, workdir))
+        print(f"[dp] the data-parallel phase took {time.perf_counter() - t1:.1f} s")
     _require("jax" not in sys.modules and "mmvae_tpu" not in sys.modules,
              "jax or mmvae_tpu was imported")
     kernels = []

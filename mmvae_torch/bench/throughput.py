@@ -1,4 +1,4 @@
-"""Training throughput on one GPU: frames/s (port of mmvae_tpu/bench/throughput.py).
+"""Training throughput: frames/s/GPU (port of mmvae_tpu/bench/throughput.py).
 
 Real train steps (forward, backward, the optimizer) on the data path the
 config names: a u8 dataset resident on the card at the config's production
@@ -12,6 +12,11 @@ null: the JAX bench divides by its north-star rate, which was set for a
 TPU.  With `profile_dir`, one window of min(steps, 20) steps after the
 warmup and outside the timed ones is traced (`utils.profiling.trace`).  TF32
 is off for both cuDNN and matmuls (the f32 heads run in full f32).
+
+Under torchrun (`torchrun --nproc_per_node N -m mmvae_torch bench ...`)
+every rank trains data-parallel on its share of the batch and its shard of
+the resident set; frames/s/GPU is the global batch's frames over the time
+over N, and `n_devices` is N, as the JAX bench counts a mesh.
 """
 
 from __future__ import annotations
@@ -22,13 +27,14 @@ from typing import Dict, Optional
 import torch
 
 
-def setup_resident_training(cfg, dev: torch.device):
+def setup_resident_training(cfg, dev: torch.device, sync=None):
     """(state, data, step_fn) for the config on `dev`: TF32 off, the
     flax-initialized model with its optimizer, and the config's train step
     (its KL weight and sampling options too).  `data` is `resident_set`, or
     None under `data.on_device_generate`, whose step generates its clips
     (from `data.sprite_bank` where one is named).  An option the port does
-    not run raises (`train.loop.check_supported`)."""
+    not run raises (`train.loop.check_supported`).  With `sync` (a
+    `parallel.GradSync`), a data-parallel rank's step and rows."""
     from mmvae_torch.train.loop import build_model, check_supported, make_config_step
     from mmvae_torch.train.state import create_train_state
 
@@ -42,17 +48,19 @@ def setup_resident_training(cfg, dev: torch.device):
         from mmvae_torch.data.loader import load_sprite_bank
 
         sprites = load_sprite_bank(cfg.data.sprite_bank)
-    step_fn = make_config_step(cfg, state.model, resident=True, sprites=sprites)
+    step_fn = make_config_step(cfg, state.model, resident=True, sprites=sprites, sync=sync)
     if ongen:
         return state, None, step_fn
-    return state, resident_set(cfg, dev), step_fn
+    if sync is None:
+        return state, resident_set(cfg, dev), step_fn
+    return state, resident_set(cfg, dev)[sync.rank::sync.world].contiguous(), step_fn
 
 
 def resident_set(cfg, dev: torch.device) -> torch.Tensor:
     """The bench's resident u8 set on `dev`, made from seed 0 at the size of
     the config's train split: its clips (N, T, 64, 64), or for a per-frame
     config every frame of them as a row (N * T, 64, 64), as the JAX bench
-    packs it."""
+    packs it.  A data-parallel rank keeps rows [rank::world]."""
     n_clips = max(int(cfg.data.num_sequences * cfg.data.train_fraction),
                   cfg.data.batch_size)
     t = max(cfg.data.seq_len, 1)
@@ -66,13 +74,17 @@ def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
                   profile_dir: Optional[str] = None):
     """The bench's result dict; with `return_state`, (result, the trained
     TrainState).  `profile_dir`: one traced window (its steps' losses are
-    kept with the others), the trace's path under "trace" in the result."""
+    kept with the others), the trace's path under "trace" in the result.
+    Joins torchrun's group where its environment names one (`parallel.join`)."""
+    from mmvae_torch import parallel as pmesh
     from mmvae_torch.train.loop import frames_per_step
 
     if not torch.cuda.is_available():
         raise RuntimeError("run_benchmark measures a CUDA device; none is available")
-    dev = torch.device(device or "cuda")
-    state, data, step_fn = setup_resident_training(cfg, dev)
+    dev = pmesh.join(device or "cuda")
+    sync = pmesh.grad_sync(dev)
+    n_dev = 1 if sync is None else sync.world
+    state, data, step_fn = setup_resident_training(cfg, dev, sync)
 
     losses = []
     for _ in range(max(warmup, 1)):
@@ -98,9 +110,9 @@ def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
     windows_sorted = sorted(windows)
     dt = windows_sorted[1]
 
-    frames = frames_per_step(cfg)
-    fps = frames * steps / dt
-    fps_all = sorted(frames * steps / w for w in windows)
+    frames = frames_per_step(cfg)  # of the global batch
+    fps = frames * steps / dt / n_dev
+    fps_all = sorted(frames * steps / w / n_dev for w in windows)
     loss_values = torch.stack(losses).float().cpu().tolist()
     res = {
         "metric": f"training frames/sec/GPU ({cfg.data.seq_len}-frame clips)"
@@ -118,7 +130,7 @@ def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
         "value_min": round(fps_all[0], 1),
         "value_max": round(fps_all[-1], 1),
         "spread_pct": round(100.0 * (fps_all[-1] - fps_all[0]) / fps, 2),
-        "n_devices": 1,
+        "n_devices": n_dev,
         "device": torch.cuda.get_device_name(dev),
         "final_loss": loss_values[-1],
         "flops_per_step": None,

@@ -9,12 +9,20 @@ Examples:
 Every command runs on the card unless `--device cpu` names the CPU; without
 a card the default raises and says so.  The flags, defaults, JSON lines and
 exit codes are the JAX CLI's; `--device` is the port's one addition.
+
+Data-parallel, one process a card, on one node or several:
+    torchrun --nproc_per_node 8 -m mmvae_torch train --config hier_vae
+    torchrun --nproc_per_node 8 -m mmvae_torch bench --config seq_vae
+`--device cuda` is then each rank's card (`cuda:LOCAL_RANK`); rank 0 alone
+prints the metrics and JSON lines and writes the checkpoints and files.
+`eval` and `sample` run whole on every rank.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -86,10 +94,24 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
 
+    from mmvae_torch import parallel
     from mmvae_torch.configs import get_config
 
     cfg = get_config(args.config, tuple(args.set))
+    try:
+        return _run(cfg, args)
+    finally:
+        if parallel.launched_by_torchrun():
+            parallel.shutdown()  # the group `train` or `bench` joined
 
+
+def _lead() -> bool:
+    """Rank 0 under torchrun, or a process started alone."""
+    return int(os.environ.get("RANK", "0")) == 0
+
+
+def _run(cfg, args) -> int:
+    """The subcommand's work; its exit code."""
     if args.cmd == "train":
         from mmvae_torch.train.loop import fit
 
@@ -114,7 +136,8 @@ def main(argv=None) -> int:
             # exit 0 with a plausible JSON line (scripted use would trust it).
             print(f"error: {e}", file=sys.stderr)
             return 2
-        print(json.dumps(result))
+        if _lead():
+            print(json.dumps(result))
         return 0
 
     if args.cmd == "bench":
@@ -125,7 +148,8 @@ def main(argv=None) -> int:
             profile_dir=args.profile,
         )
         result.pop("losses")
-        print(json.dumps(result))
+        if _lead():
+            print(json.dumps(result))
         return 0
 
     return 1
@@ -206,6 +230,8 @@ def _sample(cfg, args) -> int:
     frames = sample_frames(cfg, args)
     if frames is None:
         return 2
+    if not _lead():
+        return 0
     if frames.ndim == 4 and args.out.endswith(".gif"):
         gen.save_gif(frames, args.out)
     else:

@@ -9,7 +9,9 @@ nvcc process per source, all started together, then one link:
     nvcc -shared -o build/kernels/libmmvae_<hash>.so *.o
 
 The library lands in `build/kernels/` at the repository root, named by a
-hash of the sources and flags, and is built at first use in a process.
+hash of the sources and flags, and is built at first use in a process;
+processes that start together (the ranks of a data-parallel run) take a
+lock on the directory, so one builds and the others load its library.
 Wrappers pass tensor pointers and the current stream as `c_void_p`; every
 entry point returns `cudaGetLastError()`, and `check()` raises on non-zero.
 """
@@ -17,6 +19,8 @@ entry point returns `cudaGetLastError()`, and `check()` raises on non-zero.
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -103,7 +107,10 @@ def library() -> KernelLibrary:
     log = ""
     t0 = time.perf_counter()
     if not out.exists():
-        log = _compile(out)
+        with open(BUILD_DIR / "lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes or the process ends
+            if not out.exists():
+                log = _compile(out)
     _LIBRARY = KernelLibrary(out, time.perf_counter() - t0, log)
     return _LIBRARY
 
@@ -141,6 +148,24 @@ def _compile(out: Path) -> str:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def on_device(fn):
+    """Run a kernel launcher with the device of its first argument (a
+    tensor) current, so its launch runs in that card's context, on that
+    card's current stream, whatever device the caller made current.  A CPU
+    tensor goes straight through, to the launcher's own refusal."""
+
+    @functools.wraps(fn)
+    def launch(first, *args, **kwargs):
+        import torch
+
+        if not first.is_cuda:
+            return fn(first, *args, **kwargs)
+        with torch.cuda.device(first.device):
+            return fn(first, *args, **kwargs)
+
+    return launch
 
 
 def stream_ptr(device) -> int:

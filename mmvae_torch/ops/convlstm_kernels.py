@@ -351,6 +351,7 @@ def pack_proj_backward(wx: torch.Tensor, w: torch.Tensor):
     return pack_hidden_backward(w), pack_cores(wxt.permute(0, 2, 1, 3))
 
 
+@_build.on_device
 def proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
     """CUDA forward; same contract as `proj_forward_plain`."""
     lib, _ = _check_cuda(x, wx, w, c0, h0, ("bx", bx))
@@ -384,6 +385,7 @@ def proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
     return outs
 
 
+@_build.on_device
 def proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
     """CUDA backward (BPTT with dx and dbx, then the weight-gradient GEMM);
     same contract as `proj_backward_plain`."""
@@ -626,6 +628,7 @@ def _scan_layouts(feat: int):
     return tuple(got), want
 
 
+@_build.on_device
 def scan_forward_cuda(xg, w, c0, h0, length, gate_dtype, mode: str):
     """CUDA forward; same contract as `scan_forward_plain`."""
     batch, t_in, height, width, f4 = xg.shape
@@ -660,6 +663,7 @@ def scan_forward_cuda(xg, w, c0, h0, length, gate_dtype, mode: str):
     return outs
 
 
+@_build.on_device
 def scan_backward_cuda(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
                        last_only: bool):
     """CUDA backward (BPTT, then the weight-gradient GEMM); same contract as

@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from mmvae_torch.ops import elbo_ref
-from mmvae_torch.ops._build import triton_cache_env
+from mmvae_torch.ops._build import on_device, triton_cache_env
 
 _BCE_BLOCK = 4096
 _SUM_BLOCK = 1024
@@ -105,6 +105,7 @@ def elbo_reduce_plain(logits, x, mu, logvar) -> Tuple[torch.Tensor, torch.Tensor
     return elbo_ref.elbo_parts_ref(logits, x, mu, logvar)
 
 
+@on_device
 def _elbo_reduce_cuda(logits, x, mu, logvar) -> Tuple[torch.Tensor, torch.Tensor]:
     for name, t in (("logits", logits), ("x", x), ("mu", mu), ("logvar", logvar)):
         if not t.is_cuda:
@@ -172,6 +173,7 @@ def reparameterize_plain(mu, logvar, seed: int, eps: Optional[torch.Tensor] = No
     return z, z - mu.float()
 
 
+@on_device
 def _reparameterize_cuda(mu, logvar, seed: int):
     if not (mu.is_cuda and logvar.is_cuda):
         raise ValueError("reparameterize: mu and logvar must both be on cuda")

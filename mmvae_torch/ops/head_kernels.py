@@ -168,6 +168,7 @@ def tickets(device, stream: int, count: int) -> torch.Tensor:
     return buf
 
 
+@_build.on_device
 def head_sample_forward_cuda(x, w_mu, b_mu, w_lv, b_lv, seed: int,
                              eps: Optional[torch.Tensor] = None):
     """The forward kernel; same contract as `head_sample_forward_plain`."""
@@ -189,6 +190,7 @@ def head_sample_forward_cuda(x, w_mu, b_mu, w_lv, b_lv, seed: int,
     return outs
 
 
+@_build.on_device
 def head_sample_backward_cuda(x, w_mu, w_lv, diff, g_mu, g_lv, g_z):
     """The backward kernel; same contract as `head_sample_backward_plain`."""
     g_mu, g_lv, g_z = (None if g is None else g.float().contiguous() for g in (g_mu, g_lv, g_z))

@@ -52,6 +52,7 @@ def preprocess_gather_plain(
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+@_build.on_device
 def _preprocess_gather_cuda(data, idx, seed, binarize, out_dtype):
     if not (data.is_cuda and idx.is_cuda):
         raise ValueError("preprocess_gather: data and idx must both be on cuda")

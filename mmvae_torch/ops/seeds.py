@@ -30,6 +30,13 @@ def step_seed(step: int) -> int:
     return wrap_int32(wrap_int32(step) * 1103515245 + 12345)
 
 
+def shard_seed(seed: int, rank: int) -> int:
+    """Rank `rank`'s seed of a data-parallel step: seed + rank * 1000003 in
+    int32 arithmetic, the JAX step's shard offset
+    (mmvae_tpu/train/loop.py:211-213); rank 0 keeps `seed`."""
+    return wrap_int32(wrap_int32(seed) + wrap_int32(rank * 1000003))
+
+
 def stream_seed(seed: int, stream_id: int, salt: int = 0) -> int:
     """int32 seed for stream `stream_id`; disjoint across streams for any step."""
     s = wrap_int32(wrap_int32(seed) + wrap_int32(salt * 1000003))

@@ -14,6 +14,11 @@ the next step updates in place.  A forced save first drains any write in
 flight.  The state carries no RNG: every draw derives from the step, which
 is saved, and `data_step` is the count of host batches a streaming run has
 consumed, so a resumed run draws what an uninterrupted one would.
+
+Under data parallelism (`train.loop.fit` in a process group) rank 0 alone
+saves, since the ranks' states are bit-identical; every rank waits at a
+barrier after a forced save and restores the same directory, so a
+checkpoint of N ranks restores in one process and the other way round.
 """
 
 from __future__ import annotations

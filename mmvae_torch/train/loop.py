@@ -11,6 +11,11 @@ step, backward, and `TrainState.apply_gradients` (clip, Adam or AdamW at
 the step's rate, EMA).  No host sync: metrics come back as device tensors.
 `fit` drives the steps with eval, EMA eval, metrics, checkpoints, resume
 and the SIGTERM save; `evaluate` scores a checkpoint on the val split.
+
+Data parallelism (`parallel`): one process a card, each rank training on
+its share of the batch with its own step seed and rows, the gradients and
+metrics averaged by `parallel.GradSync` before the update.  Without a
+process group every step is the single-card step.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from mmvae_torch.data.feed import DeviceFeed
 from mmvae_torch.data.loader import load_or_generate, load_sprite_bank
 from mmvae_torch.models import MODEL_REGISTRY, flax_init_
+from mmvae_torch import parallel as pmesh
 from mmvae_torch.ops import dispatch
 from mmvae_torch.ops.seeds import STREAM_ONGEN, step_seed, stream_seed
 from mmvae_torch.train import checkpoint as ckpt
@@ -84,20 +90,23 @@ def kl_beta(step: int, beta: float, kl_warmup_steps: int) -> float:
 
 def resident_row_indices(step: int, n_rows: int, batch: int, seed_base: int,
                          device, generator: Optional[torch.Generator] = None,
-                         ) -> torch.Tensor:
+                         shard_index: int = 0) -> torch.Tensor:
     """Shuffled-epoch batch indices for the resident path: each row exactly
     once per epoch, a fresh permutation every epoch, a pure function of the
     step (so a restart draws the same).  epoch = step // (n_rows // batch)
     seeds a device torch.Generator from `seed_base`; the step takes its
-    slice of that epoch's permutation.  The permutation is not
-    threefry's: the rows differ from the JAX step's, the semantics do not."""
+    slice of that epoch's permutation.  `shard_index` (a data-parallel
+    rank; 0 draws the single-card rows) decorrelates the ranks'
+    permutations of their own rows.  The permutation is not threefry's:
+    the rows differ from the JAX step's, the semantics do not."""
     steps_per_epoch = n_rows // batch
     if steps_per_epoch < 1:
         raise ValueError(f"resident epoch sampling needs n_rows ({n_rows}) >= batch ({batch})")
     epoch, pos = divmod(step, steps_per_epoch)
     gen = generator if generator is not None else torch.Generator(device=device)
     # 32 bits: the CPU generator drops a seed's high bits
-    gen.manual_seed((seed_base * 2654435761 + epoch) & 0xFFFFFFFF)
+    gen.manual_seed(((seed_base * 2654435761 + epoch) ^ (shard_index * 0x85EBCA77))
+                    & 0xFFFFFFFF)
     perm = torch.randperm(n_rows, generator=gen, device=device)
     return perm[pos * batch:(pos + 1) * batch]
 
@@ -116,6 +125,7 @@ def make_train_step(
     ongen_shape: Optional[Tuple[int, ...]] = None,
     ongen_num_digits: int = 2,
     ongen_sprites=None,
+    sync: Optional[pmesh.GradSync] = None,
 ) -> Callable[[TrainState, Optional[torch.Tensor]], Metrics]:
     """Build step(state, data) -> metrics; updates `state` in place.
 
@@ -127,7 +137,13 @@ def make_train_step(
     `ongen_batch` clips of `ongen_shape` (one sample's u8 shape) on the
     model's device (`data.ongen`, from the step seed's ONGEN stream) and
     `data` is ignored.  Otherwise `data` is the batch itself.  The KL term is
-    weighted by `kl_beta(step, beta, kl_warmup_steps)`."""
+    weighted by `kl_beta(step, beta, kl_warmup_steps)`.
+
+    With `sync` (a data-parallel rank), the batch sizes are the rank's
+    share and `data` its rows; the step seed is the rank's
+    (`GradSync.shard_seed`), which every draw derives from, the epoch
+    permutation takes the rank as its shard index, and the gradients and
+    metrics are averaged across the ranks before the update."""
     loss_fn = make_loss_fn(model, binarize=binarize)
     generators = {}
     gen_fn = None
@@ -150,11 +166,14 @@ def make_train_step(
 
     def step(state: TrainState, data: Optional[torch.Tensor]) -> Metrics:
         seed = step_seed(state.step)
+        if sync is not None:
+            seed = sync.shard_seed(seed)
         if gen_fn is not None:
             data, idx = gen_fn(stream_seed(seed, STREAM_ONGEN)), ongen_idx
         elif resident_batch is not None and resident_epochs:
             idx = resident_row_indices(state.step, data.shape[0], resident_batch,
-                                       resident_seed, data.device, generator(data.device))
+                                       resident_seed, data.device, generator(data.device),
+                                       shard_index=0 if sync is None else sync.rank)
         elif resident_batch is not None:
             gen = generator(data.device)
             gen.manual_seed(seed & 0xFFFFFFFF)
@@ -165,27 +184,40 @@ def make_train_step(
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(data, idx, seed, kl_beta(state.step, beta, kl_warmup_steps))
         loss.backward()
+        if sync is not None:
+            metrics = sync(state.model.parameters(), metrics)
         state.apply_gradients()
         return metrics
 
     return step
 
 
-def make_config_step(cfg, model, *, resident: bool, sprites=None):
+def local_batch(cfg, world: int) -> int:
+    """A rank's share of `data.batch_size` (the global batch)."""
+    batch = cfg.data.batch_size // world
+    if batch * world != cfg.data.batch_size:
+        raise ValueError(f"data.batch_size={cfg.data.batch_size} does not divide over "
+                         f"{world} data-parallel ranks")
+    return batch
+
+
+def make_config_step(cfg, model, *, resident: bool, sprites=None,
+                     sync: Optional[pmesh.GradSync] = None):
     """The config's train step for `model` (`make_train_step` with the
     config's data path, KL weight and sampling options): clips generated on
     the card under `data.on_device_generate` (from `sprites` where given),
     else rows of a resident set when `resident`, else the batch it is
-    handed."""
+    handed.  With `sync`, a data-parallel rank's step on its share of the
+    batch."""
     ongen = cfg.data.on_device_generate
-    batch = cfg.data.batch_size
+    batch = local_batch(cfg, 1 if sync is None else sync.world)
     return make_train_step(
         model, binarize=cfg.data.binarize, per_frame=cfg.data.per_frame,
         resident_batch=batch if resident and not ongen else None,
         ongen_batch=batch if ongen else None, ongen_shape=_sample_shape(cfg)[1:],
         ongen_num_digits=cfg.data.num_digits, ongen_sprites=sprites,
         beta=cfg.optim.beta, kl_warmup_steps=cfg.optim.kl_warmup_steps,
-        resident_epochs=cfg.data.resident_epochs, resident_seed=cfg.data.seed,
+        resident_epochs=cfg.data.resident_epochs, resident_seed=cfg.data.seed, sync=sync,
     )
 
 
@@ -224,9 +256,6 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(f"train.steps_per_call={cfg.train.steps_per_call}: the "
                                   "port runs one train step a call (chunking is not "
                                   "ported: ROADMAP item 6)")
-    if cfg.train.multihost:
-        raise NotImplementedError("train.multihost=true: multi-host training is not ported "
-                                  "(data parallelism is ROADMAP item 12)")
     if cfg.train.transfer_guard:
         raise ValueError("train.transfer_guard=true: dropped in the port (ROADMAP, the drop "
                          "list): its step makes no implicit host sync to guard; the only "
@@ -234,6 +263,7 @@ def check_supported(cfg) -> None:
 
 
 def _device(device) -> torch.device:
+    """`device` as a torch.device, a bare "cuda" under torchrun the rank's card."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -242,22 +272,27 @@ def _device(device) -> torch.device:
         # The f32 heads and decoders run in full f32, as the bench runs them.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    return dev
+    return pmesh.local_device(dev)
 
 
-def _load_split(cfg, sprites, train: bool = True):
+def _load_split(cfg, sprites, train: bool = True, rank: int = 0, world: int = 1):
+    """The train or val split; rank `rank` of `world` holds rows
+    `split[rank::world]` (the loader's per-process shard)."""
     return load_or_generate(
         cfg.data.path, num_sequences=cfg.data.num_sequences, seq_len=cfg.data.seq_len,
         num_digits=cfg.data.num_digits, seed=cfg.data.seed,
         train_fraction=cfg.data.train_fraction, sprites=sprites, train=train,
+        process_index=rank, process_count=world,
     )
 
 
-def _val_batches(cfg, val_dataset, batch: int, seed: int):
-    """The val split once, every row, the short tail batch included."""
+def _val_batches(cfg, val_dataset, batch: int, seed: int, full_only: bool = False):
+    """The val split once, every row, the short tail batch included unless
+    `full_only`."""
     if cfg.data.per_frame:
-        return val_dataset.frame_batches(batch, seed=seed, num_epochs=1, drop_remainder=False)
-    return val_dataset.batches(batch, seed=seed, num_epochs=1, drop_remainder=False)
+        return val_dataset.frame_batches(batch, seed=seed, num_epochs=1,
+                                         drop_remainder=full_only)
+    return val_dataset.batches(batch, seed=seed, num_epochs=1, drop_remainder=full_only)
 
 
 def _val_rows(cfg, val_dataset) -> int:
@@ -266,18 +301,33 @@ def _val_rows(cfg, val_dataset) -> int:
     return len(val_dataset)
 
 
-def make_eval_step(model, *, binarize: bool = True):
+def _least_shard_rows(cfg, dataset, world: int) -> int:
+    """Rows (frames for a per-frame config) of the smallest of `world`
+    shards of `dataset`'s split: the shard of the last rank."""
+    n_total = dataset.data.shape[0]
+    n_train = int(n_total * dataset.train_fraction)
+    rows = (n_train if dataset.train else n_total - n_train) // world
+    return rows * max(dataset.data.shape[1], 1) if cfg.data.per_frame else rows
+
+
+def make_eval_step(model, *, binarize: bool = True, sync: Optional[pmesh.GradSync] = None):
     """eval_step(params, batch_u8, seed) -> metrics (device tensors): the
     loss terms per sample of the whole u8 batch under `torch.no_grad()`, so
     the recurrences take their kernels' forward without residuals.
     `params` ({name: tensor}, e.g. the EMA) stand in for the model's own
-    where given; None scores the model's own."""
+    where given; None scores the model's own.  With `sync` (a
+    data-parallel rank, the batch its share) the seed is the rank's and the
+    metrics the ranks' mean, as the JAX package's sharded eval step."""
     loss_fn = make_loss_fn(model, binarize=binarize)
 
     @torch.no_grad()
     def eval_step(params, batch_u8: torch.Tensor, seed: int) -> Metrics:
         idx = torch.arange(batch_u8.shape[0], device=batch_u8.device)
-        return loss_fn(batch_u8, idx, seed, params=params)[1]
+        if sync is None:
+            return loss_fn(batch_u8, idx, seed, params=params)[1]
+        metrics = loss_fn(batch_u8, idx, sync.shard_seed(seed), params=params)[1]
+        keys = list(metrics)
+        return dict(zip(keys, sync.mean(torch.stack([metrics[k] for k in keys])).unbind()))
 
     return eval_step
 
@@ -364,6 +414,33 @@ def _check_ongen_val(cfg, dataset, sprite_bank) -> None:
               "from a matching distribution.", file=sys.stderr)
 
 
+def _data_parallel(cfg, dev) -> Tuple[torch.device, Optional[pmesh.GradSync]]:
+    """(the rank's device, its GradSync or None) for `fit`: a process group
+    already up, or torchrun's of more than one rank under
+    `train.data_parallel` or `train.multihost`, trains data-parallel;
+    `train.multihost` without torchrun's environment trains in this process
+    and says so, as the JAX package does when its runtime will not start."""
+    if cfg.train.data_parallel or cfg.train.multihost:
+        if cfg.train.multihost and pmesh.world() == 1 and pmesh.env_world() == 1:
+            print("multihost init skipped: no torchrun environment (RANK, WORLD_SIZE, "
+                  "LOCAL_RANK, MASTER_ADDR, MASTER_PORT); training in this process",
+                  flush=True)
+        dev = pmesh.join(dev)
+    sync = pmesh.grad_sync(dev)
+    if sync is not None and not cfg.train.data_parallel:
+        raise ValueError(f"train.data_parallel=false in a group of {sync.world} ranks: each "
+                         "would train alone and write the same checkpoints; set "
+                         "train.data_parallel=true or start one process")
+    if (sync is None and dev.type == "cuda" and cfg.train.data_parallel
+            and torch.cuda.device_count() > 1):
+        n = torch.cuda.device_count()
+        raise ValueError(f"train.data_parallel=true on a host with {n} cards in one process: "
+                         f"the port trains one process a card; start it with `torchrun "
+                         f"--nproc_per_node {n} -m mmvae_torch train ...`, or set "
+                         "train.data_parallel=false to train on one card")
+    return dev, sync
+
+
 def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainState, List[dict]]:
     """Train `cfg` for `max_steps` (default `train.steps`) on `device` (the
     card unless the caller names the CPU); returns (state, history), the
@@ -380,18 +457,26 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
     `checkpoint_every` steps a checkpoint is written in the background
     (data cursor = step), and the last step always; `train.resume` restores
     the newest and a streaming run skips the batches it consumed.  SIGTERM
-    saves the last whole step and ends the process."""
+    saves the last whole step and ends the process.
+
+    Data-parallel (a process group of N > 1 ranks: one a card under
+    torchrun, which this joins, or one the caller started): every rank runs
+    this with the same config.  Rank r trains on `batch_size // N` rows a
+    step from its shard of the splits (`split[r::N]`: resident, streamed or
+    generated from its own seed), its eval on full val batches of its
+    shard, the metrics the ranks' means.  Rank 0 logs and writes the
+    checkpoints, which every rank restores; all meet after the final save.
+    SIGTERM to any rank stops every rank after the same step, which is
+    saved."""
     check_supported(cfg)
-    dev = _device(device)
-    if dev.type == "cuda" and cfg.train.data_parallel and torch.cuda.device_count() > 1:
-        raise NotImplementedError("train.data_parallel=true on more than one card: data "
-                                  "parallelism is ROADMAP item 12; set "
-                                  "train.data_parallel=false to train on one card")
+    dev, sync = _data_parallel(cfg, _device(device))
+    rank, world = (0, 1) if sync is None else (sync.rank, sync.world)
+    lead = rank == 0
     steps = max_steps or cfg.train.steps
     model = build_model(cfg, dev)
     ongen = cfg.data.on_device_generate
     sprite_bank = load_sprite_bank(cfg.data.sprite_bank) if cfg.data.sprite_bank else None
-    dataset = _load_split(cfg, sprite_bank)
+    dataset = _load_split(cfg, sprite_bank, rank=rank, world=world)
     _check_ongen_val(cfg, dataset, sprite_bank)
     state = create_train_state(model, cfg.optim)
     start_step = data_step = 0
@@ -403,8 +488,8 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
     if resident is None:
         resident = dev.type == "cuda" and split.nbytes <= cfg.data.device_resident_max_bytes
     resident = resident and not ongen
-    step_fn = make_config_step(cfg, model, resident=resident, sprites=sprite_bank)
-    batch = cfg.data.batch_size
+    step_fn = make_config_step(cfg, model, resident=resident, sprites=sprite_bank, sync=sync)
+    batch = local_batch(cfg, world)
     data_dev, host_iter = None, None
     if resident:
         rows = split.reshape(-1, *split.shape[2:]) if cfg.data.per_frame else split
@@ -414,33 +499,41 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
         batches = dataset.frame_batches if cfg.data.per_frame else dataset.batches
         host_iter = batches(batch, seed=cfg.data.seed, skip_batches=data_step)
 
-    val_dataset = _load_split(cfg, sprite_bank, train=False)
-    eval_step = make_eval_step(model, binarize=cfg.data.binarize)
+    val_dataset = _load_split(cfg, sprite_bank, train=False, rank=rank, world=world)
+    eval_step = make_eval_step(model, binarize=cfg.data.binarize, sync=sync)
     val_cache: list = []  # (rows, batch on the device, seed), staged by the first pass
 
     def run_eval(params) -> Dict[str, float]:
         if not val_cache:
-            vbs = min(batch, _val_rows(cfg, val_dataset))
+            # every rank scores the same count of full batches of its shard
+            avail = _val_rows(cfg, val_dataset) if sync is None else \
+                _least_shard_rows(cfg, val_dataset, world)
+            vbs = min(batch, avail)
             if vbs == 0:
                 return {}
-            for n, vb in zip(range(cfg.train.eval_batches),
-                             _val_batches(cfg, val_dataset, vbs, seed=1)):
+            n_batches = cfg.train.eval_batches if sync is None else \
+                min(cfg.train.eval_batches, avail // vbs)
+            for n, vb in zip(range(n_batches), _val_batches(cfg, val_dataset, vbs, seed=1,
+                                                            full_only=sync is not None)):
                 val_cache.append((vb.shape[0], torch.from_numpy(vb).to(dev), 1 + n))
         if not val_cache:
             return {}
         parts = [(b, eval_step(params, vb, seed)) for b, vb, seed in val_cache]
         return {f"val_{k}": v for k, v in _weighted_mean(parts).items()}
 
-    logger = MetricsLogger(csv_path=cfg.train.metrics_csv,
+    logger = MetricsLogger(csv_path=cfg.train.metrics_csv if lead else None,
                            frames_per_step=frames_per_step(cfg),
-                           tensorboard_dir=cfg.train.tensorboard_dir,
+                           print_fn=print if lead else _silent,
+                           tensorboard_dir=cfg.train.tensorboard_dir if lead else None,
                            append=cfg.train.resume and start_step > 0)
     history: List[dict] = []
     ckpt_dir = cfg.train.checkpoint_dir
 
     def forced_save(step: int) -> None:
         if ckpt_dir:
-            ckpt.save(ckpt_dir, state, step, data_step=step, force=True, wait=True)
+            if lead:
+                ckpt.save(ckpt_dir, state, step, data_step=step, force=True, wait=True)
+            pmesh.barrier(dev)  # no rank goes on before the step is on disk
 
     sigterm = install_sigterm_checkpoint() if ckpt_dir else None
     feed = (DeviceFeed(host_iter, dev, depth=cfg.data.prefetch_depth)
@@ -450,8 +543,13 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
             pending = None  # (step, metrics), read one interval late: no sync stall
             val_metrics: Dict[str, float] = {}
             for end in range(start_step + 1, steps + 1):
+                if sync is not None:
+                    sync.stop = sigterm is not None and sigterm.requested
                 metrics = step_fn(state, data_dev if feed is None else next(feed))
-                if sigterm is not None and sigterm.requested:
+                if sigterm is not None and (sigterm.requested if sync is None
+                                            else sync.stop_agreed()):
+                    print(f"SIGTERM: saving step {end} and stopping", file=sys.stderr,
+                          flush=True)
                     sigterm.save_and_exit(lambda: forced_save(end))
                 if end % cfg.train.log_every == 0 or end == steps:
                     if pending is not None:
@@ -464,7 +562,7 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
                         # the same batches and seeds: only the parameters differ
                         val_metrics.update({f"{k}_ema": v
                                             for k, v in run_eval(state.ema_params).items()})
-                if ckpt_dir and end % cfg.train.checkpoint_every == 0:
+                if ckpt_dir and lead and end % cfg.train.checkpoint_every == 0:
                     # one host batch a step: the data cursor is the step
                     ckpt.save(ckpt_dir, state, end, data_step=end)
             if pending is not None:
@@ -473,7 +571,7 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
                                           throughput=False))
         forced_save(steps)
         if sigterm is not None and sigterm.requested:
-            sigterm.save_and_exit(lambda: forced_save(steps))
+            sigterm.save_and_exit(lambda: None)  # the last step is saved
     finally:
         if feed is not None:
             feed.stop()
@@ -481,3 +579,7 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
             sigterm.uninstall()
         logger.close()
     return state, history
+
+
+def _silent(*args, **kwargs) -> None:
+    """The logger's print on a rank other than 0."""

@@ -8,7 +8,10 @@
   update the state in place, so a save made the moment the signal lands
   could catch a half-applied step (parameters at n + 1, the EMA at n).  The
   handler therefore only sets a flag; the train loop reads it after each
-  step and calls `SigtermCheckpoint.save_and_exit`.
+  step and calls `SigtermCheckpoint.save_and_exit`.  Under data
+  parallelism a rank's flag rides in the train step's all-reduce
+  (`parallel.GradSync`), so a signal to any rank stops every rank after
+  the same step, which is saved.
 """
 
 from __future__ import annotations

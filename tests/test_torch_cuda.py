@@ -377,3 +377,110 @@ def test_hier_prior_sample_on_the_card(dev):
     card = gen.prior_sample(model, 0, 2, seq_len=100, **draws)
     cpu = gen.prior_sample(build_model(cfg, "cpu"), 0, 2, seq_len=100, **draws)
     assert float(np.abs(card - cpu).max()) <= 0.05
+
+
+# --- data parallelism on the card (ranks of tests/_torch_dp_child.py) ---------
+
+_DP_CFG = ("model.kwargs.latent_dim=8", "model.kwargs.hidden_dim=32", "model.dtype=float32")
+
+
+def _dp_inputs(workdir, device) -> tuple:
+    """mlp_vae's weights, 4 u8 frames and eps written for the ranks, and the
+    single-process full-batch gradients on `device` (eps injected)."""
+    from mmvae_torch.ops import dispatch
+
+    cfg = get_config("mlp_vae", _DP_CFG)
+    g = torch.Generator().manual_seed(0)
+    u8 = torch.randint(0, 256, (1, 4, 64, 64), generator=g, dtype=torch.uint8)
+    eps = torch.randn(1, 4, 8, generator=g)
+    model = build_model(cfg, device)
+    state = create_train_state(model, cfg.optim)
+    torch.save({"mlp_vae": {"name": "mlp_vae", "overrides": list(_DP_CFG),
+                            "state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
+                            "u8": u8, "eps": {0: eps}}}, workdir / "inputs.pt")
+    full = {}
+    state.apply_gradients = lambda: full.update(
+        (n, p.grad.detach().cpu().clone()) for n, p in model.named_parameters())
+    real = dispatch.make_sample_fn
+    dispatch.make_sample_fn = lambda seed, e=None: real(seed, {0: eps[0]})
+    try:
+        make_train_step(model, binarize=False)(state, u8[0].to(device))
+    finally:
+        dispatch.make_sample_fn = real
+    return full
+
+
+def _dp_ranks(workdir, backend: str, device: str):
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    child = Path(__file__).resolve().parent / "_torch_dp_child.py"
+    procs = [subprocess.Popen([sys.executable, str(child), str(r), "2", str(workdir / "init"),
+                               "steps", str(workdir), backend, device],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
+    return [torch.load(workdir / f"steps.rank{r}.pt", weights_only=False)["mlp_vae"]
+            for r in range(2)]
+
+
+def _check_dp(full, ranks) -> None:
+    """The ranks' averaged gradients: bit-identical across the ranks, and
+    within rel L2 1e-5 of the full batch's (f32, TF32 off; the split changes
+    only the order of the batch sums)."""
+    for n, want in full.items():
+        got = ranks[0]["grads"][n]
+        assert torch.equal(got, ranks[1]["grads"][n]), n
+        rel = float((got.double() - want.double()).norm() / want.double().norm())
+        assert rel <= 1e-5, (n, rel)
+
+
+def test_two_ranks_on_one_card_over_gloo(dev, tmp_path):
+    full = _dp_inputs(tmp_path, torch.device("cuda", 0))
+    _check_dp(full, _dp_ranks(tmp_path, "gloo", "cuda:0"))
+
+
+def test_two_cards_over_nccl(dev, tmp_path):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    full = _dp_inputs(tmp_path, torch.device("cuda", 0))
+    _check_dp(full, _dp_ranks(tmp_path, "nccl", "cuda:{rank}"))
+
+
+def test_kernels_launch_on_the_second_card_with_the_first_current(dev):
+    """Each wrapper runs its kernel on its tensors' card, whatever device is
+    current: the preprocess, K1 and the head on cuda:1 from device 0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    d1 = torch.device("cuda", 1)
+    g = torch.Generator(device=d1).manual_seed(0)
+    data = torch.randint(0, 256, (6, 2, 64, 64), generator=g, device=d1, dtype=torch.uint8)
+    idx = torch.tensor([5, 0, 3], device=d1)
+    x = torch.randn(4, 64, generator=g, device=d1)
+    w_mu, w_lv = torch.randn(8, 64, generator=g, device=d1), torch.randn(8, 64, generator=g, device=d1)
+    b = torch.zeros(8, device=d1)
+    eps = torch.randn(4, 8, generator=g, device=d1)
+    with torch.cuda.device(0):
+        frames = preprocess_kernels.preprocess_gather(data, idx, 3, binarize=False)
+        bce, kl = elbo_kernels.elbo_reduce(frames, (frames > 0.5).float(), x, x)
+        head = head_kernels.head_sample_forward(x, w_mu, b, w_lv, b, 0, eps)
+        torch.cuda.synchronize(d1)
+    assert torch.cuda.current_device() == 0
+    torch.testing.assert_close(frames, preprocess_kernels.preprocess_gather_plain(
+        data, idx, 3, binarize=False, out_dtype=torch.float32), rtol=0, atol=0)
+    want = elbo_kernels.elbo_reduce_plain(frames, (frames > 0.5).float(), x, x)
+    torch.testing.assert_close(torch.stack([bce, kl]), torch.stack(list(want)), rtol=1e-5,
+                               atol=1e-3)
+    plain = head_kernels.head_sample_forward_plain(x, w_mu, b, w_lv, b, 0, eps)
+    for a, p in zip(head, plain):
+        torch.testing.assert_close(a, p, rtol=1e-5, atol=1e-5)

@@ -245,9 +245,16 @@ def test_tensorboard_without_its_package_says_so(tmp_path, monkeypatch):
 @pytest.mark.parametrize("override", ["train.steps_per_call=2", "train.multihost=true",
                                       "train.transfer_guard=true",
                                       "train.use_pallas=false"])
-def test_refused_options(override):
+def test_refused_options(override, capsys):
     """Options the port does not run raise, naming the ROADMAP item where
-    there is one."""
+    there is one.  `train.multihost`, which the port runs since data
+    parallelism landed (tests/test_torch_dp.py), trains in this process
+    when no torchrun environment names a group, and says so."""
+    if override == "train.multihost=true":
+        _, history = fit(tiny("mlp_vae", override), max_steps=1, device="cpu")
+        assert "multihost init skipped" in capsys.readouterr().out
+        assert [h["step"] for h in history] == [1]
+        return
     with pytest.raises((NotImplementedError, ValueError),
                        match=override.split("=")[0].split(".")[1]) as err:
         fit(tiny("mlp_vae", override), max_steps=1, device="cpu")
