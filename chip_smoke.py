@@ -88,8 +88,14 @@ Phases, each raising on failure (the script catches nothing):
    host), and a one-rank NCCL group in this process all-reducing a card
    tensor.  Config 5 fused (16 clips, 8 a rank) and config 3 (64, 32 a
    rank) at full width: one step with `binarize=false` and each rank's eps
-   injected, its averaged gradients bit-identical on the ranks and within
-   `_DP_GRAD_LIMIT` (rel L2) of one process's full-batch step on the card;
+   injected, its averaged gradients bit-identical on the ranks, equal to
+   the two halves stepped in this process, and against one process's
+   full-batch step on the card within `_DP_BF16_FACTOR` times the same
+   split's gap on the plain route in bf16 (every kernel's plain version on
+   the card); config 3's plain route in f32 within `_DP_F32_PLAIN_LIMIT`,
+   config 5's gradients computed in f32 within `_DP_F32_LIMIT` on the
+   kernels' route (phase 4 holds every kernel against its plain version at
+   a rank's shapes too);
    `fit` of config 3 on the resident path (20 steps, eval every 10 on 2
    batches a rank, checkpoints from rank 0), its launch equations on each
    rank (K5 forward = train steps + eval batches, backward = train steps),
@@ -230,23 +236,26 @@ def _model_kwargs(cfg) -> dict:
     return {**{k: p.default for k, p in params.items()}, **cfg.model.kwargs}
 
 
-def _run_shapes(name: str, overrides) -> dict:
+def _run_shapes(name: str, overrides, world: int = 1) -> dict:
     """{kernel kind: [shapes]} that one run of `name` under `overrides`
-    gives the kernels (see `path_shapes`)."""
+    gives the kernels (see `path_shapes`); with `world`, what rank 0 of
+    that many data-parallel ranks gives them (its share of the batch, its
+    shard of a resident set)."""
     import torch
 
     from mmvae_torch.configs import get_config
 
     cfg = get_config(name, overrides)
     kw = _model_kwargs(cfg)
-    b, t, size = cfg.data.batch_size, cfg.data.seq_len, kw["image_size"]
+    b, t, size = cfg.data.batch_size // world, cfg.data.seq_len, kw["image_size"]
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.model.dtype]
     # the frames' element bytes (train.loop.make_loss_fn: bf16 for a bf16
     # model's binarized frames, else f32)
     fb = 2 if cfg.data.binarize and dtype == torch.bfloat16 else 4
     # an ongen or streamed step gathers all of the batch it was given
     streamed = cfg.data.on_device_generate or cfg.data.device_resident is False
-    clips = b if streamed else max(int(cfg.data.num_sequences * cfg.data.train_fraction), b)
+    clips = b if streamed else -(-max(int(cfg.data.num_sequences * cfg.data.train_fraction),
+                                      cfg.data.batch_size) // world)
     if cfg.data.per_frame:
         latent = kw["latent_dim"]
         if name == "mlp_vae":
@@ -282,22 +291,28 @@ def _run_shapes(name: str, overrides) -> dict:
             "scan": [(*dec, grid, grid, feat)] if fused else []}
 
 
+_KINDS = ("preprocess", "elbo", "reparam", "head", "proj", "scan")
+
+
 def path_shapes() -> dict:
-    """The shapes each kernel is given in the runs of phases 4 and 5 (_SLICES,
-    _POLICY and _FIT_PATHS), from their configs and the models' defaults:
+    """The shapes each kernel is given in the runs of phases 4, 5 and 7
+    (_SLICES, _POLICY, _FIT_PATHS and _DP_PATHS, the last a rank's), from
+    their configs and the models' defaults:
     {kernel: {shape: [the runs that give it]}}.  preprocess: (rows in the
     set, frames a row, batch, bytes of a frame element); elbo: (logits, mu,
     bytes of an x element); reparameterize: (shape, salt); convlstm_proj:
     (B, T, H, W, C, F); convlstm_scan: (B, T, H, W, F), time-constant xg;
     head: (M, K, N, x dtype) of each sampling site.  The preprocess key of
     an ongen or streamed run is its batch."""
-    out = {k: {} for k in ("preprocess", "elbo", "reparam", "head", "proj", "scan")}
-    runs = [(name, overrides, _tag(name, overrides))
+    out = {k: {} for k in _KINDS}
+    runs = [(name, overrides, _tag(name, overrides), 1, _KINDS)
             for name, overrides, _, _ in (*_SLICES, _POLICY)]
-    runs += [(name, overrides, tag) for tag, name, overrides in _FIT_PATHS]
-    for name, overrides, tag in runs:
-        for kind, keys in _run_shapes(name, overrides).items():
-            for key in keys:
+    runs += [(name, overrides, tag, 1, _KINDS) for tag, name, overrides in _FIT_PATHS]
+    runs += [(name, overrides, tag, world, kinds)
+             for tag, name, overrides, world, kinds in _DP_PATHS]
+    for name, overrides, tag, world, kinds in runs:
+        for kind, keys in _run_shapes(name, overrides, world).items():
+            for key in keys if kind in kinds else ():
                 out[kind].setdefault(key, []).append(tag)
     return out
 
@@ -1729,17 +1744,39 @@ def phase_sample(card: str, dev, workdir: str) -> tuple:
 # The data-parallel runs at full width: config 5 fused (16 clips -> 8 a rank)
 # and config 3 default (64 -> 32).
 _DP_CONFIGS = (("hier_vae", ("model.kwargs.fused=true",)), ("seq_vae", ()))
-# Rel L2 of the ranks' averaged gradients to one process's full-batch ones on
-# the card, a tensor at a time.  Both run the same bf16 kernels on the same
-# samples, but the split changes the batch the kernels and cuDNN see (their
-# partial sums, the weight GEMM's row order, the head's split-K), so bf16
-# roundings differ.  The worst case is a gradient summed in bf16 over a
-# recurrence: config 3's time-constant decoder token gets 20 per-step
-# contributions, added by autograd in bf16 (unit roundoff 2^-9), so each of
-# the two runs may be off by up to 20 x 2^-9 of its terms' size.  (The
-# ranks' mechanics are held exactly, against the same split run in one
-# process: `phase_dp`.)
-_DP_GRAD_LIMIT = 2 * 20 * 2 ** -9
+# The phase's runs as one rank gives the kernels their shapes, for
+# `path_shapes`: (tag, config, overrides, ranks, the kernel kinds it
+# runs).  Each rank's step on its half of the batch and the full-batch
+# step it is held against (frames not binarized, the batch handed in
+# whole), fit's resident shard and its eval batches (gathered whole), and
+# this process's reconstruct of 8 clips from the group's checkpoint.
+_DP_WHOLE = ("data.binarize=false", "data.device_resident=false")
+_DP_PATHS = (
+    *((f"dp {'step' if world == 2 else 'full batch'} {_tag(name, overrides)}", name,
+       overrides + _DP_WHOLE, world, _KINDS)
+      for name, overrides in _DP_CONFIGS for world in (2, 1)),
+    ("dp fit seq_vae", "seq_vae", _CUT + ("data.device_resident=true",), 2, _KINDS),
+    ("dp fit seq_vae eval", "seq_vae", _STREAMING, 2, _KINDS),
+    ("dp sample reconstruct", "seq_vae", ("data.batch_size=8",) + _DP_WHOLE, 1,
+     ("preprocess", "head", "proj")),
+)
+# Rel L2, a tensor at a time, of the mean of a batch's two halves' gradients
+# to the whole batch's, each stepped in one process on the card.  In bf16
+# the split changes the batch every bf16 op sees, and with it the
+# roundings: config 3's eager decoder has autograd add the 20 per-step
+# gradients of its time-constant token and of its weights in bf16 (unit
+# roundoff 2^-9).  So the kernels' route is held to `_DP_BF16_FACTOR` times
+# the gap of the same bf16 model on the plain route (`_plain_route`), on
+# the same inputs in the same run; config 3 on the plain route in f32 (f32
+# gates, TF32 off), where only the order of f32 sums differs, to
+# `_DP_F32_PLAIN_LIMIT`.  Config 5 fused computes its heads, its prior and
+# the projections of z into the decoder in f32, and K5 and K6 sum over
+# time in f32: on the kernels' route those gradients
+# (`_DP_F32_PARAMS`) are held to `_DP_F32_LIMIT`.
+_DP_BF16_FACTOR = 2.0
+_DP_F32_PLAIN_LIMIT = 1e-4
+_DP_F32_LIMIT = 1e-5
+_DP_F32_PARAMS = {"hier_vae": ("q_", "g_", "p_", "prior_", "chunk_proj.", "z_to_")}
 _DP_FIT_STEPS = 20
 
 
@@ -1806,6 +1843,66 @@ def _grad_step(cfg, dev, u8, eps, sync=None) -> tuple:
     finally:
         dispatch.make_sample_fn = real
     return grads, float(metrics["loss"])
+
+
+def _plain_route():
+    """A context in which every kernel wrapper's CUDA branch runs its plain
+    version on the card: the model's own ops with no kernel of the repo
+    (and no launch counted).  The witness of the data-parallel gradient
+    limits."""
+    import contextlib
+
+    from mmvae_torch.ops import convlstm_kernels as ck
+    from mmvae_torch.ops import elbo_kernels as ek
+    from mmvae_torch.ops import head_kernels as hk
+    from mmvae_torch.ops import preprocess_kernels as pk
+
+    swaps = ((ck, "proj_forward_cuda", ck.proj_forward_plain),
+             (ck, "proj_backward_cuda", ck.proj_backward_plain),
+             (ck, "scan_forward_cuda", ck.scan_forward_plain),
+             (ck, "scan_backward_cuda", ck.scan_backward_plain),
+             (hk, "head_sample_forward_cuda", hk.head_sample_forward_plain),
+             (hk, "head_sample_backward_cuda", hk.head_sample_backward_plain),
+             (ek, "_elbo_reduce_cuda", ek.elbo_reduce_plain),
+             (pk, "_preprocess_gather_cuda",
+              lambda data, idx, seed, binarize, out_dtype: pk.preprocess_gather_plain(
+                  data, idx, seed, binarize=binarize, out_dtype=out_dtype)))
+
+    @contextlib.contextmanager
+    def route():
+        kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        try:
+            for mod, name, plain in swaps:
+                setattr(mod, name, plain)
+            yield
+        finally:
+            for mod, name, fn in kept:
+                setattr(mod, name, fn)
+
+    return route()
+
+
+def _split_gap(cfg, dev, u8, eps) -> tuple:
+    """In this process on the card: ((the full batch's gradients, its
+    loss), (the mean of its two halves' gradients, of their losses), {name:
+    rel L2 of that mean to the full batch's}, the worst rel L2 of half 0's
+    step run twice).  Gradients on the host."""
+    import torch
+
+    b = u8.shape[0] // 2
+    halves = [_grad_step(cfg, dev, u8[r * b:(r + 1) * b], _rank_eps(eps, r)) for r in (0, 1, 0)]
+    split = {n: (g + halves[1][0][n]) / 2 for n, g in halves[0][0].items()}
+    floor = max(_rel_l2(g, halves[2][0][n]) for n, g in halves[0][0].items())
+    loss = float((torch.tensor(halves[0][1]) + torch.tensor(halves[1][1])) / 2)
+    full = _grad_step(cfg, dev, u8, eps)
+    return full, (split, loss), {n: _rel_l2(split[n], g) for n, g in full[0].items()}, floor
+
+
+def _gap_text(gap: dict) -> str:
+    """The worst two and the median of {name: rel L2}."""
+    rel = sorted(((v, n) for n, v in gap.items()), reverse=True)
+    return (f"worst {rel[0][0]:.3e} at {rel[0][1]}, then {rel[1][0]:.3e} at {rel[1][1]}, "
+            f"median {rel[len(rel) // 2][0]:.3e}")
 
 
 def _rank_eps(eps: dict, rank: int) -> dict:
@@ -1917,7 +2014,9 @@ def phase_dp(card: str, dev, workdir: str) -> dict:
     """Data parallelism, two ranks (spawned once for the phase; NCCL over two
     cards where the host has them, else gloo with both on this card and a
     one-rank NCCL group here): each `_DP_CONFIGS` step's averaged gradients
-    against one process's full-batch step on the card (`_DP_GRAD_LIMIT`),
+    against one process's full-batch step on the card (`_DP_BF16_FACTOR`
+    times the plain route's gap; `_DP_F32_PLAIN_LIMIT`, `_DP_F32_LIMIT` in
+    f32),
     bit-identical on the ranks; `fit` of config 3 on the resident path (20
     steps, eval every 10 on 2 batches, checkpoints), its launch equations
     on each rank, parameters bit-identical on the ranks, the metrics equal;
@@ -1931,6 +2030,7 @@ def phase_dp(card: str, dev, workdir: str) -> dict:
     import torch.multiprocessing as mp
 
     from mmvae_torch import cli
+    from mmvae_torch.configs import get_config
     from mmvae_torch.train.loop import evaluate
 
     backend, device = _dp_backend()
@@ -1942,17 +2042,18 @@ def phase_dp(card: str, dev, workdir: str) -> dict:
         _nccl_one_rank(dev, workdir)
 
     # in this process on the card: the full batch, each rank's half (half 0
-    # twice: the step's own repeatability) and their mean, the split's result
-    refs = {}
+    # twice: the step's own repeatability) and their mean, the split's
+    # result; then the same on the plain route in bf16 and in f32
+    refs, witness = {}, {}
     for name, overrides in _DP_CONFIGS:
+        tag = _tag(name, overrides)
         cfg, u8, eps = _dp_inputs(name, overrides)
-        b = u8.shape[0] // 2
-        halves = [_grad_step(cfg, dev, u8[r * b:(r + 1) * b], _rank_eps(eps, r))
-                  for r in (0, 1, 0)]
-        split = {n: (g + halves[1][0][n]) / 2 for n, g in halves[0][0].items()}
-        floor = max(_rel_l2(g, halves[2][0][n]) for n, g in halves[0][0].items())
-        loss = float((torch.tensor(halves[0][1]) + torch.tensor(halves[1][1])) / 2)
-        refs[_tag(name, overrides)] = (_grad_step(cfg, dev, u8, eps), (split, loss), floor)
+        refs[tag] = _split_gap(cfg, dev, u8, eps)
+        with _plain_route():
+            witness[tag] = {
+                dt: _split_gap(get_config(name, overrides + more), dev, u8, eps)[2]
+                for dt, more in (("bf16", ()), ("f32", ("model.dtype=float32",
+                                                        "model.kwargs.gate_bf16=false")))}
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1977,7 +2078,7 @@ def phase_dp(card: str, dev, workdir: str) -> dict:
     print(f"[dp] the two ranks ran in {time.perf_counter() - t0:.1f} s (spawn and start-up "
           f"included)")
 
-    for tag, ((full, full_loss), (split, split_loss), floor) in refs.items():
+    for tag, ((full, full_loss), (split, split_loss), _, floor) in refs.items():
         _require(ranks[0]["digest"][tag] == ranks[1]["digest"][tag],
                  f"dp {tag}: the ranks' averaged gradients differ")
         got, dp_loss = ranks[0]["grads"][tag], ranks[0]["loss"][tag]
@@ -2004,14 +2105,39 @@ def phase_dp(card: str, dev, workdir: str) -> dict:
                      f"dp step {tag} rank {r}: launches {counts}, expected {want} (others 0)")
         print(f"[dp] {tag}: the step's launches on each rank "
               f"{', '.join(f'{k} {v}' for k, v in want.items())} (all others 0)")
-        rel = sorted(((_rel_l2(got[n], w), n) for n, w in full.items()), reverse=True)
-        _require(rel[0][0] <= _DP_GRAD_LIMIT,
-                 f"dp {tag}: averaged gradients against the full batch's, worst rel L2 "
-                 f"{rel[0]} (limit {_DP_GRAD_LIMIT:.4f})")
-        print(f"[dp] {tag}: against one process's full-batch step on the card: worst rel L2 {rel[0][0]:.3e} at {rel[0][1]}, "
-              f"then {rel[1][0]:.3e} at {rel[1][1]}, median {rel[len(rel) // 2][0]:.3e} "
-              f"(limit {_DP_GRAD_LIMIT:.4f}, bf16); loss {dp_loss:.4f} against "
-              f"{full_loss:.4f}")
+        gap = {n: _rel_l2(got[n], w) for n, w in full.items()}
+        plain = witness[tag]
+        worst = {k: max(g.values()) for k, g in (("kernels", gap), *plain.items())}
+        limit = _DP_BF16_FACTOR * worst["bf16"]
+        print(f"[dp] {tag}: the ranks' averaged gradients against one process's full-batch "
+              f"step on the card, rel L2 a tensor: {_gap_text(gap)} (limit {limit:.3e}: "
+              f"{_DP_BF16_FACTOR:g} x the plain route's worst in bf16); loss {dp_loss:.4f} "
+              f"against {full_loss:.4f}")
+        held = tag.split()[0] not in _DP_F32_PARAMS
+        print(f"[dp] {tag}: the same split on the plain route (every kernel's plain version "
+              f"on the card): bf16 {_gap_text(plain['bf16'])}; f32 (f32 gates, TF32 off) "
+              f"{_gap_text(plain['f32'])}"
+              + (f" (limit {_DP_F32_PLAIN_LIMIT:g})" if held else " (not held)"))
+        top = sorted(gap, key=gap.get, reverse=True)[:3]
+        print(f"[dp] {tag}: by tensor, kernels / plain bf16 / plain f32: " + "; ".join(
+            f"{n} {gap[n]:.3e} / {plain['bf16'][n]:.3e} / {plain['f32'][n]:.3e}" for n in top))
+        _require(worst["kernels"] <= limit,
+                 f"dp {tag}: the ranks' averaged gradients against the full batch's, worst rel "
+                 f"L2 {worst['kernels']:.3e} (limit {limit:.3e}, {_DP_BF16_FACTOR:g} x the "
+                 f"plain route's {worst['bf16']:.3e})")
+        if held:
+            _require(worst["f32"] <= _DP_F32_PLAIN_LIMIT,
+                     f"dp {tag}: the split in f32 on the plain route, worst rel L2 "
+                     f"{worst['f32']:.3e} (limit {_DP_F32_PLAIN_LIMIT:g})")
+        else:
+            f32 = {n: v for n, v in gap.items()
+                   if n.startswith(_DP_F32_PARAMS[tag.split()[0]])}
+            print(f"[dp] {tag}: the {len(f32)} gradients it computes in f32 (heads, prior, "
+                  f"z into the decoder), kernels' route: {_gap_text(f32)} (limit "
+                  f"{_DP_F32_LIMIT:g})")
+            _require(max(f32.values()) <= _DP_F32_LIMIT,
+                     f"dp {tag}: the f32 gradients against the full batch's, "
+                     f"{_gap_text(f32)} (limit {_DP_F32_LIMIT:g})")
 
     cfg = _dp_fit_cfg(workdir)
     evals = 2 * 2  # two passes of 2 full batches of 32 (each rank's 100 val rows)

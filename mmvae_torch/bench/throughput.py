@@ -35,6 +35,7 @@ def setup_resident_training(cfg, dev: torch.device, sync=None):
     (from `data.sprite_bank` where one is named).  An option the port does
     not run raises (`train.loop.check_supported`).  With `sync` (a
     `parallel.GradSync`), a data-parallel rank's step and rows."""
+    from mmvae_torch import parallel as pmesh
     from mmvae_torch.train.loop import build_model, check_supported, make_config_step
     from mmvae_torch.train.state import create_train_state
 
@@ -51,9 +52,8 @@ def setup_resident_training(cfg, dev: torch.device, sync=None):
     step_fn = make_config_step(cfg, state.model, resident=True, sprites=sprites, sync=sync)
     if ongen:
         return state, None, step_fn
-    if sync is None:
-        return state, resident_set(cfg, dev), step_fn
-    return state, resident_set(cfg, dev)[sync.rank::sync.world].contiguous(), step_fn
+    rank, world = pmesh.place(sync)
+    return state, resident_set(cfg, dev)[rank::world].contiguous(), step_fn
 
 
 def resident_set(cfg, dev: torch.device) -> torch.Tensor:
@@ -83,7 +83,7 @@ def run_benchmark(cfg, *, steps: int = 200, warmup: int = 20,
         raise RuntimeError("run_benchmark measures a CUDA device; none is available")
     dev = pmesh.join(device or "cuda")
     sync = pmesh.grad_sync(dev)
-    n_dev = 1 if sync is None else sync.world
+    n_dev = pmesh.place(sync)[1]
     state, data, step_fn = setup_resident_training(cfg, dev, sync)
 
     losses = []

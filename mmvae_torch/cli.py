@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 
 
@@ -107,7 +106,9 @@ def main(argv=None) -> int:
 
 def _lead() -> bool:
     """Rank 0 under torchrun, or a process started alone."""
-    return int(os.environ.get("RANK", "0")) == 0
+    from mmvae_torch import parallel
+
+    return parallel.rank() == 0
 
 
 def _run(cfg, args) -> int:

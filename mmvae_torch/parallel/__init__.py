@@ -9,6 +9,7 @@ from mmvae_torch.parallel.mesh import (
     join,
     launched_by_torchrun,
     local_device,
+    place,
     rank,
     shutdown,
     world,
@@ -23,6 +24,7 @@ __all__ = [
     "join",
     "launched_by_torchrun",
     "local_device",
+    "place",
     "rank",
     "shutdown",
     "world",

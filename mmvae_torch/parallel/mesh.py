@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import collections
 import os
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -46,7 +46,11 @@ def env_world() -> int:
 
 
 def rank() -> int:
-    return dist.get_rank() if dist.is_initialized() else 0
+    """This process's rank: the group's where one is up, else torchrun's
+    RANK (a one-process command such as `eval` under torchrun), else 0."""
+    if dist.is_initialized():
+        return dist.get_rank()
+    return int(os.environ["RANK"]) if launched_by_torchrun() else 0
 
 
 def world() -> int:
@@ -98,6 +102,11 @@ def grad_sync(device) -> Optional["GradSync"]:
     return GradSync(rank(), world(), device) if world() > 1 else None
 
 
+def place(sync: Optional["GradSync"]) -> Tuple[int, int]:
+    """(rank, world) of a step's `sync`; (0, 1) without one."""
+    return (0, 1) if sync is None else (sync.rank, sync.world)
+
+
 def barrier(device) -> None:
     """Every rank reaches this point: an all-reduce of one element on
     `device`, the same call for NCCL and gloo."""
@@ -128,11 +137,6 @@ class GradSync:
         self.device = torch.device(device)
         self.stop = False
         self._flags = collections.deque(maxlen=2)  # (reduced flag on the host, its event)
-
-    def shard_seed(self, seed: int) -> int:
-        from mmvae_torch.ops.seeds import shard_seed
-
-        return shard_seed(seed, self.rank)
 
     def __call__(self, params: Iterable[torch.nn.Parameter],
                  metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -171,6 +175,15 @@ class GradSync:
         if done is not None:
             done.synchronize()
         return bool(host.item() > 0)
+
+    def span(self, values: Sequence[int]) -> Tuple[List[int], List[int]]:
+        """(the least, the greatest) of each of `values` (ints) over the
+        ranks, in one all-reduce."""
+        both = torch.tensor([*values, *(-v for v in values)], dtype=torch.int64,
+                            device=self.device)
+        dist.all_reduce(both, op=dist.ReduceOp.MAX)
+        n = len(values)
+        return [-v for v in both[n:].tolist()], both[:n].tolist()
 
     def mean(self, values: torch.Tensor) -> torch.Tensor:
         """The ranks' mean of `values` (an eval batch's metrics)."""

@@ -32,7 +32,7 @@ from mmvae_torch.data.loader import load_or_generate, load_sprite_bank
 from mmvae_torch.models import MODEL_REGISTRY, flax_init_
 from mmvae_torch import parallel as pmesh
 from mmvae_torch.ops import dispatch
-from mmvae_torch.ops.seeds import STREAM_ONGEN, step_seed, stream_seed
+from mmvae_torch.ops.seeds import STREAM_ONGEN, shard_seed, step_seed, stream_seed
 from mmvae_torch.train import checkpoint as ckpt
 from mmvae_torch.train.metrics import MetricsLogger
 from mmvae_torch.train.state import TrainState, create_train_state
@@ -141,10 +141,12 @@ def make_train_step(
 
     With `sync` (a data-parallel rank), the batch sizes are the rank's
     share and `data` its rows; the step seed is the rank's
-    (`GradSync.shard_seed`), which every draw derives from, the epoch
+    (`ops.seeds.shard_seed`), which every draw derives from, the epoch
     permutation takes the rank as its shard index, and the gradients and
-    metrics are averaged across the ranks before the update."""
+    metrics are averaged across the ranks before the update.  Without one
+    the rank is 0, whose seed and rows are the single card's."""
     loss_fn = make_loss_fn(model, binarize=binarize)
+    rank, _ = pmesh.place(sync)
     generators = {}
     gen_fn = None
     if ongen_batch is not None:
@@ -165,15 +167,13 @@ def make_train_step(
         return gen
 
     def step(state: TrainState, data: Optional[torch.Tensor]) -> Metrics:
-        seed = step_seed(state.step)
-        if sync is not None:
-            seed = sync.shard_seed(seed)
+        seed = shard_seed(step_seed(state.step), rank)
         if gen_fn is not None:
             data, idx = gen_fn(stream_seed(seed, STREAM_ONGEN)), ongen_idx
         elif resident_batch is not None and resident_epochs:
             idx = resident_row_indices(state.step, data.shape[0], resident_batch,
                                        resident_seed, data.device, generator(data.device),
-                                       shard_index=0 if sync is None else sync.rank)
+                                       shard_index=rank)
         elif resident_batch is not None:
             gen = generator(data.device)
             gen.manual_seed(seed & 0xFFFFFFFF)
@@ -210,7 +210,7 @@ def make_config_step(cfg, model, *, resident: bool, sprites=None,
     handed.  With `sync`, a data-parallel rank's step on its share of the
     batch."""
     ongen = cfg.data.on_device_generate
-    batch = local_batch(cfg, 1 if sync is None else sync.world)
+    batch = local_batch(cfg, pmesh.place(sync)[1])
     return make_train_step(
         model, binarize=cfg.data.binarize, per_frame=cfg.data.per_frame,
         resident_batch=batch if resident and not ongen else None,
@@ -301,15 +301,6 @@ def _val_rows(cfg, val_dataset) -> int:
     return len(val_dataset)
 
 
-def _least_shard_rows(cfg, dataset, world: int) -> int:
-    """Rows (frames for a per-frame config) of the smallest of `world`
-    shards of `dataset`'s split: the shard of the last rank."""
-    n_total = dataset.data.shape[0]
-    n_train = int(n_total * dataset.train_fraction)
-    rows = (n_train if dataset.train else n_total - n_train) // world
-    return rows * max(dataset.data.shape[1], 1) if cfg.data.per_frame else rows
-
-
 def make_eval_step(model, *, binarize: bool = True, sync: Optional[pmesh.GradSync] = None):
     """eval_step(params, batch_u8, seed) -> metrics (device tensors): the
     loss terms per sample of the whole u8 batch under `torch.no_grad()`, so
@@ -319,13 +310,14 @@ def make_eval_step(model, *, binarize: bool = True, sync: Optional[pmesh.GradSyn
     data-parallel rank, the batch its share) the seed is the rank's and the
     metrics the ranks' mean, as the JAX package's sharded eval step."""
     loss_fn = make_loss_fn(model, binarize=binarize)
+    rank, _ = pmesh.place(sync)
 
     @torch.no_grad()
     def eval_step(params, batch_u8: torch.Tensor, seed: int) -> Metrics:
         idx = torch.arange(batch_u8.shape[0], device=batch_u8.device)
+        metrics = loss_fn(batch_u8, idx, shard_seed(seed, rank), params=params)[1]
         if sync is None:
-            return loss_fn(batch_u8, idx, seed, params=params)[1]
-        metrics = loss_fn(batch_u8, idx, sync.shard_seed(seed), params=params)[1]
+            return metrics
         keys = list(metrics)
         return dict(zip(keys, sync.mean(torch.stack([metrics[k] for k in keys])).unbind()))
 
@@ -427,9 +419,10 @@ def _data_parallel(cfg, dev) -> Tuple[torch.device, Optional[pmesh.GradSync]]:
                   flush=True)
         dev = pmesh.join(dev)
     sync = pmesh.grad_sync(dev)
-    if sync is not None and not cfg.train.data_parallel:
-        raise ValueError(f"train.data_parallel=false in a group of {sync.world} ranks: each "
-                         "would train alone and write the same checkpoints; set "
+    ranks = max(pmesh.world(), pmesh.env_world())
+    if ranks > 1 and not cfg.train.data_parallel:
+        raise ValueError(f"train.data_parallel=false under {ranks} ranks: each would train "
+                         "alone and write the same checkpoints; set "
                          "train.data_parallel=true or start one process")
     if (sync is None and dev.type == "cuda" and cfg.train.data_parallel
             and torch.cuda.device_count() > 1):
@@ -465,12 +458,14 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
     step from its shard of the splits (`split[r::N]`: resident, streamed or
     generated from its own seed), its eval on full val batches of its
     shard, the metrics the ranks' means.  Rank 0 logs and writes the
-    checkpoints, which every rank restores; all meet after the final save.
-    SIGTERM to any rank stops every rank after the same step, which is
-    saved."""
+    checkpoints; every rank restores from `train.checkpoint_dir`, which
+    must be one directory that all the nodes share, and a resume whose
+    ranks found different steps there raises on every rank.  All meet
+    after the final save.  SIGTERM to any rank stops every rank after the
+    same step, which is saved."""
     check_supported(cfg)
     dev, sync = _data_parallel(cfg, _device(device))
-    rank, world = (0, 1) if sync is None else (sync.rank, sync.world)
+    rank, world = pmesh.place(sync)
     lead = rank == 0
     steps = max_steps or cfg.train.steps
     model = build_model(cfg, dev)
@@ -482,6 +477,14 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
     start_step = data_step = 0
     if cfg.train.resume and cfg.train.checkpoint_dir:
         state, start_step, data_step = ckpt.restore_latest(cfg.train.checkpoint_dir, state)
+        if sync is not None:
+            least, most = sync.span([start_step, data_step])
+            if least != most:
+                raise ValueError(
+                    f"resume: the ranks restored steps {least[0]}..{most[0]} (data cursors "
+                    f"{least[1]}..{most[1]}) from train.checkpoint_dir="
+                    f"{cfg.train.checkpoint_dir!r}: it must be one directory shared by "
+                    "every node (rank 0 alone writes it)")
 
     split = dataset.split_data
     resident = cfg.data.device_resident
@@ -506,8 +509,9 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
     def run_eval(params) -> Dict[str, float]:
         if not val_cache:
             # every rank scores the same count of full batches of its shard
-            avail = _val_rows(cfg, val_dataset) if sync is None else \
-                _least_shard_rows(cfg, val_dataset, world)
+            avail = _val_rows(cfg, val_dataset)
+            if sync is not None:
+                avail = sync.span([avail])[0][0]
             vbs = min(batch, avail)
             if vbs == 0:
                 return {}

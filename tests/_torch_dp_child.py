@@ -15,8 +15,9 @@ Imports torch and the port only, so it runs on a host without jax:
   the averaged losses, the final parameters;
 - fit: `fit` on the resident, streaming and on-card-generated paths (4
   steps, eval every 2, checkpoints), then 2 steps and a resume to 4, and a
-  resume of a single-process checkpoint; the rows each step consumed, the
-  checkpoint writes of this rank, the histories and final states;
+  resume of a single-process checkpoint, and a resume from a directory of
+  each rank's own; the rows each step consumed, the checkpoint writes of
+  this rank, the histories and final states, the resume's error;
 - sigterm: `fit` with no end on the streaming path, with checkpoints; the
   test sends SIGTERM to one rank.
 """
@@ -147,6 +148,15 @@ def run_fit(rank: int, world: int, workdir: str, device) -> dict:
                                      f"train.checkpoint_dir={os.path.join(workdir, 'single')}"))
         state, history = loop.fit(cfg, max_steps=4, device=device)
         out["single"] = {"history": history, "state": tensors(state)}
+        # a resume from directories that are not shared: rank 0's holds the
+        # test's step-2 checkpoint, rank 1's none
+        cfg = get_config("mlp_vae", (*FIT, *FIT_PATHS["streaming"], "train.resume=true",
+                                     f"train.checkpoint_dir={os.path.join(workdir, f'own{rank}')}"))
+        try:
+            loop.fit(cfg, max_steps=4, device=device)
+            out["unshared"] = None
+        except ValueError as e:
+            out["unshared"] = str(e)
     finally:
         ckpt._write = real_write
         loop.dispatch.preprocess_gather = real_gather

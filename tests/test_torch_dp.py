@@ -15,10 +15,12 @@ flax weights (through `convert.py`), frames and eps.
 - `fit` under two ranks on the resident, streaming and generated paths:
   equal metrics on both ranks, checkpoints from rank 0 alone, a resume
   equal to an uninterrupted run, a single-process checkpoint resumed by the
-  group, the group's checkpoint read by single-process `evaluate` and
-  `sample`; SIGTERM to one rank stops both after the same step, saved;
+  group, a resume from directories the ranks do not share refused, the
+  group's checkpoint read by single-process `evaluate` and `sample`;
+  SIGTERM to one rank stops both after the same step, saved;
 - `torchrun --nproc_per_node 2 -m mmvae_torch train --device cpu`;
-- world size 1 (no group) trains as `train.data_parallel=false` does.
+- world size 1 (no group) trains as `train.data_parallel=false` does;
+  torchrun's environment with `train.data_parallel=false` is refused.
 """
 
 import os
@@ -241,6 +243,8 @@ def fit_run(tmp_path_factory):
     single = get_config("mlp_vae", (*FIT, *FIT_PATHS["streaming"],
                                     f"train.checkpoint_dir={workdir / 'single'}"))
     loop.fit(single, max_steps=2, device="cpu")
+    single.train.checkpoint_dir = str(workdir / "own0")
+    loop.fit(single, max_steps=2, device="cpu")
     ranks, _ = _spawn("fit", workdir)
     return workdir, ranks
 
@@ -301,6 +305,35 @@ def test_a_single_process_checkpoint_resumes_under_two_ranks(fit_run):
         assert r["single"]["state"]["step " + "enc_fc.weight"] == 4
     for k, v in ranks[0]["single"]["state"].items():
         assert torch.equal(v, ranks[1]["single"]["state"][k]), k
+
+
+def test_a_resume_from_unshared_directories_raises_on_every_rank(fit_run):
+    """Rank 0's directory holds step 2, rank 1's nothing (each node its own
+    disk): both ranks refuse to train instead of running different step
+    counts into a collective that never completes."""
+    _, ranks = fit_run
+    for r in ranks:
+        assert r["unshared"] is not None and "steps 0..2" in r["unshared"], r["unshared"]
+        assert "shared by every node" in r["unshared"]
+
+
+def test_torchruns_environment_without_data_parallel_is_refused(monkeypatch):
+    """Under torchrun's environment of 2 ranks, `train.data_parallel=false`
+    would have each process train alone into one checkpoint directory:
+    `fit` refuses before it joins a group.  Outside a group the process's
+    rank is torchrun's RANK, so only rank 0 prints the CLI's result."""
+    from mmvae_torch import parallel
+
+    env = {"RANK": "1", "WORLD_SIZE": "2", "LOCAL_RANK": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": "1"}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = get_config("mlp_vae", (*FIT, "train.data_parallel=false"))
+    with pytest.raises(ValueError, match="data_parallel=false under 2 ranks"):
+        loop.fit(cfg, max_steps=1, device="cpu")
+    assert parallel.rank() == 1 and not cli._lead()
+    monkeypatch.setenv("RANK", "0")
+    assert parallel.rank() == 0 and cli._lead()
 
 
 def test_the_groups_checkpoint_serves_single_process_evaluate_and_sample(fit_run, capsys):
