@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch / CUDA port: every config training, through
 the bench and through the training loop (`fit`), then sampling and the CLI,
-then data-parallel training.
+then data-parallel training, then K train steps a call in one CUDA graph.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -101,12 +101,33 @@ Phases, each raising on failure (the script catches nothing):
    rank (K5 forward = train steps + eval batches, backward = train steps),
    parameters bit-identical and logged metrics equal on the ranks, the
    logger's frames/s, the step's collective timed against the step; the
-   group's checkpoint scored by `evaluate` and sampled in this process.
+   group's checkpoint scored by `evaluate` and sampled in this process;
+8. `train.steps_per_call` (`train.loop.chunk_steps`: K train steps
+   captured in one CUDA graph, replayed once a call): a graph of one
+   step's draws (the step seed from a step counter on the card, uniform
+   rows, K3's frames and the head's eps from seeds the kernels read from
+   device memory) replayed twice equals two eager steps and the host
+   seeds' draws bit for bit, and its two replays draw differently; at
+   K = 5 and full width, config 3 (uniform rows and shuffled epochs), the
+   recipe, config 5 fused and config 1: steps 5-14 as two replays equal
+   the same 10 eager steps bit for bit (parameters, Adam's moments and
+   step counts, the EMA, every step's metrics; where not, two eager runs'
+   gap is printed and the graph held within twice it) with equal launch
+   counts (a replay adds its graph's counts); `fit` of config 3 resident
+   at K = 5 (40 steps, eval and checkpoint every 20; logged steps each
+   chunk's last, as JAX's fit; the checkpoint restored bit for bit; a
+   resume to 60 equal to an uninterrupted 60; a stand-in SIGTERM saved at
+   a chunk's end); a one-rank NCCL group's chunk with GradSync's
+   all-reduce captured equal to its eager steps; `run_benchmark` at K = 1
+   and 10 on configs 1, 2, 3, the recipe and 5 fused: frames/s, step ms,
+   device busy ms and idle share, kernels and host launches a step,
+   flops_per_step, TFLOP/s and MFU (finite, in (0, 1]).
    No jax imported.
 The last three lines are the card, the kernels' JSON line (`launches`: the
 count from the kernel's own path, config 3 for K1, K3, K5 and the head,
 config 4 for K6, 0 for the standalone K2; `launches_by_path`: each path's
-run, the fit, sampling, CLI and data-parallel runs' included; `sampling`:
+run, the fit, sampling, CLI, data-parallel and steps_per_call runs'
+included; `sampling`:
 the forwards' rows at the sampling shapes), and {"ok": true, "device":
 {...}}.  Exits non-zero with no result when CUDA is not available.
 """
@@ -893,7 +914,7 @@ def check_ongen(dev) -> None:
 
     b, t = 64, 20
     cpu, card = ongen.Canvas(b, t, 64, device="cpu"), ongen.Canvas(b, t, 64, device=dev)
-    draws = cpu.draw(torch.Generator().manual_seed(11), 2)
+    draws = cpu.draw(11, 2)
     want = cpu.render(draws)
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     try:
@@ -908,9 +929,12 @@ def check_ongen(dev) -> None:
     seed = stream_seed(step_seed(0), STREAM_ONGEN)
     fn = ongen.clip_batch_fn(b, (t, 64, 64), device=dev)
     clips = fn(seed)
-    own = card.draw(torch.Generator(device=dev).manual_seed(seed & 0xFFFFFFFF), 2)
+    own = card.draw(torch.tensor(seed, device=dev), 2)
     _require(torch.equal(card.render(own), clips), "ongen: the clip function's clips are not "
                                                     "those of its seed's draws")
+    host_clips = ongen.clip_batch_fn(b, (t, 64, 64), device="cpu")(seed)
+    _require(torch.equal(clips.cpu(), host_clips), "ongen: the card's clips of a seed differ "
+                                                   "from the CPU's (counter-based draws)")
     yx = card.positions(own)
     _require(clips.dtype == torch.uint8 and clips.shape == (b, t, 64, 64)
              and int(clips.max()) > 0, f"ongen: clips {clips.dtype} {tuple(clips.shape)}")
@@ -926,7 +950,7 @@ def check_ongen(dev) -> None:
     ms = _time_ms(lambda: fn(seed), 20)
     prof = _device_profile(lambda: fn(seed), 20)
     print(f"[ongen] {b} x {t} x 64x64 u8: byte-identical to the CPU from the same draws with "
-          f"TF32 off and on; corners in [{int(yx.min())}, {int(yx.max())}] (limit 0..{card.lim:g}); "
+          f"TF32 off and on, and from the same seed (counter-based draws); corners in [{int(yx.min())}, {int(yx.max())}] (limit 0..{card.lim:g}); "
           f"least frame mass {float(mass.min()):.0f} (>= {least:.0f}); mean intensity {mean:.3f} "
           f"against the host generator's {host:.3f} ({100 * rel:.2f} %, limit 5 %); one batch "
           f"{prof['busy_ms']:.4f} ms busy on the device in {prof['kernels']:.0f} kernel launches "
@@ -1041,6 +1065,7 @@ def run_slice(card: str, name: str, overrides, launched, idle) -> dict:
     _require(last < first, f"{tag}: loss did not fall: first 5 mean {first:.1f}, last 5 {last:.1f}")
     _require(all(counts[k] > 0 for k in launched), f"{tag}: a kernel was not launched: {counts}")
     _require(all(counts[k] == 0 for k in idle), f"{tag}: a kernel off this path ran: {counts}")
+    _require(res["mfu"] is not None and 0 < res["mfu"] <= 1, f"{tag}: mfu {res['mfu']}")
     print(f"[slice] {tag}: {len(losses)} train steps, loss first-5 mean {first:.2f} -> "
           f"last-5 mean {last:.2f}; launches {counts}")
     print(f"[slice] {json.dumps(res)}")
@@ -2191,6 +2216,360 @@ def phase_dp(card: str, dev, workdir: str) -> dict:
     return out
 
 
+# --- phase 8: train.steps_per_call, K train steps in one CUDA graph -------------
+
+_CHUNK_K = 5
+# the paths whose graph of K steps must replay as their eager steps
+_CHUNK_PATHS = (
+    ("seq_vae", ()),
+    ("seq_vae", ("data.resident_epochs=true",)),
+    ("seq_vae", _RECIPE),
+    ("hier_vae", ("model.kwargs.fused=true",)),
+    ("mlp_vae", ()),
+)
+# the paths timed at steps_per_call 1 and 10
+_TIMED_PATHS = (
+    ("mlp_vae", ()),
+    ("conv_vae", ()),
+    ("seq_vae", ()),
+    ("seq_vae", _RECIPE),
+    ("hier_vae", ("model.kwargs.fused=true",)),
+)
+_TIMED_K = (1, 10)
+
+
+def check_graph_draws(dev) -> None:
+    """The device seeds inside a CUDA graph: a graph of one step's draws
+    (the step seed from a step counter on the card, uniform rows, K3's
+    binarization and the head's eps, both reading the seed from device
+    memory, the counter advanced) replayed twice equals the same two steps
+    run eagerly, bit for bit; the two steps' draws differ; and the kernels'
+    stream seed from the device equals `ops.seeds.stream_seed` of the host's
+    (the same bits from a host int)."""
+    import torch
+
+    from mmvae_torch.ops import head_kernels, preprocess_kernels, seeds
+    from mmvae_torch.train.loop import uniform_rows
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    data = torch.randint(0, 256, (100, 20, 64, 64), generator=g, device=dev,
+                         dtype=torch.uint8)
+    x = torch.randn(64, 8192, generator=g, device=dev).to(torch.bfloat16)
+    w_mu, w_lv = (torch.randn(128, 8192, generator=g, device=dev) * 0.01 for _ in range(2))
+    b_mu, b_lv = (torch.zeros(128, device=dev) for _ in range(2))
+    step_t = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def draw():
+        seed = seeds.step_seed_t(step_t)
+        idx = uniform_rows(seed, data.shape[0], 64, dev)
+        frames = preprocess_kernels.preprocess_gather(
+            data, idx, seeds.SeedRef(seed, seeds.STREAM_PREPROCESS), out_dtype=torch.bfloat16)
+        z = head_kernels.head_sample_forward(x, w_mu, b_mu, w_lv, b_lv,
+                                             seeds.SeedRef(seed, seeds.STREAM_REPARAM, 1))[2]
+        step_t.add_(1)
+        return idx, frames, z
+
+    eager = [tuple(t.clone() for t in draw()) for _ in range(2)]
+    host = []
+    for n in range(2):
+        s = seeds.step_seed(n)
+        idx = uniform_rows(s, data.shape[0], 64, dev)
+        host.append((idx, preprocess_kernels.preprocess_gather(
+            data, idx, seeds.stream_seed(s, seeds.STREAM_PREPROCESS), out_dtype=torch.bfloat16),
+            head_kernels.head_sample_forward(x, w_mu, b_mu, w_lv, b_lv, seeds.stream_seed(
+                s, seeds.STREAM_REPARAM, 1))[2]))
+    step_t.zero_()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        draw()  # warm on the capture stream (the head's tickets)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    step_t.zero_()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = draw()
+    replayed = []
+    for _ in range(2):
+        graph.replay()
+        replayed.append(tuple(t.clone() for t in out))
+    torch.cuda.synchronize(dev)
+    names = ("rows", "K3 frames", "head eps")
+    for n in range(2):
+        for name, a, b, h in zip(names, replayed[n], eager[n], host[n]):
+            _require(torch.equal(a, b), f"graph draws: step {n}'s {name} replayed differ from "
+                                        f"the eager step's")
+            _require(torch.equal(b, h), f"graph draws: step {n}'s {name} from the device seed "
+                                        f"differ from the host seed's")
+    for name, a, b in zip(names, replayed[0], replayed[1]):
+        _require(not torch.equal(a, b), f"graph draws: two replays drew the same {name}")
+    print(f"[chunk] a CUDA graph of one step's draws (step seed from a step counter on the card; "
+          f"uniform rows, K3's frames and the head's eps from device-resident seeds) replayed "
+          f"twice: bit-identical to two eager steps and to the host seeds' draws; the two "
+          f"replays' rows, frames and eps differ "
+          f"({int((replayed[0][1] != replayed[1][1]).sum())} of {replayed[0][1].numel()} frame "
+          f"elements)")
+
+
+def _chunk_cfg(name: str, overrides, k: int):
+    from mmvae_torch.configs import get_config
+
+    return get_config(name, (*overrides, f"train.steps_per_call={k}"))
+
+
+def _steps(cfg, dev, sync=None) -> tuple:
+    """`setup_resident_training`'s state and step for `cfg`: the first 5
+    steps (for a chunk of 5: its eager first call, then the capture), then
+    10 more with the launch counters set to 0 just before them and read just
+    after.  Returns (state, those 10 steps' metrics on the host, their
+    launch counts by mode, the counts by wrapper)."""
+    import torch
+
+    from mmvae_torch import ops
+    from mmvae_torch.bench.throughput import setup_resident_training
+
+    k = max(cfg.train.steps_per_call, 1)
+    state, data, step = setup_resident_training(cfg, dev, sync)
+    for _ in range(_CHUNK_K // k):
+        step(state, data)
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    ms = [step(state, data) for _ in range(2 * _CHUNK_K // k)]
+    torch.cuda.synchronize(dev)
+    counts = ops.launch_counts_by_mode(), ops.launch_counts()
+    metrics = {key: torch.cat([m[key].reshape(-1) for m in ms]).cpu() for key in ms[0]}
+    return state, metrics, *counts
+
+
+def _gaps(a: dict, b: dict) -> dict:
+    """max |a - b| by tensor group (the name's first word)."""
+    out = {}
+    for k in a:
+        group = k.split()[0]
+        d = float((a[k].double() - b[k].double()).abs().max())
+        out[group] = max(out.get(group, 0.0), d)
+    return out
+
+
+def check_chunk_equal(card: str, dev, name: str, overrides, sync_pair=None) -> dict:
+    """Steps 5-14 of `name` as two replays of a graph of 5 steps (after its
+    eager first call) against the same 10 steps run eagerly one a call:
+    parameters, Adam's moments and step counts, the EMA and every step's
+    metrics bit for bit, and the same launch counts.  Where they differ,
+    two eager runs' gap is measured and the graph must lie within twice it
+    (both are samples of the same run-to-run spread).  `sync_pair`: one
+    GradSync for each run (a data-parallel rank).  Returns the replays'
+    launch counts."""
+    import torch
+
+    tag = f"chunk {_tag(name, overrides)}"
+    one, two = sync_pair or (None, None)
+    eager, m_eager, modes_eager, _ = _steps(_chunk_cfg(name, overrides, 1), dev, one)
+    t0 = time.perf_counter()
+    chunk, m_chunk, modes_chunk, counts = _steps(_chunk_cfg(name, overrides, _CHUNK_K), dev, two)
+    wall = time.perf_counter() - t0
+    _require(chunk.step == int(chunk.step_t) == eager.step == 3 * _CHUNK_K,
+             f"{tag}: steps {chunk.step}, {int(chunk.step_t)} and {eager.step}")
+    _require(modes_chunk == modes_eager, f"{tag}: two replays launched {modes_chunk}, ten "
+                                         f"eager steps {modes_eager}")
+    a, b = _state_tensors(eager), _state_tensors(chunk)
+    a.update((f"metric {k}", v) for k, v in m_eager.items())
+    b.update((f"metric {k}", v) for k, v in m_chunk.items())
+    _require(set(a) == set(b), f"{tag}: the states hold different tensors")
+    same = [k for k in a if torch.equal(a[k], b[k].to(a[k].device))]
+    if len(same) == len(a):
+        verdict = "bit-identical"
+    else:
+        again, m_again, _, _ = _steps(_chunk_cfg(name, overrides, 1), dev)
+        ref = _state_tensors(again)
+        ref.update((f"metric {k}", v) for k, v in m_again.items())
+        gap, off = _gaps(a, ref), _gaps(a, b)
+        print(f"[chunk] {tag}: {len(a) - len(same)} of {len(a)} tensors differ from the eager "
+              f"steps; the graph's gap {off}, two eager runs' {gap}")
+        _require(all(off[g] <= 2 * gap[g] for g in off),
+                 f"{tag}: the graph lies outside twice two eager runs' gap")
+        verdict = f"within twice two eager runs' gap {gap}"
+    losses = m_chunk["loss"].tolist()
+    _require(all(math.isfinite(v) for v in losses), f"{tag}: a non-finite loss {losses}")
+    print(f"[chunk] {tag}: steps 5-14 as 2 replays of a graph of {_CHUNK_K} steps against 10 "
+          f"eager steps: {len(a)} tensors (parameters, Adam moments and step counts, EMA, "
+          f"the 10 steps' metrics) {verdict}; launch counts equal ({counts}); the graph's "
+          f"first call, capture and 2 replays {wall:.2f} s wall; on {card}")
+    del eager, chunk
+    torch.cuda.empty_cache()
+    return counts
+
+
+class _Stopped(Exception):
+    """The stand-in SIGTERM's exit."""
+
+
+class _Sigterm:
+    """Stands in for `utils.debug.SigtermCheckpoint`: `requested` turns true
+    at its third read (fit reads it once a call, after the call), and
+    `save_and_exit` saves and raises instead of ending the process."""
+
+    def __init__(self):
+        self.reads = 0
+
+    @property
+    def requested(self) -> bool:
+        self.reads += 1
+        return self.reads >= 3
+
+    def save_and_exit(self, save_fn) -> None:
+        save_fn()
+        raise _Stopped
+
+    def uninstall(self) -> None:
+        pass
+
+
+def fit_chunked(card: str, dev, workdir: str) -> dict:
+    """`fit` of config 3 on the resident path at steps_per_call=5 (one
+    cut: the 2,000-clip set): 40 steps, an eval pass of 2 batches and a
+    checkpoint every 20, logging every 10; the logged steps are the JAX
+    fit's (each chunk's last); the launch equations (a replay adds its
+    graph's counts); the checkpoint restored bit for bit; a resume to 60
+    equal to an uninterrupted 60 bit for bit; and the SIGTERM save (a
+    stand-in flag that turns on after the second call) on the third
+    chunk's end, step 15."""
+    import os
+
+    import torch
+
+    import mmvae_torch.train.loop as loop
+    from mmvae_torch.train import checkpoint as ckpt
+    from mmvae_torch.train.state import create_train_state
+
+    def cfg_in(d, *more):
+        return _fit_cfg("seq_vae", (*_CUT, "data.device_resident=true",
+                                    f"train.steps_per_call={_CHUNK_K}"), "train.log_every=10",
+                        "train.eval_every=20", "train.eval_batches=2",
+                        "train.checkpoint_every=20", f"train.checkpoint_dir={d}", *more)
+
+    tag = f"fit seq_vae chunked K={_CHUNK_K}"
+    split_dir, whole_dir = (os.path.join(workdir, f"chunked_{n}") for n in ("split", "whole"))
+    cfg = cfg_in(split_dir)
+    state, history, counts = _fit(card, tag, cfg, 40, _step_counts(40, 2 * 2), dev)
+    _require([h["step"] for h in history] == [10, 20, 30, 40]
+             and all("val_loss" in history[i] for i in (1, 3)),
+             f"{tag}: logged {[sorted(h) for h in history]}")
+    fresh, step, data_step = ckpt.restore_latest(
+        split_dir, create_train_state(loop.build_model(cfg, dev), cfg.optim))
+    want, got = _state_tensors(state), _state_tensors(fresh)
+    _require((step, data_step, fresh.step, int(fresh.step_t)) == (40, 40, 40, 40)
+             and all(torch.equal(want[k], got[k].to(want[k].device)) for k in want),
+             f"{tag}: the restored state differs from the saved one")
+    whole, _, _ = _fit(card, tag + " to 60", cfg_in(whole_dir), 60, _step_counts(60, 3 * 2), dev)
+    cfg.train.resume = True
+    resumed, hist2, counts2 = _fit(card, tag + " resumed", cfg, 60, _step_counts(20, 2), dev)
+    a, b = _state_tensors(whole), _state_tensors(resumed)
+    _require([h["step"] for h in hist2] == [50, 60]
+             and all(torch.equal(a[k], b[k]) for k in a),
+             f"{tag}: the resume to 60 differs from the uninterrupted run "
+             f"({[k for k in a if not torch.equal(a[k], b[k])][:5]})")
+    print(f"[fit] {tag}: logged steps 10-40 (the JAX fit's: each chunk's last); the "
+          f"checkpoint of step 40 restored bit-identical over {len(want)} tensors; a resume "
+          f"to 60 bit-identical to an uninterrupted 60-step run")
+
+    stop_dir = os.path.join(workdir, "chunked_sigterm")
+    real = loop.install_sigterm_checkpoint
+    loop.install_sigterm_checkpoint = _Sigterm
+    try:
+        loop.fit(cfg_in(stop_dir), max_steps=40, device=dev)
+        stopped = False
+    except _Stopped:
+        stopped = True
+    finally:
+        loop.install_sigterm_checkpoint = real
+    saved = ckpt.latest_step(stop_dir)
+    _require(stopped and saved == 3 * _CHUNK_K,
+             f"{tag}: the stand-in SIGTERM stopped={stopped}, saved step {saved}")
+    print(f"[fit] {tag}: SIGTERM flagged during the third chunk: fit saved step {saved}, "
+          f"the chunk's end, and stopped")
+    return {tag: counts, tag + " resumed": counts2}
+
+
+def check_chunk_nccl(card: str, dev, workdir: str) -> dict:
+    """A one-rank NCCL group: config 3's chunk of 5 steps with GradSync's
+    all-reduce (gradients, metrics and the stop flag) captured in the
+    graph, against its eager steps (`check_chunk_equal`); the reduced stop
+    flag read after each replay."""
+    import os
+
+    from mmvae_torch import parallel
+
+    parallel.init_from_env(dev, backend="nccl", rank=0, world_size=1,
+                           init_method=f"file://{os.path.join(workdir, 'nccl_chunk')}")
+    try:
+        pair = (parallel.GradSync(0, 1, dev), parallel.GradSync(0, 1, dev))
+        counts = check_chunk_equal(card, dev, "seq_vae", (), pair)
+        _require(pair[1].backend == "nccl" and not pair[1].stop_agreed(),
+                 "nccl chunk: a stop was agreed that no rank asked for")
+    finally:
+        parallel.shutdown()
+    print("[chunk] the one-rank NCCL group's chunk (the all-reduce captured) equals its "
+          "eager steps")
+    return {"chunk nccl seq_vae": counts}
+
+
+def time_chunked(card: str) -> dict:
+    """`run_benchmark` (20 steps a window, device profile on) at
+    steps_per_call 1 and 10 on configs 1, 2, 3, the recipe and 5 fused:
+    frames/s, step ms, the device's busy ms and idle share, kernels and host
+    launches a step, flops_per_step, TFLOP/s and MFU (finite, in (0, 1]).
+    Returns each run's launch counts."""
+    import torch
+
+    from mmvae_torch import ops
+    from mmvae_torch.bench.throughput import run_benchmark
+
+    out, rows = {}, []
+    for name, overrides in _TIMED_PATHS:
+        for k in _TIMED_K:
+            cfg = _chunk_cfg(name, overrides, k)
+            tag = f"bench {_tag(name, overrides)} K={k}"
+            ops.reset_launch_counts()
+            res = run_benchmark(cfg, steps=20, warmup=10, device_profile=True)
+            out[tag] = ops.launch_counts()
+            losses = res.pop("losses")
+            _require(all(math.isfinite(v) for v in losses), f"{tag}: a non-finite loss")
+            _require(res["mfu"] is not None and math.isfinite(res["mfu"])
+                     and 0 < res["mfu"] <= 1, f"{tag}: mfu {res['mfu']}")
+            row = {"path": _tag(name, overrides), "steps_per_call": k,
+                   **{key: res[key] for key in (
+                       "value", "value_min", "value_max", "step_ms", "device_busy_ms",
+                       "idle_share", "kernels_per_step", "host_launches_per_step",
+                       "flops_per_step", "tflops_per_sec_chip", "mfu", "card")}}
+            rows.append(row)
+            print(f"[chunk] timing {json.dumps(row)}")
+            torch.cuda.empty_cache()
+    for name, overrides in _TIMED_PATHS:
+        one, ten = (r for r in rows if r["path"] == _tag(name, overrides))
+        print(f"[chunk] {_tag(name, overrides)}: step {one['step_ms']:.3f} -> "
+              f"{ten['step_ms']:.3f} ms (K 1 -> 10), device busy {one['device_busy_ms']:.3f} -> "
+              f"{ten['device_busy_ms']:.3f} ms, idle {one['idle_share']:.3f} -> "
+              f"{ten['idle_share']:.3f}, host launches a step {one['host_launches_per_step']} -> "
+              f"{ten['host_launches_per_step']}, MFU {one['mfu']:.4f} -> {ten['mfu']:.4f}, "
+              f"on {card}")
+    return out
+
+
+def phase_chunk(card: str, dev, workdir: str) -> dict:
+    """`train.steps_per_call`: the graph's draws, the five paths' replays
+    against their eager steps, the chunked `fit`, the NCCL chunk and the
+    timing.  Returns {path: its launch counts}."""
+    check_graph_draws(dev)
+    out = {}
+    for name, overrides in _CHUNK_PATHS:
+        out[f"chunk {_tag(name, overrides)} K={_CHUNK_K}"] = check_chunk_equal(
+            card, dev, name, overrides)
+    out.update(fit_chunked(card, dev, workdir))
+    out.update(check_chunk_nccl(card, dev, workdir))
+    out.update(time_chunked(card))
+    return out
+
+
 def _own_path(kernel: str):
     """The first slice whose path launches `kernel`: config 3 (the main
     path) for K1, K3, K5 and the head, config 4 fused for K6; None for the
@@ -2224,6 +2603,9 @@ def main() -> int:
         t1 = time.perf_counter()
         by_path.update(phase_dp(card, dev, workdir))
         print(f"[dp] the data-parallel phase took {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        by_path.update(phase_chunk(card, dev, workdir))
+        print(f"[chunk] the steps_per_call phase took {time.perf_counter() - t1:.1f} s")
     _require("jax" not in sys.modules and "mmvae_tpu" not in sys.modules,
              "jax or mmvae_tpu was imported")
     kernels = []

@@ -16,7 +16,7 @@ checkout has the fused head (`bench/timing.head_region_ms`: each kernel
 alone, the op through autograd, and the route it replaced, a cast, two
 F.linear and the Triton K2, on the same inputs); and
 `bench.profile.profile_train_step` of each path (config 3; configs 4 and 5
-with fused=true; config 3 with fused=true).  Every run times with this
+with fused=true; config 3 with fused=true; configs 1 and 2).  Every run times with this
 tree's `bench/timing.py`, loaded by path.  Each run prints one JSON line,
 then one line per path sums it up.  Fails without a CUDA device.
 """
@@ -43,7 +43,8 @@ K6_SHAPES = ((64, 10, 8, 8, 128, True), (160, 10, 8, 8, 128, True), (64, 20, 8, 
 HEAD_SHAPES = ((64, 8192, 128, "bfloat16"), (16, 256, 128, "float32"),
                (160, 256, 64, "float32"))
 PATHS = (("seq_vae", ()), ("pred_vae", ("model.kwargs.fused=true",)),
-         ("hier_vae", ("model.kwargs.fused=true",)), ("seq_vae", ("model.kwargs.fused=true",)))
+         ("hier_vae", ("model.kwargs.fused=true",)), ("seq_vae", ("model.kwargs.fused=true",)),
+         ("mlp_vae", ()), ("conv_vae", ()))
 
 
 # this tree's timers, whichever checkout the worker imports the package from

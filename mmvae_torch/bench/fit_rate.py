@@ -13,7 +13,9 @@ windows give frames/s (host clock between two logged lines, each read one
 interval late; the first logged line opens the first window).  Then
 `bench.throughput.run_benchmark` times the same config on its resident
 set or generated clips.  Prints one JSON line with both, the card's name
-and power limit.  Fails without a CUDA device.  Under torchrun both run
+and power limit.  Under `train.steps_per_call` = K both run K steps a call
+(one CUDA graph replay); K must divide the 20-step log interval.  Fails
+without a CUDA device.  Under torchrun both run
 data-parallel over the N ranks (one a card); the logger's frames/s is the
 global batch's, the per-GPU figure divides it by N, and rank 0 prints.
 """
@@ -23,7 +25,6 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 
 import torch
 
@@ -32,7 +33,7 @@ LOG_EVERY = 20
 
 def fit_rate(cfg, steps: int) -> dict:
     from mmvae_torch import parallel
-    from mmvae_torch.bench.throughput import run_benchmark
+    from mmvae_torch.bench.throughput import card, run_benchmark
     from mmvae_torch.train.loop import fit
 
     if not torch.cuda.is_available():
@@ -48,9 +49,6 @@ def fit_rate(cfg, steps: int) -> dict:
     else:
         path = "resident"
     bench = run_benchmark(cfg, steps=20, warmup=5)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
     return {
         "config": cfg.name, "fit_path": path, "steps": steps, "log_every": LOG_EVERY,
         "fit_frames_per_sec_windows": [round(w, 1) for w in windows],
@@ -59,7 +57,7 @@ def fit_rate(cfg, steps: int) -> dict:
         "fit_frames_per_sec_per_gpu_median": round(statistics.median(windows) / world, 1),
         "bench_data": bench["data"], "bench_frames_per_sec": bench["value"],
         "bench_min": bench["value_min"], "bench_max": bench["value_max"],
-        "card": card,
+        "steps_per_call": cfg.train.steps_per_call, "card": card(),
     }
 
 

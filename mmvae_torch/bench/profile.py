@@ -5,11 +5,14 @@
 
 Runs real train steps of the config at full width on the data path it names
 (a resident u8 dataset, or clips generated on the card under
-`data.on_device_generate`: `bench.throughput.setup_resident_training`), then prints one JSON line: the step time on the
-host clock (steps ended by `torch.cuda.synchronize()`), the device-busy time
-per step from `torch.profiler` (the union of kernel intervals on the card),
-the idle share (1 - busy / step), the kernel launches per step, and the
-kernels with the most device time.  Fails without a CUDA device.
+`data.on_device_generate`: `bench.throughput.setup_resident_training`), K
+steps a call under `train.steps_per_call` = K (one CUDA graph replay), then
+prints one JSON line: the step time on the host clock (steps ended by
+`torch.cuda.synchronize()`), the device-busy time per step from
+`torch.profiler` (the union of kernel intervals on the card), the idle share
+(1 - busy / step), the kernels the card runs per step, the launches the
+host makes per step (CUDA runtime launch calls: a graph replay is one), and
+the kernels with the most device time.  Fails without a CUDA device.
 """
 
 from __future__ import annotations
@@ -37,16 +40,29 @@ def _busy_ms(intervals) -> float:
     return total / 1e3
 
 
-def device_kernels(fn, calls: int) -> list:
-    """The CUDA kernel events (torch.profiler) of `calls` calls of `fn`,
-    ended by a synchronize."""
+# CUDA API calls (runtime cuda*, low-level cu*) that put work on the card: the host's launches
+_HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                  "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                  "cudaMemsetAsync")
+
+
+def profile_calls(fn, calls: int) -> tuple:
+    """(the CUDA kernel events, the host's launch calls or None where the
+    trace holds no runtime events, the window's ms on the host clock) of
+    `calls` calls of `fn` under torch.profiler, ended by a synchronize."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    host = sum(e.name in _HOST_LAUNCHES for e in events)
+    return ([e for e in events if e.device_type == torch.autograd.DeviceType.CUDA],
+            host or None, wall)
+
 
 
 def device_busy_ms(kernels) -> float:
@@ -55,22 +71,26 @@ def device_busy_ms(kernels) -> float:
 
 
 def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12) -> dict:
+    """`steps` train steps timed and profiled after `warmup` (both rounded
+    up to whole calls of `train.steps_per_call` steps)."""
     from mmvae_torch.bench.throughput import setup_resident_training
-    from mmvae_torch.train.loop import frames_per_step
+    from mmvae_torch.train.loop import frames_per_step, steps_per_call
 
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train_step measures a CUDA device; none is available")
+    spc = steps_per_call(cfg)
+    calls, steps = -(-steps // spc), -(-steps // spc) * spc
     state, data, step = setup_resident_training(cfg, torch.device("cuda"))
-    for _ in range(warmup):
+    for _ in range(-(-warmup // spc) + (spc > 1)):  # a chunk's first call captures
         step(state, data)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(steps):
+    for _ in range(calls):
         step(state, data)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
 
-    kernels = device_kernels(lambda: step(state, data), steps)
+    kernels, host, _ = profile_calls(lambda: step(state, data), calls)
     by_name = defaultdict(float)
     for e in kernels:
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
@@ -80,11 +100,13 @@ def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12) 
         "config": cfg.name,
         "model_kwargs": {k: v for k, v in cfg.model.kwargs.items()},
         "device": torch.cuda.get_device_name(),
+        "steps_per_call": spc,
         "step_ms": round(step_ms, 3),
         "frames_per_sec": round(frames_per_step(cfg) / step_ms * 1e3, 1),
         "device_busy_ms": round(busy, 3),
         "idle_share": round(1.0 - busy / step_ms, 4),
         "kernel_launches_per_step": round(len(kernels) / steps, 1),
+        "host_launches_per_step": None if host is None else round(host / steps, 2),
         "top_kernels_ms_per_step": [[name[:90], round(ms / steps, 4)] for name, ms in ranked],
     }
 

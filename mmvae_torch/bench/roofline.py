@@ -123,6 +123,21 @@ def kernel_work(name: str, shape) -> Tuple[float, float]:
     raise KeyError(f"kernel_work: unknown kernel {name!r}")
 
 
+def kernel_products(name: str, shape) -> float:
+    """The multiply-add operations (2 a product) of one call of kernel
+    wrapper `name` at `shape`: the ConvLSTM kernels' work without their
+    gate math (the model FLOPs of `bench.flops`)."""
+    if name.startswith("convlstm_proj"):
+        b, t, h, w, c, f = shape
+        proj, conv = 2.0 * b * t * h * w * c * 4 * f, 2.0 * b * t * _taps(h, w) * f * 4 * f
+        return 2 * (proj + conv) if name == "convlstm_proj_backward" else proj + conv
+    if name.startswith("convlstm_scan"):
+        b, t, h, w, f, _ = shape
+        conv = 2.0 * b * t * _taps(h, w) * f * 4 * f
+        return 2 * conv if name == "convlstm_scan_backward" else conv
+    raise KeyError(f"kernel_products: {name!r} is not a ConvLSTM kernel")
+
+
 def bound(name: str, shape) -> Tuple[float, str]:
     """(least milliseconds, "bytes" or "operations") for one call."""
     ops, nbytes = kernel_work(name, shape)

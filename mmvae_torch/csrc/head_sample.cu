@@ -18,7 +18,9 @@
 //   every other tensor (M, N) or (N,) f32.  eps comes from Philox-4x32-10
 //   (philox.cuh) keyed by the stream seed, counter = the element's offset in
 //   (M, N), through Box-Muller on 24-bit uniforms as the TPU kernel draws
-//   (`_box_muller`); an eps tensor, where given, replaces the draw.
+//   (`_box_muller`); an eps tensor, where given, replaces the draw.  The
+//   stream seed is a host value or derived from the train step's step seed
+//   read from device memory (philox.cuh `SeedArg`).
 //
 // What bounds it on the H100: operations.  At the flagship head (M = 64,
 // K = 8192, N = 128, bf16 x) the forward is 268 MFLOP of f32 products over
@@ -234,7 +236,7 @@ head_sample_fwd_kernel(const X* __restrict__ x, const float* __restrict__ w_mu,
                        float* __restrict__ mu, float* __restrict__ logvar,
                        float* __restrict__ z, float* __restrict__ diff,
                        float* __restrict__ partials, int* __restrict__ tickets, int M, int K,
-                       int N, int kslice, uint32_t seed) {
+                       int N, int kslice, SeedArg sa) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int XS = fw_xs(sizeof(X));
   constexpr int STAGE = fw_stage_bytes(sizeof(X));
@@ -308,6 +310,7 @@ head_sample_fwd_kernel(const X* __restrict__ x, const float* __restrict__ w_mu,
   __syncthreads();
   if (!last) return;
   __threadfence();
+  const uint32_t seed = eps ? 0u : seed_of(sa);
   const float* all = partials + (size_t)tile * nrank * FW_MT * 2 * FW_NT;
   for (int i = threadIdx.x; i < FW_MT * FW_NT; i += HS_THREADS) {
     const int m = i / FW_NT, j = i % FW_NT;
@@ -557,7 +560,7 @@ template <typename X, bool VEC>
 cudaError_t fwd_launch(const void* x, const void* w_mu, const void* b_mu, const void* w_lv,
                        const void* b_lv, const void* eps, void* mu, void* logvar, void* z,
                        void* diff, void* partials, void* tickets, int M, int K, int N,
-                       uint32_t seed, cudaStream_t stream) {
+                       SeedArg seed, cudaStream_t stream) {
   const int smem = fw_smem(sizeof(X));
   cudaError_t err = set_smem((const void*)head_sample_fwd_kernel<X, VEC>, smem);
   if (err != cudaSuccess) return err;
@@ -573,7 +576,7 @@ cudaError_t fwd_launch(const void* x, const void* w_mu, const void* b_mu, const 
 template <typename X>
 cudaError_t fwd(const void* x, const void* w_mu, const void* b_mu, const void* w_lv,
                 const void* b_lv, const void* eps, void* mu, void* logvar, void* z, void* diff,
-                void* partials, void* tickets, int M, int K, int N, uint32_t seed,
+                void* partials, void* tickets, int M, int K, int N, SeedArg seed,
                 cudaStream_t stream) {
   const bool vec = K % (16 / (int)sizeof(X)) == 0 && aligned16(x) && aligned16(w_mu) &&
                    aligned16(w_lv);
@@ -617,16 +620,21 @@ cudaError_t bwd(const void* x, const void* w_mu, const void* w_lv, const void* d
 
 extern "C" {
 
-// x_dtype: 0 f32, 1 bf16.  eps may be null (drawn from `seed`).  partials:
+// x_dtype: 0 f32, 1 bf16.  eps may be null (drawn from the stream seed:
+// `seed_value`, or where `seed_step` is set, stream `stream_id`'s seed under
+// `salt` of the int64 step seed it points at on the device).  partials:
 // (N tiles x M tiles x splits x 1024) floats of scratch; tickets: one int a
 // tile, zero, and left zero; not shared with a launch that may run at the
 // same time.
 int mmvae_head_sample_fwd(const void* x, const void* w_mu, const void* b_mu, const void* w_lv,
                           const void* b_lv, const void* eps, void* mu, void* logvar, void* z,
                           void* diff, void* partials, void* tickets, int M, int K, int N,
-                          int x_dtype, unsigned int seed, void* stream) {
+                          int x_dtype, unsigned int seed_value, const void* seed_step,
+                          int stream_id, int salt, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const mmvae::SeedArg seed{(const long long*)seed_step, seed_value, (uint32_t)stream_id,
+                            (uint32_t)salt};
   if (x_dtype == mmvae::kF32)
     return (int)mmvae::fwd<float>(x, w_mu, b_mu, w_lv, b_lv, eps, mu, logvar, z, diff, partials,
                                   tickets, M, K, N, seed, s);

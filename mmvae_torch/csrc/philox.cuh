@@ -26,6 +26,21 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
   return ctr;
 }
 
+// A draw's stream seed: `value`, or where `step` is set, ops/seeds.py's
+// stream_seed(*step, stream, salt) of the int64 step seed it points at.  A
+// seed read from device memory lets a CUDA graph's replays draw each step's
+// own bits (the train step keeps its step seed on the card).
+struct SeedArg {
+  const long long* step;
+  uint32_t value, stream, salt;
+};
+
+__device__ __forceinline__ uint32_t seed_of(const SeedArg& a) {
+  if (a.step == nullptr) return a.value;
+  const uint32_t s = (uint32_t)(*a.step) + a.salt * 1000003u;
+  return (s & 0x07FFFFFFu) | (a.stream << 27);
+}
+
 // The four words for 64-bit counter `c` under stream seed `seed`.
 __device__ __forceinline__ uint4 philox_draw(unsigned long long c, uint32_t seed) {
   return philox4x32_10(make_uint4((uint32_t)c, (uint32_t)(c >> 32), 0u, 0u),

@@ -6,7 +6,8 @@
 //   the TPU's u8 row-gather cost (data/transforms.py:38-46), so here the
 //   resident set stays a plain u8 tensor and the kernel reads
 //   (dataset, row indices, seed) directly.  indices = arange(B) over a
-//   streamed batch is preprocess_pallas.
+//   streamed batch is preprocess_pallas.  The seed is a host value or the
+//   train step's step seed read from device memory (philox.cuh `SeedArg`).
 //
 //   binarize:  out = 1 iff float(u24) < float(u8) * (2^24 / 255), u24 the 24
 //              high bits of a Philox-4x32-10 word, i.e. P(on) = u8 / 255;
@@ -38,7 +39,7 @@ template <typename O, bool BIN, bool VEC>
 __global__ void preprocess_gather_kernel(const uint8_t* __restrict__ data,
                                          const int64_t* __restrict__ idx, O* __restrict__ out,
                                          long long n_rows, long long row_bytes, long long total,
-                                         uint32_t seed) {
+                                         SeedArg sa) {
   const long long e0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * EPT;
   if (e0 >= total) return;
   const bool full = e0 + EPT <= total;
@@ -63,6 +64,7 @@ __global__ void preprocess_gather_kernel(const uint8_t* __restrict__ data,
   float v[EPT];
   if (BIN) {
     const float scale = 16777216.0f / 255.0f;
+    const uint32_t seed = seed_of(sa);
 #pragma unroll
     for (int g = 0; g < EPT / 4; ++g) {
       const uint4 r = philox_draw((unsigned long long)(e0 / 4 + g), seed);
@@ -92,7 +94,7 @@ __global__ void preprocess_gather_kernel(const uint8_t* __restrict__ data,
 
 template <typename O>
 cudaError_t launch(const void* data, const void* idx, void* out, long long n_rows,
-                   long long row_bytes, long long batch, uint32_t seed, int binarize,
+                   long long row_bytes, long long batch, SeedArg seed, int binarize,
                    cudaStream_t stream) {
   const long long total = batch * row_bytes;
   if (total == 0) return cudaSuccess;
@@ -116,11 +118,16 @@ cudaError_t launch(const void* data, const void* idx, void* out, long long n_row
 }  // namespace
 }  // namespace mmvae
 
+// seed_step: null (the stream seed is `seed_value`) or the int64 step seed on the
+// device, from which the kernel takes stream `stream_id`'s seed under `salt`.
 extern "C" int mmvae_preprocess_gather(const void* data, const void* idx, void* out,
                                        long long n_rows, long long row_bytes, long long batch,
-                                       unsigned int seed, int binarize, int out_dtype,
+                                       unsigned int seed_value, const void* seed_step,
+                                       int stream_id, int salt, int binarize, int out_dtype,
                                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const mmvae::SeedArg seed{(const long long*)seed_step, seed_value, (uint32_t)stream_id,
+                            (uint32_t)salt};
   if (out_dtype == mmvae::kF32)
     return (int)mmvae::launch<float>(data, idx, out, n_rows, row_bytes, batch, seed, binarize, s);
   if (out_dtype == mmvae::kBF16)

@@ -6,11 +6,15 @@ The same process as the host generator (`data.loader.generate_moving_mnist`):
 U[0, 2 pi), speed U[2, 4.5), elastic bounces, compositing that saturates at
 1.0 and quantizes to u8 by `*255` truncation.
 
-- **Draws** come from a device torch.Generator in the order digits, start
-  positions, angle, speed (`Canvas.draw`); `generate_clips` also takes
-  them injected (`Draws`), so a test can hand it the draws the JAX
-  generator made.  The RNG is not threefry: from a seed the clips match
-  the reference in distribution only.
+- **Draws** are counter-based bits keyed by the seed (`ops.seeds.bits32`,
+  five words a sprite: digit, start y, start x, angle, speed;
+  `Canvas.draw`), in int64 tensor arithmetic on the canvas's device, so the
+  card and the CPU draw the same clips from a seed, and a seed held on the
+  card (the train step's) needs no host call: a CUDA graph of train steps
+  replays each step's own draws.  `generate_clips` also takes them
+  injected (`Draws`), so a test can hand it the draws the JAX generator
+  made.  The bits are not threefry's: from a seed the clips match the
+  reference in distribution only.
 - **Positions** in closed form: reflection off the [0, lim] walls is a
   triangular fold of the free trajectory, lim - |((p0 + v t) mod 2 lim) -
   lim|, in float32, truncated to int.  cos and sin of the angle are taken
@@ -28,12 +32,16 @@ U[0, 2 pi), speed U[2, 4.5), elastic bounces, compositing that saturates at
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from mmvae_torch.data.loader import _digit_sprite
+from mmvae_torch.ops.seeds import bits32, uniform24
+
+# the words a sprite draws: digit, start y, start x, angle, speed
+_WORDS = 5
 
 SPRITE_SIZE = 16
 
@@ -75,15 +83,19 @@ class Canvas:
         win = torch.arange(sp, device=device)
         self.window = win[:, None] * image_size + win[None, :]
 
-    def draw(self, generator: torch.Generator, num_digits: int) -> Draws:
-        """Draws from `generator` (on this device): digits, starts, angles,
-        speeds, in that order."""
+    def draw(self, seed: Union[int, torch.Tensor], num_digits: int) -> Draws:
+        """The draws of `seed` (an int, or a 0-d int64 tensor on this
+        device): word w of sprite d of clip b is `bits32(seed, (b * D + d)
+        * 5 + w)`; the digit is its value mod K, the starts, angle and speed
+        uniforms from its 24 high bits."""
         shape = (self.shape[0], num_digits)
-        kw = dict(generator=generator, device=self.device)
-        digits = torch.randint(0, self.sprites.shape[0], shape, **kw)
-        pos0 = torch.rand(shape + (2,), **kw) * self.lim
-        theta = torch.rand(shape, **kw) * (2.0 * math.pi)
-        speed = torch.rand(shape, **kw) * 2.5 + 2.0
+        counter = torch.arange(math.prod(shape) * _WORDS, device=self.device)
+        bits = bits32(seed, counter).view(*shape, _WORDS)
+        u = uniform24(bits[..., 1:])
+        digits = bits[..., 0] % self.sprites.shape[0]
+        pos0 = u[..., 0:2] * self.lim
+        theta = u[..., 2] * (2.0 * math.pi)
+        speed = u[..., 3] * 2.5 + 2.0
         return Draws(digits, pos0, theta, speed)
 
     def positions(self, draws: Draws) -> torch.Tensor:
@@ -110,15 +122,15 @@ class Canvas:
         return canvas.clamp_(0.0, 1.0).mul_(255.0).to(torch.uint8).view(b, t, h, w)
 
 
-def generate_clips(generator: Optional[torch.Generator], batch: int, *, seq_len: int = 20,
+def generate_clips(seed: Optional[int], batch: int, *, seq_len: int = 20,
                    image_size: int = 64, num_digits: int = 2, sprites=None,
-                   draws: Optional[Draws] = None, device=None) -> torch.Tensor:
-    """Fresh u8 clips (batch, seq_len, image_size, image_size): drawn from
-    `generator`, or from the injected `draws` (then `generator` may be None).
-    On the generator's device, or `device`."""
-    dev = device or (generator.device if generator is not None else draws.digits.device)
+                   draws: Optional[Draws] = None, device="cpu") -> torch.Tensor:
+    """Fresh u8 clips (batch, seq_len, image_size, image_size) on `device`
+    (the injected draws' where given): drawn from `seed`, or from the
+    injected `draws` (then `seed` may be None)."""
+    dev = draws.digits.device if draws is not None else device
     canvas = Canvas(batch, seq_len, image_size, sprites, dev)
-    return canvas.render(draws if draws is not None else canvas.draw(generator, num_digits))
+    return canvas.render(draws if draws is not None else canvas.draw(seed, num_digits))
 
 
 def clip_batch_fn(batch: int, sample_shape: Tuple[int, ...], *, num_digits: int = 2,
@@ -127,19 +139,18 @@ def clip_batch_fn(batch: int, sample_shape: Tuple[int, ...], *, num_digits: int 
     `device` (the card unless the caller names the CPU).  `sample_shape`
     is one sample's shape: (T, H, W) for clip models, (H, W) per frame.
     Per-frame batches are 1-frame clips squeezed (a reflected position is
-    uniform on [0, lim] at any t).  Each call seeds one device generator
-    with `seed`, or renders the injected `draws`."""
+    uniform on [0, lim] at any t).  Each call draws from `seed` (an int, or
+    a 0-d int64 tensor on `device`: the train step's ONGEN stream seed), or
+    renders the injected `draws`."""
     per_frame = per_frame or len(sample_shape) == 2
     h, w = sample_shape[-2:]
     if h != w:
         raise ValueError(f"square frames only, got {sample_shape}")
     canvas = Canvas(batch, 1 if per_frame else sample_shape[0], h, sprites, device)
-    gen = torch.Generator(device=canvas.device)
 
-    def fn(seed: int, draws: Optional[Draws] = None) -> torch.Tensor:
+    def fn(seed, draws: Optional[Draws] = None) -> torch.Tensor:
         if draws is None:
-            gen.manual_seed(seed & 0xFFFFFFFF)
-            draws = canvas.draw(gen, num_digits)
+            draws = canvas.draw(seed, num_digits)
         clips = canvas.render(draws)
         return clips[:, 0] if per_frame else clips
 

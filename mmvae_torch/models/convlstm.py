@@ -136,7 +136,10 @@ class ConvLSTM(nn.Module):
         for s in range(t):
             xg_t = (xg[:, 0] if t_in == 1 else xg[:, s]).permute(0, 3, 1, 2)
             if self.remat and torch.is_grad_enabled():
-                c, h = checkpoint(self._step, xg_t, c, h, w_h, use_reentrant=False)
+                # the step draws nothing from torch's RNG: no RNG state to
+                # save and restore (which a CUDA graph capture would refuse)
+                c, h = checkpoint(self._step, xg_t, c, h, w_h, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
                 c, h = self._step(xg_t, c, h, w_h)
             hs.append(h)

@@ -7,6 +7,10 @@ sample, fused), `convlstm_proj_forward`, `convlstm_proj_backward` (K5),
 `convlstm_scan_forward` and `convlstm_scan_backward` (K6).  The two
 recurrence forwards also count by mode in a `modes` dict (K5: "save",
 "nores"; K6: "save", "hs", "last"), read by `launch_counts_by_mode`.
+A wrapper counts where it launches; a launch captured in a CUDA graph is
+counted at capture, so `train.loop.chunk_steps` takes the counts its
+capture added (`launch_snapshot`, `launch_delta`), takes them off again
+and adds them at every replay (`add_launches`).
 """
 
 from mmvae_torch.ops.convlstm_kernels import (
@@ -49,6 +53,31 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
+def launch_snapshot() -> dict:
+    """Every count, by wrapper and by mode: {(name, mode or None): n}."""
+    out = {}
+    for name, fn in KERNEL_WRAPPERS.items():
+        out[name, None] = fn.launches
+        out.update(((name, mode), n) for mode, n in getattr(fn, "modes", {}).items())
+    return out
+
+
+def launch_delta(since: dict) -> dict:
+    """The counts added after `since` (a `launch_snapshot`)."""
+    now = launch_snapshot()
+    return {key: now[key] - since.get(key, 0) for key in now}
+
+
+def add_launches(delta: dict) -> None:
+    """Add `delta` (a `launch_delta`) to the counts."""
+    for (name, mode), n in delta.items():
+        fn = KERNEL_WRAPPERS[name]
+        if mode is None:
+            fn.launches += n
+        else:
+            fn.modes[mode] += n
+
+
 def launch_counts_by_mode() -> dict:
     """`launch_counts` with each recurrence forward split by mode, as
     "convlstm_proj_forward nores" and the like."""
@@ -64,6 +93,7 @@ def launch_counts_by_mode() -> dict:
 
 __all__ = [
     "KERNEL_WRAPPERS",
+    "add_launches",
     "convlstm_proj_backward",
     "convlstm_proj_forward",
     "convlstm_scan",
@@ -76,6 +106,8 @@ __all__ = [
     "head_sample_forward",
     "launch_counts",
     "launch_counts_by_mode",
+    "launch_delta",
+    "launch_snapshot",
     "preprocess_gather",
     "reparameterize",
     "reset_launch_counts",

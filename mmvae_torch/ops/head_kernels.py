@@ -11,8 +11,10 @@ reparameterize_pallas (z = mu + exp(logvar / 2) eps) with its VJP
   nn.Linear's (N, K) f32, the biases (N,) f32; mu, logvar and z come out
   (M, N) f32.
 - eps comes from Philox-4x32-10 keyed by `seed` (the REPARAM stream seed,
-  ops/seeds.py), counter = the element's offset in (M, N); an `eps` tensor
-  replaces the draw (tests and the card-against-CPU model checks).
+  ops/seeds.py: a host int, or a `seeds.SeedRef` whose step seed the kernel
+  reads from device memory), counter = the element's offset in (M, N); an
+  `eps` tensor replaces the draw (tests and the card-against-CPU model
+  checks).
 - Autograd: the op saves z - mu and takes (g_mu, g_logvar, g_z), each may be
   absent; dmu = g_mu + g_z, dlv = g_logvar + g_z (z - mu) / 2, then dx =
   dmu W_mu + dlv W_lv in x's dtype (f32 sums rounded once), dW = d^T x and
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 
 from mmvae_torch.ops import _build
 from mmvae_torch.ops.elbo_kernels import reparameterize_plain
+from mmvae_torch.ops.seeds import host_seed, kernel_seed
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on the H100
@@ -93,7 +96,7 @@ def head_sample_forward_plain(x, w_mu, b_mu, w_lv, b_lv, seed: int,
     differ; the two agree in distribution, and exactly for injected eps)."""
     xf = x.float()
     mu, logvar = F.linear(xf, w_mu, b_mu), F.linear(xf, w_lv, b_lv)
-    z, diff = reparameterize_plain(mu, logvar, seed, eps)
+    z, diff = reparameterize_plain(mu, logvar, host_seed(seed) if eps is None else 0, eps)
     return mu, logvar, z, diff
 
 
@@ -183,7 +186,7 @@ def head_sample_forward_cuda(x, w_mu, b_mu, w_lv, b_lv, seed: int,
         x.data_ptr(), w_mu.data_ptr(), b_mu.data_ptr(), w_lv.data_ptr(), b_lv.data_ptr(),
         None if eps is None else eps.data_ptr(), *(o.data_ptr() for o in outs),
         partials.data_ptr(), tickets(x.device, stream, tiles_n * tiles_m).data_ptr(), m, k, n,
-        _DTYPE_CODE[x.dtype], int(seed) & 0xFFFFFFFF, stream,
+        _DTYPE_CODE[x.dtype], *kernel_seed(seed, x.device), stream,
     )
     _build.check(err, "head_sample_forward")
     head_sample_forward.launches += 1

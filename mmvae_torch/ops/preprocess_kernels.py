@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from mmvae_torch.ops import _build
+from mmvae_torch.ops.seeds import Seed, host_seed, kernel_seed
 
 _SCALE24 = 16777216.0 / 255.0
 
@@ -29,7 +30,7 @@ _SCALE24 = 16777216.0 / 255.0
 def preprocess_gather_plain(
     data: torch.Tensor,
     idx: torch.Tensor,
-    seed: int,
+    seed: Seed,
     *,
     binarize: bool = True,
     out_dtype: torch.dtype = torch.float32,
@@ -37,14 +38,15 @@ def preprocess_gather_plain(
 ) -> torch.Tensor:
     """Plain version.  `u24` (int, values in [0, 2^24), shape of the output)
     injects the uniforms; otherwise they come from a torch.Generator seeded
-    with `seed` (the kernel's Philox bits differ: they agree in distribution,
-    and exactly for binarize=False)."""
+    with the stream seed (`seed`, or a device seed read back: the kernel's
+    Philox bits differ; they agree in distribution, and exactly for
+    binarize=False)."""
     pix = data[idx.clamp(0, data.shape[0] - 1)].to(torch.float32)
     if not binarize:
         return (pix * (1.0 / 255.0)).to(out_dtype)
     if u24 is None:
         gen = torch.Generator(device=data.device)
-        gen.manual_seed(seed & 0xFFFFFFFF)
+        gen.manual_seed(host_seed(seed) & 0xFFFFFFFF)
         u24 = torch.randint(0, 1 << 24, pix.shape, generator=gen, device=data.device)
     return (u24.to(torch.float32) < pix * _SCALE24).to(out_dtype)
 
@@ -74,7 +76,7 @@ def _preprocess_gather_cuda(data, idx, seed, binarize, out_dtype):
                       dtype=out_dtype)
     err = lib.mmvae_preprocess_gather(
         data.data_ptr(), idx.data_ptr(), out.data_ptr(), data.shape[0], row, idx.shape[0],
-        seed & 0xFFFFFFFF, int(binarize), _DTYPE_CODE[out_dtype],
+        *kernel_seed(seed, data.device), int(binarize), _DTYPE_CODE[out_dtype],
         _build.stream_ptr(data.device),
     )
     _build.check(err, "preprocess_gather")
@@ -85,13 +87,16 @@ def _preprocess_gather_cuda(data, idx, seed, binarize, out_dtype):
 def preprocess_gather(
     data: torch.Tensor,
     idx: torch.Tensor,
-    seed: int,
+    seed: Seed,
     *,
     binarize: bool = True,
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """u8 rows `data[idx]` -> frames in `out_dtype`.  CUDA kernel for CUDA
-    tensors; plain version for CPU tensors."""
+    """u8 rows `data[idx]` -> frames in `out_dtype`, binarized from the
+    stream seed `seed`: a host int, or a `seeds.SeedRef` whose step seed the
+    kernel reads from device memory (the train step's, so a CUDA graph's
+    replays draw each step's own bits).  CUDA kernel for CUDA tensors;
+    plain version for CPU tensors."""
     if data.is_cuda:
         return _preprocess_gather_cuda(data, idx, seed, binarize, out_dtype)
     return preprocess_gather_plain(data, idx, seed, binarize=binarize, out_dtype=out_dtype)

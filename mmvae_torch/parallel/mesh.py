@@ -127,16 +127,33 @@ class GradSync:
     flag as the share of ranks that asked to stop.
 
     `stop` is this rank's request, set by the training loop before a step
-    (the SIGTERM flag).  `stop_agreed()` reads the reduced flag of the
-    step before the last one: every rank reads the same value after the
-    same step, so all stop together, and the host waits on a collective
-    that finished a step ago, never on the one in flight."""
+    (the SIGTERM flag); it lives in a one-element device buffer that the
+    host writes when the request changes, so a CUDA graph of several steps
+    (`train.loop.chunk_steps`, NCCL only) reads the value of its replay.
+    `stop_agreed()` reads the reduced flag of the step (or graph replay)
+    before the last one: every rank reads the same value after the same
+    step, so all stop together, and the host waits on a collective that
+    finished a step ago, never on the one in flight.  A step captured in a
+    graph notes its reduced flag at each replay (`replayed`)."""
 
     def __init__(self, rank: int, world: int, device):
         self.rank, self.world = rank, world
         self.device = torch.device(device)
-        self.stop = False
+        self.backend = dist.get_backend() if dist.is_initialized() else None
+        self._stop = False
+        self._stop_buf = torch.zeros(1, device=self.device)
+        self._captured_flag: Optional[torch.Tensor] = None
         self._flags = collections.deque(maxlen=2)  # (reduced flag on the host, its event)
+
+    @property
+    def stop(self) -> bool:
+        return self._stop
+
+    @stop.setter
+    def stop(self, value: bool) -> None:
+        if bool(value) != self._stop:
+            self._stop = bool(value)
+            self._stop_buf.fill_(float(self._stop))
 
     def __call__(self, params: Iterable[torch.nn.Parameter],
                  metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -145,17 +162,23 @@ class GradSync:
         ranks' mean of `metrics` (0-d tensors)."""
         grads = [p.grad for p in params if p.grad is not None]
         keys = list(metrics)
-        flag = torch.full((1,), float(self.stop), device=self.device)
         buf = torch.cat([g.reshape(-1).float() for g in grads]
-                        + [torch.stack([metrics[k].float() for k in keys]), flag])
+                        + [torch.stack([metrics[k].float() for k in keys]), self._stop_buf])
         dist.all_reduce(buf)
         buf.div_(self.world)
         sizes = [g.numel() for g in grads]
         n = sum(sizes)
         torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(buf[:n].split(sizes), grads)])
         tail = buf[n:].clone()
-        self._note_flag(tail[-1:])
+        if buf.is_cuda and torch.cuda.is_current_stream_capturing():
+            self._captured_flag = tail[-1:]  # noted after each replay
+        else:
+            self._note_flag(tail[-1:])
         return dict(zip(keys, tail[:-1].unbind()))
+
+    def replayed(self) -> None:
+        """Note the reduced flag of a replayed graph's last step."""
+        self._note_flag(self._captured_flag)
 
     def _note_flag(self, flag: torch.Tensor) -> None:
         if flag.is_cuda:

@@ -143,11 +143,16 @@ def restore_latest(directory: str, state) -> Tuple[object, int, int]:
     path = os.path.join(os.path.abspath(directory), str(step), _FILE)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(ckpt["model"])
+    # the groups keep their own rates: a capturable optimizer's is a tensor
+    # on its card, and every update sets it from the schedule
+    rates = [g["lr"] for g in state.optimizer.param_groups]
     state.optimizer.load_state_dict(ckpt["optimizer"])
+    for group, rate in zip(state.optimizer.param_groups, rates):
+        group["lr"] = rate
     if state.ema_params is not None:
         src = ckpt.get("ema") or {n: p.detach() for n, p in state.model.named_parameters()}
         with torch.no_grad():
             for name, ema in state.ema_params.items():
                 ema.copy_(src[name])
-    state.step = int(ckpt["step"])
+    state.set_step(int(ckpt["step"]))
     return state, state.step, int(ckpt["data_step"])

@@ -1,16 +1,21 @@
 """Loss, train and eval steps and the training loop (port of
 mmvae_tpu/train/loop.py).
 
-One train step: derive the step seed from the host step counter, get the
-batch's u8 clips (rows of the resident set by index, uniform with
-replacement or by shuffled epochs, a batch streamed from the host by
-`data.feed.DeviceFeed`, or clips generated on the card by `data.ongen`),
-binarize them on the card (preprocess kernel), run the model with
-kernel-sampled latents, reduce the ELBO (kernel) with the KL weight of the
-step, backward, and `TrainState.apply_gradients` (clip, Adam or AdamW at
-the step's rate, EMA).  No host sync: metrics come back as device tensors.
-`fit` drives the steps with eval, EMA eval, metrics, checkpoints, resume
-and the SIGTERM save; `evaluate` scores a checkpoint on the val split.
+One train step: derive the step seed from the step counter on the device
+(`TrainState.step_t`), get the batch's u8 clips (rows of the resident set
+by index, uniform with replacement or by shuffled epochs, a batch streamed
+from the host by `data.feed.DeviceFeed`, or clips generated on the card by
+`data.ongen`), binarize them on the card (preprocess kernel), run the model
+with kernel-sampled latents, reduce the ELBO (kernel) with the KL weight of
+the step, backward, and `TrainState.apply_gradients` (clip, Adam or AdamW
+at the step's rate, EMA).  No host sync: metrics come back as device
+tensors.  Every per-step value (the seeds the kernels read, the rows, the
+generated clips' draws, the KL weight, the rate) is computed on the device
+from `step_t`, so `chunk_steps` can capture K steps in one CUDA graph and
+replay it: `train.steps_per_call`, the port of the JAX package's
+`chunk_steps`.  `fit` drives the steps with eval, EMA eval, metrics,
+checkpoints, resume and the SIGTERM save; `evaluate` scores a checkpoint on
+the val split.
 
 Data parallelism (`parallel`): one process a card, each rank training on
 its share of the batch with its own step seed and rows, the gradients and
@@ -22,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +36,10 @@ from mmvae_torch.data.feed import DeviceFeed
 from mmvae_torch.data.loader import load_or_generate, load_sprite_bank
 from mmvae_torch.models import MODEL_REGISTRY, flax_init_
 from mmvae_torch import parallel as pmesh
+from mmvae_torch import ops
 from mmvae_torch.ops import dispatch
-from mmvae_torch.ops.seeds import STREAM_ONGEN, shard_seed, step_seed, stream_seed
+from mmvae_torch.ops.seeds import (STREAM_ONGEN, STREAM_ROWS, bits32, shard_seed,
+                                   shard_seed_t, step_seed_t, stream_seed, stream_seed_t)
 from mmvae_torch.train import checkpoint as ckpt
 from mmvae_torch.train.metrics import MetricsLogger
 from mmvae_torch.train.state import TrainState, create_train_state
@@ -56,7 +63,7 @@ def make_loss_fn(model, *, binarize: bool):
         torch.bfloat16 if binarize and model.dtype == torch.bfloat16 else torch.float32
     )
 
-    def loss_fn(data_u8, idx, seed: int, beta: float = 1.0, params=None):
+    def loss_fn(data_u8, idx, seed: dispatch.StepSeed, beta=1.0, params=None):
         x = dispatch.preprocess_gather(
             data_u8, idx, seed, binarize=binarize, out_dtype=frame_dtype
         )
@@ -79,36 +86,51 @@ def make_loss_fn(model, *, binarize: bool):
     return loss_fn
 
 
-def kl_beta(step: int, beta: float, kl_warmup_steps: int) -> float:
+def kl_beta(step, beta: float, kl_warmup_steps: int):
     """The step's KL weight, beta * min(1, step / kl_warmup_steps), in float32
-    arithmetic as the JAX step computes it (exact as a Python float)."""
+    arithmetic as the JAX step computes it: a float for an int step or
+    without warmup (exact as a Python float), else a 0-d float32 tensor on
+    the step tensor's device."""
+    if isinstance(step, torch.Tensor) and kl_warmup_steps > 0:
+        return beta * torch.clamp(step.to(torch.float32) / kl_warmup_steps, max=1.0)
     b = np.float32(beta)
     if kl_warmup_steps > 0:
         b = b * np.minimum(np.float32(1.0), np.float32(step) / np.float32(kl_warmup_steps))
     return float(b)
 
 
-def resident_row_indices(step: int, n_rows: int, batch: int, seed_base: int,
-                         device, generator: Optional[torch.Generator] = None,
+def uniform_rows(seed, n_rows: int, batch: int, device) -> torch.Tensor:
+    """`batch` row indices uniform on [0, n_rows) with replacement, from the
+    ROWS stream of the step seed `seed` (an int, or a 0-d int64 tensor on
+    `device`): `bits32` of that stream seed over 0 .. batch - 1, mod
+    n_rows.  Not threefry's draws: the rows differ from the JAX step's, the
+    distribution does not."""
+    key = (stream_seed_t(seed, STREAM_ROWS) if isinstance(seed, torch.Tensor)
+           else stream_seed(seed, STREAM_ROWS))
+    return bits32(key, torch.arange(batch, device=device)) % n_rows
+
+
+def resident_row_indices(step, n_rows: int, batch: int, seed_base: int, device,
                          shard_index: int = 0) -> torch.Tensor:
     """Shuffled-epoch batch indices for the resident path: each row exactly
     once per epoch, a fresh permutation every epoch, a pure function of the
-    step (so a restart draws the same).  epoch = step // (n_rows // batch)
-    seeds a device torch.Generator from `seed_base`; the step takes its
-    slice of that epoch's permutation.  `shard_index` (a data-parallel
-    rank; 0 draws the single-card rows) decorrelates the ranks'
-    permutations of their own rows.  The permutation is not threefry's:
-    the rows differ from the JAX step's, the semantics do not."""
+    step (an int, or a 0-d int64 tensor on `device`; a restart draws the
+    same).  epoch = step // (n_rows // batch); the epoch's permutation
+    sorts the rows by `bits32` of a key of (`seed_base`, epoch,
+    `shard_index`) over the row numbers (distinct for distinct rows: no
+    ties), and the step takes its slice of it, all on the device.
+    `shard_index` (a data-parallel rank; 0 draws the single-card rows)
+    decorrelates the ranks' permutations of their own rows.  The
+    permutation is not threefry's: the rows differ from the JAX step's, the
+    semantics do not."""
     steps_per_epoch = n_rows // batch
     if steps_per_epoch < 1:
         raise ValueError(f"resident epoch sampling needs n_rows ({n_rows}) >= batch ({batch})")
-    epoch, pos = divmod(step, steps_per_epoch)
-    gen = generator if generator is not None else torch.Generator(device=device)
-    # 32 bits: the CPU generator drops a seed's high bits
-    gen.manual_seed(((seed_base * 2654435761 + epoch) ^ (shard_index * 0x85EBCA77))
-                    & 0xFFFFFFFF)
-    perm = torch.randperm(n_rows, generator=gen, device=device)
-    return perm[pos * batch:(pos + 1) * batch]
+    epoch, pos = step // steps_per_epoch, step % steps_per_epoch
+    key = ((epoch + (seed_base * 2654435761 & 0xFFFFFFFF)) ^ (shard_index * 0x85EBCA77)) \
+        & 0xFFFFFFFF
+    perm = torch.argsort(bits32(key, torch.arange(n_rows, device=device)))
+    return perm[pos * batch + torch.arange(batch, device=device)]
 
 
 def make_train_step(
@@ -130,14 +152,16 @@ def make_train_step(
     """Build step(state, data) -> metrics; updates `state` in place.
 
     With `resident_batch` set, `data` is the whole u8 dataset on the device
-    and each step gathers `resident_batch` rows: uniformly with replacement,
-    the indices drawn by a device torch.Generator seeded from the step seed,
-    or under `resident_epochs` by `resident_row_indices` (seeded from
-    `resident_seed`).  With `ongen_batch` set, each step generates its
-    `ongen_batch` clips of `ongen_shape` (one sample's u8 shape) on the
-    model's device (`data.ongen`, from the step seed's ONGEN stream) and
-    `data` is ignored.  Otherwise `data` is the batch itself.  The KL term is
-    weighted by `kl_beta(step, beta, kl_warmup_steps)`.
+    and each step gathers `resident_batch` rows: uniformly with replacement
+    (`uniform_rows`, from the step seed), or under `resident_epochs` by
+    `resident_row_indices` (keyed by `resident_seed`).  With `ongen_batch`
+    set, each step generates its `ongen_batch` clips of `ongen_shape` (one
+    sample's u8 shape) on the model's device (`data.ongen`, from the step
+    seed's ONGEN stream) and `data` is ignored.  Otherwise `data` is the
+    batch itself.  The KL term is weighted by `kl_beta(step, beta,
+    kl_warmup_steps)`.  The step seed and every value above are computed on
+    the device from `state.step_t`: no host value changes from step to
+    step, so the step can be captured in a CUDA graph (`chunk_steps`).
 
     With `sync` (a data-parallel rank), the batch sizes are the rank's
     share and `data` its rows; the step seed is the rank's
@@ -147,7 +171,6 @@ def make_train_step(
     the rank is 0, whose seed and rows are the single card's."""
     loss_fn = make_loss_fn(model, binarize=binarize)
     rank, _ = pmesh.place(sync)
-    generators = {}
     gen_fn = None
     if ongen_batch is not None:
         from mmvae_torch.data import ongen
@@ -160,29 +183,19 @@ def make_train_step(
         )
         ongen_idx = torch.arange(ongen_batch, device=device)  # the whole generated batch
 
-    def generator(device) -> torch.Generator:
-        gen = generators.get(device)
-        if gen is None:
-            gen = generators[device] = torch.Generator(device=device)
-        return gen
-
     def step(state: TrainState, data: Optional[torch.Tensor]) -> Metrics:
-        seed = shard_seed(step_seed(state.step), rank)
+        seed = shard_seed_t(step_seed_t(state.step_t), rank)
         if gen_fn is not None:
-            data, idx = gen_fn(stream_seed(seed, STREAM_ONGEN)), ongen_idx
+            data, idx = gen_fn(stream_seed_t(seed, STREAM_ONGEN)), ongen_idx
         elif resident_batch is not None and resident_epochs:
-            idx = resident_row_indices(state.step, data.shape[0], resident_batch,
-                                       resident_seed, data.device, generator(data.device),
-                                       shard_index=rank)
+            idx = resident_row_indices(state.step_t, data.shape[0], resident_batch,
+                                       resident_seed, data.device, shard_index=rank)
         elif resident_batch is not None:
-            gen = generator(data.device)
-            gen.manual_seed(seed & 0xFFFFFFFF)
-            idx = torch.randint(0, data.shape[0], (resident_batch,), generator=gen,
-                                device=data.device)
+            idx = uniform_rows(seed, data.shape[0], resident_batch, data.device)
         else:
             idx = torch.arange(data.shape[0], device=data.device)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(data, idx, seed, kl_beta(state.step, beta, kl_warmup_steps))
+        loss, metrics = loss_fn(data, idx, seed, kl_beta(state.step_t, beta, kl_warmup_steps))
         loss.backward()
         if sync is not None:
             metrics = sync(state.model.parameters(), metrics)
@@ -190,6 +203,101 @@ def make_train_step(
         return metrics
 
     return step
+
+
+def _bindings(state: TrainState, data: Optional[torch.Tensor]) -> tuple:
+    """The addresses a captured step reads and writes: the parameters, the
+    optimizer's state and rates, the EMA, the step counter and the data."""
+    tensors = [*state.model.parameters(), state.step_t, *(state.ema_params or {}).values()]
+    for group in state.optimizer.param_groups:
+        tensors += [group["lr"]] if isinstance(group["lr"], torch.Tensor) else []
+    for st in state.optimizer.state.values():
+        tensors += [v for v in st.values() if isinstance(v, torch.Tensor)]
+    return tuple(t.data_ptr() for t in tensors) + (None if data is None else data.data_ptr(),)
+
+
+class _Captured(NamedTuple):
+    """One CUDA graph of K train steps and what a replay hands back."""
+
+    graph: "torch.cuda.CUDAGraph"
+    bindings: tuple  # `_bindings` at capture
+    stacked: torch.Tensor  # the K steps' metrics (K, keys), rewritten by each replay
+    keys: List[str]
+    launches: dict  # the kernel launches the graph holds (`ops.launch_delta`)
+
+
+def chunk_steps(step: Callable[[TrainState, Optional[torch.Tensor]], Metrics], n_steps: int,
+                *, sync: Optional[pmesh.GradSync] = None):
+    """chunk(state, data) -> metrics stacked (n_steps,): `n_steps`
+    consecutive train steps, the port of `mmvae_tpu.train.loop.chunk_steps`
+    (one `lax.scan` in one dispatch there) and the same as calling `step`
+    n_steps times.
+
+    On a card the chunk is one CUDA graph of the K steps (forward,
+    backward, clip, the optimizer, the EMA and under data parallelism the
+    all-reduce), replayed once per call: the steps' seeds, rows, draws, KL
+    weight and rate all derive from `state.step_t` on the device, which the
+    graph advances, so each replay draws its own steps' values.  The first
+    call, and any call whose state or data lie at other addresses than the
+    graph's (a restored optimizer), runs the K steps eagerly on a side
+    stream (real steps: the warmup that Adam's state, the kernels' first
+    launch and the libraries' choices need) and then captures them; the
+    capture executes nothing, so `state.step` is put back after it, and
+    each replay advances it by K.  The kernels' launch counters count at
+    capture, not at replay: each replay adds the counts its graph captured.
+    A capture or replay that fails raises; nothing falls back to the eager
+    loop.  On the CPU the chunk is the K-step loop itself.
+
+    Under data parallelism the chunk needs NCCL on a card (gloo's
+    collectives cannot be captured), and `sync.stop` reaches the ranks
+    through a device buffer the host writes before each replay
+    (`parallel.GradSync`)."""
+    captured: Optional[_Captured] = None
+
+    def loop(state: TrainState, data: Optional[torch.Tensor]) -> list:
+        return [step(state, data) for _ in range(n_steps)]
+
+    def stack(ms: list) -> Metrics:
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    def capture(state: TrainState, data: Optional[torch.Tensor]) -> Metrics:
+        nonlocal captured
+        dev = state.step_t.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm = stack(loop(state, data))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        host_step, counted = state.step, ops.launch_snapshot()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            ms = loop(state, data)
+            keys = list(ms[0])
+            stacked = torch.stack([torch.stack([m[k].float() for k in keys]) for m in ms])
+        state.step = host_step  # the capture ran nothing
+        launches = ops.launch_delta(counted)
+        ops.add_launches({key: -n for key, n in launches.items()})
+        captured = _Captured(graph, _bindings(state, data), stacked, keys, launches)
+        return warm
+
+    def chunk(state: TrainState, data: Optional[torch.Tensor]) -> Metrics:
+        if state.step_t.device.type != "cuda":
+            return stack(loop(state, data))
+        if captured is None or captured.bindings != _bindings(state, data):
+            return capture(state, data)
+        captured.graph.replay()
+        state.step += n_steps
+        ops.add_launches(captured.launches)
+        if sync is not None:
+            sync.replayed()
+        out = captured.stacked.clone()
+        return {k: out[:, j] for j, k in enumerate(captured.keys)}
+
+    if sync is not None and sync.device.type == "cuda" and sync.backend != "nccl":
+        raise ValueError(f"train.steps_per_call={n_steps} on a card under data parallelism "
+                         f"needs the NCCL backend: {sync.backend}'s collectives cannot be "
+                         "captured in a CUDA graph")
+    return chunk
 
 
 def local_batch(cfg, world: int) -> int:
@@ -252,10 +360,10 @@ def check_supported(cfg) -> None:
     if cfg.train.use_pallas is False:
         raise ValueError("train.use_pallas=false: the port has no plain path on the "
                          "card; its kernels always run there")
-    if cfg.train.steps_per_call > 1:
-        raise NotImplementedError(f"train.steps_per_call={cfg.train.steps_per_call}: the "
-                                  "port runs one train step a call (chunking is not "
-                                  "ported: ROADMAP item 6)")
+    if cfg.train.steps_per_call > 1 and cfg.train.debug_nans:
+        raise ValueError(f"train.steps_per_call={cfg.train.steps_per_call} with "
+                         "train.debug_nans=true: autograd's anomaly mode cannot run in a "
+                         "CUDA graph; set train.steps_per_call=1 to check for NaNs")
     if cfg.train.transfer_guard:
         raise ValueError("train.transfer_guard=true: dropped in the port (ROADMAP, the drop "
                          "list): its step makes no implicit host sync to guard; the only "
@@ -381,6 +489,34 @@ def evaluate(cfg, ckpt_dir: Optional[str] = None, *, params=None,
     return out
 
 
+def steps_per_call(cfg) -> int:
+    return max(int(cfg.train.steps_per_call), 1)
+
+
+def check_chunking(cfg, spc: int, *, streaming: bool, steps: int, start_step: int) -> None:
+    """`fit`'s refusals of `train.steps_per_call` > 1, with the JAX
+    package's messages (mmvae_tpu/train/loop.py:578-601)."""
+    if spc <= 1:
+        return
+    if streaming:
+        raise ValueError(
+            "train.steps_per_call > 1 requires the device-resident or "
+            "on-device-generate data path (streaming mode needs one host "
+            "batch per step)")
+    cadences = {
+        "train.steps": steps,
+        "train.log_every": cfg.train.log_every,
+        "train.eval_every": cfg.train.eval_every,
+        "train.checkpoint_every": cfg.train.checkpoint_every,
+    }
+    for name, v in cadences.items():
+        if v and v % spc:
+            raise ValueError(f"{name} ({v}) must be a multiple of train.steps_per_call ({spc})")
+    if start_step % spc:
+        raise ValueError(f"resumed step {start_step} is not a multiple of "
+                         f"train.steps_per_call ({spc})")
+
+
 def _check_ongen_val(cfg, dataset, sprite_bank) -> None:
     """On-card generation draws sprites while the val split resolved to the
     canonical file (real digits): with the built-in font that is a train/val
@@ -462,7 +598,14 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
     must be one directory that all the nodes share, and a resume whose
     ranks found different steps there raises on every rank.  All meet
     after the final save.  SIGTERM to any rank stops every rank after the
-    same step, which is saved."""
+    same step, which is saved.
+
+    `train.steps_per_call` = K > 1 runs K steps a call (`chunk_steps`: one
+    CUDA graph replay on a card, the K-step loop on the CPU), as the JAX
+    package's fit: on the resident and generated paths only, with every
+    cadence and the resumed step multiples of K; the chunk's last step is
+    logged, and evals, checkpoints and the SIGTERM save fall on chunk
+    ends."""
     check_supported(cfg)
     dev, sync = _data_parallel(cfg, _device(device))
     rank, world = pmesh.place(sync)
@@ -491,7 +634,12 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
     if resident is None:
         resident = dev.type == "cuda" and split.nbytes <= cfg.data.device_resident_max_bytes
     resident = resident and not ongen
+    spc = steps_per_call(cfg)
+    check_chunking(cfg, spc, streaming=not (resident or ongen), steps=steps,
+                   start_step=start_step)
     step_fn = make_config_step(cfg, model, resident=resident, sprites=sprite_bank, sync=sync)
+    if spc > 1:
+        step_fn = chunk_steps(step_fn, spc, sync=sync)
     batch = local_batch(cfg, world)
     data_dev, host_iter = None, None
     if resident:
@@ -546,10 +694,12 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
         with debug_nans(cfg.train.debug_nans):
             pending = None  # (step, metrics), read one interval late: no sync stall
             val_metrics: Dict[str, float] = {}
-            for end in range(start_step + 1, steps + 1):
+            for end in range(start_step + spc, steps + 1, spc):
                 if sync is not None:
                     sync.stop = sigterm is not None and sigterm.requested
                 metrics = step_fn(state, data_dev if feed is None else next(feed))
+                if spc > 1:  # stacked (K,): log the chunk's last step, as JAX's fit
+                    metrics = {k: v[-1] for k, v in metrics.items()}
                 if sigterm is not None and (sigterm.requested if sync is None
                                             else sync.stop_agreed()):
                     print(f"SIGTERM: saving step {end} and stopping", file=sys.stderr,

@@ -143,6 +143,11 @@ def run_fit(rank: int, world: int, workdir: str, device) -> dict:
                          "whole": tensors(whole), "resumed": tensors(resumed),
                          "resident": seen[0][0] if path == "resident" else None,
                          "batches": rows}
+        # the resident path at train.steps_per_call=2 (no checkpoints): the
+        # K-step loop on the CPU, which must end where one step a call does
+        cfg = get_config("mlp_vae", (*FIT, *FIT_PATHS["resident"], "train.steps_per_call=2"))
+        chunked, chunked_history = loop.fit(cfg, max_steps=4, device=device)
+        out["chunked"] = {"history": chunked_history, "whole": tensors(chunked)}
         # a single-process checkpoint (written by the test) resumed under the group
         cfg = get_config("mlp_vae", (*FIT, *FIT_PATHS["streaming"], "train.resume=true",
                                      f"train.checkpoint_dir={os.path.join(workdir, 'single')}"))

@@ -106,7 +106,7 @@ def test_ongen_per_frame_branch_with_jax_draws_is_byte_identical():
 
 
 def _clips(seed, batch, **kw):
-    return ongen.generate_clips(torch.Generator().manual_seed(seed), batch, **kw)
+    return ongen.generate_clips(seed, batch, **kw)
 
 
 def test_ongen_shapes_and_determinism():
@@ -127,7 +127,7 @@ def test_ongen_sprites_never_leave_the_canvas():
     """Every corner in [0, lim] at every frame of 100-frame clips, and every
     frame keeps at least one sprite's mass (tests/test_ongen.py)."""
     canvas = ongen.Canvas(8, 100, 64, device="cpu")
-    draws = canvas.draw(torch.Generator().manual_seed(3), 2)
+    draws = canvas.draw(3, 2)
     yx = canvas.positions(draws)
     assert int(yx.min()) >= 0 and int(yx.max()) <= canvas.lim
     mass = canvas.render(draws).float().sum(dim=(2, 3))
@@ -138,7 +138,7 @@ def test_ongen_closed_form_matches_stepwise_bounces():
     """The truncated closed-form corners equal the host generator's step-wise
     reflection, for the same starts and velocities."""
     canvas = ongen.Canvas(16, 60, 64, device="cpu")
-    draws = canvas.draw(torch.Generator().manual_seed(5), 1)
+    draws = canvas.draw(5, 1)
     yx = canvas.positions(draws)[:, 0].numpy()  # (B, T, 2)
     theta = draws.theta.double()[:, 0]
     vel = (torch.stack([torch.cos(theta), torch.sin(theta)], -1).float()
@@ -171,7 +171,7 @@ def test_ongen_custom_bank_identities_are_uniform():
     appears a fair share of the clips."""
     bank = _const_bank()
     values = (bank[:, 0, 0] * 255).astype(np.uint8)
-    clips = ongen.generate_clips(torch.Generator().manual_seed(5), 48, seq_len=4,
+    clips = ongen.generate_clips(5, 48, seq_len=4,
                                  image_size=32, num_digits=1, sprites=bank).numpy()
     for frame in clips.reshape(-1, 32, 32):
         nz = np.argwhere(frame > 0)

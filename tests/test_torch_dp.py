@@ -271,6 +271,21 @@ def test_fit_under_two_ranks(path, fit_run):
     assert [h["step"] for h in ranks[0][path]["resumed_history"]] == [4]
 
 
+def test_fit_chunked_under_two_ranks_equals_one_step_a_call(fit_run):
+    """`train.steps_per_call=2` under two gloo ranks (the K-step loop on the
+    CPU) logs what one step a call logs, and ends bit-identical to it on
+    both ranks."""
+    _, ranks = fit_run
+    for r in ranks:
+        got, want = r["chunked"], r["resident"]
+        assert [h["step"] for h in got["history"]] == [2, 4]
+        assert [{k: v for k, v in h.items() if "per_sec" not in k} for h in got["history"]] \
+            == [{k: v for k, v in h.items() if "per_sec" not in k} for h in want["history"]]
+        assert set(got["whole"]) == set(want["whole"])
+        for k in want["whole"]:
+            assert torch.equal(got["whole"][k], want["whole"][k]), k
+
+
 def test_rank_zero_alone_writes_the_checkpoints(fit_run):
     workdir, ranks = fit_run
     assert ranks[1]["writes"] == []

@@ -249,7 +249,10 @@ def test_refused_options(override, capsys):
     """Options the port does not run raise, naming the ROADMAP item where
     there is one.  `train.multihost`, which the port runs since data
     parallelism landed (tests/test_torch_dp.py), trains in this process
-    when no torchrun environment names a group, and says so."""
+    when no torchrun environment names a group, and says so.
+    `train.steps_per_call`, which the port runs since chunking landed
+    (tests/test_torch_chunk.py), still refuses a streaming run (the CPU's
+    default path) with the JAX package's message."""
     if override == "train.multihost=true":
         _, history = fit(tiny("mlp_vae", override), max_steps=1, device="cpu")
         assert "multihost init skipped" in capsys.readouterr().out
@@ -258,7 +261,9 @@ def test_refused_options(override, capsys):
     with pytest.raises((NotImplementedError, ValueError),
                        match=override.split("=")[0].split(".")[1]) as err:
         fit(tiny("mlp_vae", override), max_steps=1, device="cpu")
-    if override != "train.use_pallas=false":
+    if override == "train.steps_per_call=2":
+        assert "streaming mode needs one host batch per step" in str(err.value)
+    elif override != "train.use_pallas=false":
         assert "ROADMAP" in str(err.value)
 
 

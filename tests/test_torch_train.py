@@ -138,15 +138,24 @@ def test_make_optimizer_builds_adamw_and_refuses_unknown_schedules():
 
 
 def test_bench_refuses_steps_per_call():
-    """setup_resident_training (run_benchmark's and bench.profile's) raises for
-    train.steps_per_call > 1, which the port does not chunk, rather than
-    time one step a call under the config's name."""
-    from mmvae_torch.bench.throughput import setup_resident_training
+    """The bench runs train.steps_per_call = K steps a call: run_benchmark
+    refuses bench steps that K does not divide, with the JAX bench's message
+    (mmvae_tpu/bench/throughput.py:95-100), before it looks for a card; and
+    setup_resident_training's step (run_benchmark's and bench.profile's) is
+    the chunk, on the CPU the K-step loop, its metrics stacked (K,)."""
+    from mmvae_torch.bench.throughput import run_benchmark, setup_resident_training
 
-    cfg = get_config("seq_vae", ("train.steps_per_call=4",))
+    cfg = get_config("seq_vae", ("train.steps_per_call=4", "data.num_sequences=8"))
     cfg.model.kwargs.update(TINY)
-    with pytest.raises(NotImplementedError, match="steps_per_call=4"):
-        setup_resident_training(cfg, torch.device("cpu"))
+    cfg.data.batch_size, cfg.data.seq_len = 2, 4
+    with pytest.raises(ValueError, match=r"bench steps \(10\) must be a multiple of "
+                                         r"train.steps_per_call \(4\)"):
+        run_benchmark(cfg, steps=10)
+    state, data, step = setup_resident_training(cfg, torch.device("cpu"))
+    metrics = step(state, data)
+    assert state.step == int(state.step_t) == 4
+    assert set(metrics) == {"loss", "bce", "kl"}
+    assert all(v.shape == (4,) and bool(torch.isfinite(v).all()) for v in metrics.values())
 
 
 @pytest.mark.parametrize("name", ["mlp_vae", "seq_vae"])
