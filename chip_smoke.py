@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch / CUDA port: every config training, through
 the bench and through the training loop (`fit`), then sampling and the CLI,
-then data-parallel training, then K train steps a call in one CUDA graph.
+then data-parallel training, then K train steps a call in one CUDA graph,
+then the per-region device budget of a step.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -121,7 +122,20 @@ Phases, each raising on failure (the script catches nothing):
    all-reduce captured equal to its eager steps; `run_benchmark` at K = 1
    and 10 on configs 1, 2, 3, the recipe and 5 fused: frames/s, step ms,
    device busy ms and idle share, kernels and host launches a step,
-   flops_per_step, TFLOP/s and MFU (finite, in (0, 1]).
+   flops_per_step, TFLOP/s and MFU (finite, in (0, 1]);
+9. the named regions (`mmvae_torch.bench.regions`) at K = 1 and full width
+   on config 3 (default and fused=true), config 4 fused, config 5 fused and
+   the recipe: a step with the profiler on bit-identical to one without,
+   then 10 traced steps with the launch counters set to 0 just before them
+   and read just after; each region the JAX model names has forward (and,
+   but preprocess, backward) device time, the rows sum to the window's
+   summed device time (kernels, memsets, copies), and each kernel kind
+   lands in its region (K3 in preprocess, K1 in elbo_reduce, the head in
+   latent_head on config 3, K5 in enc_lstm or chunk_lstm, K6 in dec_lstm
+   where fused, their backward and weight GEMM in those regions'
+   backward); each path's budget printed; then `annotate`'s cost with no
+   profiler running and configs 1 and 3's K = 1 step ms from phase 8
+   beside those measured before the regions.
    No jax imported.
 The last three lines are the card, the kernels' JSON line (`launches`: the
 count from the kernel's own path, config 3 for K1, K3, K5 and the head,
@@ -136,6 +150,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2513,12 +2528,12 @@ def check_chunk_nccl(card: str, dev, workdir: str) -> dict:
     return {"chunk nccl seq_vae": counts}
 
 
-def time_chunked(card: str) -> dict:
+def time_chunked(card: str) -> tuple:
     """`run_benchmark` (20 steps a window, device profile on) at
     steps_per_call 1 and 10 on configs 1, 2, 3, the recipe and 5 fused:
     frames/s, step ms, the device's busy ms and idle share, kernels and host
     launches a step, flops_per_step, TFLOP/s and MFU (finite, in (0, 1]).
-    Returns each run's launch counts."""
+    Returns (each run's launch counts, the rows printed)."""
     import torch
 
     from mmvae_torch import ops
@@ -2552,13 +2567,13 @@ def time_chunked(card: str) -> dict:
               f"{ten['idle_share']:.3f}, host launches a step {one['host_launches_per_step']} -> "
               f"{ten['host_launches_per_step']}, MFU {one['mfu']:.4f} -> {ten['mfu']:.4f}, "
               f"on {card}")
-    return out
+    return out, rows
 
 
-def phase_chunk(card: str, dev, workdir: str) -> dict:
+def phase_chunk(card: str, dev, workdir: str) -> tuple:
     """`train.steps_per_call`: the graph's draws, the five paths' replays
     against their eager steps, the chunked `fit`, the NCCL chunk and the
-    timing.  Returns {path: its launch counts}."""
+    timing.  Returns ({path: its launch counts}, the timing rows)."""
     check_graph_draws(dev)
     out = {}
     for name, overrides in _CHUNK_PATHS:
@@ -2566,7 +2581,182 @@ def phase_chunk(card: str, dev, workdir: str) -> dict:
             card, dev, name, overrides)
     out.update(fit_chunked(card, dev, workdir))
     out.update(check_chunk_nccl(card, dev, workdir))
-    out.update(time_chunked(card))
+    counts, rows = time_chunked(card)
+    out.update(counts)
+    return out, rows
+
+
+# --- phase 9: the named regions ------------------------------------------------
+
+# The paths whose per-region budget is read (K = 1: a graph replay runs no
+# host code to attribute, and launches the same kernels as eager steps).
+_REGION_PATHS = (
+    ("seq_vae", (), _STEP + _K5, _K6 + _K2),
+    ("seq_vae", _FUSED, _STEP + _K5 + _K6, _K2),
+    ("pred_vae", _FUSED, _STEP + _K5 + _K6, _K2),
+    ("hier_vae", _FUSED, _STEP + _K5 + _K6, _K2),
+    ("seq_vae", _RECIPE, _STEP + _K5, _K6 + _K2),
+)
+_REGION_WARMUP, _REGION_STEPS = 5, 10
+# The regions the JAX model names under model_fwd (mmvae_tpu/models/*.py);
+# pred_vae names none.
+_MODEL_REGIONS = {
+    "seq_vae": ("frame_enc", "enc_lstm", "latent_head", "z_init", "dec_lstm", "frame_dec"),
+    "pred_vae": (),
+    "hier_vae": ("frame_enc", "chunk_lstm", "dec_lstm", "frame_dec"),
+}
+# The K = 1 step ms before the regions: phase 8 of this script at commit
+# 1502755, on an NVIDIA H100 80GB HBM3, 700.00 W
+_BEFORE_REGIONS_MS = {"mlp_vae": 2.843, "seq_vae": 46.557}
+
+
+def _kernel_rows(name: str, fused: bool) -> dict:
+    """{kernel name: the (row, pass) set its launches must fill} of a path:
+    K3 in preprocess, K1 in elbo_reduce, the head in latent_head (model_fwd
+    where the JAX model names no head region), K5 (and K6 where fused) in
+    the recurrences' regions, their backward (and the weight GEMM they
+    share) in those regions' backward."""
+    enc = {"seq_vae": "model_fwd/enc_lstm", "hier_vae": "model_fwd/chunk_lstm"}.get(
+        name, "model_fwd")
+    dec = "model_fwd/dec_lstm" if name != "pred_vae" else "model_fwd"
+    head = "model_fwd/latent_head" if name == "seq_vae" else "model_fwd"
+    rec = {enc, dec} if fused else {enc}
+    return {
+        "preprocess_gather_kernel": {("preprocess", "fwd")},
+        "bce_partial_kernel": {("elbo_reduce", "fwd")},
+        "sum_partials_kernel": {("elbo_reduce", "fwd")},
+        "head_sample_fwd_kernel": {(head, "fwd")},
+        "head_sample_bwd_kernel": {(head, "bwd")},
+        "rec_fwd_wgmma_kernel": {(r, "fwd") for r in rec},
+        "rec_bwd_wgmma_kernel": {(r, "bwd") for r in rec},
+        "wgrad_wgmma_kernel": {(r, "bwd") for r in rec},
+    }
+
+
+def check_regions(card: str, dev, name: str, overrides, launched, idle) -> dict:
+    """One path's per-region budget at K = 1 (`bench.regions`): a step with
+    the profiler on bit-identical to one without (two fresh states), then
+    `_REGION_WARMUP` steps and `_REGION_STEPS` traced ones with the launch
+    counters set to 0 just before them and read just after.  Every region
+    the JAX model names has device time, the rows sum to the window's
+    summed device time, and each kernel kind lands in its region.  Returns
+    the traced steps' launch counts."""
+    import tempfile
+
+    import torch
+
+    from mmvae_torch import ops
+    from mmvae_torch.bench import regions
+    from mmvae_torch.bench.throughput import setup_resident_training
+    from mmvae_torch.configs import get_config
+    from mmvae_torch.utils.profiling import trace
+
+    cfg = get_config(name, overrides)
+    tag = f"regions {_tag(name, overrides)}"
+    plain, (state, data, step) = (setup_resident_training(cfg, dev) for _ in range(2))
+    m_plain = plain[2](plain[0], plain[1])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_regions_") as d, trace(d):
+        m_traced = step(state, data)
+    a, b = _state_tensors(plain[0]), _state_tensors(state)
+    a.update((f"metric {k}", v) for k, v in m_plain.items())
+    b.update((f"metric {k}", v) for k, v in m_traced.items())
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    _require(set(a) == set(b) and not differ,
+             f"{tag}: a step under the profiler differs from one without: {differ[:5]}")
+    del plain
+    for _ in range(_REGION_WARMUP - 1):
+        step(state, data)
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_regions_") as d:
+        with trace(d) as prof:
+            for _ in range(_REGION_STEPS):
+                step(state, data)
+        counts = ops.launch_counts()
+        raw = regions.load_trace(prof.trace_path)
+        size = os.path.getsize(prof.trace_path)
+    traced_s = time.perf_counter() - t0
+    _require(all(counts[k] > 0 for k in launched), f"{tag}: a kernel was not launched: {counts}")
+    _require(all(counts[k] == 0 for k in idle), f"{tag}: a kernel off this path ran: {counts}")
+    timeline, work = regions.attribute(raw)
+    budget = regions.tally(timeline, work, _REGION_STEPS)
+    kernel_ms = sum(e["dur"] for e in raw["traceEvents"] if e.get("ph") == "X"
+                    and e.get("cat") in regions.DEVICE_CATS) / 1e3 / _REGION_STEPS
+    del raw
+    _require(timeline == "device", f"{tag}: the trace holds no kernel")
+    rows = {r["region"]: r for r in budget["rows"]}
+    _require(math.isclose(sum(r["ms"] for r in rows.values()), kernel_ms, rel_tol=1e-9)
+             and math.isclose(budget["total_ms"], kernel_ms, rel_tol=1e-9),
+             f"{tag}: the rows sum to {budget['total_ms']} ms, the device's work to {kernel_ms}")
+    want = ("preprocess", *(f"model_fwd/{r}" for r in _MODEL_REGIONS[name]), "elbo_reduce")
+    if not _MODEL_REGIONS[name]:
+        want += ("model_fwd",)
+    for region in want:
+        _require(region in rows and rows[region]["fwd_ms"] > 0,
+                 f"{tag}: region {region} has no forward device time: {sorted(rows)}")
+        _require(region == "preprocess" or rows[region]["bwd_ms"] > 0,
+                 f"{tag}: region {region} has no backward device time")
+    expect = _kernel_rows(name, "model.kwargs.fused=true" in overrides)
+    landed = {}
+    for e, path, where in work:
+        for kind in expect:
+            if kind in e["name"]:
+                landed.setdefault(kind, set()).add(("/".join(path or ()) or "?", where))
+    for kind, rows_of_kind in expect.items():
+        _require(landed.get(kind) == rows_of_kind,
+                 f"{tag}: {kind} landed in {landed.get(kind)}, not {rows_of_kind}")
+    print(f"[regions] {tag}: a step under the profiler bit-identical to one without "
+          f"({len(a)} tensors); {_REGION_STEPS} traced steps in {traced_s:.1f} s (trace "
+          f"{size / 2**20:.1f} MiB), launches {counts}; each kernel kind in its region: "
+          f"{json.dumps({k: sorted(map(list, v)) for k, v in landed.items()})}")
+    print(f"[regions] {tag}: {kernel_ms:.4f} ms a step of kernels, memsets and copies, "
+          f"{budget['items_per_step']} of them a step, {budget['unlaunched_per_step']} with no "
+          f"launch in the trace, on {card}")
+    for r in budget["rows"]:
+        print(f"[regions] {tag}: {r['region']:24s} fwd {r['fwd_ms']:.4f} bwd "
+              f"{r['bwd_ms']:.4f} ms a step, share {r['share']:.4f}; top "
+              f"{json.dumps([[n[:60], round(ms, 4)] for n, ms in r['top']])}")
+    print(f"[regions] {json.dumps({'path': _tag(name, overrides), 'card': card, **budget})}")
+    del state, data, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _gate_cost_us(calls: int = 200_000) -> tuple:
+    """(us a call of `annotate` with no profiler running, us an empty
+    `with` block)."""
+    import contextlib
+
+    from mmvae_torch.utils.profiling import annotate
+
+    null = contextlib.nullcontext()
+    out = []
+    for ctx in (lambda: annotate("enc_lstm"), lambda: null):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            with ctx():
+                pass
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+    return tuple(out)
+
+
+def phase_regions(card: str, dev, timed_rows) -> dict:
+    """The per-region budget on five paths, then the gate's cost: `annotate`
+    with no profiler running, and phase 8's K = 1 step ms of configs 1 and
+    3 (regions in place) beside those before the regions.  Returns {path:
+    its launch counts}."""
+    out = {f"regions {_tag(name, overrides)}": check_regions(card, dev, name, overrides,
+                                                             launched, idle)
+           for name, overrides, launched, idle in _REGION_PATHS}
+    gated, empty = _gate_cost_us()
+    print(f"[regions] annotate with no profiler running: {gated:.3f} us a region (an empty "
+          f"with block {empty:.3f} us); 9 regions a step of config 3, 3 of config 1")
+    for name, before in _BEFORE_REGIONS_MS.items():
+        row = next(r for r in timed_rows if r["path"] == name and r["steps_per_call"] == 1)
+        print(f"[regions] {name} K=1 step {row['step_ms']:.3f} ms with the regions in place "
+              f"and no profiler running (phase 8), {before} ms before them (phase 8 at "
+              f"commit 1502755), on {card}")
     return out
 
 
@@ -2604,8 +2794,12 @@ def main() -> int:
         by_path.update(phase_dp(card, dev, workdir))
         print(f"[dp] the data-parallel phase took {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
-        by_path.update(phase_chunk(card, dev, workdir))
+        chunked, timed_rows = phase_chunk(card, dev, workdir)
+        by_path.update(chunked)
         print(f"[chunk] the steps_per_call phase took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    by_path.update(phase_regions(card, dev, timed_rows))
+    print(f"[regions] the regions phase took {time.perf_counter() - t1:.1f} s")
     _require("jax" not in sys.modules and "mmvae_tpu" not in sys.modules,
              "jax or mmvae_tpu was imported")
     kernels = []

@@ -2,6 +2,7 @@
 
     python -m mmvae_torch.bench.profile [--config seq_vae] [--steps 10]
                                         [--set model.kwargs.remat=false ...]
+                                        [--regions [--depth 2]]
 
 Runs real train steps of the config at full width on the data path it names
 (a resident u8 dataset, or clips generated on the card under
@@ -13,6 +14,13 @@ prints one JSON line: the step time on the host clock (steps ended by
 (1 - busy / step), the kernels the card runs per step, the launches the
 host makes per step (CUDA runtime launch calls: a graph replay is one), and
 the kernels with the most device time.  Fails without a CUDA device.
+
+`--regions` adds `regions`: the per-region device budget of a step
+(`bench.regions`: the kernels' ms a step by the JAX package's named regions,
+forward and backward apart), from one more window of `steps` steps traced
+with the host's activity too, apart from the windows above (tracing the
+host slows it).  It runs at `train.steps_per_call` = 1: a graph replay runs
+no host code to attribute, and launches the same kernels as K eager steps.
 """
 
 from __future__ import annotations
@@ -70,15 +78,20 @@ def device_busy_ms(kernels) -> float:
     return _busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
 
 
-def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12) -> dict:
+def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12,
+                       regions: bool = False, depth: int = 2) -> dict:
     """`steps` train steps timed and profiled after `warmup` (both rounded
-    up to whole calls of `train.steps_per_call` steps)."""
+    up to whole calls of `train.steps_per_call` steps); with `regions`, the
+    per-region budget of `steps` more, cut to `depth` region names."""
     from mmvae_torch.bench.throughput import setup_resident_training
     from mmvae_torch.train.loop import frames_per_step, steps_per_call
 
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train_step measures a CUDA device; none is available")
     spc = steps_per_call(cfg)
+    if regions and spc > 1:
+        raise ValueError("the region budget profiles at train.steps_per_call = 1 (a graph "
+                         f"replay runs no host code to attribute), not {spc}")
     calls, steps = -(-steps // spc), -(-steps // spc) * spc
     state, data, step = setup_resident_training(cfg, torch.device("cuda"))
     for _ in range(-(-warmup // spc) + (spc > 1)):  # a chunk's first call captures
@@ -96,6 +109,11 @@ def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12) 
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
     busy = device_busy_ms(kernels) / steps
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    budget = {}
+    if regions:
+        from mmvae_torch.bench.regions import profile_regions
+
+        budget = {"regions": profile_regions(lambda: step(state, data), calls, steps, depth)}
     return {
         "config": cfg.name,
         "model_kwargs": {k: v for k, v in cfg.model.kwargs.items()},
@@ -108,6 +126,7 @@ def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12) 
         "kernel_launches_per_step": round(len(kernels) / steps, 1),
         "host_launches_per_step": None if host is None else round(host / steps, 2),
         "top_kernels_ms_per_step": [[name[:90], round(ms / steps, 4)] for name, ms in ranked],
+        **budget,
     }
 
 
@@ -118,9 +137,13 @@ def main(argv=None) -> None:
     ap.add_argument("--config", default="seq_vae")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE")
+    ap.add_argument("--regions", action="store_true",
+                    help="add the per-region device budget of a step")
+    ap.add_argument("--depth", type=int, default=2, help="region path depth of the budget")
     args = ap.parse_args(argv)
     cfg = get_config(args.config, tuple(args.set))
-    print(json.dumps(profile_train_step(cfg, steps=args.steps)))
+    print(json.dumps(profile_train_step(cfg, steps=args.steps, regions=args.regions,
+                                        depth=args.depth)))
 
 
 if __name__ == "__main__":

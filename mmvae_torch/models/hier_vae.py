@@ -15,7 +15,8 @@ Clips of K chunks x Tc frames (default 10 x 10):
   steps from a state and a time-constant token made from (z_g, z_k).
 
 Under fused=True the chunk encoder runs K5 and the decoder K6 in its
-const-input mode.  `generate` (and `prior_logits`) samples the learned
+const-input mode.  Named regions (`utils.profiling.annotate`), the JAX
+model's `jax.named_scope`s: frame_enc, chunk_lstm, dec_lstm, frame_dec.  `generate` (and `prior_logits`) samples the learned
 prior chain: z_g ~ N(0, I), then each chunk's latent through the fused head
 and sample, then the chunks decoded in parallel.
 """
@@ -40,6 +41,7 @@ from mmvae_torch.models.base import (
 )
 from mmvae_torch.models.convlstm import ConvLSTM
 from mmvae_torch.ops.dispatch import make_sample_fn
+from mmvae_torch.utils.profiling import annotate
 
 _TOKEN_CH = 16  # z-token channels (fixed in the JAX model)
 # Salt of chunk k's draw in the prior chain: CHAIN_SALT + k.  `forward`
@@ -147,12 +149,14 @@ class HierVideoVAE(nn.Module):
         k = t // self.chunk_len
         if k * self.chunk_len != t:
             raise ValueError(f"seq_len {t} is not a multiple of chunk_len {self.chunk_len}")
-        feats = self.frame_enc(x.reshape(b * t, 1, *x.shape[2:]))
+        with annotate("frame_enc"):
+            feats = self.frame_enc(x.reshape(b * t, 1, *x.shape[2:]))
         feats = feats.permute(0, 2, 3, 1).reshape(b * k, self.chunk_len, self.grid,
                                                   self.grid, -1)
         zeros = torch.zeros(b * k, self.grid, self.grid, self.lstm_features,
                             device=x.device, dtype=self.dtype)
-        (_, h_t), _ = self.chunk_lstm((zeros, zeros), feats, need_hs=False)
+        with annotate("chunk_lstm"):
+            (_, h_t), _ = self.chunk_lstm((zeros, zeros), feats, need_hs=False)
         pooled = h_t.reshape(b * k, -1).float()
         return linear_f32(pooled, self.chunk_proj).reshape(b, k, self.chunk_feature)
 
@@ -183,9 +187,11 @@ class HierVideoVAE(nn.Module):
         zz = torch.cat([zg_rep, z_chunks], dim=-1).reshape(b * k, -1)
         ch = linear_f32(zz, self.z_to_state).reshape(b * k, g, g, 2 * f).to(self.dtype)
         token = linear_f32(zz, self.z_to_token).reshape(b * k, 1, g, g, _TOKEN_CH)
-        _, hs = self.dec_lstm((ch[..., :f], ch[..., f:]), token.to(self.dtype), length=tc)
+        with annotate("dec_lstm"):
+            _, hs = self.dec_lstm((ch[..., :f], ch[..., f:]), token.to(self.dtype), length=tc)
         flat = hs.reshape(b * k * tc, *hs.shape[2:]).permute(0, 3, 1, 2)
-        logits = self.frame_dec(flat)[:, 0]
+        with annotate("frame_dec"):
+            logits = self.frame_dec(flat)[:, 0]
         return logits.reshape(b, k * tc, self.image_size, self.image_size)
 
     def generate(self, seed: int, batch: int, n_chunks: int, *, z_g=None,

@@ -6,6 +6,12 @@ decode: z -> initial (c, h) and a time-constant z-token -> decoder ConvLSTM
 over T steps -> batched frame decoder -> logits (B, T, H, W), float32.
 `fused` goes to both ConvLSTMs (see models/convlstm.py): None runs the
 decoder eagerly, True through K6.  `prior_logits` decodes z ~ N(0, I).
+
+Named regions (`utils.profiling.annotate`), the JAX model's
+`jax.named_scope`s: frame_enc, enc_lstm, latent_head, z_init, dec_lstm,
+frame_dec.  One intended difference: the fused head draws z in the kernel
+that computes mu and logvar, so `latent_head` holds the sample, which the
+JAX model draws outside that scope.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from mmvae_torch.models.base import (
     prior_z,
 )
 from mmvae_torch.models.convlstm import ConvLSTM
+from mmvae_torch.utils.profiling import annotate
 
 
 class ConvLSTMSeqVAE(nn.Module):
@@ -74,7 +81,8 @@ class ConvLSTMSeqVAE(nn.Module):
     def encode_features(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W) -> (B, T, g, g, C) NHWC features."""
         b, t = x.shape[:2]
-        feats = self.frame_enc(x.reshape(b * t, 1, *x.shape[2:]))
+        with annotate("frame_enc"):
+            feats = self.frame_enc(x.reshape(b * t, 1, *x.shape[2:]))
         return feats.permute(0, 2, 3, 1).reshape(b, t, self.grid, self.grid, -1)
 
     def encode_state(self, x: torch.Tensor) -> torch.Tensor:
@@ -83,11 +91,14 @@ class ConvLSTMSeqVAE(nn.Module):
         b = x.shape[0]
         zeros = torch.zeros(b, self.grid, self.grid, self.lstm_features,
                             device=x.device, dtype=self.dtype)
-        (_, h_t), _ = self.enc_lstm((zeros, zeros), feats, need_hs=False)
+        with annotate("enc_lstm"):
+            (_, h_t), _ = self.enc_lstm((zeros, zeros), feats, need_hs=False)
         return h_t
 
     def encode(self, x: torch.Tensor):
-        return self.head(self.encode_state(x))
+        h_t = self.encode_state(x)
+        with annotate("latent_head"):
+            return self.head(h_t)
 
     def _init_decoder(self, z: torch.Tensor):
         b = z.shape[0]
@@ -98,11 +109,14 @@ class ConvLSTMSeqVAE(nn.Module):
 
     def decode(self, z: torch.Tensor, t: int) -> torch.Tensor:
         """z (B, latent) -> logits (B, t, H, W)."""
-        state0, token = self._init_decoder(z)
-        _, hs = self.dec_lstm(state0, token, length=t)  # (B, t, g, g, F)
+        with annotate("z_init"):
+            state0, token = self._init_decoder(z)
+        with annotate("dec_lstm"):
+            _, hs = self.dec_lstm(state0, token, length=t)  # (B, t, g, g, F)
         b = z.shape[0]
         flat = hs.reshape(b * t, *hs.shape[2:]).permute(0, 3, 1, 2)
-        logits = self.frame_dec(flat)[:, 0]
+        with annotate("frame_dec"):
+            logits = self.frame_dec(flat)[:, 0]
         return logits.reshape(b, t, self.image_size, self.image_size)
 
     def prior_logits(self, seed: int, batch: int, seq_len=None, *, z=None) -> torch.Tensor:
@@ -112,7 +126,9 @@ class ConvLSTMSeqVAE(nn.Module):
         return self.decode(prior_z(self, seed, (batch, self.latent_dim), z), seq_len or 20)
 
     def forward(self, x: torch.Tensor, sample_fn: SampleFn) -> VAEOutput:
-        mu, logvar, z = self.head.sample(self.encode_state(x), sample_fn)
+        h_t = self.encode_state(x)
+        with annotate("latent_head"):
+            mu, logvar, z = self.head.sample(h_t, sample_fn)
         logits = self.decode(z, x.shape[1])
         return VAEOutput(
             logits=logits, target=x, mu=mu, logvar=logvar, z=z,

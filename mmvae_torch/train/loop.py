@@ -44,6 +44,7 @@ from mmvae_torch.train import checkpoint as ckpt
 from mmvae_torch.train.metrics import MetricsLogger
 from mmvae_torch.train.state import TrainState, create_train_state
 from mmvae_torch.utils.debug import debug_nans, install_sigterm_checkpoint
+from mmvae_torch.utils.profiling import annotate
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -64,15 +65,18 @@ def make_loss_fn(model, *, binarize: bool):
     )
 
     def loss_fn(data_u8, idx, seed: dispatch.StepSeed, beta=1.0, params=None):
-        x = dispatch.preprocess_gather(
-            data_u8, idx, seed, binarize=binarize, out_dtype=frame_dtype
-        )
+        with annotate("preprocess"):
+            x = dispatch.preprocess_gather(
+                data_u8, idx, seed, binarize=binarize, out_dtype=frame_dtype
+            )
         sample_fn = dispatch.make_sample_fn(seed)
-        if params is None:
-            out = model(x, sample_fn)
-        else:
-            out = torch.func.functional_call(model, params, (x, sample_fn))
-        bce, kl = dispatch.elbo_parts(out.logits, out.target, out.mu, out.logvar)
+        with annotate("model_fwd"):
+            if params is None:
+                out = model(x, sample_fn)
+            else:
+                out = torch.func.functional_call(model, params, (x, sample_fn))
+        with annotate("elbo_reduce"):
+            bce, kl = dispatch.elbo_parts(out.logits, out.target, out.mu, out.logvar)
         b = out.mu.shape[0]
         kl_total = kl + out.extra_kl
         loss = (bce + beta * kl_total) / b

@@ -4,7 +4,9 @@
 `torch.profiler`: CPU activity, and on a machine with a CUDA device the
 card's kernels too.  It writes one Chrome / Perfetto JSON trace into
 `logdir` (open it in ui.perfetto.dev or chrome://tracing; no tensorboard
-package is needed).  `annotate(name)` names a region in that trace.
+package is needed).  `annotate(name)` names a region in that trace: the
+port opens the JAX package's `jax.named_scope` regions under the same names
+at the counterpart sites, and `bench.regions` sums a trace's time by them.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
+
+_NO_REGION = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -34,5 +38,9 @@ def trace(logdir: str):
 
 
 def annotate(name: str):
-    """Named region for profiler attribution: `with annotate('encoder'): ...`."""
-    return record_function(name)
+    """Named region for profiler attribution: `with annotate('encoder'): ...`.
+
+    A `record_function` range while a profiler runs; otherwise nothing but
+    the check (no range is opened, so the train step's host time is that
+    of an unannotated step)."""
+    return record_function(name) if torch.autograd._profiler_enabled() else _NO_REGION

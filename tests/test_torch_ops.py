@@ -88,6 +88,30 @@ def test_elbo_reduce_plain_matches_jax(big, small):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-6)
 
 
+def test_elbo_reduce_grad_at_zero_logits_is_the_kernels():
+    """The BCE gradient at a logit of exactly 0 differs between the
+    reference's two backends, and the port takes the kernel's.  K1's plain
+    backward gives sigmoid(0) - t = 1/2 - t, as `elbo_reduce_pallas`'s VJP
+    does in interpret mode; `elbo_ref`'s autodiff of max(l, 0) - l t +
+    log1p(exp(-|l|)) gives -t there (both kinks' subgradients are 0)."""
+    t = np.array([[0.0, 1.0, 0.0, 1.0]], np.float32)
+    logits = np.zeros_like(t)
+    mu, lv = np.zeros((1, 2), np.float32), np.zeros((1, 2), np.float32)
+    tl = _t(logits).requires_grad_()
+    bce, _ = elbo_kernels.elbo_reduce(tl, _t(t), _t(mu), _t(lv))
+    bce.backward()
+
+    def grad(impl):
+        return np.asarray(jax.grad(lambda l: impl(l, jnp.asarray(t), jnp.asarray(mu),
+                                                  jnp.asarray(lv))[0])(jnp.asarray(logits)))
+
+    kernel = grad(lambda *a: elbo_reduce_pallas(*a, interpret=True))
+    autodiff = grad(jref.elbo_parts_ref)
+    np.testing.assert_array_equal(tl.grad.numpy(), [[0.5, -0.5, 0.5, -0.5]])
+    np.testing.assert_array_equal(kernel, [[0.5, -0.5, 0.5, -0.5]])
+    np.testing.assert_array_equal(autodiff, [[0.0, -1.0, 0.0, -1.0]])
+
+
 def test_elbo_reduce_bf16_target_grad_dtype():
     """The binarized bf16 target of the main path: values and d_logits."""
     rng = np.random.default_rng(1)
