@@ -2,7 +2,8 @@
 """On-card smoke of the PyTorch / CUDA port: every config training, through
 the bench and through the training loop (`fit`), then sampling and the CLI,
 then data-parallel training, then K train steps a call in one CUDA graph,
-then the per-region device budget of a step.
+then the per-region device budget of a step, then the first 2,000 steps of
+config 3's convergence protocol at eight seeds against the reference's curve.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -135,7 +136,18 @@ Phases, each raising on failure (the script catches nothing):
    where fused, their backward and weight GEMM in those regions'
    backward); each path's budget printed; then `annotate`'s cost with no
    profiler running and configs 1 and 3's K = 1 step ms from phase 8
-   beside those measured before the regions.
+   beside those measured before the regions;
+10. trained quality (`mmvae_torch.bench.quality`): config 3 default's
+   convergence protocol (`seq_vae_default`: the full 10,000-clip set, K =
+   10, a log line every 200 steps, an eval of 4 val batches every 1,000)
+   cut to 2,000 steps, at train.seed 0-7, with the launch counters set to
+   0 just before the first run and read just after the last and held to
+   their equations; every logged loss finite, each run's val_loss at 2,000
+   below its val_loss at 1,000 and its reconstruction of 256 val clips
+   under the base rate, and the eight runs' mean val_loss at 2,000 within
+   5 % of the reference's 5990.1 (`docs/assets/seq_vae_r5_default_loss.csv`,
+   one run); each seed's own gap printed (one seed's spread is as wide as
+   the band); the phase's seconds printed.
    No jax imported.
 The last three lines are the card, the kernels' JSON line (`launches`: the
 count from the kernel's own path, config 3 for K1, K3, K5 and the head,
@@ -148,6 +160,7 @@ the forwards' rows at the sampling shapes), and {"ok": true, "device":
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -1803,10 +1816,11 @@ _DP_PATHS = (
 # Rel L2, a tensor at a time, of the mean of a batch's two halves' gradients
 # to the whole batch's, each stepped in one process on the card.  In bf16
 # the split changes the batch every bf16 op sees, and with it the
-# roundings: config 3's eager decoder has autograd add the 20 per-step
-# gradients of its time-constant token and of its weights in bf16 (unit
-# roundoff 2^-9).  So the kernels' route is held to `_DP_BF16_FACTOR` times
-# the gap of the same bf16 model on the plain route (`_plain_route`), on
+# roundings (unit roundoff 2^-9): each bf16 conv's output and gradients,
+# such as the 20 per-step gradients of config 3's eager decoder, rounded
+# before their f32 sum.  So the kernels' route is held to `_DP_BF16_FACTOR`
+# times the gap of the same bf16 model on the plain route
+# (`kernel_checks.plain_route`), on
 # the same inputs in the same run; config 3 on the plain route in f32 (f32
 # gates, TF32 off), where only the order of f32 sums differs, to
 # `_DP_F32_PLAIN_LIMIT`.  Config 5 fused computes its heads, its prior and
@@ -1883,43 +1897,6 @@ def _grad_step(cfg, dev, u8, eps, sync=None) -> tuple:
     finally:
         dispatch.make_sample_fn = real
     return grads, float(metrics["loss"])
-
-
-def _plain_route():
-    """A context in which every kernel wrapper's CUDA branch runs its plain
-    version on the card: the model's own ops with no kernel of the repo
-    (and no launch counted).  The witness of the data-parallel gradient
-    limits."""
-    import contextlib
-
-    from mmvae_torch.ops import convlstm_kernels as ck
-    from mmvae_torch.ops import elbo_kernels as ek
-    from mmvae_torch.ops import head_kernels as hk
-    from mmvae_torch.ops import preprocess_kernels as pk
-
-    swaps = ((ck, "proj_forward_cuda", ck.proj_forward_plain),
-             (ck, "proj_backward_cuda", ck.proj_backward_plain),
-             (ck, "scan_forward_cuda", ck.scan_forward_plain),
-             (ck, "scan_backward_cuda", ck.scan_backward_plain),
-             (hk, "head_sample_forward_cuda", hk.head_sample_forward_plain),
-             (hk, "head_sample_backward_cuda", hk.head_sample_backward_plain),
-             (ek, "_elbo_reduce_cuda", ek.elbo_reduce_plain),
-             (pk, "_preprocess_gather_cuda",
-              lambda data, idx, seed, binarize, out_dtype: pk.preprocess_gather_plain(
-                  data, idx, seed, binarize=binarize, out_dtype=out_dtype)))
-
-    @contextlib.contextmanager
-    def route():
-        kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-        try:
-            for mod, name, plain in swaps:
-                setattr(mod, name, plain)
-            yield
-        finally:
-            for mod, name, fn in kept:
-                setattr(mod, name, fn)
-
-    return route()
 
 
 def _split_gap(cfg, dev, u8, eps) -> tuple:
@@ -2071,6 +2048,7 @@ def phase_dp(card: str, dev, workdir: str) -> dict:
 
     from mmvae_torch import cli
     from mmvae_torch.configs import get_config
+    from mmvae_torch.ops.kernel_checks import plain_route
     from mmvae_torch.train.loop import evaluate
 
     backend, device = _dp_backend()
@@ -2089,7 +2067,7 @@ def phase_dp(card: str, dev, workdir: str) -> dict:
         tag = _tag(name, overrides)
         cfg, u8, eps = _dp_inputs(name, overrides)
         refs[tag] = _split_gap(cfg, dev, u8, eps)
-        with _plain_route():
+        with plain_route():
             witness[tag] = {
                 dt: _split_gap(get_config(name, overrides + more), dev, u8, eps)[2]
                 for dt, more in (("bf16", ()), ("f32", ("model.dtype=float32",
@@ -2760,6 +2738,81 @@ def phase_regions(card: str, dev, timed_rows) -> dict:
     return out
 
 
+_QUALITY = "seq_vae_default"
+_QUALITY_STEPS = 2000
+_QUALITY_SEEDS = tuple(range(8))
+_QUALITY_BAND = 0.05
+
+
+def phase_quality(card: str) -> dict:
+    """Config 3 default's convergence protocol (`mmvae_torch.bench.quality`)
+    cut to its first 2,000 steps on the card, at train.seed 0-7: the full
+    10,000-clip set, K = 10, logging every 200 steps, an eval of 4 val
+    batches every 1,000, then each trained model's reconstruction of 256
+    val clips; the launch counters set to 0 just before the first run and
+    read just after the last, held to the path's equations (each run's
+    2,000 train steps, 8 eval batches, and the reconstruction's head forward
+    and K5 forward without residuals).  Every logged loss finite, each
+    run's val_loss at 2,000 below its val_loss at 1,000, and their mean at
+    2,000 within `_QUALITY_BAND` of the reference's one run
+    (`docs/assets/seq_vae_r5_default_loss.csv`).  The mean, because one
+    run is a draw as wide as the band: the eight seeds' val_loss at 2,000
+    has a standard deviation of 4.7 % of the reference's number on the
+    card, and each seed's own gap is printed beside the mean's.  Returns
+    {path: its launch counts}."""
+    import tempfile
+
+    from mmvae_torch import ops
+    from mmvae_torch.bench import quality
+
+    tag = f"quality {_QUALITY} {_QUALITY_STEPS} steps, seeds {list(_QUALITY_SEEDS)}"
+    protocol = quality.PROTOCOLS[_QUALITY]
+    number = next(n for n in protocol.printed if n.column == "val_loss" and n.hi == _QUALITY_STEPS)
+    print(f"[quality] {tag}: the protocol's config and cadences, on {card}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as out:
+        dirs = [os.path.join(out, f"seed{seed}") for seed in _QUALITY_SEEDS]
+        ops.reset_launch_counts()
+        results = [quality.run(_QUALITY, seed=seed, steps=_QUALITY_STEPS, out=d, device="cuda",
+                               print_fn=lambda *a: None)
+                   for seed, d in zip(_QUALITY_SEEDS, dirs)]
+        counts = ops.launch_counts()
+        csvs = [os.path.join(d, "metrics.csv") for d in dirs]
+        runs = [quality.read_rows(c) for c in csvs]
+        held = quality.compare_runs(csvs, [dataclasses.replace(number, band=_QUALITY_BAND)])
+    n = len(_QUALITY_SEEDS)
+    want = _step_counts(n * _QUALITY_STEPS, n * 2 * quality.EVAL_BATCHES)
+    want["head_sample_forward"] += n
+    want["convlstm_proj_forward"] += n
+    _require(all(counts[k] == want.get(k, 0) for k in counts),
+             f"{tag}: launches {counts}, expected {want} (others 0)")
+    for seed, res, rows in zip(_QUALITY_SEEDS, results, runs):
+        _require(res["losses_finite"] and all(math.isfinite(float(r[c])) for r in rows
+                                              for c in ("loss", "bce", "kl") if r.get(c)),
+                 f"{tag}: seed {seed}: a non-finite loss in {rows}")
+        val = {int(r["step"]): float(r["val_loss"]) for r in rows if r.get("val_loss")}
+        fid = res["fidelity"]
+        alone = val[_QUALITY_STEPS] / number.ref - 1.0
+        print(f"[quality] seed {seed}: val_loss at 1000 {val.get(1000)}, at {_QUALITY_STEPS} "
+              f"{val.get(_QUALITY_STEPS)} ({100 * alone:+.2f} % against the reference's, "
+              f"{'inside' if abs(alone) <= _QUALITY_BAND else 'outside'} the band alone); fit {res['fit_frames_per_sec']:.1f} frames/s over "
+              f"the run ({res['wall_s']:.1f} s, capture and evals included); reconstruction "
+              f"BCE/px {fid['bce_per_pixel']:.4f} against the base rate's "
+              f"{fid['base_rate_bce_per_pixel']:.4f}")
+        _require(val[_QUALITY_STEPS] < val[1000],
+                 f"{tag}: seed {seed}: val_loss did not fall from step 1000 to "
+                 f"{_QUALITY_STEPS}: {val}")
+        _require(fid["under_base_rate"], f"{tag}: seed {seed}: reconstruction {fid} not "
+                 "under the base rate")
+    print(f"[quality] {tag}: launches {counts}")
+    gap = held["numbers"][0].get("gap")
+    if gap is not None:
+        print(f"[quality] the mean's gap {100 * gap:+.2f} % leaves "
+              f"{100 * (_QUALITY_BAND - abs(gap)):.2f} points of the band")
+    _require(held["ok"], f"{tag}: the mean val_loss at {_QUALITY_STEPS} {held['numbers']} is "
+             f"not within {_QUALITY_BAND} of the reference's {number.ref}")
+    return {tag: counts}
+
+
 def _own_path(kernel: str):
     """The first slice whose path launches `kernel`: config 3 (the main
     path) for K1, K3, K5 and the head, config 4 fused for K6; None for the
@@ -2800,6 +2853,9 @@ def main() -> int:
     t1 = time.perf_counter()
     by_path.update(phase_regions(card, dev, timed_rows))
     print(f"[regions] the regions phase took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    by_path.update(phase_quality(card))
+    print(f"[quality] the quality phase took {time.perf_counter() - t1:.1f} s")
     _require("jax" not in sys.modules and "mmvae_tpu" not in sys.modules,
              "jax or mmvae_tpu was imported")
     kernels = []

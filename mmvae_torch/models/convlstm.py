@@ -89,7 +89,10 @@ class ConvLSTM(nn.Module):
         return w.permute(3, 2, 0, 1) if self.proj else w
 
     def _step(self, xg_t, c, h, w_h):
-        hg = F.conv2d(h.to(self.dtype), w_h, padding=self.kernel // 2)
+        # w_h and a time-constant xg_t come in f32 and are cast in each step,
+        # as flax's scanned conv casts its kernel: autograd sums their
+        # per-step gradients in f32, as JAX's scan does
+        hg = F.conv2d(h.to(self.dtype), w_h.to(self.dtype), padding=self.kernel // 2)
         return _gate_math(
             xg_t.to(self.gate_dtype) + hg.to(self.gate_dtype), c, h.dtype,
             compute_dtype=self.gate_dtype,
@@ -129,12 +132,14 @@ class ConvLSTM(nn.Module):
             return convlstm_scan(xg, w_hwio.to(dt), c0.to(dt), h0.to(dt), length=t,
                                  gate_dtype=self.gate_dtype, last_only=not need_hs)
 
-        w_h = self._hidden_oihw().to(dt)
+        w_h = self._hidden_oihw()
+        # a time-constant drive: one f32 copy for all T steps (see _step)
+        x0 = xg[:, 0].permute(0, 3, 1, 2).float() if t_in == 1 else None
         c = c0.permute(0, 3, 1, 2)
         h = h0.permute(0, 3, 1, 2)
         hs = []
         for s in range(t):
-            xg_t = (xg[:, 0] if t_in == 1 else xg[:, s]).permute(0, 3, 1, 2)
+            xg_t = x0 if x0 is not None else xg[:, s].permute(0, 3, 1, 2)
             if self.remat and torch.is_grad_enabled():
                 # the step draws nothing from torch's RNG: no RNG state to
                 # save and restore (which a CUDA graph capture would refuse)

@@ -25,10 +25,15 @@ operands to bf16, the one activation dtype the kernels take:
   The limit sits between the kernel's readings and those of the same
   products with their operands rounded to TF32 (`head_tf32_control`),
   which a 1xTF32 kernel would show, so a kernel that left f32 fails it.
+
+`plain_route()` swaps every wrapper's CUDA branch for its plain version,
+so a run on the card takes the model's own ops with no kernel of the repo:
+the witness for a result of the kernels' route.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import List, NamedTuple
@@ -36,7 +41,34 @@ from typing import List, NamedTuple
 import torch
 
 from mmvae_torch.ops import convlstm_kernels as ck
+from mmvae_torch.ops import elbo_kernels as ek
 from mmvae_torch.ops import head_kernels as hk
+from mmvae_torch.ops import preprocess_kernels as pk
+
+
+@contextlib.contextmanager
+def plain_route():
+    """A context in which every kernel wrapper's CUDA branch runs its plain
+    version on the card (and counts no launch); the wrappers are restored
+    on exit."""
+    swaps = ((ck, "proj_forward_cuda", ck.proj_forward_plain),
+             (ck, "proj_backward_cuda", ck.proj_backward_plain),
+             (ck, "scan_forward_cuda", ck.scan_forward_plain),
+             (ck, "scan_backward_cuda", ck.scan_backward_plain),
+             (hk, "head_sample_forward_cuda", hk.head_sample_forward_plain),
+             (hk, "head_sample_backward_cuda", hk.head_sample_backward_plain),
+             (ek, "_elbo_reduce_cuda", ek.elbo_reduce_plain),
+             (pk, "_preprocess_gather_cuda",
+              lambda data, idx, seed, binarize, out_dtype: pk.preprocess_gather_plain(
+                  data, idx, seed, binarize=binarize, out_dtype=out_dtype)))
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, plain in swaps:
+            setattr(mod, name, plain)
+        yield
+    finally:
+        for mod, name, fn in kept:
+            setattr(mod, name, fn)
 
 CS_RTOL = 2.0 ** -6  # K6's cs bound with bf16 gates: 0.05 + CS_RTOL |ref|
 BF16_ATOL = 0.05

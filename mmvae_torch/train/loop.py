@@ -574,10 +574,12 @@ def _data_parallel(cfg, dev) -> Tuple[torch.device, Optional[pmesh.GradSync]]:
     return dev, sync
 
 
-def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainState, List[dict]]:
+def fit(cfg, *, max_steps: Optional[int] = None, device="cuda",
+        init: Optional[Dict[str, torch.Tensor]] = None) -> Tuple[TrainState, List[dict]]:
     """Train `cfg` for `max_steps` (default `train.steps`) on `device` (the
     card unless the caller names the CPU); returns (state, history), the
-    history one dict a logged line.
+    history one dict a logged line.  `init` (a state_dict) replaces the
+    seeded initial parameters.
 
     Data: clips generated on the card every step (`data.on_device_generate`),
     the train split resident on the card (`data.device_resident`, by default
@@ -616,6 +618,8 @@ def fit(cfg, *, max_steps: Optional[int] = None, device="cuda") -> Tuple[TrainSt
     lead = rank == 0
     steps = max_steps or cfg.train.steps
     model = build_model(cfg, dev)
+    if init is not None:
+        model.load_state_dict(init)
     ongen = cfg.data.on_device_generate
     sprite_bank = load_sprite_bank(cfg.data.sprite_bank) if cfg.data.sprite_bank else None
     dataset = _load_split(cfg, sprite_bank, rank=rank, world=world)
