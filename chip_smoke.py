@@ -3,7 +3,9 @@
 the bench and through the training loop (`fit`), then sampling and the CLI,
 then data-parallel training, then K train steps a call in one CUDA graph,
 then the per-region device budget of a step, then the first 2,000 steps of
-config 3's convergence protocol at eight seeds against the reference's curve.
+config 3's convergence protocol at eight seeds against the reference's curve,
+then the ConvLSTM kernels at F = 160-256 and the reference's
+lstm_features=192 probe.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -147,14 +149,31 @@ Phases, each raising on failure (the script catches nothing):
    under the base rate, and the eight runs' mean val_loss at 2,000 within
    5 % of the reference's 5990.1 (`docs/assets/seq_vae_r5_default_loss.csv`,
    one run); each seed's own gap printed (one seed's spread is as wide as
-   the band); the phase's seconds printed.
+   the band); the phase's seconds printed;
+11. the 4-CTA widths and the probe (`phase_wide`): K5 (saving and
+   residual-free forwards, backward) and K6 (save, "hs" and "last";
+   time-constant and streaming xg; both backward modes) at F = 160, 192,
+   224 and 256, B = 64, T = 20, 8x8, C = 128, both gate dtypes, against
+   their plain versions at phase 3's readings (`kernel_checks`), each
+   backward twice bit-identical at F = 192 and 256, each kernel timed
+   beside its plain version and its bound; then the reference's
+   architecture probe (`docs/RESULTS.md:56`: the recipe with
+   lstm_features=192): its model with the default and the fused decoder
+   card against CPU (`check_model`), `fit` at K = 10 (200 steps, an eval
+   pass raw and under the EMA; finite, falling loss; K5 at F = 192 in its
+   launch equations) and with fused=true at K = 1 (20 steps, K6
+   launched), `python -m mmvae_torch train` (20 steps, its checkpoint
+   written), `run_benchmark` at K = 1 and 10, and sampling (prior and
+   reconstruct) card against CPU with its frames/s; the launch counters
+   set to 0 just before each run and read just after.
    No jax imported.
 The last three lines are the card, the kernels' JSON line (`launches`: the
 count from the kernel's own path, config 3 for K1, K3, K5 and the head,
 config 4 for K6, 0 for the standalone K2; `launches_by_path`: each path's
 run, the fit, sampling, CLI, data-parallel and steps_per_call runs'
 included; `sampling`:
-the forwards' rows at the sampling shapes), and {"ok": true, "device":
+the forwards' rows at the sampling shapes; `wide`: K5's and K6's rows at F
+= 160-256), and {"ok": true, "device":
 {...}}.  Exits non-zero with no result when CUDA is not available.
 """
 
@@ -262,10 +281,14 @@ def phase_build() -> None:
 
     lib = _build.library()
     print(f"[build] {lib.path.name} in {lib.build_seconds:.1f} s")
-    serialized = []
+    serialized, entry = [], ""
     for line in lib.log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
         if "registers" in line or "spill" in line or "warning" in line.lower():
             print(f"[build] {line.strip()}")
+        if "spill" in line and " 0 bytes spill stores" not in line:
+            print(f"[build] the spills above are {entry}'s")
         if "C7513" in line or "C7520" in line:
             serialized.append(line.strip())
     _require(not serialized, f"ptxas serialized wgmma in {len(serialized)} places")
@@ -2813,6 +2836,188 @@ def phase_quality(card: str) -> dict:
     return {tag: counts}
 
 
+# --- phase 11: the 4-CTA widths and the lstm_features=192 probe ---------------
+
+_WIDE_F = (160, 192, 224, 256)
+# The reference's architecture probe (docs/RESULTS.md:56): the recipe with
+# lstm_features=192, K5 at F = 192 in its encoder; with fused=true its
+# decoder runs K6 at F = 192 with a time-constant xg.
+_PROBE = _RECIPE + ("model.kwargs.lstm_features=192",)
+_PROBE_FUSED = _PROBE + _FUSED
+_PROBE_FIT_STEPS, _PROBE_FUSED_STEPS, _PROBE_CLI_STEPS = 200, 20, 20
+
+
+def check_wide_kernels(dev) -> dict:
+    """K5 and K6 at F = 160-256 (B = 64, T = 20, 8x8, K5's C = 128), both
+    gate dtypes: K5's saving and residual-free forwards and its backward,
+    K6's three forward modes and both backward modes with a time-constant
+    and a streaming xg, through `kernel_checks` at its F = 128 readings;
+    each backward twice bit-identical at F = 192 and 256; then each
+    kernel's time (bf16 gates; K6 time-constant, per-step dhs) beside its
+    plain version's and its bound.  Returns {wrapper: {"F=f": row}}."""
+    import torch
+
+    from mmvae_torch.ops import convlstm_kernels as ck
+    from mmvae_torch.ops import kernel_checks as kc
+
+    rows = {name: {} for name in (*_K5, *_K6)}
+    for f in _WIDE_F:
+        k5, k6 = (64, 20, 8, 8, 128, f), (64, 20, 8, 8, f)
+        err = dict.fromkeys(rows, 0.0)
+        for gdt in (torch.float32, torch.bfloat16):
+            cmp = kc.compare_proj(dev, k5, gdt)
+            print(f"[wide] convlstm_proj {k5} bf16, gates {gdt}: {cmp.text()}")
+            cmp.check(f"convlstm_proj {k5} gates {gdt}")
+            err["convlstm_proj_forward"] = max(err["convlstm_proj_forward"], cmp.fwd_err)
+            err["convlstm_proj_backward"] = max(err["convlstm_proj_backward"], cmp.bwd_err)
+            for const in (True, False):
+                cmp = kc.compare_scan(dev, k6, const, gdt)
+                tag = f"{k6} {'const' if const else 'streaming'}"
+                print(f"[wide] convlstm_scan {tag} bf16, gates {gdt}: {cmp.text()}")
+                cmp.check(f"convlstm_scan {tag} gates {gdt}")
+                err["convlstm_scan_forward"] = max(err["convlstm_scan_forward"], cmp.fwd_err)
+                err["convlstm_scan_backward"] = max(err["convlstm_scan_backward"], cmp.bwd_err)
+        if f in (192, 256):
+            same = kc.proj_backward_repeatable(dev, k5)
+            for const in (True, False):
+                same.update({f"K6 {'const' if const else 'streaming'} {n}": v for n, v in
+                             kc.scan_backward_repeatable(dev, k6, const).items()})
+            _require(all(same.values()), f"backward at F={f} differs between two calls: {same}")
+            print(f"[wide] F={f}: two calls of each backward on the same inputs give "
+                  f"bit-identical {', '.join(same)}")
+        x, wx, bx, w, c0, h0 = kc.proj_inputs(dev, *k5, seed=6)
+        res = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True)
+        dh = torch.randn(c0.shape, device=dev)
+        xg, wh, sc0, sh0 = kc.scan_inputs(dev, 64, 1, 8, 8, f, seed=10)
+        sres = ck.scan_forward_cuda(xg, wh, sc0, sh0, 20, torch.bfloat16, "save")
+        dhs = torch.randn(sres[0].shape, device=dev)
+        calls = {
+            "convlstm_proj_forward": (
+                k5, lambda: ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True),
+                lambda: ck.proj_forward_plain(x, wx, bx, w, c0, h0, torch.bfloat16, True)),
+            "convlstm_proj_backward": (
+                k5, lambda: ck.proj_backward_cuda(x, wx, w, c0, h0, *res, dh, dh),
+                lambda: ck.proj_backward_plain(x, wx, w, c0, h0, *res, dh, dh)),
+            "convlstm_scan_forward": (
+                (*k6, True), lambda: ck.scan_forward_cuda(xg, wh, sc0, sh0, 20, torch.bfloat16,
+                                                          "save"),
+                lambda: ck.scan_forward_plain(xg, wh, sc0, sh0, 20, torch.bfloat16, "save")),
+            "convlstm_scan_backward": (
+                (*k6, True), lambda: ck.scan_backward_cuda(wh, sc0, sh0, *sres, dhs, dhs[:, -1],
+                                                           True, False),
+                lambda: ck.scan_backward_plain(wh, sc0, sh0, *sres, dhs, dhs[:, -1], True,
+                                               False)),
+        }
+        for name, (key, kern, plain) in calls.items():
+            ms, plain_ms = _time_ms(kern, 5), _time_ms(plain, 3)
+            b_ms, by = _bound(name, key)
+            rows[name][f"F={f}"] = {"shape": list(key), "max_abs_err": err[name], "ms": ms,
+                                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
+            print(f"[wide] {name} {key}, bf16 gates: {ms:.3f} ms, {_share(ms, name, key)}, "
+                  f"vs plain {plain_ms:.3f} ms; library: none (no one PyTorch call runs the "
+                  f"recurrence)")
+        del res, sres
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _probe_cfg(overrides, *more):
+    """The probe's config at full width in one process: config 3's batch,
+    clip length and widths but lstm_features=192."""
+    from mmvae_torch.configs import get_config
+
+    cfg = get_config("seq_vae", ("train.data_parallel=false", *overrides, *more))
+    base = get_config("seq_vae")
+    kw, base_kw = _model_kwargs(cfg), _model_kwargs(base)
+    _require(cfg.data.batch_size == base.data.batch_size and cfg.data.seq_len == base.data.seq_len
+             and cfg.model.dtype == base.model.dtype and kw["lstm_features"] == 192
+             and all(kw[k] == base_kw[k] for k in ("enc_channels", "latent_dim", "image_size")),
+             "the probe is not config 3 at full width with lstm_features=192")
+    return cfg
+
+
+def phase_wide(card: str, dev, workdir: str) -> tuple:
+    """K5 and K6 at the 4-CTA widths against their plain versions, then the
+    probe: its model (default decoder and fused=true) card with kernels
+    against CPU with plain versions; `fit` at K = 10 (200
+    steps, one eval pass raw and under the EMA: finite, falling loss, K5 at
+    F = 192 in its launch equations) and with fused=true at K = 1 (K6
+    launched); `python -m mmvae_torch train` at K = 1; `run_benchmark` at K
+    = 1 and 10 (frames/s, step and busy ms, idle share, MFU); sampling
+    (prior and reconstruct) card against CPU and its frames/s.  Returns
+    ({wrapper: wide rows}, {path: launch counts})."""
+    import torch
+
+    from mmvae_torch import ops
+    from mmvae_torch.bench.throughput import run_benchmark
+
+    t0 = time.perf_counter()
+    rows = check_wide_kernels(dev)
+    t1 = time.perf_counter()
+    check_model(dev, "seq_vae", 4, _PROBE)
+    check_model(dev, "seq_vae", 4, _PROBE_FUSED)
+    t2 = time.perf_counter()
+    out = {}
+    cadence = ("train.eval_batches=2",) + _CUT
+    for tag, overrides, steps, k in (
+            ("fit probe K=10", _PROBE, _PROBE_FIT_STEPS, 10),
+            ("fit probe fused", _PROBE_FUSED, _PROBE_FUSED_STEPS, 1)):
+        cfg = _probe_cfg(overrides, *cadence, f"train.eval_every={steps}",
+                         f"train.log_every={steps // 4}", f"train.steps_per_call={k}")
+        want = _step_counts(steps, 2 * 2, k6=overrides == _PROBE_FUSED)
+        _, history, counts = _fit(card, tag, cfg, steps, want, dev)
+        _require(history[-1]["loss"] < history[0]["loss"],
+                 f"{tag}: loss did not fall: {[round(h['loss'], 1) for h in history]}")
+        _require(all(math.isfinite(history[-1].get(c, math.nan))
+                     for c in ("val_loss", "val_loss_ema")), f"{tag}: {history[-1]}")
+        print(f"[wide] {tag}: loss {history[0]['loss']:.2f} at step {history[0]['step']} -> "
+              f"{history[-1]['loss']:.2f} at {history[-1]['step']}, val_loss "
+              f"{history[-1]['val_loss']:.2f}, val_loss_ema {history[-1]['val_loss_ema']:.2f}")
+        out[tag] = counts
+    t3 = time.perf_counter()
+    ck_dir = os.path.join(workdir, "probe_ckpt")
+    sets = [a for ov in (*_PROBE, *cadence, f"train.eval_every={_PROBE_CLI_STEPS}",
+                         f"train.log_every={_PROBE_CLI_STEPS // 2}",
+                         f"train.checkpoint_dir={ck_dir}") for a in ("--set", ov)]
+    ops.reset_launch_counts()
+    rc, _ = _cli(["train", "--config", "seq_vae", "--steps", str(_PROBE_CLI_STEPS), *sets])
+    counts = ops.launch_counts()
+    want = _step_counts(_PROBE_CLI_STEPS, 2 * 2)
+    _require(rc == 0 and all(counts[k] == want.get(k, 0) for k in counts),
+             f"cli train probe: rc {rc}, launches {counts}, expected {want}")
+    _require(os.path.isdir(ck_dir) and os.listdir(ck_dir), f"cli train probe: no checkpoint "
+                                                           f"in {ck_dir}")
+    print(f"[wide] python -m mmvae_torch train --config seq_vae --steps {_PROBE_CLI_STEPS} "
+          f"{' '.join(sets)}: rc 0, launches {counts}")
+    out["cli train probe"] = counts
+    t4 = time.perf_counter()
+    timing = []
+    for k in (1, 10):
+        cfg = _chunk_cfg("seq_vae", _PROBE, k)
+        tag = f"bench probe K={k}"
+        ops.reset_launch_counts()
+        res = run_benchmark(cfg, steps=20, warmup=10, device_profile=True)
+        out[tag] = ops.launch_counts()
+        losses = res.pop("losses")
+        _require(all(math.isfinite(v) for v in losses), f"{tag}: a non-finite loss")
+        _require(out[tag]["convlstm_proj_forward"] > 0 and out[tag]["convlstm_scan_forward"] == 0,
+                 f"{tag}: launches {out[tag]}")
+        row = {"path": _tag("seq_vae", _PROBE), "steps_per_call": k,
+               **{key: res[key] for key in (
+                   "value", "value_min", "value_max", "step_ms", "device_busy_ms",
+                   "idle_share", "kernels_per_step", "host_launches_per_step",
+                   "flops_per_step", "tflops_per_sec_chip", "mfu", "card")}}
+        timing.append(row)
+        print(f"[wide] timing {json.dumps(row)}")
+        torch.cuda.empty_cache()
+    t5 = time.perf_counter()
+    out.update(check_sampling(card, dev, "seq_vae", _PROBE, ("prior", "reconstruct")))
+    t6 = time.perf_counter()
+    print(f"[wide] seconds: kernels {t1 - t0:.1f}, models {t2 - t1:.1f}, fit {t3 - t2:.1f}, "
+          f"cli {t4 - t3:.1f}, bench {t5 - t4:.1f}, sampling {t6 - t5:.1f}; on {card}")
+    return rows, out
+
+
 def _own_path(kernel: str):
     """The first slice whose path launches `kernel`: config 3 (the main
     path) for K1, K3, K5 and the head, config 4 fused for K6; None for the
@@ -2856,6 +3061,11 @@ def main() -> int:
     t1 = time.perf_counter()
     by_path.update(phase_quality(card))
     print(f"[quality] the quality phase took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as workdir:
+        wide_rows, wide_paths = phase_wide(card, dev, workdir)
+    by_path.update(wide_paths)
+    print(f"[wide] the wide phase took {time.perf_counter() - t1:.1f} s")
     _require("jax" not in sys.modules and "mmvae_tpu" not in sys.modules,
              "jax or mmvae_tpu was imported")
     kernels = []
@@ -2867,6 +3077,8 @@ def main() -> int:
                **checks[name]}
         if name in sampling_rows:
             row["sampling"] = sampling_rows[name]
+        if name in wide_rows:
+            row["wide"] = wide_rows[name]
         kernels.append(row)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

@@ -1,0 +1,154 @@
+// Host launchers of K5 and K6 (the kernels of convlstm_wgmma.cuh) and their
+// dispatch over a list of compile-time widths F.  convlstm_proj.cu and
+// convlstm_scan.cu instantiate them for the 2-CTA widths (F <= 128) and hold
+// the library's entry points; convlstm_proj_wide.cu and convlstm_scan_wide.cu
+// instantiate them for the 4-CTA widths (F in (128, 256]), which the entry
+// points hand on, so that the four sources compile in parallel.
+#pragma once
+
+#include "convlstm_wgmma.cuh"
+
+namespace mmvae {
+
+// The arguments of the library's entry points, as the wrappers pass them.
+struct ProjFwdArgs {
+  const void *x, *wpk, *bx, *c0, *h0;
+  void *oh, *oc, *og;
+  int B, Tn, H, W, C, F, gate_dtype, save;
+  cudaStream_t stream;
+};
+struct ProjBwdArgs {
+  const void *wtpk, *wxpk, *c0, *cs, *ga, *dhl, *dcl;
+  void *dG, *dx, *dbx_part, *dbx_out, *dc0, *dh0;
+  int B, Tn, H, W, C, F;
+  cudaStream_t stream;
+};
+struct ScanFwdArgs {
+  const void *xg, *wpk, *c0, *h0;
+  void *oh, *oc, *og;
+  int B, Tn, xg_steps, H, W, F, gate_dtype, mode;
+  cudaStream_t stream;
+};
+struct ScanBwdArgs {
+  const void *wtpk, *c0, *cs, *ga, *dhs, *dcl;
+  void *dG, *dxg, *dxs, *dc0, *dh0;
+  int B, Tn, H, W, F, const_x, last_only;
+  cudaStream_t stream;
+};
+
+// The 4-CTA widths (convlstm_proj_wide.cu, convlstm_scan_wide.cu).
+int proj_fwd_wide(const ProjFwdArgs& a);
+int proj_bwd_wide(const ProjBwdArgs& a);
+int scan_fwd_wide(const ScanFwdArgs& a);
+int scan_bwd_wide(const ScanBwdArgs& a);
+
+namespace {
+
+template <typename G, bool SAVE, int F>
+cudaError_t launch_fwd(ProjFwdArgs a) {
+  const FwdSmem L = fwd_smem_layout(a.C, F);
+  if (L.stages < MIN_STAGES) return cudaErrorInvalidValue;
+  int xg_steps = 0;
+  void* args[] = {&a.x,  &a.wpk, &a.bx, &a.c0, &a.h0, &a.oh, &a.oc,
+                  &a.og, &a.Tn,  &a.H,  &a.W,  &a.C,  &xg_steps};
+  return cluster_launch((const void*)rec_fwd_wgmma_kernel<G, SAVE ? kSave : kLast, F, false>,
+                        rec_cluster(F) * a.B, rec_threads(F), L.total, a.stream, args,
+                        rec_cluster(F));
+}
+
+template <int F>
+cudaError_t launch_bwd(ProjBwdArgs a) {
+  const BwdSmem L = bwd_smem_layout(F);
+  if (L.stages < MIN_STAGES) return cudaErrorInvalidValue;
+  void* none = nullptr;
+  int last_only = 1;
+  void* args[] = {&a.wtpk,     &a.wxpk, &a.c0,  &a.cs,  &a.ga, &a.dhl, &a.dcl,
+                  &a.dG,       &a.dx,   &a.dbx_part, &none, &none, &a.dc0, &a.dh0,
+                  &a.Tn,       &a.H,    &a.W,   &a.C,   &last_only};
+  cudaError_t err = cluster_launch((const void*)rec_bwd_wgmma_kernel<F, true>,
+                                   rec_cluster(F) * a.B, BWD_THREADS, L.total, a.stream, args,
+                                   rec_cluster(F));
+  if (err != cudaSuccess) return err;
+  // dbx: the per-sample partials summed in sample order.
+  reduce_splits_kernel<<<(4 * F + 255) / 256, 256, 0, a.stream>>>(
+      (const float*)a.dbx_part, (float*)a.dbx_out, a.B, 4 * F);
+  return cudaGetLastError();
+}
+
+template <typename G, int MODE, int F>
+cudaError_t launch_scan_fwd(ScanFwdArgs a) {
+  const FwdSmem L = fwd_smem_layout(0, F, false);
+  if (L.stages < MIN_STAGES) return cudaErrorInvalidValue;
+  const void* bx = nullptr;
+  int C = 0;
+  void* args[] = {&a.xg, &a.wpk, &bx,  &a.c0, &a.h0, &a.oh, &a.oc,
+                  &a.og, &a.Tn,  &a.H, &a.W,  &C,    &a.xg_steps};
+  return cluster_launch((const void*)rec_fwd_wgmma_kernel<G, MODE, F, true>,
+                        rec_cluster(F) * a.B, rec_threads(F), L.total, a.stream, args,
+                        rec_cluster(F));
+}
+
+template <int F>
+cudaError_t launch_scan_bwd(ScanBwdArgs a) {
+  const BwdSmem L = scan_bwd_smem_layout(F, a.const_x);
+  if (L.stages < scan_bwd_min_stages(F, a.const_x)) return cudaErrorInvalidValue;
+  if (a.const_x && !scan_sum_in_smem(F, true) && a.dxs == nullptr) return cudaErrorInvalidValue;
+  const void* none = nullptr;
+  void* no_out = nullptr;
+  void* dxg_sum = a.const_x ? a.dxg : nullptr;
+  int C = 0;
+  void* args[] = {&a.wtpk, &none,   &a.c0,   &a.cs,    &a.ga,  &a.dhs, &a.dcl,
+                  &a.dG,   &no_out, &no_out, &dxg_sum, &a.dxs, &a.dc0, &a.dh0,
+                  &a.Tn,   &a.H,    &a.W,    &C,       &a.last_only};
+  return cluster_launch((const void*)rec_bwd_wgmma_kernel<F, false>, rec_cluster(F) * a.B,
+                        BWD_THREADS, L.total, a.stream, args, rec_cluster(F));
+}
+
+// The entry points' bodies over the widths of `fs`.
+template <typename G, bool SAVE, typename FS>
+int proj_fwd_g(FS fs, const ProjFwdArgs& a) {
+  return with_f(fs, a.F, [&](auto f) { return (int)launch_fwd<G, SAVE, decltype(f)::value>(a); });
+}
+
+template <typename FS>
+int proj_fwd(FS fs, const ProjFwdArgs& a) {
+  if (a.gate_dtype == kF32)
+    return a.save ? proj_fwd_g<float, true>(fs, a) : proj_fwd_g<float, false>(fs, a);
+  if (a.gate_dtype == kBF16)
+    return a.save ? proj_fwd_g<bf16, true>(fs, a) : proj_fwd_g<bf16, false>(fs, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename FS>
+int proj_bwd(FS fs, const ProjBwdArgs& a) {
+  return with_f(fs, a.F, [&](auto f) { return (int)launch_bwd<decltype(f)::value>(a); });
+}
+
+template <typename G, int MODE, typename FS>
+int scan_fwd_gm(FS fs, const ScanFwdArgs& a) {
+  return with_f(fs, a.F,
+                [&](auto f) { return (int)launch_scan_fwd<G, MODE, decltype(f)::value>(a); });
+}
+
+template <typename G, typename FS>
+int scan_fwd_g(FS fs, const ScanFwdArgs& a) {
+  if (a.mode == kSave) return scan_fwd_gm<G, kSave>(fs, a);
+  if (a.mode == kHiddens) return scan_fwd_gm<G, kHiddens>(fs, a);
+  if (a.mode == kLast) return scan_fwd_gm<G, kLast>(fs, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename FS>
+int scan_fwd(FS fs, const ScanFwdArgs& a) {
+  if (a.gate_dtype == kF32) return scan_fwd_g<float>(fs, a);
+  if (a.gate_dtype == kBF16) return scan_fwd_g<bf16>(fs, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename FS>
+int scan_bwd(FS fs, const ScanBwdArgs& a) {
+  return with_f(fs, a.F, [&](auto f) { return (int)launch_scan_bwd<decltype(f)::value>(a); });
+}
+
+}  // namespace
+}  // namespace mmvae

@@ -27,12 +27,17 @@
 // (without those loads it took 43 % less).
 //
 // Design (device code in convlstm_wgmma.cuh and hopper.cuh, whose kernels
-// K6 instantiates too):
-// - forward and BPTT run one 2-CTA cluster per sample (2B CTAs: 128 at
-//   B=64), each CTA owning half the channels of all four gates (the
-//   forward's two consumer warpgroups a quarter each); the CTAs
-//   exchange h_t (forward) or bf16 dgates_t (backward) through distributed
-//   shared memory, with mbarriers of both CTAs in place of __syncthreads;
+// K6 instantiates too; launchers in convlstm_launch.cuh):
+// - forward and BPTT run one cluster per sample, 2 CTAs up to F = 128 (2B
+//   CTAs: 128 at B=64) and 4 for F in (128, 256] (4B: 256 at B=64), each
+//   CTA owning F/CL channels of all four gates (the forward's consumer
+//   warpgroups, two where F/CL is a multiple of 16, a share each); the
+//   CTAs exchange h_t (forward) or bf16 dgates_t (backward) through
+//   distributed shared memory, with mbarriers of every CTA of the cluster in
+//   place of __syncthreads.  Four CTAs halve each CTA's weight slab and
+//   residual staging, which at C = 128 leave 4-8 forward slots where two
+//   CTAs would leave 0-4; the BPTT's ring then takes 64-row slabs beside
+//   the whole (65, 4F) dgates tile;
 // - the products run on wgmma m64nNk16: A (the <= 64 positions) gathered
 //   into registers by ldmatrix, tap by tap (a zero row for masked taps), B
 //   a weight slab in shared memory, streamed by a producer warp with 1D bulk
@@ -50,45 +55,15 @@
 // - dW and dWx: a wgmma GEMM over the B*T*HW rows of the scratch, split in
 //   K so the grid covers the card, partials summed in split order.
 // No float atomics anywhere, so results are bit-reproducible.  The kernels
-// take bf16 activations with C and F multiples of 16, F <= 128 and
-// H*W <= 64 (the wrapper checks), and either gate dtype.
+// take bf16 activations with C a multiple of 16, F a multiple of 16 up to
+// 128 or of 32 up to 256, and H*W <= 64 (the wrapper checks), and either
+// gate dtype.  This file holds the 2-CTA widths and the entry points;
+// convlstm_proj_wide.cu the 4-CTA widths.
 
-#include "convlstm_wgmma.cuh"
+#include "convlstm_launch.cuh"
 
 namespace mmvae {
 namespace {
-
-template <typename G, bool SAVE, int F>
-cudaError_t launch_fwd(const void* x, const void* wpk, const void* bx, const void* c0,
-                       const void* h0, void* oh, void* oc, void* og, int B, int Tn, int H, int W,
-                       int C, cudaStream_t stream) {
-  const FwdSmem L = fwd_smem_layout(C, F);
-  if (L.stages < MIN_STAGES) return cudaErrorInvalidValue;
-  int xg_steps = 0;
-  void* args[] = {&x, &wpk, &bx, &c0, &h0, &oh, &oc, &og, &Tn, &H, &W, &C, &xg_steps};
-  return cluster_launch((const void*)rec_fwd_wgmma_kernel<G, SAVE ? kSave : kLast, F, false>,
-                        2 * B, rec_threads(F), L.total, stream, args);
-}
-
-template <int F>
-cudaError_t launch_bwd(const void* wtpk, const void* wxpk, const void* c0, const void* cs,
-                       const void* ga, const void* dhl, const void* dcl, void* dG, void* dx,
-                       float* dbx_part, float* dbx_out, void* dc0, void* dh0, int B, int Tn, int H,
-                       int W, int C, cudaStream_t stream) {
-  const BwdSmem L = bwd_smem_layout(F);
-  if (L.stages < MIN_STAGES) return cudaErrorInvalidValue;
-  void* none = nullptr;
-  int last_only = 1;
-  void* args[] = {&wtpk, &wxpk, &c0, &cs, &ga, &dhl, &dcl, &dG, &dx, &dbx_part, &none, &dc0,
-                  &dh0, &Tn, &H, &W, &C, &last_only};
-  cudaError_t err =
-      cluster_launch((const void*)rec_bwd_wgmma_kernel<F, true>, 2 * B, BWD_THREADS, L.total,
-                     stream, args);
-  if (err != cudaSuccess) return err;
-  // dbx: the per-sample partials summed in sample order.
-  reduce_splits_kernel<<<(4 * F + 255) / 256, 256, 0, stream>>>(dbx_part, dbx_out, B, 4 * F);
-  return cudaGetLastError();
-}
 
 template <int BN>
 cudaError_t launch_wgrad_bn(const void* x, const void* hs, const void* h0, const void* dG,
@@ -121,15 +96,9 @@ int mmvae_convlstm_proj_fwd(const void* x, const void* wpk, const void* bx, cons
                             const void* h0, void* out_h, void* out_c, void* out_g, int B,
                             int Tn, int H, int W, int C, int F, int gate_dtype, int save,
                             void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-#define MMVAE_FWD(GG, SV) \
-  return (int)launch_fwd<GG, SV, FF>(x, wpk, bx, c0, h0, out_h, out_c, out_g, B, Tn, H, W, C, s)
-  if (gate_dtype == kF32 && save) MMVAE_FOR_F(F, MMVAE_FWD(float, true));
-  if (gate_dtype == kF32 && !save) MMVAE_FOR_F(F, MMVAE_FWD(float, false));
-  if (gate_dtype == kBF16 && save) MMVAE_FOR_F(F, MMVAE_FWD(__nv_bfloat16, true));
-  if (gate_dtype == kBF16 && !save) MMVAE_FOR_F(F, MMVAE_FWD(__nv_bfloat16, false));
-#undef MMVAE_FWD
-  return (int)cudaErrorInvalidValue;
+  const ProjFwdArgs a{x, wpk, bx, c0, h0, out_h, out_c, out_g, B, Tn, H, W, C, F,
+                      gate_dtype, save, (cudaStream_t)stream};
+  return F > 128 ? proj_fwd_wide(a) : proj_fwd(NarrowF{}, a);
 }
 
 // BPTT (dgates scratch, dx, dc0, dh0, dbx).
@@ -137,9 +106,9 @@ int mmvae_convlstm_proj_bwd(const void* wtpk, const void* wxpk, const void* c0, 
                             const void* ga, const void* dhl, const void* dcl, void* dG, void* dx,
                             void* dbx_part, void* dbx_out, void* dc0, void* dh0, int B, int Tn,
                             int H, int W, int C, int F, void* stream) {
-  MMVAE_FOR_F(F, return (int)launch_bwd<FF>(wtpk, wxpk, c0, cs, ga, dhl, dcl, dG, dx,
-                                            (float*)dbx_part, (float*)dbx_out, dc0, dh0, B, Tn,
-                                            H, W, C, (cudaStream_t)stream));
+  const ProjBwdArgs a{wtpk, wxpk, c0, cs, ga, dhl, dcl, dG, dx, dbx_part, dbx_out, dc0, dh0,
+                      B, Tn, H, W, C, F, (cudaStream_t)stream};
+  return F > 128 ? proj_bwd_wide(a) : proj_bwd(NarrowF{}, a);
 }
 
 // dW and dWx ((C + 9F) x 4F, f32) from the bf16 dgates scratch; K6 passes
@@ -156,7 +125,8 @@ int mmvae_convlstm_wgrad(const void* x, const void* hs, const void* h0, const vo
 }
 
 // The launch geometry the kernels use, for the wrapper to check against its
-// own: {fwd stages, fwd smem, bwd stages, bwd smem, wgrad BN, wgrad smem}.
+// own: {fwd stages, fwd smem, bwd stages, bwd smem, wgrad BN, wgrad smem,
+// CTAs a sample}.
 void mmvae_convlstm_proj_layout(int C, int F, int* out) {
   const FwdSmem f = fwd_smem_layout(C, F);
   const BwdSmem b = bwd_smem_layout(F);
@@ -166,6 +136,7 @@ void mmvae_convlstm_proj_layout(int C, int F, int* out) {
   out[3] = b.total;
   out[4] = wgrad_bn(F);
   out[5] = wgrad_smem(F);
+  out[6] = rec_cluster(F);
 }
 
 }  // extern "C"

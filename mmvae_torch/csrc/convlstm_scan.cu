@@ -26,9 +26,10 @@
 // taken out the forward took 10-13 % less.
 //
 // Design: K5's Hopper kernels (convlstm_wgmma.cuh), instantiated with C = 0.
-// - forward (rec_fwd_wgmma_kernel<XG = true>): one 2-CTA cluster per sample,
-//   each CTA half the channels of all four gates, h_t exchanged through
-//   distributed shared memory; the 9 tap products on wgmma from a bulk-copy
+// - forward (rec_fwd_wgmma_kernel<XG = true>): one cluster per sample, 2
+//   CTAs up to F = 128 and 4 for F in (128, 256], each CTA F/CL of the
+//   channels of all four gates, h_t exchanged through distributed shared
+//   memory; the 9 tap products on wgmma from a bulk-copy
 //   weight ring, accumulated from zero; each thread's cells of xg_t held in
 //   registers, loaded a whole step ahead (once when time-constant), and
 //   added in the gate epilogue; modes save / every h_t / last-only as
@@ -39,52 +40,20 @@
 //   last-only); bf16 dgates exchanged for the transposed conv (K = 9 x 4F).
 //   A streaming xg's dxg is the bf16 dgates scratch itself; a time-constant
 //   xg's is the f32 sum over t of the unrounded dgates, kept per CTA in
-//   shared memory (it owns its sample for all T, so the order is fixed
-//   without atomics) and written once, beside a bf16 scratch.  This replaces
+//   shared memory (in a global scratch of its own with 4 CTAs a sample,
+//   where the whole dgates tile leaves no room for it; it owns its sample
+//   for all T, so the order is fixed without atomics) and written once,
+//   beside a bf16 scratch.  This replaces
 //   the TPU's dxg_stream knob, a store-buffering choice of its own;
 // - dW: K5's split-K wgmma weight GEMM over the bf16 scratch with C = 0
 //   (mmvae_convlstm_wgrad, called by the wrapper), partials summed in split
 //   order.
 // No float atomics, so results are bit-reproducible.  bf16 activations, F a
-// multiple of 16, F <= 128, H*W <= 64; the wrapper checks.
+// multiple of 16 up to 128 or of 32 up to 256, H*W <= 64; the wrapper
+// checks.  This file holds the 2-CTA widths and the entry points;
+// convlstm_scan_wide.cu the 4-CTA widths.
 
-#include "convlstm_wgmma.cuh"
-
-namespace mmvae {
-namespace {
-
-template <typename G, int MODE, int F>
-cudaError_t launch_scan_fwd(const void* xg, const void* wpk, const void* c0, const void* h0,
-                            void* oh, void* oc, void* og, int B, int Tn, int xg_steps, int H,
-                            int W, cudaStream_t stream) {
-  const FwdSmem L = fwd_smem_layout(0, F, false);
-  if (L.stages < MIN_STAGES) return cudaErrorInvalidValue;
-  const void* bx = nullptr;
-  int C = 0;
-  void* args[] = {&xg, &wpk, &bx, &c0, &h0, &oh, &oc, &og, &Tn, &H, &W, &C, &xg_steps};
-  return cluster_launch((const void*)rec_fwd_wgmma_kernel<G, MODE, F, true>, 2 * B,
-                        rec_threads(F), L.total, stream, args);
-}
-
-template <int F>
-cudaError_t launch_scan_bwd(const void* wtpk, const void* c0, const void* cs, const void* ga,
-                            const void* dhs, const void* dcl, void* dG, void* dxg, void* dc0,
-                            void* dh0, int B, int Tn, int H, int W, int const_x, int last_only,
-                            cudaStream_t stream) {
-  const BwdSmem L = scan_bwd_smem_layout(F, const_x);
-  if (L.stages < (const_x ? SCAN_BWD_MIN_STAGES : MIN_STAGES)) return cudaErrorInvalidValue;
-  const void* none = nullptr;
-  void* no_out = nullptr;
-  void* dxg_sum = const_x ? dxg : nullptr;
-  int C = 0;
-  void* args[] = {&wtpk, &none, &c0, &cs, &ga, &dhs, &dcl, &dG, &no_out, &no_out, &dxg_sum,
-                  &dc0, &dh0, &Tn, &H, &W, &C, &last_only};
-  return cluster_launch((const void*)rec_bwd_wgmma_kernel<F, false>, 2 * B, BWD_THREADS,
-                        L.total, stream, args);
-}
-
-}  // namespace
-}  // namespace mmvae
+#include "convlstm_launch.cuh"
 
 using namespace mmvae;
 
@@ -97,36 +66,28 @@ extern "C" {
 int mmvae_convlstm_scan_fwd(const void* xg, const void* wpk, const void* c0, const void* h0,
                             void* out_h, void* out_c, void* out_g, int B, int Tn, int xg_steps,
                             int H, int W, int F, int gate_dtype, int mode, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-#define MMVAE_SCAN_FWD(GG, MM) \
-  return (int)launch_scan_fwd<GG, MM, FF>(xg, wpk, c0, h0, out_h, out_c, out_g, B, Tn, xg_steps, H, W, s)
-#define MMVAE_SCAN_MODES(GG)                                          \
-  if (mode == kSave) MMVAE_FOR_F(F, MMVAE_SCAN_FWD(GG, kSave));       \
-  if (mode == kHiddens) MMVAE_FOR_F(F, MMVAE_SCAN_FWD(GG, kHiddens)); \
-  if (mode == kLast) MMVAE_FOR_F(F, MMVAE_SCAN_FWD(GG, kLast));
-  if (gate_dtype == kF32) { MMVAE_SCAN_MODES(float) }
-  if (gate_dtype == kBF16) { MMVAE_SCAN_MODES(__nv_bfloat16) }
-#undef MMVAE_SCAN_MODES
-#undef MMVAE_SCAN_FWD
-  return (int)cudaErrorInvalidValue;
+  const ScanFwdArgs a{xg, wpk, c0, h0, out_h, out_c, out_g, B, Tn, xg_steps, H, W, F,
+                      gate_dtype, mode, (cudaStream_t)stream};
+  return F > 128 ? scan_fwd_wide(a) : scan_fwd(NarrowF{}, a);
 }
 
 // BPTT: dgates into the bf16 scratch dG (a streaming xg's dxg, which the
-// wrapper passes as dG), dc0, dh0 and, when const_x, dxg (B, HW, 4F).  dhs:
-// dh_T (B, HW, F) when last_only, else (B, T, HW, F).  dW follows from
-// mmvae_convlstm_wgrad over dG.
+// wrapper passes as dG), dc0, dh0 and, when const_x, dxg (B, HW, 4F), summed
+// in f32 in shared memory or, with 4 CTAs a sample, in dxs (B * 4 * 64 * F
+// floats).  dhs: dh_T (B, HW, F) when last_only, else (B, T, HW, F).  dW
+// follows from mmvae_convlstm_wgrad over dG.
 int mmvae_convlstm_scan_bwd(const void* wtpk, const void* c0, const void* cs, const void* ga,
-                            const void* dhs, const void* dcl, void* dG, void* dxg, void* dc0,
-                            void* dh0, int B, int Tn, int H, int W, int F, int const_x,
-                            int last_only, void* stream) {
-  MMVAE_FOR_F(F, return (int)launch_scan_bwd<FF>(wtpk, c0, cs, ga, dhs, dcl, dG, dxg, dc0, dh0,
-                                                 B, Tn, H, W, const_x, last_only,
-                                                 (cudaStream_t)stream));
+                            const void* dhs, const void* dcl, void* dG, void* dxg, void* dxs,
+                            void* dc0, void* dh0, int B, int Tn, int H, int W, int F,
+                            int const_x, int last_only, void* stream) {
+  const ScanBwdArgs a{wtpk, c0, cs, ga, dhs, dcl, dG, dxg, dxs, dc0, dh0, B, Tn, H, W, F,
+                      const_x, last_only, (cudaStream_t)stream};
+  return F > 128 ? scan_bwd_wide(a) : scan_bwd(NarrowF{}, a);
 }
 
 // The launch geometry the kernels use, for the wrapper to check against its
 // own: {fwd stages, fwd smem, then bwd stages and bwd smem for a
-// time-constant xg, then for a streaming one}.
+// time-constant xg, then for a streaming one, then CTAs a sample}.
 void mmvae_convlstm_scan_layout(int F, int* out) {
   const FwdSmem f = fwd_smem_layout(0, F, false);
   out[0] = f.stages;
@@ -136,6 +97,7 @@ void mmvae_convlstm_scan_layout(int F, int* out) {
     out[2 + 2 * k] = b.stages;
     out[3 + 2 * k] = b.total;
   }
+  out[6] = rec_cluster(F);
 }
 
 }  // extern "C"

@@ -1,27 +1,35 @@
-// ConvLSTM recurrences on Hopper: 2-CTA clusters per sample, wgmma with A
-// gathered into registers and B streamed through a shared-memory ring by
-// bulk copies, and the deterministic weight-gradient GEMM on wgmma.  K5
+// ConvLSTM recurrences on Hopper: clusters of 2 or 4 CTAs per sample, wgmma
+// with A gathered into registers and B streamed through a shared-memory ring
+// by bulk copies, and the deterministic weight-gradient GEMM on wgmma.  K5
 // (convlstm_proj.cu) and K6 (convlstm_scan.cu) instantiate the same kernels:
 // K5 with x_t and its 1x1 projection as the first K segment and the bias in
 // the accumulator; K6 with C = 0 and the precomputed xg_t added in the gate
 // epilogue (XG), its BPTT without dx and dbx (!PROJ).
 //
-// Layout of the recurrent kernels: a cluster of 2 CTAs per sample b; CTA k
-// of the cluster owns channels [k F/2, (k+1) F/2) of all four gates (HF =
-// F/2 of each, 2F gate columns), so the cell math stays inside the CTA.
-// The consumer warpgroups come first (the forward's two, each with its own
-// channels, where F is a multiple of 32; the BPTT's one), then the producer
+// Layout of the recurrent kernels: a cluster of CL CTAs per sample b (CL =
+// rec_cluster(F): 2 up to F = 128, 4 for F in (128, 256], where two CTAs'
+// weight slabs, residual staging and rings no longer fit); CTA k of the
+// cluster owns channels [k HF, (k+1) HF) of all four gates (HF = F/CL of
+// each, 4 HF gate columns), so the cell math stays inside the CTA.  The
+// consumer warpgroups come first (the forward's two, each with its own
+// channels, where HF is a multiple of 16; the BPTT's one), then the producer
 // warp, whose lane 0 streams the CTA's weight slabs, step after step, into a
-// ring of `stages` slots (full / empty mbarriers).  Each CTA keeps the operand tile
-// of the recurrence (h in the forward, dgates in the backward) whole: it
-// writes its own columns into its own tile and, through distributed shared
-// memory, into its peer's, and both arrive on mbarriers of both CTAs.
+// ring of `stages` slots (full / empty mbarriers).  Each CTA keeps the
+// operand tile of the recurrence (h in the forward, dgates in the backward)
+// whole: it writes its own columns into its own tile and, through
+// distributed shared memory, into each peer's, and all CL CTAs arrive on
+// mbarriers of every CTA of the cluster.
 //
 // Accumulator of warp w, lane (g = lane/4, tq = lane%4): the m64nN tile's
-// d[4j + 2hr + e] = row 16w + g + 8hr, local column 8j + 2tq + e.  A cell
-// (hr, j8 < HF/8, e) is position 16w + g + 8hr and local channel
-// 8j8 + 2tq + e; its gate q sits in 8-column group q*HF/8 + j8.
+// d[4j + 2hr + e] = row 16w + g + 8hr, local column 8j + 2tq + e.  In the
+// forward, warpgroup wg owns HFW = HF / wgs of the CTA's channels; a cell
+// (hr, j8 < HFW/8, e) is position 16w + g + 8hr and channel rank HF + wg HFW
+// + 8j8 + 2tq + e; its gate q sits in 8-column group q HFW/8 + j8 of the
+// warpgroup's 4 HFW columns.  In the BPTT (one warpgroup, N = HF), column
+// 8j8 + 2tq + e of the accumulator is channel rank HF + 8j8 + 2tq + e.
 #pragma once
+
+#include <type_traits>
 
 #include "convlstm_tiles.cuh"
 #include "hopper.cuh"
@@ -35,21 +43,31 @@ constexpr int MIN_STAGES = 4, MAX_STAGES = 8;
 // the ring (64 KB at F = 128), which leaves room for 3 slots of 16 KB.
 constexpr int SCAN_BWD_MIN_STAGES = 3;
 constexpr int FWD_ROWS = 32;   // weight rows (K) per forward stage
-constexpr int BWD_ROWS = 128;  // per backward stage
+constexpr int BWD_ROWS = 128;  // per backward stage (half that with 4 CTAs a sample)
 constexpr int DX_BLOCK = 64;   // dx columns per wgmma block (zero-padded)
 
 // Forward output modes: residuals for a backward (hs, cs, gates), every h_t
 // and c_T, or h_T and c_T.  K5 runs kSave and kLast.
 enum RecMode : int { kSave = 0, kHiddens = 1, kLast = 2 };
 
+// CTAs a sample: 2 up to F = 128; 4 beyond (F a multiple of 32 up to 256),
+// which halves each CTA's weight slabs and residual staging while its
+// operand tiles stay whole.
+__host__ __device__ constexpr int rec_cluster(int F) { return F > 128 ? 4 : 2; }
 // Consumer warpgroups of a recurrent CTA: two when each can own a multiple
-// of 8 of the CTA's F/2 channels (F a multiple of 32), so that two latency
-// chains share the SM; one otherwise.  Plus one producer warp.
-__host__ __device__ constexpr int rec_wgs(int F) { return F % 32 == 0 ? 2 : 1; }
+// of 8 of the CTA's F/CL channels, so that two latency chains share the SM;
+// one otherwise.  Plus one producer warp.
+__host__ __device__ constexpr int rec_wgs(int F) { return (F / rec_cluster(F)) % 16 == 0 ? 2 : 1; }
 __host__ __device__ constexpr int rec_threads(int F) { return 128 * rec_wgs(F) + 32; }
 // The BPTT's one consumer warpgroup (a second, splitting its m64n64
 // products in two, ran slower on the H100) and its producer warp.
 constexpr int BWD_CONS = 128, BWD_THREADS = BWD_CONS + 32;
+// Weight rows a BPTT stage: 4-CTA clusters hold the whole (65, 4F) dgates
+// tile beside their ring, which leaves room for enough slots only at half
+// the rows.
+__host__ __device__ constexpr int bwd_rows(int F) {
+  return rec_cluster(F) == 2 ? BWD_ROWS : BWD_ROWS / 2;
+}
 
 __host__ __device__ inline int round128(int v) { return (v + 127) / 128 * 128; }
 
@@ -57,52 +75,68 @@ __host__ __device__ inline int round128(int v) { return (v + 127) / 128 * 128; }
 // h tiles x2 | residual staging (hs, cs, gates of the CTA's channels)].
 // K5's x tiles hold x_t and x_{t+1} (a zero row for absent positions); K6
 // has none (x_tiles false): its threads hold their cells of xg in registers.
+// A slot holds FWD_ROWS rows of the CTA's 4F/CL gate columns.
 struct FwdSmem {
   int ring, xt, ht, stage, slot, xtile, htile, stages, total;
 };
 __host__ __device__ inline FwdSmem fwd_smem_layout(int C, int F, bool x_tiles = true) {
   FwdSmem s;
-  s.slot = FWD_ROWS * 2 * F * 2;
+  const int HF = F / rec_cluster(F);
+  s.slot = FWD_ROWS * 4 * HF * 2;
   s.xtile = x_tiles ? round128((MROWS + 1) * (C + 8) * 2) : 0;
   s.htile = round128((MROWS + 1) * F * 2);
-  const int fixed = 1280 + 2 * s.xtile + 2 * s.htile + MROWS * 3 * F * 2;
+  const int fixed = 1280 + 2 * s.xtile + 2 * s.htile + MROWS * 6 * HF * 2;
   s.stages = (SMEM_LIMIT - fixed) / s.slot;
   s.stages = s.stages > MAX_STAGES ? MAX_STAGES : s.stages;
   s.ring = 1280;
   s.xt = s.ring + s.stages * s.slot;
   s.ht = s.xt + 2 * s.xtile;
   s.stage = s.ht + 2 * s.htile;
-  s.total = s.stage + MROWS * 3 * F * 2;
+  s.total = s.stage + MROWS * 6 * HF * 2;
   return s;
 }
 
 // Backward shared memory: [barriers 256 | ring | dgates tile | residuals
-// (c_t, c_{t-1}, gates) | tail].  K5: slots of BWD_ROWS x DX_BLOCK (its dx
-// blocks are its widest products), the tail its dbx warp partials.  K6:
-// slots of BWD_ROWS x F/2; the tail, for a time-constant xg, the f32 sum
-// over t of the dgates of the CTA's 2F columns (none when streaming).
+// (c_t, c_{t-1}, gates of the CTA's channels) | tail].  K5: slots of
+// bwd_rows x DX_BLOCK (its dx blocks are its widest products), the tail its
+// dbx warp partials.  K6: slots of bwd_rows x F/CL; the tail, for a
+// time-constant xg in a 2-CTA cluster, the f32 sum over t of the dgates of
+// the CTA's 4F/CL columns (none when streaming; a 4-CTA cluster keeps that
+// sum in global memory, see rec_bwd_wgmma_kernel).
 struct BwdSmem {
   int ring, dg, res, tail, slot, stages, total;
 };
 __host__ __device__ inline BwdSmem bwd_layout(int F, int slot, int tail) {
   BwdSmem s;
   s.slot = slot;
+  const int HF = F / rec_cluster(F);
   const int dg = round128((MROWS + 1) * 4 * F * 2);
-  const int fixed = 256 + dg + MROWS * 3 * F * 2 + tail;
+  const int fixed = 256 + dg + MROWS * 6 * HF * 2 + tail;
   s.stages = (SMEM_LIMIT - fixed) / s.slot;
   s.stages = s.stages > MAX_STAGES ? MAX_STAGES : s.stages;
   s.ring = 256;
   s.dg = s.ring + s.stages * s.slot;
   s.res = s.dg + dg;
-  s.tail = s.res + MROWS * 3 * F * 2;
+  s.tail = s.res + MROWS * 6 * HF * 2;
   s.total = s.tail + tail;
   return s;
 }
 __host__ __device__ inline BwdSmem bwd_smem_layout(int F) {
-  return bwd_layout(F, BWD_ROWS * DX_BLOCK * 2, 4 * 2 * F * 4);
+  const int HF = F / rec_cluster(F);
+  return bwd_layout(F, bwd_rows(F) * DX_BLOCK * 2, 4 * 4 * HF * 4);
+}
+// Whether K6's BPTT keeps a time-constant xg's f32 dgates sum in shared memory.
+__host__ __device__ constexpr bool scan_sum_in_smem(int F, bool const_x) {
+  return const_x && rec_cluster(F) == 2;
 }
 __host__ __device__ inline BwdSmem scan_bwd_smem_layout(int F, bool const_x) {
-  return bwd_layout(F, BWD_ROWS * F, const_x ? MROWS * 2 * F * 4 : 0);
+  const int HF = F / rec_cluster(F);
+  return bwd_layout(F, bwd_rows(F) * HF * 2,
+                    scan_sum_in_smem(F, const_x) ? MROWS * 4 * HF * 4 : 0);
+}
+// The fewest ring stages a K6 BPTT takes.
+__host__ __device__ constexpr int scan_bwd_min_stages(int F, bool const_x) {
+  return scan_sum_in_smem(F, const_x) ? SCAN_BWD_MIN_STAGES : MIN_STAGES;
 }
 
 // The LSTM cell with the pointwise chain rounded to the gate dtype G as
@@ -145,17 +179,17 @@ __device__ __forceinline__ float lstm_cell_bwd_fast(float dh, float dc, float ct
 // Forward
 // ---------------------------------------------------------------------------
 
-// All T steps of sample blockIdx.x / 2.  K5 (!XG): gates_t = x_t @ Wx + bx +
+// All T steps of sample blockIdx.x / CL.  K5 (!XG): gates_t = x_t @ Wx + bx +
 // conv3x3(h_{t-1}, W), x (B, T, HW, C).  K6 (XG, C = 0): gates_t =
 // G(G(conv3x3(h_{t-1}, W)) + xg_t) with xg (B, xg_steps, HW, 4F), read at
 // step 0 throughout when xg_steps is 1 (a time-constant input); each
 // consumer thread loads its cells of xg_{t+1} into registers once it has
 // used those of xg_t, so the loads run under a whole step's products (a
-// time-constant xg is loaded once).  wpk: per cluster rank, the CTA's 2F
+// time-constant xg is loaded once).  wpk: per cluster rank, the CTA's 4F/CL
 // columns of [Wx; W] (K = C + 9F rows) packed as K-major cores
-// [K/8][2F/8][8][8].
+// [K/8][4F/CL/8][8][8].  Launched in clusters of CL (cluster_launch).
 template <typename G, int MODE, int F, bool XG>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
+__global__ void __launch_bounds__(rec_threads(F), 1)
     rec_fwd_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpk,
                          const bf16* __restrict__ bx, const bf16* __restrict__ c0,
                          const bf16* __restrict__ h0, bf16* __restrict__ out_h,
@@ -163,8 +197,9 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
                          int C, int xg_steps) {
   // Warpgroup wg owns HFW of the CTA's HF channels, all four gates: NW of
   // the CTA's N gate columns, which the packing puts together.
+  constexpr int CL = rec_cluster(F);
   constexpr int NWG = rec_wgs(F), NCONS = 128 * NWG, NTHREADS = NCONS + 32;
-  constexpr int HF = F / 2, HFW = HF / NWG, N = 2 * F, NW = N / NWG;
+  constexpr int HF = F / CL, HFW = HF / NWG, N = 4 * HF, NW = N / NWG;
   constexpr int J8 = HFW / 8, JC = HF / 8, NCELL = HFW / 2;
   constexpr int SEG0 = XG ? 1 : 0;                // K6 has no x segment
   constexpr int NSTAGED = MODE == kSave ? 6 : 1;  // staged tensors (h, c, 4 gates)
@@ -187,8 +222,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3, wg = warp >> 2, wq = warp & 3;
-  const uint32_t rank = cluster_rank(), peer = rank ^ 1;
-  const size_t b = blockIdx.x >> 1;
+  const uint32_t rank = cluster_rank();
+  const size_t b = blockIdx.x / CL;
   const int HW = H * W, K = C + 9 * F;
   const int stages = L.stages;
 
@@ -199,8 +234,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
     }
     mbar_init(&xfull[0], 1);
     mbar_init(&xfull[1], 1);
-    mbar_init(&hready[0], 2 * NCONS);  // own and peer consumers
-    mbar_init(&hready[1], 2 * NCONS);
+    mbar_init(&hready[0], CL * NCONS);  // the consumers of every CTA of the cluster
+    mbar_init(&hready[1], CL * NCONS);
     mbar_init_fence();
   }
   if constexpr (!XG) {
@@ -367,9 +402,11 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
       }
       fence_regs(acc);
 
-      // The cell; h_t into both CTAs' next h tile, residuals into staging.
+      // The cell; h_t into every CTA's next h tile, residuals into staging.
       if (MODE != kLast) named_sync(1, NCONS);  // the last step's staging is written out
-      const uint32_t hnext_peer = map_rank(ht[nxt].base, peer);
+      uint32_t hnext_peer[CL - 1];
+#pragma unroll
+      for (int k = 1; k < CL; ++k) hnext_peer[k - 1] = map_rank(ht[nxt].base, (rank + k) % CL);
 #pragma unroll
       for (int j8 = 0; j8 < J8; ++j8)
 #pragma unroll
@@ -407,7 +444,9 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
           const uint32_t hp = pack_bf16(hv[0], hv[1]);
           bf16* own = ht[nxt].at(r, ch);
           *reinterpret_cast<uint32_t*>(own) = hp;
-          st_cluster_b32(hnext_peer + (uint32_t)((own - ht[nxt].base) * 2), hp);
+#pragma unroll
+          for (int k = 0; k < CL - 1; ++k)
+            st_cluster_b32(hnext_peer[k] + (uint32_t)((own - ht[nxt].base) * 2), hp);
           if (MODE != kLast) *reinterpret_cast<uint32_t*>(st_h + r * HF + lc) = hp;
           if (MODE == kSave) {
             *reinterpret_cast<uint32_t*>(st_c + r * HF + lc) = pack_bf16(cv[0], cv[1]);
@@ -421,8 +460,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
           }
         }
       if (t + 1 < Tn) {
-        mbar_arrive_remote(map_rank(&hready[nxt], rank));
-        mbar_arrive_remote(map_rank(&hready[nxt], peer));
+#pragma unroll
+        for (int k = 0; k < CL; ++k) mbar_arrive_remote(map_rank(&hready[nxt], (rank + k) % CL));
         if (XG && xg_steps > 1) load_xg(t + 1);
       }
       if (MODE != kLast) {
@@ -450,7 +489,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
       }
     }
   }
-  cluster_sync();  // no CTA leaves while its peer may still write into it
+  cluster_sync();  // no CTA leaves while a peer may still write into it
 }
 
 
@@ -458,25 +497,27 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(rec_threads(F), 1)
 // Backward recurrence (BPTT)
 // ---------------------------------------------------------------------------
 
-// K5's backward stages of a step: 9 taps x 4F/BWD_ROWS slabs of W^T (N =
-// HF), then, for each DX_BLOCK-column block of the CTA's C/2 columns of dx,
-// 4F/BWD_ROWS slabs of Wx^T (N = DX_BLOCK, zero-padded past C/2).  K6's: the
-// 9 taps alone.
-__host__ __device__ inline int bwd_dx_blocks(int C) { return (C / 2 + DX_BLOCK - 1) / DX_BLOCK; }
+// K5's backward stages of a step: 9 taps x 4F/ROWS slabs of W^T (N = HF),
+// then, for each DX_BLOCK-column block of the CTA's C/CL columns of dx,
+// 4F/ROWS slabs of Wx^T (N = DX_BLOCK, zero-padded past C/CL), ROWS =
+// bwd_rows(F).  K6's: the 9 taps alone.
+__host__ __device__ inline int bwd_dx_blocks(int C, int CL) {
+  return (C / CL + DX_BLOCK - 1) / DX_BLOCK;
+}
 
-// One backward slab: wait for ring slot `slot`, acc (+)= its `ksteps` k16
-// steps against the dgates tile row at `row_addr` (swizzle `swz`) from
-// column `off` on, wait for the products, hand the slot back.
-template <int N>
+// One backward slab of ROWS weight rows: wait for ring slot `slot`, acc (+)=
+// its `ksteps` k16 steps against the dgates tile row at `row_addr` (swizzle
+// `swz`) from column `off` on, wait for the products, hand the slot back.
+template <int N, int ROWS>
 __device__ __forceinline__ void bwd_slab(float (&acc)[N / 2], uint64_t* full, uint64_t* empty,
                                          int& slot, uint32_t& ph, int stages,
                                          const unsigned char* ring, int slot_bytes,
                                          uint32_t row_addr, int swz, int off, int ksteps,
                                          int lane) {
-  uint32_t a[BWD_ROWS / 16][4];
+  uint32_t a[ROWS / 16][4];
   mbar_wait(&full[slot], ph);
 #pragma unroll
-  for (int i = 0; i < BWD_ROWS / 16; ++i) {
+  for (int i = 0; i < ROWS / 16; ++i) {
     const int k = off + 16 * (i < ksteps ? i : 0);
     ldsm_x4_addr(a[i], row_addr + ((((k >> 3) + (lane >> 4)) ^ swz) << 4));
     if (i >= ksteps) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0u;
@@ -485,12 +526,12 @@ __device__ __forceinline__ void bwd_slab(float (&acc)[N / 2], uint64_t* full, ui
   const uint32_t slot_addr = smem_u32(ring + slot * slot_bytes);
   wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < BWD_ROWS / 16; ++i)
+  for (int i = 0; i < ROWS / 16; ++i)
     wgmma_rs<N, 0>(acc, a[i], smem_desc(slot_addr + i * 2 * (N / 8) * 128, N * 16, 128), 128, 1);
   wgmma_commit();
   wgmma_wait<0>();
 #pragma unroll
-  for (int i = 0; i < BWD_ROWS / 16; ++i) keep_regs4(a[i]);
+  for (int i = 0; i < ROWS / 16; ++i) keep_regs4(a[i]);
   if (lane == 0) mbar_arrive(&empty[slot]);
   if (++slot == stages) {
     slot = 0;
@@ -498,32 +539,36 @@ __device__ __forceinline__ void bwd_slab(float (&acc)[N / 2], uint64_t* full, ui
   }
 }
 
-// Reverse time for sample blockIdx.x / 2, (dh, dc) carried in f32 registers.
-// Per step: the cell backward of the CTA's cells from the saved c_t,
-// c_{t-1} and gates (bulk-copied a step ahead); bf16 dgates into both CTAs'
-// dgates tiles, and the CTA's columns of them into the bf16 scratch dG;
+// Reverse time for sample blockIdx.x / CL, (dh, dc) carried in f32
+// registers.  Per step: the cell backward of the CTA's cells from the saved
+// c_t, c_{t-1} and gates (bulk-copied a step ahead); bf16 dgates into every
+// CTA's dgates tile, and the CTA's columns of them into the bf16 scratch dG;
 // then dh_{t-1} (the transposed 3x3 conv, K = 9 x 4F) on wgmma from the
 // dgates tile.
 // K5 (PROJ): dh_T (dhs, (B, HW, F)) enters once; dbx partials of the
 // unrounded dgates (fixed-order sums) and dx_t = dgates_t @ Wx^T for the
-// CTA's C/2 columns, on wgmma from the dgates tile.
+// CTA's C/CL columns, on wgmma from the dgates tile.
 // K6 (!PROJ, C = 0): dhs is dh_T when `last_only`, else the per-step
 // cotangent of hs (B, T, HW, F), added to dh_t.  With a time-constant xg
-// (dxg_sum given) the CTA sums its unrounded dgates over t in f32 shared
-// memory, in step order, and writes dxg = that sum once; a streaming xg's
-// dxg is the bf16 scratch dG itself.
+// (dxg_sum given) the CTA sums its unrounded dgates over t in f32, in step
+// order, and writes dxg = that sum once: in shared memory in a 2-CTA
+// cluster, else in `dxs_scratch` (B CL blocks of (64, 4F/CL) f32, one a CTA,
+// each cell read and written by the one thread that owns it); a streaming
+// xg's dxg is the bf16 scratch dG itself.
 // wtpk: per rank, W^T rows (tap, n), the CTA's HF columns, K-major cores
-// [9*4F/8][HF/8][8][8]; wxpk (K5): per rank, [C/2 blocks of 64][4F/8][8][8][8].
+// [9*4F/8][HF/8][8][8]; wxpk (K5): per rank, [C/CL blocks of 64][4F/8][8][8][8].
 template <int F, bool PROJ>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(BWD_THREADS, 1)
     rec_bwd_wgmma_kernel(const bf16* __restrict__ wtpk, const bf16* __restrict__ wxpk,
                          const bf16* __restrict__ c0, const bf16* __restrict__ cs,
                          const bf16* __restrict__ ga, const bf16* __restrict__ dhs,
                          const bf16* __restrict__ dcl, bf16* __restrict__ dG,
                          bf16* __restrict__ dx, float* __restrict__ dbx_part,
-                         bf16* __restrict__ dxg_sum, bf16* __restrict__ dc0,
-                         bf16* __restrict__ dh0, int Tn, int H, int W, int C, int last_only) {
-  constexpr int HF = F / 2, F4 = 4 * F, J8 = HF / 8;
+                         bf16* __restrict__ dxg_sum, float* __restrict__ dxs_scratch,
+                         bf16* __restrict__ dc0, bf16* __restrict__ dh0, int Tn, int H, int W,
+                         int C, int last_only) {
+  constexpr int CL = rec_cluster(F), ROWS = bwd_rows(F);
+  constexpr int HF = F / CL, F4 = 4 * F, J8 = HF / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   const bool const_x = !PROJ && dxg_sum != nullptr;
   const BwdSmem L = PROJ ? bwd_smem_layout(F) : scan_bwd_smem_layout(F, const_x);
@@ -538,18 +583,21 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
   bf16* res_p = res_c + MROWS * HF;                      // (64, HF) c_{t-1}
   bf16* res_g = res_p + MROWS * HF;                      // (64, 4 HF) gates
   float* wpart = reinterpret_cast<float*>(smem + L.tail);  // K5: (4 warps, 4 HF)
-  // K6's f32 dgates sum, (64, 2F): column c of row r at c ^ 8 (r & 3), so
-  // that the float2 accesses of a half-warp (4 rows) hit 32 distinct banks.
-  float* dxs = reinterpret_cast<float*>(smem + L.tail);
+  // K6's f32 dgates sum, (64, 4HF).  In shared memory column c of row r
+  // sits at c ^ 8 (r & 3), so that the float2 accesses of a half-warp (4
+  // rows) hit 32 distinct banks; in the global scratch, at c.
+  constexpr bool SUM_SMEM = CL == 2;
+  float* dxs = SUM_SMEM ? reinterpret_cast<float*>(smem + L.tail)
+                        : dxs_scratch + (size_t)blockIdx.x * MROWS * 4 * HF;
   auto dxs_at = [&](int r, int c) {
-    return reinterpret_cast<float2*>(dxs + r * 2 * F + (c ^ ((r & 3) << 3)));
+    return reinterpret_cast<float2*>(dxs + r * 4 * HF + (SUM_SMEM ? c ^ ((r & 3) << 3) : c));
   };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const uint32_t rank = cluster_rank(), peer = rank ^ 1;
-  const size_t b = blockIdx.x >> 1;
-  const int HW = H * W, C2 = C / 2, NXB = PROJ ? bwd_dx_blocks(C) : 0;
+  const uint32_t rank = cluster_rank();
+  const size_t b = blockIdx.x / CL;
+  const int HW = H * W, C2 = C / CL, NXB = PROJ ? bwd_dx_blocks(C, CL) : 0;
   const int stages = L.stages;
 
   if (tid == 0) {
@@ -557,8 +605,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4);
     }
-    mbar_init(ready, 2 * BWD_CONS);
-    mbar_init(freeb, 2 * BWD_CONS);
+    mbar_init(ready, CL * BWD_CONS);
+    mbar_init(freeb, CL * BWD_CONS);
     mbar_init(rfull, 1);
     mbar_init_fence();
   }
@@ -566,7 +614,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
   for (int i = tid; i < stages * L.slot / 16; i += BWD_THREADS)  // see the forward's ring
     reinterpret_cast<uint4*>(ring)[i] = make_uint4(0u, 0u, 0u, 0u);
   if (const_x)
-    for (int i = tid; i < MROWS * 2 * F; i += BWD_THREADS) dxs[i] = 0.f;
+    for (int i = tid; i < MROWS * 4 * HF; i += BWD_THREADS) dxs[i] = 0.f;
   cluster_sync();
 
   if (warp == 4) {
@@ -581,8 +629,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
           const int ncol = dh_part ? HF : DX_BLOCK;
           const bf16* base =
               dh_part ? wt + (size_t)seg * F4 * HF : wx + (size_t)(seg - 9) * F4 * DX_BLOCK;
-          for (int off = 0; off < F4; off += BWD_ROWS) {
-            const uint32_t bytes = min(BWD_ROWS, F4 - off) * ncol * 2;
+          for (int off = 0; off < F4; off += ROWS) {
+            const uint32_t bytes = min(ROWS, F4 - off) * ncol * 2;
             mbar_wait(&empty[slot], ph ^ 1);
             mbar_expect_tx(&full[slot], bytes);
             bulk_g2s(ring + slot * L.slot, base + (size_t)off * ncol, bytes, &full[slot]);
@@ -631,15 +679,17 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
     int srow[9];
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) srow[tap] = tap_row(p, tap, -1, H, W, HW);
-    const uint32_t dg_peer = map_rank(dgs.base, peer);
+    uint32_t dg_peer[CL - 1];
+#pragma unroll
+    for (int k = 1; k < CL; ++k) dg_peer[k - 1] = map_rank(dgs.base, (rank + k) % CL);
 
     int slot = 0;
     uint32_t ph = 0;
     for (int t = Tn - 1; t >= 0; --t) {
       const int it = Tn - 1 - t;
       mbar_wait(rfull, it & 1);
-      if (it > 0) mbar_wait_cluster(freeb, (it - 1) & 1);  // both tiles read out
-      // Cell backward; bf16 dgates into both tiles; K5's dbx warp partials,
+      if (it > 0) mbar_wait_cluster(freeb, (it - 1) & 1);  // every tile read out
+      // Cell backward; bf16 dgates into every tile; K5's dbx warp partials,
       // K6's dgates sum.
 #pragma unroll
       for (int j8 = 0; j8 < J8; ++j8) {
@@ -668,7 +718,9 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
             const uint32_t v = pack_bf16(gq[0][q], gq[1][q]);
             bf16* own = dgs.at(r, q * F + rank * HF + lc);
             *reinterpret_cast<uint32_t*>(own) = v;
-            st_cluster_b32(dg_peer + (uint32_t)((own - dgs.base) * 2), v);
+#pragma unroll
+            for (int k = 0; k < CL - 1; ++k)
+              st_cluster_b32(dg_peer[k] + (uint32_t)((own - dgs.base) * 2), v);
             if (const_x) {
               float2* s = dxs_at(r, q * HF + lc);
               s->x += gq[0][q];
@@ -689,9 +741,9 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
             }
         }
       }
-      mbar_arrive_remote(map_rank(ready, rank));
-      mbar_arrive_remote(map_rank(ready, peer));
-      mbar_wait_cluster(ready, it & 1);  // both CTAs' dgates_t are in the tile
+#pragma unroll
+      for (int k = 0; k < CL; ++k) mbar_arrive_remote(map_rank(ready, (rank + k) % CL));
+      mbar_wait_cluster(ready, it & 1);  // every CTA's dgates_t are in the tile
       if (t > 0 && warp == 0) load_res(t - 1);
       if constexpr (PROJ) {
         if (tid < 4 * HF)
@@ -735,9 +787,9 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
       for (int tap = 0; tap < 9; ++tap) {
         const int row = srow[tap];
         const uint32_t row_addr = smem_u32(dgs.base + (size_t)row * F4);
-        for (int off = 0; off < F4; off += BWD_ROWS)
-          bwd_slab<HF>(acc, full, empty, slot, ph, stages, ring, L.slot, row_addr,
-                       row & dgs.mask, off, min(BWD_ROWS, F4 - off) / 16, lane);
+        for (int off = 0; off < F4; off += ROWS)
+          bwd_slab<HF, ROWS>(acc, full, empty, slot, ph, stages, ring, L.slot, row_addr,
+                             row & dgs.mask, off, min(ROWS, F4 - off) / 16, lane);
       }
       fence_regs(acc);
 
@@ -751,9 +803,10 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
           fence_regs(xacc);
           const uint32_t row_addr = smem_u32(dgs.base + (size_t)srow[4] * F4);
           wgmma_fence();
-          for (int off = 0; off < F4; off += BWD_ROWS)
-            bwd_slab<DX_BLOCK>(xacc, full, empty, slot, ph, stages, ring, L.slot, row_addr,
-                               srow[4] & dgs.mask, off, min(BWD_ROWS, F4 - off) / 16, lane);
+          for (int off = 0; off < F4; off += ROWS)
+            bwd_slab<DX_BLOCK, ROWS>(xacc, full, empty, slot, ph, stages, ring, L.slot,
+                                     row_addr, srow[4] & dgs.mask, off,
+                                     min(ROWS, F4 - off) / 16, lane);
           fence_regs(xacc);
 #pragma unroll
           for (int j = 0; j < DX_BLOCK / 8; ++j)
@@ -766,8 +819,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BWD_THREADS, 1)
             }
         }
       }
-      mbar_arrive_remote(map_rank(freeb, rank));
-      mbar_arrive_remote(map_rank(freeb, peer));
+#pragma unroll
+      for (int k = 0; k < CL; ++k) mbar_arrive_remote(map_rank(freeb, (rank + k) % CL));
       if (add_dhs) {
 #pragma unroll
         for (int i = 0; i < HF / 4; ++i) {
@@ -964,9 +1017,9 @@ __global__ void __launch_bounds__(256, 1) wgrad_wgmma_kernel(
 // Host side
 // ---------------------------------------------------------------------------
 
-// Launch `kern` on `ctas` CTAs in clusters of 2.
+// Launch `kern` on `ctas` CTAs in clusters of `cluster`.
 inline cudaError_t cluster_launch(const void* kern, int ctas, int threads, int smem,
-                                  cudaStream_t stream, void** args) {
+                                  cudaStream_t stream, void** args, int cluster) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -976,7 +1029,7 @@ inline cudaError_t cluster_launch(const void* kern, int ctas, int threads, int s
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -985,19 +1038,23 @@ inline cudaError_t cluster_launch(const void* kern, int ctas, int threads, int s
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// The recurrent kernels' widths, each a compile-time F: 2-CTA clusters for
+// the multiples of 16 up to 128 (convlstm_proj.cu, convlstm_scan.cu), 4-CTA
+// clusters for the multiples of 32 in (128, 256] (convlstm_proj_wide.cu,
+// convlstm_scan_wide.cu, built in parallel with them).
+template <int... FS>
+struct FList {};
+using NarrowF = FList<16, 32, 48, 64, 80, 96, 112, 128>;
+using WideF = FList<160, 192, 224, 256>;
+
+// fn(std::integral_constant<int, F>{}) for the F of the list that equals
+// `F`; cudaErrorInvalidValue for an F outside it.
+template <int... FS, typename Fn>
+int with_f(FList<FS...>, int F, Fn&& fn) {
+  int err = (int)cudaErrorInvalidValue;
+  (void)((F == FS && ((err = fn(std::integral_constant<int, FS>{})), true)) || ...);
+  return err;
+}
+
 }  // namespace
 }  // namespace mmvae
-
-// F (a multiple of 16 up to 128) as a compile-time constant FF.
-#define MMVAE_FOR_F(F, CALL)          \
-  switch (F) {                        \
-    case 16: { constexpr int FF = 16; CALL; } \
-    case 32: { constexpr int FF = 32; CALL; } \
-    case 48: { constexpr int FF = 48; CALL; } \
-    case 64: { constexpr int FF = 64; CALL; } \
-    case 80: { constexpr int FF = 80; CALL; } \
-    case 96: { constexpr int FF = 96; CALL; } \
-    case 112: { constexpr int FF = 112; CALL; } \
-    case 128: { constexpr int FF = 128; CALL; } \
-    default: return (int)cudaErrorInvalidValue; \
-  }

@@ -22,8 +22,10 @@
     warning when fused=True asked for it, as in JAX.
   A time-constant input is projected once on every path.  Each kernel
   wrapper runs its CUDA kernel for CUDA tensors (bf16 activations, F a
-  multiple of 16, F <= 128, H*W <= 64, else it raises) and its plain
-  version for CPU tensors.
+  multiple of 16 up to 128 or of 32 up to 256, H*W <= 64, K5's C a
+  multiple of 16, else it raises: `ops.convlstm_kernels.check_domain`)
+  and its plain version for CPU tensors; the policy does not look at
+  these limits, as JAX's does not.
 
 Gate order i/f/g/o, forget bias +1; the pointwise chain and the cell state
 run in `gate_dtype` (`_gate_math`).  The interface is NHWC like the JAX

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "mmvae_convlstm_wgrad": [_P] * 6 + [_I] * 7 + [_P],
     "mmvae_convlstm_proj_layout": [_I, _I, _P],
     "mmvae_convlstm_scan_fwd": [_P] * 7 + [_I] * 8 + [_P],
-    "mmvae_convlstm_scan_bwd": [_P] * 10 + [_I] * 7 + [_P],
+    "mmvae_convlstm_scan_bwd": [_P] * 11 + [_I] * 7 + [_P],
     "mmvae_convlstm_scan_layout": [_I, _P],
     "mmvae_head_sample_fwd": [_P] * 12 + [_I] * 4 + [_U, _P, _I, _I, _P],
     "mmvae_head_sample_bwd": [_P] * 12 + [_I] * 4 + [_P],

@@ -23,8 +23,11 @@ accumulation is f32; the pointwise chain and the cell state run in
 `gate_dtype` (float32 or bfloat16), and the backward chain in f32, as in the
 TPU kernels.  The forward that feeds a backward saves hs, cs and the
 post-activation gates (in T); without grad a residual-free forward runs.
-The CUDA kernels take T = bfloat16 (the production dtype) and raise for
-float32, which only the plain versions, on the CPU, run.
+The CUDA kernels take T = bfloat16 (the production dtype), F a multiple of
+16 up to 128 (2 CTAs a sample) or of 32 up to 256 (4 CTAs a sample), H*W <=
+64 and, for K5, C a multiple of 16 (`check_domain`); they raise for
+anything else, float32 activations included, which only the plain
+versions, on the CPU, run.
 
 The plain versions below follow the same algorithms step by step in PyTorch
 (f32 convs and matmuls on operands rounded to T); they are the CPU path and
@@ -149,26 +152,51 @@ def proj_backward_plain(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
 # ---------------------------------------------------------------------------
 
 
-def _require_bf16_cuda(what, named):
-    """The tensor-core kernels take bf16 activations (the matmul operands) on
-    the card; f32 activations run only in the plain versions, on the CPU."""
+# The CUDA kernels' domain, as the message of every refusal states it.
+DOMAIN = ("bfloat16 activations, F a multiple of 16 up to 128 or a multiple of 32 up to "
+          "256, H*W <= 64 and (K5) C a multiple of 16")
+
+
+def _require_cuda(what, named):
+    """The kernels run on the card; a CPU tensor takes the plain version."""
     for name, t in named:
         if not t.is_cuda:
             raise ValueError(f"{what}: {name} is on {t.device}, not cuda")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: {name} is {t.dtype}; the CUDA kernels take "
-                            f"bfloat16 activations")
+
+
+def check_domain(what: str, dtype: torch.dtype, feat: int, hw: int, cin=None) -> None:
+    """Raise unless activations of `dtype`, F = `feat`, `hw` positions and
+    (K5) C = `cin` input channels lie in the CUDA kernels' domain: bf16
+    activations (the matmul operands; f32 runs only in the plain versions,
+    on the CPU), F a multiple of 16 up to 128 (2-CTA clusters) or of 32 up
+    to 256 (4-CTA clusters), H*W <= 64, C a multiple of 16.  TypeError for
+    the dtype, ValueError for a shape; each message names the domain."""
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{what}: activations are {dtype}; the CUDA kernels take {DOMAIN}")
+    narrow = feat % 16 == 0 and 0 < feat <= 128
+    wide = feat % 32 == 0 and 128 < feat <= 256
+    if not (narrow or wide) or hw > 64 or (cin is not None and cin % 16):
+        got = f"F={feat}, H*W={hw}" + (f", C={cin}" if cin is not None else "")
+        raise ValueError(f"{what}: the CUDA kernels take {DOMAIN}; got {got}")
+
+
+def _activations(named) -> torch.dtype:
+    """bfloat16, or the first other dtype among the named tensors."""
+    return next((t.dtype for _, t in named if t.dtype != torch.bfloat16), torch.bfloat16)
 
 
 # The launch geometry of K5 and K6, as `csrc/convlstm_wgmma.cuh`
-# (fwd_smem_layout, bwd_layout, wgrad_bn, wgrad_smem) computes it: a change to
-# one is made in both; the wrappers hold them equal, asking the library once
-# per (C, F) for K5 (`_layouts`) and once per F for K6 (`_scan_layouts`).
-# One 2-CTA cluster per sample; shared memory per CTA for the forward
-# (weight ring of FWD_ROWS-row slabs, K5's two x tiles, two h tiles,
-# residual staging; K6 holds xg in registers), the BPTT (ring, the dgates
-# tile, the residuals, K5's dbx warp partials or the f32 dgates sum of K6's
-# time-constant xg) and the weight gradient.
+# (rec_cluster, fwd_smem_layout, bwd_layout, wgrad_bn, wgrad_smem) computes
+# it: a change to one is made in both; the wrappers hold them equal, asking
+# the library once per (C, F) for K5 (`_layouts`) and once per F for K6
+# (`_scan_layouts`).  One cluster of 2 CTAs per sample up to F = 128, of 4
+# beyond, each CTA F/CL channels of every gate; shared memory per CTA for
+# the forward (weight ring of FWD_ROWS-row slabs of the CTA's 4F/CL
+# columns, K5's two x tiles, two whole h tiles, residual staging; K6 holds
+# xg in registers), the BPTT (ring of BWD_ROWS-row slabs, half that with 4
+# CTAs; the whole dgates tile, the residuals, K5's dbx warp partials or, in
+# a 2-CTA cluster, the f32 dgates sum of K6's time-constant xg, which a
+# 4-CTA cluster keeps in global memory) and the weight gradient.
 SMEM_LIMIT = 232448  # bytes one CTA may use on the H100 (227 KB)
 SMS = 132
 _MROWS, _MIN_STAGES, _MAX_STAGES = 64, 4, 8
@@ -181,19 +209,31 @@ def _round128(v: int) -> int:
     return (v + 127) // 128 * 128
 
 
+def cluster_size(feat: int) -> int:
+    """CTAs a sample (`rec_cluster`): 2 up to F = 128, 4 beyond, where two
+    CTAs' weight slabs, residual staging and rings no longer fit."""
+    return 4 if feat > 128 else 2
+
+
+def _bwd_rows(feat: int) -> int:
+    return _BWD_ROWS if cluster_size(feat) == 2 else _BWD_ROWS // 2
+
+
 def _stages(fixed: int, slot: int) -> int:
     return min(_MAX_STAGES, (SMEM_LIMIT - fixed) // slot)
 
 
 def _fwd_fixed(cin: int, feat: int, x_tiles: bool = True) -> int:
     """The forward's shared memory besides its ring (K6 has no x tiles)."""
+    hf = feat // cluster_size(feat)
     inputs = 2 * _round128((_MROWS + 1) * (cin + 8) * 2) if x_tiles else 0
-    return 1280 + inputs + 2 * _round128((_MROWS + 1) * feat * 2) + _MROWS * 3 * feat * 2
+    return 1280 + inputs + 2 * _round128((_MROWS + 1) * feat * 2) + _MROWS * 6 * hf * 2
 
 
 def _bwd_fixed(feat: int, tail: int) -> int:
     """The BPTT's shared memory besides its ring."""
-    return 256 + _round128((_MROWS + 1) * 4 * feat * 2) + _MROWS * 3 * feat * 2 + tail
+    hf = feat // cluster_size(feat)
+    return 256 + _round128((_MROWS + 1) * 4 * feat * 2) + _MROWS * 6 * hf * 2 + tail
 
 
 def _wgrad_geometry(rows: int, m: int, feat: int) -> dict:
@@ -215,16 +255,18 @@ def proj_geometry(batch, t_len, height, width, cin, feat) -> dict:
     """The K5 kernels' launch geometry at (B, T, H, W, C, F): CTAs, ring
     stages and bytes, shared memory per CTA, the weight GEMM's tile width
     and split-K.  Cached: callers read the dict and never change it."""
-    f_slot, f_fixed = _FWD_ROWS * 2 * feat * 2, _fwd_fixed(cin, feat)
-    b_slot, b_fixed = _BWD_ROWS * _DX_BLOCK * 2, _bwd_fixed(feat, 4 * 2 * feat * 4)
+    cl = cluster_size(feat)
+    hf = feat // cl
+    f_slot, f_fixed = _FWD_ROWS * 4 * hf * 2, _fwd_fixed(cin, feat)
+    b_slot, b_fixed = _bwd_rows(feat) * _DX_BLOCK * 2, _bwd_fixed(feat, 4 * 4 * hf * 4)
     f_stages, b_stages = _stages(f_fixed, f_slot), _stages(b_fixed, b_slot)
     return {
-        "clusters": batch, "ctas": 2 * batch,
+        "cluster": cl, "clusters": batch, "ctas": cl * batch,
         "fwd_stages": f_stages, "fwd_slot_bytes": f_slot,
         "fwd_ring_bytes": f_stages * f_slot, "fwd_smem": f_fixed + f_stages * f_slot,
         "bwd_stages": b_stages, "bwd_slot_bytes": b_slot,
         "bwd_ring_bytes": b_stages * b_slot, "bwd_smem": b_fixed + b_stages * b_slot,
-        "dx_blocks": -(-(cin // 2) // _DX_BLOCK),
+        "dx_blocks": -(-(cin // cl) // _DX_BLOCK),
         **_wgrad_geometry(batch * t_len * height * width, cin + 9 * feat, feat),
     }
 
@@ -232,31 +274,37 @@ def proj_geometry(batch, t_len, height, width, cin, feat) -> dict:
 @functools.lru_cache(maxsize=None)
 def scan_geometry(batch, t_len, height, width, feat, const_input) -> dict:
     """The K6 kernels' launch geometry at (B, T, H, W, F) for a
-    time-constant xg (the BPTT keeps a (64, 2F) f32 dgates sum) or a
-    streaming one: CTAs, ring stages and bytes, shared memory per CTA, the
-    fewest BPTT stages the kernel takes, and the weight GEMM's (K5's with
-    C = 0).  Cached like `proj_geometry`."""
-    f_slot, f_fixed = _FWD_ROWS * 2 * feat * 2, _fwd_fixed(0, feat, x_tiles=False)
-    b_slot = _BWD_ROWS * feat  # rows of the CTA's F/2 columns
-    b_fixed = _bwd_fixed(feat, _MROWS * 2 * feat * 4 if const_input else 0)
+    time-constant xg (a 2-CTA BPTT keeps a (64, 2F) f32 dgates sum in
+    shared memory, a 4-CTA one a (B, 4, 64, F) f32 scratch in global
+    memory, `dxs_scratch_floats`) or a streaming one: CTAs, ring stages
+    and bytes, shared memory per CTA, the fewest BPTT stages the kernel
+    takes, and the weight GEMM's (K5's with C = 0).  Cached like
+    `proj_geometry`."""
+    cl = cluster_size(feat)
+    hf = feat // cl
+    sum_in_smem = const_input and cl == 2
+    f_slot, f_fixed = _FWD_ROWS * 4 * hf * 2, _fwd_fixed(0, feat, x_tiles=False)
+    b_slot = _bwd_rows(feat) * hf * 2  # rows of the CTA's F/CL columns
+    b_fixed = _bwd_fixed(feat, _MROWS * 4 * hf * 4 if sum_in_smem else 0)
     f_stages, b_stages = _stages(f_fixed, f_slot), _stages(b_fixed, b_slot)
     return {
-        "clusters": batch, "ctas": 2 * batch,
+        "cluster": cl, "clusters": batch, "ctas": cl * batch,
         "fwd_stages": f_stages, "fwd_slot_bytes": f_slot,
         "fwd_ring_bytes": f_stages * f_slot, "fwd_smem": f_fixed + f_stages * f_slot,
         "bwd_stages": b_stages, "bwd_slot_bytes": b_slot,
         "bwd_ring_bytes": b_stages * b_slot, "bwd_smem": b_fixed + b_stages * b_slot,
-        "bwd_min_stages": SCAN_BWD_MIN_STAGES if const_input else _MIN_STAGES,
+        "bwd_min_stages": SCAN_BWD_MIN_STAGES if sum_in_smem else _MIN_STAGES,
+        "dxs_scratch_floats": batch * _MROWS * 4 * feat if const_input and cl == 4 else 0,
         **_wgrad_geometry(batch * t_len * height * width, 9 * feat, feat),
     }
 
 
 def _check_cuda(x, wx, w, c0, h0, *more):
-    """Raise unless the tensors suit the K5 kernels (bf16 activations, C and
-    F multiples of 16, F <= 128, at most 64 positions, rings of at least 4
-    stages); return the library and the geometry."""
-    _require_bf16_cuda("convlstm_scan_proj",
-                       (("x", x), ("wx", wx), ("w", w), ("c0", c0), ("h0", h0), *more))
+    """Raise unless the tensors suit the K5 kernels (on the card, in
+    `check_domain`, rings of at least 4 stages); return the library and the
+    geometry."""
+    named = (("x", x), ("wx", wx), ("w", w), ("c0", c0), ("h0", h0), *more)
+    _require_cuda("convlstm_scan_proj", named)
     batch, t_len, height, width, cin = x.shape
     f4 = wx.shape[1]
     feat = f4 // 4
@@ -266,11 +314,7 @@ def _check_cuda(x, wx, w, c0, h0, *more):
             f"convlstm_scan_proj: inconsistent shapes x {tuple(x.shape)} wx "
             f"{tuple(wx.shape)} w {tuple(w.shape)} c0 {tuple(c0.shape)} h0 {tuple(h0.shape)}"
         )
-    if cin % 16 or feat % 16 or feat > 128 or height * width > 64:
-        raise ValueError(
-            f"convlstm_scan_proj: the CUDA kernels need C and F multiples of 16, "
-            f"F <= 128 and H*W <= 64; got C={cin}, F={feat}, H*W={height * width}"
-        )
+    check_domain("convlstm_scan_proj", _activations(named), feat, height * width, cin)
     geo = proj_geometry(batch, t_len, height, width, cin, feat)
     if min(geo["fwd_stages"], geo["bwd_stages"]) < _MIN_STAGES:
         raise ValueError(f"convlstm_scan_proj: C={cin}, F={feat} leave less than "
@@ -283,7 +327,8 @@ def _check_cuda(x, wx, w, c0, h0, *more):
     return lib, geo
 
 
-_LAYOUT_KEYS = ("fwd_stages", "fwd_smem", "bwd_stages", "bwd_smem", "wgrad_bn", "wgrad_smem")
+_LAYOUT_KEYS = ("fwd_stages", "fwd_smem", "bwd_stages", "bwd_smem", "wgrad_bn", "wgrad_smem",
+                "cluster")
 
 
 @functools.lru_cache(maxsize=None)
@@ -311,43 +356,46 @@ def unpack_cores(pk: torch.Tensor) -> torch.Tensor:
 
 
 def consumer_groups(feat: int) -> int:
-    """Consumer warpgroups of a K5 CTA (`rec_wgs` in convlstm_wgmma.cuh): two
-    when each owns a multiple of 8 of the CTA's F/2 channels."""
-    return 2 if feat % 32 == 0 else 1
+    """Consumer warpgroups of a K5 or K6 forward CTA (`rec_wgs` in
+    convlstm_wgmma.cuh): two when each owns a multiple of 8 of the CTA's
+    F/CL channels."""
+    return 2 if (feat // cluster_size(feat)) % 16 == 0 else 1
 
 
 def pack_proj_forward(wx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[Wx; W] ((C + 9F) x 4F) cut for the two CTAs of a cluster: rank r
-    keeps channels [r F/2, (r + 1) F/2) of each gate, 2F columns ordered
-    (warpgroup, gate, channel), each consumer warpgroup's F/2 / groups
-    channels of the four gates together; (2, K/8, 2F/8, 8, 8)."""
+    """[Wx; W] ((C + 9F) x 4F) cut for the CL CTAs of a cluster: rank r
+    keeps channels [r F/CL, (r + 1) F/CL) of each gate, 4F/CL columns
+    ordered (warpgroup, gate, channel), each consumer warpgroup's F/CL /
+    groups channels of the four gates together; (CL, K/8, 4F/CL/8, 8, 8)."""
     cin, f4 = wx.shape
     feat = f4 // 4
-    nwg = consumer_groups(feat)
+    cl, nwg = cluster_size(feat), consumer_groups(feat)
     full = torch.cat([wx, w.reshape(9 * feat, f4)])
     k = full.shape[0]
-    per_rank = full.view(k, 4, 2, nwg, feat // 2 // nwg).permute(2, 0, 3, 1, 4)
-    return pack_cores(per_rank.reshape(2, k, 2 * feat))
+    per_rank = full.view(k, 4, cl, nwg, feat // cl // nwg).permute(2, 0, 3, 1, 4)
+    return pack_cores(per_rank.reshape(cl, k, f4 // cl))
 
 
 def pack_hidden_backward(w: torch.Tensor) -> torch.Tensor:
     """The BPTT's dh slabs per rank (K5 and K6): W^T with rows (tap, n) and
-    the rank's F/2 columns, (2, 9*4F/8, F/16, 8, 8)."""
+    the rank's F/CL columns, (CL, 9*4F/8, F/CL/8, 8, 8)."""
     f4 = w.shape[-1]
     feat = f4 // 4
+    cl = cluster_size(feat)
     wt = w.reshape(9, feat, f4).transpose(1, 2).reshape(9 * f4, feat)
-    return pack_cores(wt.view(9 * f4, 2, feat // 2).permute(1, 0, 2))
+    return pack_cores(wt.view(9 * f4, cl, feat // cl).permute(1, 0, 2))
 
 
 def pack_proj_backward(wx: torch.Tensor, w: torch.Tensor):
     """K5's BPTT slabs per rank: `pack_hidden_backward(w)`, and Wx^T (rows
-    n) with the rank's C/2 columns in zero-padded blocks of 64, (2, blocks,
-    4F/8, 8, 8, 8)."""
+    n) with the rank's C/CL columns in zero-padded blocks of 64, (CL,
+    blocks, 4F/8, 8, 8, 8)."""
     cin, f4 = wx.shape
-    c2 = cin // 2
-    blocks = -(-c2 // _DX_BLOCK)
-    wxt = wx.t().reshape(f4, 2, c2).permute(1, 0, 2)
-    wxt = F.pad(wxt, (0, blocks * _DX_BLOCK - c2)).view(2, f4, blocks, _DX_BLOCK)
+    cl = cluster_size(f4 // 4)
+    cr = cin // cl
+    blocks = -(-cr // _DX_BLOCK)
+    wxt = wx.t().reshape(f4, cl, cr).permute(1, 0, 2)
+    wxt = F.pad(wxt, (0, blocks * _DX_BLOCK - cr)).view(cl, f4, blocks, _DX_BLOCK)
     return pack_hidden_backward(w), pack_cores(wxt.permute(0, 2, 1, 3))
 
 
@@ -592,17 +640,16 @@ def scan_backward_plain(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
 
 
 def _check_scan(w, c0, h0, t_len, const_input, **more):
-    """Raise unless the tensors suit the K6 kernels (bf16 activations, F a
-    multiple of 16, F <= 128, at most 64 positions, enough ring stages);
-    return the library and the geometry."""
-    _require_bf16_cuda("convlstm_scan", (("w", w), ("c0", c0), ("h0", h0), *more.items()))
+    """Raise unless the tensors suit the K6 kernels (on the card, in
+    `check_domain`, enough ring stages); return the library and the
+    geometry."""
+    named = (("w", w), ("c0", c0), ("h0", h0), *more.items())
+    _require_cuda("convlstm_scan", named)
     batch, height, width, feat = c0.shape
     if w.shape != (3, 3, feat, 4 * feat) or h0.shape != c0.shape:
         raise ValueError(f"convlstm_scan: inconsistent shapes w {tuple(w.shape)} "
                          f"c0 {tuple(c0.shape)} h0 {tuple(h0.shape)}")
-    if feat % 16 or feat > 128 or height * width > 64:
-        raise ValueError(f"convlstm_scan: the CUDA kernels need F a multiple of 16, "
-                         f"F <= 128 and H*W <= 64; got F={feat}, H*W={height * width}")
+    check_domain("convlstm_scan", _activations(named), feat, height * width)
     geo = scan_geometry(batch, t_len, height, width, feat, const_input)
     if geo["fwd_stages"] < _MIN_STAGES or geo["bwd_stages"] < geo["bwd_min_stages"]:
         raise ValueError(f"convlstm_scan: F={feat} leaves too few weight stages in one "
@@ -620,11 +667,11 @@ def _scan_layouts(feat: int):
     """(the K6 kernels' shared-memory layout at F, `scan_geometry`'s): the
     forward's stages and bytes, then the BPTT's for a time-constant and for a
     streaming xg; asked of the library once per F."""
-    got = (ctypes.c_int * 6)()
+    got = (ctypes.c_int * 7)()
     _build.library().mmvae_convlstm_scan_layout(feat, got)
     const, stream = (scan_geometry(1, 1, 8, 8, feat, c) for c in (True, False))
     want = (const["fwd_stages"], const["fwd_smem"], const["bwd_stages"], const["bwd_smem"],
-            stream["bwd_stages"], stream["bwd_smem"])
+            stream["bwd_stages"], stream["bwd_smem"], const["cluster"])
     return tuple(got), want
 
 
@@ -695,9 +742,13 @@ def scan_backward_cuda(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
         d_gates = dxg
     dc0 = torch.empty(batch, hw, feat, device=dev, dtype=act)
     dh0 = torch.empty_like(dc0)
+    # a 4-CTA BPTT's f32 dgates sum of a time-constant xg (the kernel zeroes it)
+    dxs = (torch.empty(geo["dxs_scratch_floats"], device=dev, dtype=torch.float32)
+           if geo["dxs_scratch_floats"] else None)
     err = lib.mmvae_convlstm_scan_bwd(
         wtpk.data_ptr(), c0.data_ptr(), cs.data_ptr(), ga.data_ptr(), dhs.data_ptr(),
-        dcl.data_ptr(), d_gates.data_ptr(), dxg.data_ptr(), dc0.data_ptr(), dh0.data_ptr(),
+        dcl.data_ptr(), d_gates.data_ptr(), dxg.data_ptr(),
+        None if dxs is None else dxs.data_ptr(), dc0.data_ptr(), dh0.data_ptr(),
         batch, t_len, height, width, feat, int(const_input), int(last_only), stream,
     )
     _build.check(err, "convlstm_scan_bwd")

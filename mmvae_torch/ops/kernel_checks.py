@@ -26,6 +26,10 @@ operands to bf16, the one activation dtype the kernels take:
   products with their operands rounded to TF32 (`head_tf32_control`),
   which a 1xTF32 kernel would show, so a kernel that left f32 fails it.
 
+The same readings hold K5 and K6 at every width they take, the 4-CTA
+ones (F = 160-256) included, which `chip_smoke.py`'s phase 11 compares at
+B = 64, T = 20.
+
 `plain_route()` swaps every wrapper's CUDA branch for its plain version,
 so a run on the card takes the model's own ops with no kernel of the repo:
 the witness for a result of the kernels' route.

@@ -50,18 +50,26 @@ def _probe(seed, shape):
             rng.normal(size=shape).astype(np.float32))
 
 
+# (B, T, S, C, F): the small shape, and a 4-CTA width of the CUDA kernels
+# (the reference's lstm_features=192 probe) at the 8x8 grid of the models.
+WIDE = (1, 2, 8, 16, 192)
+
+
 @pytest.mark.parametrize(
-    "gate,fwd_tol,grad_tol",
+    "gate,fwd_tol,grad_tol,shape",
     [
-        ("float32", 2e-5, _GRAD_TOL),
+        pytest.param("float32", 2e-5, _GRAD_TOL, (B, T, S, C, F), id="float32-2e-05-0.0002"),
         # bf16 gates round at different points in the two frameworks: a few
         # bf16 ulps of O(1) activations (tests/test_convlstm_fused.py:249-269).
-        ("bfloat16", 0.05, 0.08),
+        pytest.param("bfloat16", 0.05, 0.08, (B, T, S, C, F), id="bfloat16-0.05-0.08"),
+        pytest.param("float32", 2e-5, _GRAD_TOL, WIDE, id="float32-F192"),
+        pytest.param("bfloat16", 0.05, 0.08, WIDE, id="bfloat16-F192"),
     ],
 )
-def test_proj_plain_matches_pallas_interpret(gate, fwd_tol, grad_tol):
-    args = _proj_inputs(0)
-    wc, wh = _probe(1, (B, S, S, F))
+def test_proj_plain_matches_pallas_interpret(gate, fwd_tol, grad_tol, shape):
+    b, t, s, c, f = shape
+    args = _proj_inputs(0, b, t, s, c, f)
+    wc, wh = _probe(1, (b, s, s, f))
     jgate = jnp.bfloat16 if gate == "bfloat16" else jnp.float32
     tgate = torch.bfloat16 if gate == "bfloat16" else torch.float32
 

@@ -86,12 +86,13 @@ def test_reparameterize_formula_and_vjp(dev):
 
 @pytest.mark.parametrize("gate_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 7, 5, 6, 48, 32), (2, 4, 7, 9, 32, 16),
-                                   (5, 3, 7, 9, 32, 16), (160, 10, 8, 8, 128, 128)])
+                                   (5, 3, 7, 9, 32, 16), (160, 10, 8, 8, 128, 128),
+                                   (3, 7, 5, 6, 48, 160), (2, 3, 8, 8, 128, 256)])
 def test_proj_kernel_matches_plain(dev, shape, gate_dtype):
-    """K5 at unaligned positions (5x6, 7x9), odd B and T, and at config 5's
+    """K5 at unaligned positions (5x6, 7x9), odd B and T, at config 5's
     full-width shape (B=160, T=10: more clusters than the card holds at
-    once), with the smoke's comparison and tolerances
-    (`kernel_checks.compare_proj`)."""
+    once) and at two 4-CTA widths, with the smoke's comparison and
+    tolerances (`kernel_checks.compare_proj`)."""
     kernel_checks.compare_proj(dev, shape, gate_dtype).check(f"convlstm_proj {shape}")
 
 
@@ -103,7 +104,8 @@ def test_proj_backward_is_bit_reproducible(dev, shape):
     assert all(same.values()), same
 
 
-@pytest.mark.parametrize("cin,feat", [(128, 128), (48, 32), (32, 16), (160, 64)])
+@pytest.mark.parametrize("cin,feat", [(128, 128), (48, 32), (32, 16), (160, 64), (128, 160),
+                                      (128, 192), (32, 224), (128, 256)])
 def test_proj_layout_matches_the_wrapper(dev, cin, feat):
     """K5's shared-memory layout as the library computes it equals
     `proj_geometry`'s (the CPU tests check the Python side's sizes)."""
@@ -115,6 +117,18 @@ def test_proj_kernel_refuses_f32_activations(dev):
     args = [t.float() for t in kernel_checks.proj_inputs(dev, 2, 3, 4, 4, 16, 16, seed=6)]
     with pytest.raises(TypeError, match="bfloat16"):
         ck.proj_forward_cuda(*args, torch.float32, True)
+
+
+@pytest.mark.parametrize("feat", [144, 288])
+def test_kernels_refuse_widths_outside_their_domain(dev, feat):
+    """F = 144 (above 128, not a multiple of 32) and 288 (above 256) raise
+    on the card, naming the limits; no plain version runs in their place."""
+    args = kernel_checks.proj_inputs(dev, 1, 2, 4, 4, 16, feat, seed=6)
+    with pytest.raises(ValueError, match="multiple of 32 up to 256"):
+        ck.proj_forward_cuda(*args, torch.float32, True)
+    xg, wh, c0, h0 = kernel_checks.scan_inputs(dev, 1, 1, 4, 4, feat, 11)
+    with pytest.raises(ValueError, match="multiple of 32 up to 256"):
+        ck.scan_forward_cuda(xg, wh, c0, h0, 2, torch.float32, "save")
 
 
 def test_train_step_launches_every_kernel(dev):
@@ -204,7 +218,8 @@ def test_ongen_clips_equal_the_cpus(dev, tf32):
 
 @pytest.mark.parametrize("gate_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("const", [True, False])
-@pytest.mark.parametrize("shape", [(3, 7, 5, 6, 32), (2, 4, 7, 9, 16)])
+@pytest.mark.parametrize("shape", [(3, 7, 5, 6, 32), (2, 4, 7, 9, 16), (3, 7, 5, 6, 192),
+                                   (2, 4, 7, 9, 224)])
 def test_scan_kernel_matches_plain(dev, shape, const, gate_dtype):
     """K6 in every mode at unaligned positions (5x6, 7x9) and odd T, with the
     smoke's comparison and tolerances (`kernel_checks.compare_scan`)."""
@@ -212,7 +227,7 @@ def test_scan_kernel_matches_plain(dev, shape, const, gate_dtype):
 
 
 @pytest.mark.parametrize("const", [True, False])
-@pytest.mark.parametrize("shape", [(3, 7, 5, 6, 32), (64, 10, 8, 8, 128)])
+@pytest.mark.parametrize("shape", [(3, 7, 5, 6, 32), (64, 10, 8, 8, 128), (64, 20, 8, 8, 192)])
 def test_scan_backward_is_bit_reproducible(dev, shape, const):
     """Two K6 backward calls on the same inputs give bit-identical gradients
     (dW and a time-constant xg's dxg sum included), at an unaligned shape
@@ -221,7 +236,7 @@ def test_scan_backward_is_bit_reproducible(dev, shape, const):
     assert all(same.values()), same
 
 
-@pytest.mark.parametrize("feat", [128, 112, 64, 48, 32, 16])
+@pytest.mark.parametrize("feat", [128, 112, 64, 48, 32, 16, 160, 192, 224, 256])
 def test_scan_layout_matches_the_wrapper(dev, feat):
     """K6's shared-memory layout as the library computes it, for a
     time-constant and a streaming xg, equals `scan_geometry`'s."""

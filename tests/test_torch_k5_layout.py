@@ -10,11 +10,13 @@ import torch
 from mmvae_torch.bench.roofline import bound, kernel_work
 from mmvae_torch.ops import convlstm_kernels as ck
 
-# (B, T, H, W, C, F): the path shapes (configs 3, 4, 5) and the unaligned
-# shapes the CUDA tests use.
+# (B, T, H, W, C, F): the path shapes (configs 3, 4, 5), the unaligned
+# shapes the CUDA tests use, and the 4-CTA widths (the lstm_features=192
+# probe among them, and config 5's batch at 256).
 SHAPES = [(64, 20, 8, 8, 128, 128), (64, 10, 8, 8, 128, 128), (160, 10, 8, 8, 128, 128),
           (160, 20, 8, 8, 128, 128), (3, 7, 5, 6, 48, 32), (2, 4, 7, 9, 32, 16),
-          (5, 3, 7, 9, 32, 16)]
+          (5, 3, 7, 9, 32, 16), (64, 20, 8, 8, 128, 160), (64, 20, 8, 8, 128, 192),
+          (64, 20, 8, 8, 128, 224), (160, 10, 8, 8, 128, 256), (3, 7, 5, 6, 48, 192)]
 
 
 def _weights(c, f, seed=0):
@@ -32,18 +34,20 @@ def test_pack_cores_round_trip_and_layout():
     assert torch.equal(ck.unpack_cores(pk), mat)
 
 
-@pytest.mark.parametrize("c,f", [(128, 128), (48, 32), (32, 16)])
+@pytest.mark.parametrize("c,f", [(128, 128), (48, 32), (32, 16), (128, 192), (64, 160),
+                                 (32, 224), (128, 256)])
 def test_forward_slabs_unpack_to_the_weights(c, f):
     wx, w = _weights(c, f)
     pk = ck.pack_proj_forward(wx, w)
-    hf = f // 2
-    assert pk.shape == (2, (c + 9 * f) // 8, 2 * f // 8, 8, 8)
+    cl = ck.cluster_size(f)
+    hf = f // cl
+    assert pk.shape == (cl, (c + 9 * f) // 8, 4 * hf // 8, 8, 8)
     full = torch.cat([wx, w.reshape(9 * f, 4 * f)])
     back = torch.zeros_like(full)
     nwg = ck.consumer_groups(f)
-    assert nwg == (2 if f % 32 == 0 else 1)
+    assert nwg == (2 if hf % 16 == 0 else 1)
     hfw = hf // nwg
-    for rank in range(2):
+    for rank in range(cl):
         per_rank = ck.unpack_cores(pk[rank])  # (K, 2F) ordered (warpgroup, gate, channel)
         for wg in range(nwg):
             for q in range(4):
@@ -53,20 +57,22 @@ def test_forward_slabs_unpack_to_the_weights(c, f):
     assert torch.equal(back, full)
 
 
-@pytest.mark.parametrize("c,f", [(128, 128), (48, 32), (32, 16), (160, 64)])
+@pytest.mark.parametrize("c,f", [(128, 128), (48, 32), (32, 16), (160, 64), (128, 192),
+                                 (48, 160), (512, 256)])
 def test_backward_slabs_unpack_to_the_transposes(c, f):
     wx, w = _weights(c, f, seed=1)
     wt_pk, wx_pk = ck.pack_proj_backward(wx, w)
-    hf, c2 = f // 2, c // 2
+    cl = ck.cluster_size(f)
+    hf, c2 = f // cl, c // cl
     blocks = -(-c2 // 64)
-    assert wt_pk.shape == (2, 9 * 4 * f // 8, hf // 8, 8, 8)
-    assert wx_pk.shape == (2, blocks, 4 * f // 8, 8, 8, 8)
+    assert wt_pk.shape == (cl, 9 * 4 * f // 8, hf // 8, 8, 8)
+    assert wx_pk.shape == (cl, blocks, 4 * f // 8, 8, 8, 8)
     # W^T: rows (tap, n), columns f; rank r holds columns [r*HF, (r+1)*HF)
     wt = w.reshape(9, f, 4 * f).transpose(1, 2).reshape(9 * 4 * f, f)
-    got = torch.cat([ck.unpack_cores(wt_pk[r]) for r in range(2)], dim=1)
+    got = torch.cat([ck.unpack_cores(wt_pk[r]) for r in range(cl)], dim=1)
     assert torch.equal(got, wt)
-    # Wx^T: rows n, columns c; rank r holds [r*C/2, (r+1)*C/2) in zero-padded blocks of 64
-    for r in range(2):
+    # Wx^T: rows n, columns c; rank r holds [r*C/CL, (r+1)*C/CL) in zero-padded blocks of 64
+    for r in range(cl):
         cols = torch.cat([ck.unpack_cores(wx_pk[r, b]) for b in range(blocks)], dim=1)
         assert torch.equal(cols[:, :c2], wx.t()[:, r * c2:(r + 1) * c2])
         assert not cols[:, c2:].any()
@@ -76,12 +82,13 @@ def test_backward_slabs_unpack_to_the_transposes(c, f):
 def test_launch_geometry_fits_the_card(shape):
     b, t, h, w, c, f = shape
     geo = ck.proj_geometry(*shape)
-    assert geo["clusters"] == b and geo["ctas"] == 2 * b
+    cl = ck.cluster_size(f)
+    assert geo["clusters"] == b and geo["ctas"] == cl * b and geo["cluster"] == cl
     for part in ("fwd", "bwd"):
         assert 4 <= geo[f"{part}_stages"] <= 8
         assert geo[f"{part}_ring_bytes"] == geo[f"{part}_stages"] * geo[f"{part}_slot_bytes"]
         assert geo[f"{part}_ring_bytes"] < geo[f"{part}_smem"] <= ck.SMEM_LIMIT == 227 * 1024
-    assert geo["fwd_slot_bytes"] == 32 * 2 * f * 2  # 32 rows of the CTA's 2F columns
+    assert geo["fwd_slot_bytes"] == 32 * 4 * (f // cl) * 2  # 32 rows of the CTA's 4F/CL columns
     assert geo["wgrad_smem"] <= ck.SMEM_LIMIT
     assert geo["wgrad_tiles"] * geo["wgrad_splits"] <= ck.SMS
     rows = b * t * h * w

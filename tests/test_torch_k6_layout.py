@@ -12,8 +12,9 @@ from mmvae_torch.ops import convlstm_kernels as ck
 # (64, 20) also enc_x_kernel=3's streaming encoder) and the unaligned shapes
 # of the CUDA tests.
 SHAPES = [(64, 10, 8, 8, 128), (160, 10, 8, 8, 128), (64, 20, 8, 8, 128), (3, 7, 5, 6, 32),
-          (2, 4, 7, 9, 16)]
-FEATS = [128, 64, 48, 32, 16]
+          (2, 4, 7, 9, 16), (64, 20, 8, 8, 192), (160, 10, 8, 8, 256), (3, 7, 5, 6, 160),
+          (64, 10, 8, 8, 224)]
+FEATS = [128, 64, 48, 32, 16, 160, 192, 224, 256]
 
 
 def _w(f, seed=0):
@@ -28,11 +29,12 @@ def test_forward_slabs_unpack_to_the_weights(f):
     channel)."""
     w = _w(f)
     pk = ck.pack_proj_forward(w.new_empty(0, 4 * f), w)
-    hf, nwg = f // 2, ck.consumer_groups(f)
-    assert pk.shape == (2, 9 * f // 8, 2 * f // 8, 8, 8)
+    cl = ck.cluster_size(f)
+    hf, nwg = f // cl, ck.consumer_groups(f)
+    assert pk.shape == (cl, 9 * f // 8, 4 * hf // 8, 8, 8)
     hfw = hf // nwg
     back = torch.zeros(9 * f, 4 * f)
-    for rank in range(2):
+    for rank in range(cl):
         per_rank = ck.unpack_cores(pk[rank])
         for wg in range(nwg):
             for q in range(4):
@@ -47,8 +49,9 @@ def test_backward_slabs_unpack_to_the_transpose(f):
     [r F/2, (r + 1) F/2), the same as K5's dh half."""
     w = _w(f, seed=1)
     pk = ck.pack_hidden_backward(w)
-    assert pk.shape == (2, 9 * 4 * f // 8, f // 16, 8, 8)
-    got = torch.cat([ck.unpack_cores(pk[r]) for r in range(2)], dim=1)
+    cl = ck.cluster_size(f)
+    assert pk.shape == (cl, 9 * 4 * f // 8, f // cl // 8, 8, 8)
+    got = torch.cat([ck.unpack_cores(pk[r]) for r in range(cl)], dim=1)
     assert torch.equal(got, w.reshape(9, f, 4 * f).transpose(1, 2).reshape(9 * 4 * f, f))
     wx = torch.zeros(32, 4 * f)
     assert torch.equal(ck.pack_proj_backward(wx, w)[0], pk)
@@ -59,15 +62,18 @@ def test_backward_slabs_unpack_to_the_transpose(f):
 def test_scan_geometry_fits_the_card(shape, const):
     b, t, h, w, f = shape
     geo = ck.scan_geometry(*shape, const)
-    assert geo["clusters"] == b and geo["ctas"] == 2 * b
-    assert geo["bwd_min_stages"] == (ck.SCAN_BWD_MIN_STAGES if const else 4)
+    cl = ck.cluster_size(f)
+    assert geo["clusters"] == b and geo["ctas"] == cl * b
+    # a 4-CTA BPTT keeps a time-constant xg's dgates sum in global memory
+    assert geo["bwd_min_stages"] == (ck.SCAN_BWD_MIN_STAGES if const and cl == 2 else 4)
     assert 4 <= geo["fwd_stages"] <= 8
     assert geo["bwd_min_stages"] <= geo["bwd_stages"] <= 8
     for part in ("fwd", "bwd"):
         assert geo[f"{part}_ring_bytes"] == geo[f"{part}_stages"] * geo[f"{part}_slot_bytes"]
         assert geo[f"{part}_ring_bytes"] < geo[f"{part}_smem"] <= ck.SMEM_LIMIT == 227 * 1024
-    assert geo["fwd_slot_bytes"] == 32 * 2 * f * 2  # 32 rows of the CTA's 2F columns
-    assert geo["bwd_slot_bytes"] == 128 * (f // 2) * 2  # 128 rows of its F/2 columns
+    assert geo["fwd_slot_bytes"] == 32 * 4 * (f // cl) * 2  # 32 rows of the CTA's 4F/CL columns
+    # 128 rows of its F/CL columns (64 with 4 CTAs a sample)
+    assert geo["bwd_slot_bytes"] == (256 // cl) * (f // cl) * 2
     # the weight GEMM: dW's 9F rows, one wave of tiles x splits, every row covered
     assert geo["wgrad_smem"] <= ck.SMEM_LIMIT
     assert geo["wgrad_tiles"] == -(-9 * f // 128) * -(-4 * f // geo["wgrad_bn"])

@@ -40,37 +40,45 @@ def _full_precision_matmuls():
         yield
 
 
-def _scan_inputs(seed, const):
+def _scan_inputs(seed, const, b=B, t=T, s=S, f=F):
     rng = np.random.default_rng(seed)
     return [
-        rng.normal(size=(B, 1 if const else T, S, S, 4 * F)).astype(np.float32) * 0.5,
-        rng.normal(size=(3, 3, F, 4 * F)).astype(np.float32) * (9 * F) ** -0.5,
-        rng.normal(size=(B, S, S, F)).astype(np.float32) * 0.5,
-        rng.normal(size=(B, S, S, F)).astype(np.float32) * 0.5,
+        rng.normal(size=(b, 1 if const else t, s, s, 4 * f)).astype(np.float32) * 0.5,
+        rng.normal(size=(3, 3, f, 4 * f)).astype(np.float32) * (9 * f) ** -0.5,
+        rng.normal(size=(b, s, s, f)).astype(np.float32) * 0.5,
+        rng.normal(size=(b, s, s, f)).astype(np.float32) * 0.5,
     ]
+
+
+# (B, T, S, F): the small shape, and a 4-CTA width of the CUDA kernels (the
+# reference's lstm_features=192 probe) at the 8x8 grid of the models.
+WIDE = (1, 3, 8, 192)
 
 
 @pytest.mark.parametrize("last_only", [False, True])
 @pytest.mark.parametrize("const", [False, True])
 @pytest.mark.parametrize(
-    "gate,fwd_tol,grad_tol",
+    "gate,fwd_tol,grad_tol,shape",
     [
-        ("float32", 2e-5, _GRAD_TOL),
+        pytest.param("float32", 2e-5, _GRAD_TOL, (B, T, S, F), id="float32-2e-05-0.0002"),
         # bf16 gates round at different points in the two frameworks
         # (tests/test_convlstm_fused.py:249-269, tests/test_torch_convlstm.py).
-        ("bfloat16", 0.05, 0.08),
+        pytest.param("bfloat16", 0.05, 0.08, (B, T, S, F), id="bfloat16-0.05-0.08"),
+        pytest.param("float32", 2e-5, _GRAD_TOL, WIDE, id="float32-F192"),
+        pytest.param("bfloat16", 0.05, 0.08, WIDE, id="bfloat16-F192"),
     ],
 )
-def test_scan_plain_matches_pallas_interpret(gate, fwd_tol, grad_tol, const, last_only):
-    args = _scan_inputs(0, const)
+def test_scan_plain_matches_pallas_interpret(gate, fwd_tol, grad_tol, shape, const, last_only):
+    b, t, s, f = shape
+    args = _scan_inputs(0, const, b, t, s, f)
     rng = np.random.default_rng(1)
-    wc, wh = (rng.normal(size=(B, S, S, F)).astype(np.float32) for _ in range(2))
-    whs = rng.normal(size=(B, T, S, S, F)).astype(np.float32)
+    wc, wh = (rng.normal(size=(b, s, s, f)).astype(np.float32) for _ in range(2))
+    whs = rng.normal(size=(b, t, s, s, f)).astype(np.float32)
     jgate = jnp.bfloat16 if gate == "bfloat16" else jnp.float32
     tgate = torch.bfloat16 if gate == "bfloat16" else torch.float32
 
     def jloss(*a):
-        (c_t, h_t), hs = convlstm_scan_pallas(*a, length=T, interpret=True, gate_dtype=jgate,
+        (c_t, h_t), hs = convlstm_scan_pallas(*a, length=t, interpret=True, gate_dtype=jgate,
                                               last_only=last_only)
         out = jnp.sum(c_t.astype(jnp.float32) * wc) + jnp.sum(h_t.astype(jnp.float32) * wh)
         if hs is not None:
@@ -80,7 +88,7 @@ def test_scan_plain_matches_pallas_interpret(gate, fwd_tol, grad_tol, const, las
     (_, (jc, jh, jhs)), jgrads = jax.value_and_grad(
         jloss, argnums=(0, 1, 2, 3), has_aux=True)(*[jnp.asarray(a) for a in args])
     targs = [torch.from_numpy(a).requires_grad_() for a in args]
-    (c_t, h_t), hs = ck.convlstm_scan(*targs, length=T, gate_dtype=tgate, last_only=last_only)
+    (c_t, h_t), hs = ck.convlstm_scan(*targs, length=t, gate_dtype=tgate, last_only=last_only)
     loss = torch.sum(c_t.float() * torch.from_numpy(wc)) + torch.sum(
         h_t.float() * torch.from_numpy(wh))
     assert (hs is None) == last_only
