@@ -5,7 +5,8 @@ then data-parallel training, then K train steps a call in one CUDA graph,
 then the per-region device budget of a step, then the first 2,000 steps of
 config 3's convergence protocol at eight seeds against the reference's curve,
 then the ConvLSTM kernels at F = 160-256 and the reference's
-lstm_features=192 probe.
+lstm_features=192 probe, then the ConvLSTM kernels and configs 3-5 with f32
+activations.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -165,7 +166,25 @@ Phases, each raising on failure (the script catches nothing):
    launched), `python -m mmvae_torch train` (20 steps, its checkpoint
    written), `run_benchmark` at K = 1 and 10, and sampling (prior and
    reconstruct) card against CPU with its frames/s; the launch counters
-   set to 0 just before each run and read just after.
+   set to 0 just before each run and read just after;
+12. f32 activations (`phase_f32`): K5 (both forwards, backward) and K6
+   (every mode, both xg kinds, both backward modes) with f32 activations at
+   config 3's shape, config 4's K6 (and a streaming one at T = 20) and
+   config 5's batch of 160, both gate dtypes, against their plain versions
+   with TF32 off (`kernel_checks`: f32 gates and every gradient within
+   `REC_F32_ULPS` f32 ulps, which the TF32 control, the plain version with
+   its product operands rounded to TF32, must exceed; bf16 gates at the
+   bf16-gate readings); the f32 weight GEMM alone against an f64 product
+   beside cuBLAS's f32; each f32 backward twice bit-identical; each f32
+   kernel timed beside its plain version and its bound (3xTF32); the bf16
+   kernels' output hashes (`bench.hashes`, for a parent comparison); the
+   models of configs 3 (default and fused), 4 fused and 5 fused with
+   model.dtype=float32 card against CPU (f32 gates against the card's own
+   plain route); `fit` of config 3 f32 at K = 10 (100 steps, an eval raw
+   and under the EMA, K5 in its launch equations); `python -m mmvae_torch
+   train` of config 3 f32, default and fused (K6 too); `run_benchmark` at
+   K = 1 and 10; sampling card against CPU with its frames/s; the launch
+   counters set to 0 just before each run and read just after.
    No jax imported.
 The last three lines are the card, the kernels' JSON line (`launches`: the
 count from the kernel's own path, config 3 for K1, K3, K5 and the head,
@@ -173,7 +192,7 @@ config 4 for K6, 0 for the standalone K2; `launches_by_path`: each path's
 run, the fit, sampling, CLI, data-parallel and steps_per_call runs'
 included; `sampling`:
 the forwards' rows at the sampling shapes; `wide`: K5's and K6's rows at F
-= 160-256), and {"ok": true, "device":
+= 160-256; `f32`: their rows with f32 activations), and {"ok": true, "device":
 {...}}.  Exits non-zero with no result when CUDA is not available.
 """
 
@@ -683,7 +702,7 @@ def check_head_sample(dev, shapes) -> tuple:
 
 
 def check_convlstm(dev, shapes) -> tuple:
-    """K5 (bf16 activations, the only ones its kernels take) at each path's
+    """K5 (bf16 activations, the paths' own; f32 in phase 12) at each path's
     (B, T, H, W, C, F) and at an unaligned one (5x6 positions, odd T), both
     gate dtypes, through `kernel_checks.compare_proj` and its tolerances;
     then the time of both versions at each path's shape (bf16 gates)."""
@@ -795,21 +814,32 @@ def check_convlstm_scan(dev, shapes) -> tuple:
             {"max_abs_err": worst_b, "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bb,
              "bound_by": bby, "library_ms": None})
 
+# check_model's limit for f32 activations with f32 gates: both devices in
+# f32 (the card's products 3xTF32, about 2^-21 of a product), other
+# summation orders
+_F32_MODEL_LIMIT = 1e-4
+
+
 def _rel_l2(a, b) -> float:
     a, b = a.detach().float().cpu(), b.detach().float().cpu()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def check_model(dev, name: str, frames: int, overrides=()) -> None:
+def check_model(dev, name: str, frames: int, overrides=(), act: str = "bfloat16") -> None:
     """A config's model at full width on a small input (2 clips x `frames`
     frames): forward and every parameter gradient on the card, through the
     kernels (the heads through the fused head and sample, eps injected),
-    against the same model on the CPU, through the plain versions.
-    The kernels take bf16 activations, so the card runs bf16 with f32 gates
-    and with bf16 gates (production).  The two devices round different
-    partial sums to bf16, so each tensor is held to the CPU's f32 result:
-    the card's relative L2 distance to it at most max(2 x the CPU bf16 one's,
-    0.05) (as tests/test_torch_models.py holds the port's bf16 run to JAX's)."""
+    against the same model on the CPU, through the plain versions, with
+    `act` activations, f32 gates and bf16 gates (production).  Where a
+    side rounds to bf16 (bf16 activations, or bf16 gates), the two devices
+    round different partial sums, so each tensor is held to the CPU's f32
+    result: the card's relative L2 distance to it at most max(2 x the CPU
+    one's, 0.05) (as tests/test_torch_models.py holds the port's bf16 run
+    to JAX's).  f32 activations with f32 gates are f32 throughout on both
+    sides (TF32 off; the kernels' products 3xTF32), so each tensor is held
+    to the CPU's directly: relative L2 at most max(2 x the card's own
+    plain route's (`kernel_checks.plain_route`: cuDNN's and cuBLAS's f32
+    on the card, no kernel of the repo), _F32_MODEL_LIMIT)."""
     import copy
 
     import torch
@@ -817,6 +847,7 @@ def check_model(dev, name: str, frames: int, overrides=()) -> None:
     from mmvae_torch.configs import get_config
     from mmvae_torch.ops.dispatch import make_sample_fn
     from mmvae_torch.ops.elbo_kernels import elbo_reduce
+    from mmvae_torch.ops.kernel_checks import plain_route
     from mmvae_torch.train.loop import build_model
 
     g = torch.Generator().manual_seed(7)
@@ -846,24 +877,40 @@ def check_model(dev, name: str, frames: int, overrides=()) -> None:
 
     # Same seed, so the same f32 weights for every dtype.
     truth = run(build_model(config("float32", False), device="cpu"), torch.device("cpu"))
+    tag = "bf16" if act == "bfloat16" else "f32"
     for gate_bf16 in (False, True):
-        ref_model = build_model(config("bfloat16", gate_bf16), device="cpu")
-        plain = run(ref_model, torch.device("cpu"))
+        ref_model = build_model(config(act, gate_bf16), device="cpu")
+        plain = truth if act == "float32" and not gate_bf16 else run(ref_model,
+                                                                    torch.device("cpu"))
         kern = run(copy.deepcopy(ref_model).to(dev), dev)
+        exact = act == "float32" and not gate_bf16
+        if exact:
+            with plain_route():
+                witness = run(copy.deepcopy(ref_model).to(dev), dev)
         worst = (0.0, "")
         for tname, b in plain.items():
             a = kern[tname]
+            if exact:
+                e, e_w = _rel_l2(a, b), _rel_l2(witness[tname], b)
+                lim = max(2 * e_w, _F32_MODEL_LIMIT)
+                _require(e <= lim, f"model {name} f32 gates f32 {tname}: rel L2 card vs CPU "
+                                   f"{e:.2e}, the card's plain route {e_w:.2e} (limit "
+                                   f"{lim:.2e})")
+                worst = max(worst, (e / lim, f"{tname} (card vs CPU {e:.2e}, the card's plain "
+                                             f"route {e_w:.2e}, limit {lim:.2e})"))
+                continue
             e_k, e_p = _rel_l2(a, truth[tname]), _rel_l2(b, truth[tname])
             lim = max(2 * e_p, 0.05)
-            _require(e_k <= lim, f"model {name} bf16 gates {'bf16' if gate_bf16 else 'f32'} "
+            _require(e_k <= lim, f"model {name} {tag} gates {'bf16' if gate_bf16 else 'f32'} "
                                  f"{tname}: rel L2 to f32 {e_k:.3f} on the card, {e_p:.3f} on "
                                  f"the CPU (limit {lim:.3f})")
             worst = max(worst, (e_k / lim, f"{tname} (card {e_k:.3f}, CPU {e_p:.3f}, "
                                             f"card vs CPU {_rel_l2(a, b):.3f})"))
-        print(f"[model] {name} {' '.join(overrides)} bf16, gates "
+        what = "CPU's f32 result" if exact else "f32 result"
+        print(f"[model] {name} {' '.join(overrides)} {tag}, gates "
               f"{'bf16' if gate_bf16 else 'f32'} (2 x {frames} x 64x64), card with kernels vs "
-              f"CPU with plain versions, over {len(plain)} tensors: worst rel L2 to the f32 "
-              f"result over its limit {worst[0]:.3f} (must be <= 1) at {worst[1]}")
+              f"CPU with plain versions, over {len(plain)} tensors: worst rel L2 to the {what}, "
+              f"{worst[0]:.3f} of its limit (must be <= 1), at {worst[1]}")
 
 
 def check_perframe_model(dev, name: str) -> None:
@@ -1499,10 +1546,11 @@ def _sample_call(cfg, mode: str, batch: int, seed: int, g=None, device="cpu"):
 def check_sampling(card: str, dev, name: str, overrides, modes) -> dict:
     """One model at full width, each mode: on the card through the kernels
     against the CPU through the plain versions, from the same weights and
-    the same injected draws on 2 clips (configs 1 and 2, f32: relative L2 at
-    most 1e-4, as `check_perframe_model`; bf16 models: the card's relative
-    L2 to the CPU's f32 frames at most max(2 x the CPU bf16 one's, 0.05), as
-    `check_model`; frames held less 0.5), with that call's launch
+    the same injected draws on 2 clips (f32 throughout, configs 1 and 2:
+    relative L2 at most 1e-4, as `check_perframe_model`; models that round
+    to bf16, their activations or their gates: the card's relative L2 to
+    the CPU's f32 frames with f32 gates at most max(2 x the CPU one's,
+    0.05), as `check_model`; frames held less 0.5), with that call's launch
     equations; then frames/s at the config's batch, drawn on the card from
     a seed, over 3 windows of 5 calls after 2 warmup calls (each call
     copies its frames to the host), and the launch equations of those 17
@@ -1520,7 +1568,7 @@ def check_sampling(card: str, dev, name: str, overrides, modes) -> dict:
     tag = _tag(name, overrides)
     plain_model = build_model(cfg, device="cpu")
     card_model = copy.deepcopy(plain_model).to(dev)
-    f32 = cfg.model.dtype == "float32"
+    f32 = cfg.model.dtype == "float32" and not cfg.model.kwargs.get("gate_bf16", False)
     if not f32:
         truth_cfg = get_config(name, (*overrides, "model.dtype=float32"))
         truth_cfg.model.kwargs["gate_bf16"] = False
@@ -1552,7 +1600,8 @@ def check_sampling(card: str, dev, name: str, overrides, modes) -> dict:
             _require(e_k <= lim, f"sample {tag} {mode}: rel L2 to the CPU's f32 frames "
                                  f"{e_k:.4f} on the card, {e_p:.4f} on the CPU (limit {lim:.4f})")
             txt = (f"rel L2 to the CPU's f32 frames {e_k:.4f} on the card, {e_p:.4f} on the CPU "
-                   f"in bf16 (limit {lim:.4f}); card vs CPU bf16 {_rel_l2(got, plain):.4f}")
+                   f"in {cfg.model.dtype}, gates bf16 (limit {lim:.4f}); card vs CPU "
+                   f"{_rel_l2(got, plain):.4f}")
         print(f"[sample] {tag} {mode}, {tuple(got.shape)} from injected draws: {txt}; "
               f"launches {', '.join(f'{k} {v}' for k, v in counts.items() if v)} "
               f"(all others 0)")
@@ -3018,6 +3067,230 @@ def phase_wide(card: str, dev, workdir: str) -> tuple:
     return rows, out
 
 
+# Phase 12: f32 activations in K5 and K6 (F <= 128), the JAX package's
+# default dtype, which configs 3-5 leave for bf16 in their own factories.
+_F32 = ("model.dtype=float32",)
+# (K5 shapes, K6 shapes): config 3 (B=64, T=20), config 4's decoder (K6
+# time-constant, T=10) and its streaming encoder-length K6, config 5's batch
+# of 160 (T=10)
+_F32_K5 = ((64, 20, 8, 8, 128, 128), (160, 10, 8, 8, 128, 128))
+_F32_K6 = (((64, 10, 8, 8, 128), True), ((64, 20, 8, 8, 128), False),
+           ((160, 10, 8, 8, 128), True))
+_F32_FIT_STEPS, _F32_CLI_STEPS = 100, 10
+
+
+def check_f32_kernels(dev) -> dict:
+    """K5 and K6 with f32 activations against their plain versions (TF32
+    off) at `_F32_K5` and `_F32_K6`, both gate dtypes, every forward mode
+    and both backward modes (`kernel_checks.compare_proj` / `compare_scan`
+    with act=float32), beside the TF32 control (the plain version with its
+    product operands rounded to TF32) at config 3's K5 and config 4's K6
+    shape, which must read over the limit; each backward twice
+    bit-identical; then each kernel's time (bf16 gates, as configs 3-5 run
+    under model.dtype=float32; K6 time-constant, per-step dhs) beside its
+    plain version's and its bound (`bench.roofline`, 3xTF32).  Returns
+    {wrapper: {shape: row}}."""
+    import torch
+
+    from mmvae_torch.ops import convlstm_kernels as ck
+    from mmvae_torch.ops import kernel_checks as kc
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    err = {name: 0.0 for name in (*_K5, *_K6)}
+    worst = 0.0
+    for shape in _F32_K5:
+        for gdt in (f32, bf16):
+            cmp = kc.compare_proj(dev, shape, gdt, act=f32)
+            print(f"[f32] convlstm_proj {shape} f32, gates {gdt}: {cmp.text()}")
+            cmp.check(f"convlstm_proj {shape} f32 gates {gdt}")
+            err["convlstm_proj_forward"] = max(err["convlstm_proj_forward"], cmp.fwd_err)
+            err["convlstm_proj_backward"] = max(err["convlstm_proj_backward"], cmp.bwd_err)
+            worst = max([worst] + [r.value for r in cmp.readings if "f32 ulps" in r.text])
+    for shape, const in _F32_K6:
+        tag = f"{shape} {'const' if const else 'streaming'}"
+        for gdt in (f32, bf16):
+            cmp = kc.compare_scan(dev, shape, const, gdt, act=f32)
+            print(f"[f32] convlstm_scan {tag} f32, gates {gdt}: {cmp.text()}")
+            cmp.check(f"convlstm_scan {tag} f32 gates {gdt}")
+            err["convlstm_scan_forward"] = max(err["convlstm_scan_forward"], cmp.fwd_err)
+            err["convlstm_scan_backward"] = max(err["convlstm_scan_backward"], cmp.bwd_err)
+            worst = max([worst] + [r.value for r in cmp.readings if "f32 ulps" in r.text])
+    controls = {**{f"K5 {k}": v for k, v in kc.proj_tf32_control(dev, _F32_K5[0]).items()},
+                **{f"K6 {k}": v for k, v in kc.scan_tf32_control(dev, *_F32_K6[0]).items()}}
+    low = min(controls, key=controls.get)
+    print(f"[f32] TF32 control (the plain version with its product operands rounded to TF32, "
+          f"f32 gates), f32 ulps: " + ", ".join(f"{k} {v:.1f}" for k, v in controls.items()))
+    _require(worst <= kc.REC_F32_ULPS < controls[low],
+             f"the f32 limit {kc.REC_F32_ULPS:g} f32 ulps does not sit between the kernels' "
+             f"worst reading {worst:.1f} and the TF32 control's least, {low} "
+             f"{controls[low]:.1f}")
+    print(f"[f32] limit {kc.REC_F32_ULPS:g} f32 ulps: the kernels' worst reading {worst:.1f}, "
+          f"the TF32 control's least {controls[low]:.1f} ({low})")
+    wg = kc.wgrad_f64_readings(dev, _F32_K5[0])
+    _require(wg["kernel"] <= kc.REC_F32_ULPS < wg["TF32 operands"],
+             f"the f32 weight GEMM against an f64 product: {wg}")
+    print(f"[f32] the f32 weight GEMM alone at {_F32_K5[0]} against the same product in f64, "
+          f"f32 ulps: " + ", ".join(f"{k} {v:.1f}" for k, v in wg.items()))
+    same = {f"K5 {n}": v
+            for n, v in kc.proj_backward_repeatable(dev, _F32_K5[0], act=f32).items()}
+    for const in (True, False):
+        same.update({f"K6 {'const' if const else 'streaming'} {n}": v for n, v in
+                     kc.scan_backward_repeatable(dev, _F32_K6[0][0], const, act=f32).items()})
+    _require(all(same.values()), f"an f32 backward differs between two calls: {same}")
+    print(f"[f32] two calls of each f32 backward on the same inputs give bit-identical "
+          f"{', '.join(same)}")
+
+    rows = {name: {} for name in err}
+    for k5 in _F32_K5[:1]:
+        x, wx, bx, w, c0, h0 = kc.proj_inputs(dev, *k5, seed=6, dtype=f32)
+        res = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, bf16, True)
+        dh = torch.randn(c0.shape, device=dev)
+        calls = {
+            "convlstm_proj_forward": (
+                lambda: ck.proj_forward_cuda(x, wx, bx, w, c0, h0, bf16, True),
+                lambda: ck.proj_forward_plain(x, wx, bx, w, c0, h0, bf16, True)),
+            "convlstm_proj_backward": (
+                lambda: ck.proj_backward_cuda(x, wx, w, c0, h0, *res, dh, dh),
+                lambda: ck.proj_backward_plain(x, wx, w, c0, h0, *res, dh, dh)),
+        }
+        key = (*k5, 4)
+        _time_f32(rows, calls, key, err)
+    (shape, const) = _F32_K6[0]
+    xg, wh, sc0, sh0 = kc.scan_inputs(dev, shape[0], 1, *shape[2:], seed=10, dtype=f32)
+    sres = ck.scan_forward_cuda(xg, wh, sc0, sh0, shape[1], bf16, "save")
+    dhs = torch.randn(sres[0].shape, device=dev)
+    calls = {
+        "convlstm_scan_forward": (
+            lambda: ck.scan_forward_cuda(xg, wh, sc0, sh0, shape[1], bf16, "save"),
+            lambda: ck.scan_forward_plain(xg, wh, sc0, sh0, shape[1], bf16, "save")),
+        "convlstm_scan_backward": (
+            lambda: ck.scan_backward_cuda(wh, sc0, sh0, *sres, dhs, dhs[:, -1], True, False),
+            lambda: ck.scan_backward_plain(wh, sc0, sh0, *sres, dhs, dhs[:, -1], True, False)),
+    }
+    _time_f32(rows, calls, (*shape, const, 4), err)
+    return rows
+
+
+def _time_f32(rows, calls, key, err) -> None:
+    """Each call's kernel and plain times (CUDA events, TF32 off) into rows."""
+    from mmvae_torch.ops.kernel_checks import full_f32
+
+    for name, (kern, plain) in calls.items():
+        with full_f32():
+            ms, plain_ms = _time_ms(kern, 5), _time_ms(plain, 3)
+        b_ms, by = _bound(name, key)
+        rows[name][str(key[:-1])] = {"shape": list(key), "max_abs_err": err[name], "ms": ms,
+                                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
+        print(f"[f32] {name} {key[:-1]} f32, bf16 gates: {ms:.3f} ms, {_share(ms, name, key)}, "
+              f"vs plain {plain_ms:.3f} ms; library: none (no one PyTorch call runs the "
+              f"recurrence)")
+
+
+def _f32_cfg(overrides, *more):
+    """Config 3 at full width in one process with f32 activations."""
+    from mmvae_torch.configs import get_config
+
+    cfg = get_config("seq_vae", ("train.data_parallel=false", *_F32, *overrides, *more))
+    base = get_config("seq_vae")
+    kw, base_kw = _model_kwargs(cfg), _model_kwargs(base)
+    _require(cfg.data.batch_size == base.data.batch_size and cfg.data.seq_len == base.data.seq_len
+             and cfg.model.dtype == "float32" and kw["gate_bf16"]
+             and all(kw[k] == base_kw[k] for k in ("enc_channels", "latent_dim", "image_size",
+                                                    "lstm_features")),
+             "the f32 run is not config 3 at full width with model.dtype=float32")
+    return cfg
+
+
+def phase_f32(card: str, dev, workdir: str) -> tuple:
+    """f32 activations: K5 and K6 against their plain versions
+    (`check_f32_kernels`), the bf16 kernels' output hashes (for a parent
+    comparison, `bench.hashes`), the models of configs 3 (default and
+    fused), 4 fused and 5 fused with model.dtype=float32 card against CPU
+    (`check_model`), `fit` of config 3 f32 at K = 10 (100 steps, an EMA,
+    one eval pass raw and under the EMA: finite, falling loss, K5 in its
+    launch equations), `python -m mmvae_torch train` of config 3 f32,
+    default and fused (K5, and K6 where fused, in their launch equations),
+    `run_benchmark` at K = 1 and 10 (frames/s, step and busy ms, idle
+    share, MFU), sampling (prior and reconstruct) card against CPU with
+    its frames/s; the launch counters set to 0 just before each run and
+    read just after.  Returns ({wrapper: f32 rows}, {path: launch counts})."""
+    import torch
+
+    from mmvae_torch import ops
+    from mmvae_torch.bench.hashes import digests
+    from mmvae_torch.bench.throughput import run_benchmark
+
+    t0 = time.perf_counter()
+    rows = check_f32_kernels(dev)
+    for key, value in digests().items():
+        print(f"[f32] bf16 kernels' outputs {key}: sha256 {value}")
+    t1 = time.perf_counter()
+    check_model(dev, "seq_vae", 4, act="float32")
+    check_model(dev, "seq_vae", 4, _FUSED, act="float32")
+    check_model(dev, "pred_vae", 20, _FUSED, act="float32")
+    check_model(dev, "hier_vae", 20, _FUSED, act="float32")
+    t2 = time.perf_counter()
+    out = {}
+    cadence = ("train.eval_batches=2", "optim.ema_decay=0.999") + _CUT
+    tag = "fit f32 K=10"
+    cfg = _f32_cfg((), *cadence, f"train.eval_every={_F32_FIT_STEPS}",
+                   f"train.log_every={_F32_FIT_STEPS // 5}", "train.steps_per_call=10")
+    want = _step_counts(_F32_FIT_STEPS, 2 * 2)
+    _, history, counts = _fit(card, tag, cfg, _F32_FIT_STEPS, want, dev)
+    _require(history[-1]["loss"] < history[0]["loss"],
+             f"{tag}: loss did not fall: {[round(h['loss'], 1) for h in history]}")
+    _require(all(math.isfinite(history[-1].get(c, math.nan))
+                 for c in ("val_loss", "val_loss_ema")), f"{tag}: {history[-1]}")
+    print(f"[f32] {tag}: loss {history[0]['loss']:.2f} at step {history[0]['step']} -> "
+          f"{history[-1]['loss']:.2f} at {history[-1]['step']}, val_loss "
+          f"{history[-1]['val_loss']:.2f}, val_loss_ema {history[-1]['val_loss_ema']:.2f}")
+    out[tag] = counts
+    t3 = time.perf_counter()
+    for fused in (False, True):
+        more = _FUSED if fused else ()
+        ck_dir = os.path.join(workdir, f"f32_ckpt{'_fused' if fused else ''}")
+        sets = [a for ov in (*_F32, *more, "train.eval_batches=2", "optim.ema_decay=0.999",
+                             *_CUT, f"train.eval_every={_F32_CLI_STEPS}",
+                             f"train.log_every={_F32_CLI_STEPS // 2}",
+                             f"train.checkpoint_dir={ck_dir}") for a in ("--set", ov)]
+        ops.reset_launch_counts()
+        rc, _ = _cli(["train", "--config", "seq_vae", "--steps", str(_F32_CLI_STEPS), *sets])
+        counts = ops.launch_counts()
+        want = _step_counts(_F32_CLI_STEPS, 2 * 2, k6=fused)
+        _require(rc == 0 and all(counts[k] == want.get(k, 0) for k in counts),
+                 f"cli train f32{' fused' if fused else ''}: rc {rc}, launches {counts}, "
+                 f"expected {want}")
+        print(f"[f32] python -m mmvae_torch train --config seq_vae --steps {_F32_CLI_STEPS} "
+              f"{' '.join(sets)}: rc 0, launches {counts}")
+        out[f"cli train f32{' fused' if fused else ''}"] = counts
+    t4 = time.perf_counter()
+    timing = []
+    for k in (1, 10):
+        cfg = _chunk_cfg("seq_vae", _F32, k)
+        tag = f"bench f32 K={k}"
+        ops.reset_launch_counts()
+        res = run_benchmark(cfg, steps=20, warmup=10, device_profile=True)
+        out[tag] = ops.launch_counts()
+        losses = res.pop("losses")
+        _require(all(math.isfinite(v) for v in losses), f"{tag}: a non-finite loss")
+        _require(out[tag]["convlstm_proj_forward"] > 0 and out[tag]["convlstm_scan_forward"] == 0,
+                 f"{tag}: launches {out[tag]}")
+        row = {"path": _tag("seq_vae", _F32), "steps_per_call": k,
+               **{key: res[key] for key in (
+                   "value", "value_min", "value_max", "step_ms", "device_busy_ms",
+                   "idle_share", "kernels_per_step", "host_launches_per_step",
+                   "flops_per_step", "tflops_per_sec_chip", "mfu", "card")}}
+        timing.append(row)
+        print(f"[f32] timing {json.dumps(row)}")
+        torch.cuda.empty_cache()
+    t5 = time.perf_counter()
+    out.update(check_sampling(card, dev, "seq_vae", _F32, ("prior", "reconstruct")))
+    t6 = time.perf_counter()
+    print(f"[f32] seconds: kernels {t1 - t0:.1f}, models {t2 - t1:.1f}, fit {t3 - t2:.1f}, "
+          f"cli {t4 - t3:.1f}, bench {t5 - t4:.1f}, sampling {t6 - t5:.1f}; on {card}")
+    return rows, out
+
+
 def _own_path(kernel: str):
     """The first slice whose path launches `kernel`: config 3 (the main
     path) for K1, K3, K5 and the head, config 4 fused for K6; None for the
@@ -3066,6 +3339,11 @@ def main() -> int:
         wide_rows, wide_paths = phase_wide(card, dev, workdir)
     by_path.update(wide_paths)
     print(f"[wide] the wide phase took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f32_") as workdir:
+        f32_rows, f32_paths = phase_f32(card, dev, workdir)
+    by_path.update(f32_paths)
+    print(f"[f32] the f32 phase took {time.perf_counter() - t1:.1f} s")
     _require("jax" not in sys.modules and "mmvae_tpu" not in sys.modules,
              "jax or mmvae_tpu was imported")
     kernels = []
@@ -3079,6 +3357,8 @@ def main() -> int:
             row["sampling"] = sampling_rows[name]
         if name in wide_rows:
             row["wide"] = wide_rows[name]
+        if name in f32_rows:
+            row["f32"] = f32_rows[name]
         kernels.append(row)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)

@@ -8,9 +8,15 @@ of 576).  `bound(name, shape)` turns them into
 milliseconds against the published peaks of one H100 SXM (NVIDIA's data
 sheet, dense, at the full 700 W power limit): the larger of operations over
 the peak rate of their type and bytes over the memory rate.  The ConvLSTM
-kernels (K5, K6) run their products on the tensor cores in bf16; the others
-do f32 work outside them (the Gaussian head's products too: full f32, as
-the reference computes the posterior).
+kernels (K5, K6) run their products on the tensor cores in bf16 or, with
+f32 activations, f32-accurate: the card's fastest f32-accurate product rate
+is three TF32 passes (3xTF32: each operand split into a TF32 hi and lo
+part, hi hi + hi lo + lo hi) at 494.7 TFLOP/s dense, about 165 TFLOP/s of
+f32 products, so an f32 recurrence is bounded at that rate (at F32_FLOPS,
+67 TFLOP/s outside the tensor cores, a 3xTF32 kernel could read over 100 %
+of its bound).  The others do f32 work outside the tensor cores (the
+Gaussian head's products too: full f32, as the reference computes the
+posterior).
 
 Shapes, as `chip_smoke.path_shapes` keys them:
 
@@ -21,13 +27,19 @@ Shapes, as `chip_smoke.path_shapes` keys them:
     reparameterize           (mu shape)
     head_sample_forward      (M, K, N, bytes of an x element): x (M, K), latent N
     head_sample_backward     (M, K, N, bytes of an x element)
-    convlstm_proj_forward    (B, T, H, W, C, F), saving residuals
-    convlstm_proj_forward_nores  (B, T, H, W, C, F), no grad: (h_T, c_T) only
-    convlstm_proj_backward   (B, T, H, W, C, F)
-    convlstm_scan_forward    (B, T, H, W, F, const), saving residuals
-    convlstm_scan_forward_hs     (B, T, H, W, F, const), no grad: every h_t and c_T
-    convlstm_scan_forward_last   (B, T, H, W, F, const), no grad: (h_T, c_T) only
-    convlstm_scan_backward   (B, T, H, W, F, const), per-step dhs
+    convlstm_proj_forward    (B, T, H, W, C, F[, bytes of an activation, default
+                             2: bf16; 4: f32]), saving residuals
+    convlstm_proj_forward_nores  (B, T, H, W, C, F[, bytes]), no grad: (h_T, c_T) only
+    convlstm_proj_backward   (B, T, H, W, C, F[, bytes])
+    convlstm_scan_forward    (B, T, H, W, F, const[, bytes]), saving residuals
+    convlstm_scan_forward_hs     (B, T, H, W, F, const[, bytes]), no grad: every h_t
+                             and c_T
+    convlstm_scan_forward_last   (B, T, H, W, F, const[, bytes]), no grad: (h_T, c_T)
+                             only
+    convlstm_scan_backward   (B, T, H, W, F, const[, bytes]), per-step dhs
+
+The ConvLSTM kernels' activations, weights, residuals and dgates are of
+the activation's size; their weight gradients are f32 either way.
 
 A forward without residuals does the operations of the one that saves
 them; only its bytes are fewer.
@@ -39,6 +51,8 @@ import math
 from typing import Tuple
 
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 on the tensor cores
+TF32_TENSOR_FLOPS = 494.7e12  # dense TF32 on the tensor cores
+TF32_3X_FLOPS = TF32_TENSOR_FLOPS / 3  # f32-accurate products as 3xTF32
 F32_FLOPS = 67e12           # f32 outside the tensor cores
 HBM_BYTES = 3.35e12         # bytes/s
 
@@ -88,11 +102,12 @@ def kernel_work(name: str, shape) -> Tuple[float, float]:
         # and dW each the products' count again, plus the dmu/dlv prologue
         return 2 * products + m * n * 4, float(x + w + 4 * mn + x + w + 2 * n * 4)
     if name.startswith("convlstm_proj"):
-        b, t, h, w, c, f = shape
+        b, t, h, w, c, f, *act = shape
+        e = act[0] if act else 2
         rows, f4, k = b * t * h * w, 4 * f, c + 9 * f
-        state = 4 * b * h * w * f * 2  # c0, h0 and (c_T, h_T) or (dc0, dh0), bf16
-        weights = k * f4 * 2 + f4 * 2
-        x, hs, gates = rows * c * 2, rows * f * 2, rows * f4 * 2
+        state = 4 * b * h * w * f * e  # c0, h0 and (c_T, h_T) or (dc0, dh0)
+        weights = k * f4 * e + f4 * e
+        x, hs, gates = rows * c * e, rows * f * e, rows * f4 * e
         # the x projection, then the conv over the taps inside the image
         proj, conv = 2.0 * rows * c * f4, 2.0 * b * t * _taps(h, w) * f * f4
         if name == "convlstm_proj_forward":
@@ -104,12 +119,13 @@ def kernel_work(name: str, shape) -> Tuple[float, float]:
         return 2 * conv + 2 * proj, float(2 * x + 2 * hs + gates + weights + k * f4 * 4
                                           + f4 * 4 + state)
     if name.startswith("convlstm_scan"):
-        b, t, h, w, f, const = shape
+        b, t, h, w, f, const, *act = shape
+        e = act[0] if act else 2
         rows, f4 = b * t * h * w, 4 * f
-        xg = (b * h * w if const else rows) * f4 * 2
-        hs, gates = rows * f * 2, rows * f4 * 2
-        weights = 9 * f * f4 * 2
-        state = 4 * b * h * w * f * 2
+        xg = (b * h * w if const else rows) * f4 * e
+        hs, gates = rows * f * e, rows * f4 * e
+        weights = 9 * f * f4 * e
+        state = 4 * b * h * w * f * e
         fwd = 2.0 * b * t * _taps(h, w) * f * f4
         if name == "convlstm_scan_forward":
             return fwd, float(xg + 2 * hs + gates + weights + state)
@@ -128,11 +144,11 @@ def kernel_products(name: str, shape) -> float:
     wrapper `name` at `shape`: the ConvLSTM kernels' work without their
     gate math (the model FLOPs of `bench.flops`)."""
     if name.startswith("convlstm_proj"):
-        b, t, h, w, c, f = shape
+        b, t, h, w, c, f = shape[:6]
         proj, conv = 2.0 * b * t * h * w * c * 4 * f, 2.0 * b * t * _taps(h, w) * f * 4 * f
         return 2 * (proj + conv) if name == "convlstm_proj_backward" else proj + conv
     if name.startswith("convlstm_scan"):
-        b, t, h, w, f, _ = shape
+        b, t, h, w, f = shape[:5]
         conv = 2.0 * b * t * _taps(h, w) * f * 4 * f
         return 2 * conv if name == "convlstm_scan_backward" else conv
     raise KeyError(f"kernel_products: {name!r} is not a ConvLSTM kernel")
@@ -141,7 +157,11 @@ def kernel_products(name: str, shape) -> float:
 def bound(name: str, shape) -> Tuple[float, str]:
     """(least milliseconds, "bytes" or "operations") for one call."""
     ops, nbytes = kernel_work(name, shape)
-    # the ConvLSTM kernels run their products on the tensor cores
-    peak = BF16_TENSOR_FLOPS if name.startswith("convlstm") else F32_FLOPS
+    # the ConvLSTM kernels run their products on the tensor cores: bf16, or
+    # f32 (an activation of 4 bytes) as 3xTF32
+    if name.startswith("convlstm"):
+        peak = TF32_3X_FLOPS if tuple(shape[6:]) == (4,) else BF16_TENSOR_FLOPS
+    else:
+        peak = F32_FLOPS
     t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")

@@ -1,9 +1,11 @@
 // Host launchers of K5 and K6 (the kernels of convlstm_wgmma.cuh) and their
-// dispatch over a list of compile-time widths F.  convlstm_proj.cu and
-// convlstm_scan.cu instantiate them for the 2-CTA widths (F <= 128) and hold
-// the library's entry points; convlstm_proj_wide.cu and convlstm_scan_wide.cu
-// instantiate them for the 4-CTA widths (F in (128, 256]), which the entry
-// points hand on, so that the four sources compile in parallel.
+// dispatch over a list of compile-time widths F and the activation type A.
+// convlstm_proj.cu and convlstm_scan.cu instantiate them for bf16 at the
+// 2-CTA widths (F <= 128) and hold the library's entry points;
+// convlstm_proj_wide.cu and convlstm_scan_wide.cu instantiate them for bf16
+// at the 4-CTA widths (F in (128, 256]), convlstm_proj_f32.cu and
+// convlstm_scan_f32.cu for f32 at F <= 128, which the entry points hand on,
+// so that the six sources compile in parallel.
 #pragma once
 
 #include "convlstm_wgmma.cuh"
@@ -11,28 +13,29 @@
 namespace mmvae {
 
 // The arguments of the library's entry points, as the wrappers pass them.
+// act_dtype: the activations', bf16 (kBF16) or f32 (kF32, F <= 128).
 struct ProjFwdArgs {
   const void *x, *wpk, *bx, *c0, *h0;
   void *oh, *oc, *og;
-  int B, Tn, H, W, C, F, gate_dtype, save;
+  int B, Tn, H, W, C, F, gate_dtype, save, act_dtype;
   cudaStream_t stream;
 };
 struct ProjBwdArgs {
   const void *wtpk, *wxpk, *c0, *cs, *ga, *dhl, *dcl;
   void *dG, *dx, *dbx_part, *dbx_out, *dc0, *dh0;
-  int B, Tn, H, W, C, F;
+  int B, Tn, H, W, C, F, act_dtype;
   cudaStream_t stream;
 };
 struct ScanFwdArgs {
   const void *xg, *wpk, *c0, *h0;
   void *oh, *oc, *og;
-  int B, Tn, xg_steps, H, W, F, gate_dtype, mode;
+  int B, Tn, xg_steps, H, W, F, gate_dtype, mode, act_dtype;
   cudaStream_t stream;
 };
 struct ScanBwdArgs {
   const void *wtpk, *c0, *cs, *ga, *dhs, *dcl;
   void *dG, *dxg, *dxs, *dc0, *dh0;
-  int B, Tn, H, W, F, const_x, last_only;
+  int B, Tn, H, W, F, const_x, last_only, act_dtype;
   cudaStream_t stream;
 };
 
@@ -41,31 +44,39 @@ int proj_fwd_wide(const ProjFwdArgs& a);
 int proj_bwd_wide(const ProjBwdArgs& a);
 int scan_fwd_wide(const ScanFwdArgs& a);
 int scan_bwd_wide(const ScanBwdArgs& a);
+// f32 activations (convlstm_proj_f32.cu, convlstm_scan_f32.cu): F <= 128.
+int proj_fwd_f32(const ProjFwdArgs& a);
+int proj_bwd_f32(const ProjBwdArgs& a);
+int scan_fwd_f32(const ScanFwdArgs& a);
+int scan_bwd_f32(const ScanBwdArgs& a);
+int wgrad_f32(const void* x, const void* hs, const void* h0, const void* dG, float* part,
+              float* out, int B, int Tn, int H, int W, int C, int F, int splits,
+              cudaStream_t stream);
 
 namespace {
 
-template <typename G, bool SAVE, int F>
+template <typename A, typename G, bool SAVE, int F>
 cudaError_t launch_fwd(ProjFwdArgs a) {
-  const FwdSmem L = fwd_smem_layout(a.C, F);
+  const FwdSmem L = fwd_smem_layout(a.C, F, true, sizeof(A));
   if (L.stages < MIN_STAGES) return cudaErrorInvalidValue;
   int xg_steps = 0;
   void* args[] = {&a.x,  &a.wpk, &a.bx, &a.c0, &a.h0, &a.oh, &a.oc,
                   &a.og, &a.Tn,  &a.H,  &a.W,  &a.C,  &xg_steps};
-  return cluster_launch((const void*)rec_fwd_wgmma_kernel<G, SAVE ? kSave : kLast, F, false>,
+  return cluster_launch((const void*)rec_fwd_wgmma_kernel<A, G, SAVE ? kSave : kLast, F, false>,
                         rec_cluster(F) * a.B, rec_threads(F), L.total, a.stream, args,
                         rec_cluster(F));
 }
 
-template <int F>
+template <typename A, int F>
 cudaError_t launch_bwd(ProjBwdArgs a) {
-  const BwdSmem L = bwd_smem_layout(F);
+  const BwdSmem L = bwd_smem_layout(F, sizeof(A));
   if (L.stages < MIN_STAGES) return cudaErrorInvalidValue;
   void* none = nullptr;
   int last_only = 1;
   void* args[] = {&a.wtpk,     &a.wxpk, &a.c0,  &a.cs,  &a.ga, &a.dhl, &a.dcl,
                   &a.dG,       &a.dx,   &a.dbx_part, &none, &none, &a.dc0, &a.dh0,
                   &a.Tn,       &a.H,    &a.W,   &a.C,   &last_only};
-  cudaError_t err = cluster_launch((const void*)rec_bwd_wgmma_kernel<F, true>,
+  cudaError_t err = cluster_launch((const void*)rec_bwd_wgmma_kernel<A, F, true>,
                                    rec_cluster(F) * a.B, BWD_THREADS, L.total, a.stream, args,
                                    rec_cluster(F));
   if (err != cudaSuccess) return err;
@@ -75,24 +86,26 @@ cudaError_t launch_bwd(ProjBwdArgs a) {
   return cudaGetLastError();
 }
 
-template <typename G, int MODE, int F>
+template <typename A, typename G, int MODE, int F>
 cudaError_t launch_scan_fwd(ScanFwdArgs a) {
-  const FwdSmem L = fwd_smem_layout(0, F, false);
+  const FwdSmem L = fwd_smem_layout(0, F, false, sizeof(A));
   if (L.stages < MIN_STAGES) return cudaErrorInvalidValue;
   const void* bx = nullptr;
   int C = 0;
   void* args[] = {&a.xg, &a.wpk, &bx,  &a.c0, &a.h0, &a.oh, &a.oc,
                   &a.og, &a.Tn,  &a.H, &a.W,  &C,    &a.xg_steps};
-  return cluster_launch((const void*)rec_fwd_wgmma_kernel<G, MODE, F, true>,
+  return cluster_launch((const void*)rec_fwd_wgmma_kernel<A, G, MODE, F, true>,
                         rec_cluster(F) * a.B, rec_threads(F), L.total, a.stream, args,
                         rec_cluster(F));
 }
 
-template <int F>
+template <typename A, int F>
 cudaError_t launch_scan_bwd(ScanBwdArgs a) {
-  const BwdSmem L = scan_bwd_smem_layout(F, a.const_x);
-  if (L.stages < scan_bwd_min_stages(F, a.const_x)) return cudaErrorInvalidValue;
-  if (a.const_x && !scan_sum_in_smem(F, true) && a.dxs == nullptr) return cudaErrorInvalidValue;
+  constexpr int ES = sizeof(A);
+  const BwdSmem L = scan_bwd_smem_layout(F, a.const_x, ES);
+  if (L.stages < scan_bwd_min_stages(F, a.const_x, ES)) return cudaErrorInvalidValue;
+  if (a.const_x && !scan_sum_in_smem(F, true, ES) && a.dxs == nullptr)
+    return cudaErrorInvalidValue;
   const void* none = nullptr;
   void* no_out = nullptr;
   void* dxg_sum = a.const_x ? a.dxg : nullptr;
@@ -100,54 +113,64 @@ cudaError_t launch_scan_bwd(ScanBwdArgs a) {
   void* args[] = {&a.wtpk, &none,   &a.c0,   &a.cs,    &a.ga,  &a.dhs, &a.dcl,
                   &a.dG,   &no_out, &no_out, &dxg_sum, &a.dxs, &a.dc0, &a.dh0,
                   &a.Tn,   &a.H,    &a.W,    &C,       &a.last_only};
-  return cluster_launch((const void*)rec_bwd_wgmma_kernel<F, false>, rec_cluster(F) * a.B,
+  return cluster_launch((const void*)rec_bwd_wgmma_kernel<A, F, false>, rec_cluster(F) * a.B,
                         BWD_THREADS, L.total, a.stream, args, rec_cluster(F));
 }
 
-// The entry points' bodies over the widths of `fs`.
-template <typename G, bool SAVE, typename FS>
+// The entry points' bodies over the widths of `fs`, for activations A.
+template <typename A, typename G, bool SAVE, typename FS>
 int proj_fwd_g(FS fs, const ProjFwdArgs& a) {
-  return with_f(fs, a.F, [&](auto f) { return (int)launch_fwd<G, SAVE, decltype(f)::value>(a); });
+  return with_f(fs, a.F,
+                [&](auto f) { return (int)launch_fwd<A, G, SAVE, decltype(f)::value>(a); });
 }
 
-template <typename FS>
+template <typename A, typename FS>
 int proj_fwd(FS fs, const ProjFwdArgs& a) {
   if (a.gate_dtype == kF32)
-    return a.save ? proj_fwd_g<float, true>(fs, a) : proj_fwd_g<float, false>(fs, a);
+    return a.save ? proj_fwd_g<A, float, true>(fs, a) : proj_fwd_g<A, float, false>(fs, a);
   if (a.gate_dtype == kBF16)
-    return a.save ? proj_fwd_g<bf16, true>(fs, a) : proj_fwd_g<bf16, false>(fs, a);
+    return a.save ? proj_fwd_g<A, bf16, true>(fs, a) : proj_fwd_g<A, bf16, false>(fs, a);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename FS>
+template <typename A, typename FS>
 int proj_bwd(FS fs, const ProjBwdArgs& a) {
-  return with_f(fs, a.F, [&](auto f) { return (int)launch_bwd<decltype(f)::value>(a); });
+  return with_f(fs, a.F, [&](auto f) { return (int)launch_bwd<A, decltype(f)::value>(a); });
 }
 
-template <typename G, int MODE, typename FS>
+template <typename A, typename G, int MODE, typename FS>
 int scan_fwd_gm(FS fs, const ScanFwdArgs& a) {
   return with_f(fs, a.F,
-                [&](auto f) { return (int)launch_scan_fwd<G, MODE, decltype(f)::value>(a); });
+                [&](auto f) { return (int)launch_scan_fwd<A, G, MODE, decltype(f)::value>(a); });
 }
 
-template <typename G, typename FS>
+template <typename A, typename G, typename FS>
 int scan_fwd_g(FS fs, const ScanFwdArgs& a) {
-  if (a.mode == kSave) return scan_fwd_gm<G, kSave>(fs, a);
-  if (a.mode == kHiddens) return scan_fwd_gm<G, kHiddens>(fs, a);
-  if (a.mode == kLast) return scan_fwd_gm<G, kLast>(fs, a);
+  if (a.mode == kSave) return scan_fwd_gm<A, G, kSave>(fs, a);
+  if (a.mode == kHiddens) return scan_fwd_gm<A, G, kHiddens>(fs, a);
+  if (a.mode == kLast) return scan_fwd_gm<A, G, kLast>(fs, a);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename FS>
+template <typename A, typename FS>
 int scan_fwd(FS fs, const ScanFwdArgs& a) {
-  if (a.gate_dtype == kF32) return scan_fwd_g<float>(fs, a);
-  if (a.gate_dtype == kBF16) return scan_fwd_g<bf16>(fs, a);
+  if (a.gate_dtype == kF32) return scan_fwd_g<A, float>(fs, a);
+  if (a.gate_dtype == kBF16) return scan_fwd_g<A, bf16>(fs, a);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename FS>
+template <typename A, typename FS>
 int scan_bwd(FS fs, const ScanBwdArgs& a) {
-  return with_f(fs, a.F, [&](auto f) { return (int)launch_scan_bwd<decltype(f)::value>(a); });
+  return with_f(fs, a.F, [&](auto f) { return (int)launch_scan_bwd<A, decltype(f)::value>(a); });
+}
+
+// Where an entry point's call goes: f32 activations to the f32 sources
+// (F <= 128 only), bf16 to the 4-CTA sources above F = 128, else here.
+enum Route : int { kHere = 0, kWide = 1, kF32Route = 2, kRefused = 3 };
+inline Route route(int act_dtype, int F) {
+  if (act_dtype == kF32) return F <= 128 ? kF32Route : kRefused;
+  if (act_dtype != kBF16) return kRefused;
+  return F > 128 ? kWide : kHere;
 }
 
 }  // namespace

@@ -57,8 +57,9 @@
 // No float atomics anywhere, so results are bit-reproducible.  The kernels
 // take bf16 activations with C a multiple of 16, F a multiple of 16 up to
 // 128 or of 32 up to 256, and H*W <= 64 (the wrapper checks), and either
-// gate dtype.  This file holds the 2-CTA widths and the entry points;
-// convlstm_proj_wide.cu the 4-CTA widths.
+// gate dtype; f32 activations at F a multiple of 16 up to 128
+// (convlstm_proj_f32.cu).  This file holds the bf16 2-CTA widths and the
+// entry points; convlstm_proj_wide.cu the 4-CTA widths.
 
 #include "convlstm_launch.cuh"
 
@@ -91,32 +92,48 @@ using namespace mmvae;
 
 extern "C" {
 
-// Weights pre-packed by the wrapper (see convlstm_kernels.py).
+// Weights pre-packed by the wrapper (see convlstm_kernels.py); act_dtype
+// the activations' (kBF16, or kF32 for F <= 128).
 int mmvae_convlstm_proj_fwd(const void* x, const void* wpk, const void* bx, const void* c0,
                             const void* h0, void* out_h, void* out_c, void* out_g, int B,
                             int Tn, int H, int W, int C, int F, int gate_dtype, int save,
-                            void* stream) {
+                            int act_dtype, void* stream) {
   const ProjFwdArgs a{x, wpk, bx, c0, h0, out_h, out_c, out_g, B, Tn, H, W, C, F,
-                      gate_dtype, save, (cudaStream_t)stream};
-  return F > 128 ? proj_fwd_wide(a) : proj_fwd(NarrowF{}, a);
+                      gate_dtype, save, act_dtype, (cudaStream_t)stream};
+  switch (route(act_dtype, F)) {
+    case kHere: return proj_fwd<bf16>(NarrowF{}, a);
+    case kWide: return proj_fwd_wide(a);
+    case kF32Route: return proj_fwd_f32(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // BPTT (dgates scratch, dx, dc0, dh0, dbx).
 int mmvae_convlstm_proj_bwd(const void* wtpk, const void* wxpk, const void* c0, const void* cs,
                             const void* ga, const void* dhl, const void* dcl, void* dG, void* dx,
                             void* dbx_part, void* dbx_out, void* dc0, void* dh0, int B, int Tn,
-                            int H, int W, int C, int F, void* stream) {
+                            int H, int W, int C, int F, int act_dtype, void* stream) {
   const ProjBwdArgs a{wtpk, wxpk, c0, cs, ga, dhl, dcl, dG, dx, dbx_part, dbx_out, dc0, dh0,
-                      B, Tn, H, W, C, F, (cudaStream_t)stream};
-  return F > 128 ? proj_bwd_wide(a) : proj_bwd(NarrowF{}, a);
+                      B, Tn, H, W, C, F, act_dtype, (cudaStream_t)stream};
+  switch (route(act_dtype, F)) {
+    case kHere: return proj_bwd<bf16>(NarrowF{}, a);
+    case kWide: return proj_bwd_wide(a);
+    case kF32Route: return proj_bwd_f32(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// dW and dWx ((C + 9F) x 4F, f32) from the bf16 dgates scratch; K6 passes
-// C = 0 (dW alone) and hs for the x it does not have.
+// dW and dWx ((C + 9F) x 4F, f32) from the dgates scratch (bf16, or f32
+// with f32 activations); K6 passes C = 0 (dW alone) and hs for the x it
+// does not have.
 int mmvae_convlstm_wgrad(const void* x, const void* hs, const void* h0, const void* dG,
                          void* dw_part, void* dw_out, int B, int Tn, int H, int W, int C, int F,
-                         int splits, void* stream) {
+                         int splits, int act_dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route(act_dtype, F) == kF32Route)
+    return wgrad_f32(x, hs, h0, dG, (float*)dw_part, (float*)dw_out, B, Tn, H, W, C, F, splits,
+                     s);
+  if (act_dtype != kBF16) return (int)cudaErrorInvalidValue;
   if (wgrad_bn(F) == 256)
     return (int)launch_wgrad_bn<256>(x, hs, h0, dG, (float*)dw_part, (float*)dw_out, B, Tn, H,
                                      W, C, F, splits, s);
@@ -126,16 +143,17 @@ int mmvae_convlstm_wgrad(const void* x, const void* hs, const void* h0, const vo
 
 // The launch geometry the kernels use, for the wrapper to check against its
 // own: {fwd stages, fwd smem, bwd stages, bwd smem, wgrad BN, wgrad smem,
-// CTAs a sample}.
-void mmvae_convlstm_proj_layout(int C, int F, int* out) {
-  const FwdSmem f = fwd_smem_layout(C, F);
-  const BwdSmem b = bwd_smem_layout(F);
+// CTAs a sample}, for activations of `act_dtype`.
+void mmvae_convlstm_proj_layout(int C, int F, int act_dtype, int* out) {
+  const int es = act_dtype == kF32 ? 4 : 2;
+  const FwdSmem f = fwd_smem_layout(C, F, true, es);
+  const BwdSmem b = bwd_smem_layout(F, es);
   out[0] = f.stages;
   out[1] = f.total;
   out[2] = b.stages;
   out[3] = b.total;
-  out[4] = wgrad_bn(F);
-  out[5] = wgrad_smem(F);
+  out[4] = es == 4 ? wgrad_f32_bn(F) : wgrad_bn(F);
+  out[5] = es == 4 ? wgrad_f32_smem(F) : wgrad_smem(F);
   out[6] = rec_cluster(F);
 }
 

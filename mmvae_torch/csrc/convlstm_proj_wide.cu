@@ -12,7 +12,7 @@
 
 namespace mmvae {
 
-int proj_fwd_wide(const ProjFwdArgs& a) { return proj_fwd(WideF{}, a); }
-int proj_bwd_wide(const ProjBwdArgs& a) { return proj_bwd(WideF{}, a); }
+int proj_fwd_wide(const ProjFwdArgs& a) { return proj_fwd<bf16>(WideF{}, a); }
+int proj_bwd_wide(const ProjBwdArgs& a) { return proj_bwd<bf16>(WideF{}, a); }
 
 }  // namespace mmvae

@@ -49,8 +49,9 @@
 //   (mmvae_convlstm_wgrad, called by the wrapper), partials summed in split
 //   order.
 // No float atomics, so results are bit-reproducible.  bf16 activations, F a
-// multiple of 16 up to 128 or of 32 up to 256, H*W <= 64; the wrapper
-// checks.  This file holds the 2-CTA widths and the entry points;
+// multiple of 16 up to 128 or of 32 up to 256, or f32 activations, F a
+// multiple of 16 up to 128 (convlstm_scan_f32.cu); H*W <= 64; the wrapper
+// checks.  This file holds the bf16 2-CTA widths and the entry points;
 // convlstm_scan_wide.cu the 4-CTA widths.
 
 #include "convlstm_launch.cuh"
@@ -65,35 +66,49 @@ extern "C" {
 // with an empty Wx).
 int mmvae_convlstm_scan_fwd(const void* xg, const void* wpk, const void* c0, const void* h0,
                             void* out_h, void* out_c, void* out_g, int B, int Tn, int xg_steps,
-                            int H, int W, int F, int gate_dtype, int mode, void* stream) {
+                            int H, int W, int F, int gate_dtype, int mode, int act_dtype,
+                            void* stream) {
   const ScanFwdArgs a{xg, wpk, c0, h0, out_h, out_c, out_g, B, Tn, xg_steps, H, W, F,
-                      gate_dtype, mode, (cudaStream_t)stream};
-  return F > 128 ? scan_fwd_wide(a) : scan_fwd(NarrowF{}, a);
+                      gate_dtype, mode, act_dtype, (cudaStream_t)stream};
+  switch (route(act_dtype, F)) {
+    case kHere: return scan_fwd<bf16>(NarrowF{}, a);
+    case kWide: return scan_fwd_wide(a);
+    case kF32Route: return scan_fwd_f32(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// BPTT: dgates into the bf16 scratch dG (a streaming xg's dxg, which the
-// wrapper passes as dG), dc0, dh0 and, when const_x, dxg (B, HW, 4F), summed
-// in f32 in shared memory or, with 4 CTAs a sample, in dxs (B * 4 * 64 * F
-// floats).  dhs: dh_T (B, HW, F) when last_only, else (B, T, HW, F).  dW
-// follows from mmvae_convlstm_wgrad over dG.
+// BPTT: dgates into the scratch dG (the activations' dtype; a streaming
+// xg's dxg, which the wrapper passes as dG), dc0, dh0 and, when const_x,
+// dxg (B, HW, 4F), summed in f32 in shared memory or, with 4 CTAs a sample
+// or f32 activations, in dxs (B * 4 * 64 * F floats).  dhs: dh_T (B, HW,
+// F) when last_only, else (B, T, HW, F).  dW follows from
+// mmvae_convlstm_wgrad over dG.
 int mmvae_convlstm_scan_bwd(const void* wtpk, const void* c0, const void* cs, const void* ga,
                             const void* dhs, const void* dcl, void* dG, void* dxg, void* dxs,
                             void* dc0, void* dh0, int B, int Tn, int H, int W, int F,
-                            int const_x, int last_only, void* stream) {
+                            int const_x, int last_only, int act_dtype, void* stream) {
   const ScanBwdArgs a{wtpk, c0, cs, ga, dhs, dcl, dG, dxg, dxs, dc0, dh0, B, Tn, H, W, F,
-                      const_x, last_only, (cudaStream_t)stream};
-  return F > 128 ? scan_bwd_wide(a) : scan_bwd(NarrowF{}, a);
+                      const_x, last_only, act_dtype, (cudaStream_t)stream};
+  switch (route(act_dtype, F)) {
+    case kHere: return scan_bwd<bf16>(NarrowF{}, a);
+    case kWide: return scan_bwd_wide(a);
+    case kF32Route: return scan_bwd_f32(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The launch geometry the kernels use, for the wrapper to check against its
 // own: {fwd stages, fwd smem, then bwd stages and bwd smem for a
-// time-constant xg, then for a streaming one, then CTAs a sample}.
-void mmvae_convlstm_scan_layout(int F, int* out) {
-  const FwdSmem f = fwd_smem_layout(0, F, false);
+// time-constant xg, then for a streaming one, then CTAs a sample}, for
+// activations of `act_dtype`.
+void mmvae_convlstm_scan_layout(int F, int act_dtype, int* out) {
+  const int es = act_dtype == kF32 ? 4 : 2;
+  const FwdSmem f = fwd_smem_layout(0, F, false, es);
   out[0] = f.stages;
   out[1] = f.total;
   for (int k = 0; k < 2; ++k) {
-    const BwdSmem b = scan_bwd_smem_layout(F, k == 0);
+    const BwdSmem b = scan_bwd_smem_layout(F, k == 0, es);
     out[2 + 2 * k] = b.stages;
     out[3 + 2 * k] = b.total;
   }

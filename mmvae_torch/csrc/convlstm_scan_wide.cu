@@ -14,7 +14,7 @@
 
 namespace mmvae {
 
-int scan_fwd_wide(const ScanFwdArgs& a) { return scan_fwd(WideF{}, a); }
-int scan_bwd_wide(const ScanBwdArgs& a) { return scan_bwd(WideF{}, a); }
+int scan_fwd_wide(const ScanFwdArgs& a) { return scan_fwd<bf16>(WideF{}, a); }
+int scan_bwd_wide(const ScanBwdArgs& a) { return scan_bwd<bf16>(WideF{}, a); }
 
 }  // namespace mmvae

@@ -1,5 +1,5 @@
 // Small device pieces the ConvLSTM kernels (K5 and K6, convlstm_wgmma.cuh)
-// share: swizzled bf16 shared-memory tiles and the ldmatrix that reads them
+// share: swizzled shared-memory tiles and the ldmatrix that reads them
 // transposed, the source row of each tap of the 3x3 SAME conv (a zero row
 // stands in for the masked taps of convlstm_pallas.py::_tap_masks), the LSTM
 // cell's result, and the split-order sum of the weight GEMM's partials.
@@ -20,22 +20,28 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
-// Row-major bf16 tile in shared memory; 16-byte chunks are XOR-swizzled by
-// row (when a row holds a multiple of 8 chunks) so ldmatrix is conflict-free.
-struct SwzTile {
-  bf16* base;
+// Row-major tile of T (bf16 or f32) in shared memory; its 16-byte chunks
+// (E = 16 / sizeof(T) elements) are XOR-swizzled by row (when a row holds a
+// multiple of 8 chunks) so that ldmatrix (bf16) and the f32 fragment loads
+// are conflict-free.
+template <typename T>
+struct SwzTileT {
+  static constexpr int E = 16 / sizeof(T);
+  T* base;
   int chunks, mask;
-  __device__ bf16* at(int row, int col) const {
-    return base + ((size_t)row * chunks + ((col >> 3) ^ (row & mask))) * 8 + (col & 7);
+  __device__ T* at(int row, int col) const {
+    return base + ((size_t)row * chunks + ((col / E) ^ (row & mask))) * E + (col % E);
   }
-  __device__ bf16* chunk(int row, int c) const {
-    return base + ((size_t)row * chunks + (c ^ (row & mask))) * 8;
+  __device__ T* chunk(int row, int c) const {
+    return base + ((size_t)row * chunks + (c ^ (row & mask))) * E;
   }
 };
+using SwzTile = SwzTileT<bf16>;
 
-__device__ __forceinline__ SwzTile make_tile(bf16* base, int cols) {
-  const int chunks = cols / 8;
-  return SwzTile{base, chunks, chunks % 8 == 0 ? 7 : 0};
+template <typename T>
+__device__ __forceinline__ SwzTileT<T> make_tile(T* base, int cols) {
+  const int chunks = cols / SwzTileT<T>::E;
+  return SwzTileT<T>{base, chunks, chunks % 8 == 0 ? 7 : 0};
 }
 
 // Source row of position p for tap `tap` (sign +1: h[p + shift], the forward;

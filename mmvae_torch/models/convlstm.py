@@ -21,9 +21,10 @@
     (`torch.utils.checkpoint`); on the kernel paths it is ignored, with a
     warning when fused=True asked for it, as in JAX.
   A time-constant input is projected once on every path.  Each kernel
-  wrapper runs its CUDA kernel for CUDA tensors (bf16 activations, F a
-  multiple of 16 up to 128 or of 32 up to 256, H*W <= 64, K5's C a
-  multiple of 16, else it raises: `ops.convlstm_kernels.check_domain`)
+  wrapper runs its CUDA kernel for CUDA tensors (bf16 activations at F a
+  multiple of 16 up to 128 or of 32 up to 256, f32 activations at F a
+  multiple of 16 up to 128, H*W <= 64, K5's C a multiple of 16, else it
+  raises: `ops.convlstm_kernels.check_domain`)
   and its plain version for CPU tensors; the policy does not look at
   these limits, as JAX's does not.
 

@@ -15,19 +15,21 @@ encoder's shape.  K6 replaces `convlstm_scan_pallas` with the kernels of
 time-constant (B, 1, H, W, 4F) with `length=T`, and returns ((c_T, h_T), hs)
 or, `last_only`, ((c_T, h_T), None); gates_t = xg_t + conv3x3_SAME(h_{t-1},
 w), the two added in the gate dtype as the TPU kernel adds them.  Both
-kernels' backward passes write their dgates in bf16 for one weight-gradient
-GEMM (`mmvae_convlstm_wgrad`); a streaming xg's dxg is that bf16 scratch.
+kernels' backward passes write their dgates in the activation dtype for one
+weight-gradient GEMM (`mmvae_convlstm_wgrad`); a streaming xg's dxg is that
+scratch.
 
 Inputs share one activation dtype T, which is also the matmul operand dtype;
 accumulation is f32; the pointwise chain and the cell state run in
 `gate_dtype` (float32 or bfloat16), and the backward chain in f32, as in the
 TPU kernels.  The forward that feeds a backward saves hs, cs and the
 post-activation gates (in T); without grad a residual-free forward runs.
-The CUDA kernels take T = bfloat16 (the production dtype), F a multiple of
-16 up to 128 (2 CTAs a sample) or of 32 up to 256 (4 CTAs a sample), H*W <=
-64 and, for K5, C a multiple of 16 (`check_domain`); they raise for
-anything else, float32 activations included, which only the plain
-versions, on the CPU, run.
+The CUDA kernels take T = bfloat16 (the production dtype) at F a multiple
+of 16 up to 128 (2 CTAs a sample) or of 32 up to 256 (4 CTAs a sample), and
+T = float32 (the JAX package's default) at F a multiple of 16 up to 128,
+its products f32-accurate as 3xTF32 (weights split here by `tf32_split`,
+`pack_proj_forward`); H*W <= 64 and, for K5, C a multiple of 16
+(`check_domain`); they raise for anything else.
 
 The plain versions below follow the same algorithms step by step in PyTorch
 (f32 convs and matmuls on operands rounded to T); they are the CPU path and
@@ -65,23 +67,53 @@ def _hidden_conv(h: torch.Tensor, w_oihw: torch.Tensor, height: int, width: int)
     return out.permute(0, 2, 3, 1).reshape(b, hw, -1)
 
 
-def proj_forward_plain(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
+def tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 `t` rounded to TF32's 10 mantissa bits (to nearest, ties away,
+    as the kernels' cvt.rna.tf32.f32)."""
+    i = t.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor):
+    """(hi, lo), each TF32, with hi + lo = t to about 2^-22 |t|: an f32
+    operand of the kernels' 3xTF32 products."""
+    hi = tf32(t)
+    return hi, tf32(t.float() - hi)
+
+
+def _operand(t: torch.Tensor, act, tf32_operands: bool) -> torch.Tensor:
+    """A product operand as the plain versions take it: rounded to the
+    activation dtype (the weights, act None, as given) and computed in f32,
+    or (the TF32 control) rounded to TF32 as well."""
+    t = t.float() if act is None else t.to(act).float()
+    return tf32(t) if tf32_operands else t
+
+
+def proj_forward_plain(x, wx, bx, w, c0, h0, gate_dtype, save: bool, tf32_operands=False):
     """Plain forward.  x (B, T, H, W, C); returns (hs, cs, gates) with shapes
     (B, T, HW, F), (B, T, HW, F), (B, T, HW, 4F) when `save`, else
-    (h_T, c_T) as (B, HW, F); all in x.dtype."""
+    (h_T, c_T) as (B, HW, F); all in x.dtype.  `tf32_operands` rounds
+    every product operand to TF32: what a 1xTF32 kernel would compute."""
     act = x.dtype
     batch, t_len, height, width, cin = x.shape
     f4 = wx.shape[1]
     feat = f4 // 4
     hw = height * width
-    xg = x.float().reshape(batch, t_len, hw, cin) @ wx.float() + bx.float()
-    w_oihw = w.float().permute(3, 2, 0, 1)
+    op = functools.partial(_operand, act=act, tf32_operands=tf32_operands)
+    opw = functools.partial(_operand, act=None, tf32_operands=tf32_operands)
+    xg = op(x).reshape(batch, t_len, hw, cin) @ opw(wx) + bx.float()
+    w_oihw = opw(w).permute(3, 2, 0, 1)
     c = c0.reshape(batch, hw, feat).to(gate_dtype)
     h = h0.reshape(batch, hw, feat).to(gate_dtype)
     hs, cs, ga = [], [], []
     for t in range(t_len):
-        hg = _hidden_conv(h.to(act).float(), w_oihw, height, width)
-        gates = (xg[:, t] + hg).to(gate_dtype)
+        hg = _hidden_conv(op(h), w_oihw, height, width)
+        if act == torch.float32:
+            # the TPU kernel's rounding: projection and conv each rounded to
+            # the gate dtype, then added in it (convlstm_pallas.py:405-406)
+            gates = xg[:, t].to(gate_dtype) + hg.to(gate_dtype)
+        else:  # bf16 activations: the sum rounded once, as the kernels have it
+            gates = (xg[:, t] + hg).to(gate_dtype)
         i, f, g, o = _split_gates(gates, feat)
         c = f * c + i * g
         h = o * torch.tanh(c)
@@ -94,16 +126,19 @@ def proj_forward_plain(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
     return h.to(act), c.to(act)
 
 
-def proj_backward_plain(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
+def proj_backward_plain(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last, tf32_operands=False):
     """Plain BPTT: reverse time, (dh, dc) carried in f32.  Returns
-    (dx, dwx, dbx, dw, dc0, dh0) in the dtypes and shapes of the inputs."""
+    (dx, dwx, dbx, dw, dc0, dh0) in the dtypes and shapes of the inputs.
+    `tf32_operands` as in `proj_forward_plain`."""
     act = x.dtype
     batch, t_len, height, width, cin = x.shape
     f4 = wx.shape[1]
     feat = f4 // 4
     hw = height * width
-    w_oihw = w.float().permute(3, 2, 0, 1)
-    xf = x.float().reshape(batch, t_len, hw, cin)
+    op = functools.partial(_operand, act=act, tf32_operands=tf32_operands)
+    w_oihw = _operand(w, None, tf32_operands).permute(3, 2, 0, 1)
+    wxf = _operand(wx, None, tf32_operands)
+    xf = op(x).reshape(batch, t_len, hw, cin)
     c0f = c0.reshape(batch, hw, feat).float()
     h0f = h0.reshape(batch, hw, feat).float()
     dh = dh_last.reshape(batch, hw, feat).to(act).float()
@@ -115,7 +150,7 @@ def proj_backward_plain(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
     for t in range(t_len - 1, -1, -1):
         c_t = cs[:, t].float()
         c_prev = cs[:, t - 1].float() if t > 0 else c0f
-        h_prev = hs[:, t - 1].float() if t > 0 else h0f
+        h_prev = op(hs[:, t - 1]) if t > 0 else _operand(h0f, None, tf32_operands)
         i, f, g, o = ga[:, t].float().split(feat, dim=-1)
         tanh_ct = torch.tanh(c_t)
         do = dh * tanh_ct
@@ -127,8 +162,8 @@ def proj_backward_plain(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
             do * o * (1.0 - o),
         ], dim=-1)
         dc = dct * f
-        dg_mat = dgates.to(act).float()
-        dx[:, t] = (dg_mat @ wx.float().t()).to(act)
+        dg_mat = op(dgates)
+        dx[:, t] = (dg_mat @ wxf.t()).to(act)
         dwx += torch.einsum("bpc,bpn->cn", xf[:, t], dg_mat)
         dbx += dgates.sum(dim=(0, 1))
         dg_n = dg_mat.view(batch, height, width, f4).permute(0, 3, 1, 2)
@@ -153,8 +188,10 @@ def proj_backward_plain(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
 
 
 # The CUDA kernels' domain, as the message of every refusal states it.
-DOMAIN = ("bfloat16 activations, F a multiple of 16 up to 128 or a multiple of 32 up to "
-          "256, H*W <= 64 and (K5) C a multiple of 16")
+DOMAIN = ("bfloat16 activations with F a multiple of 16 up to 128 or a multiple of 32 up to "
+          "256, float32 activations with F a multiple of 16 up to 128, H*W <= 64 and (K5) C a "
+          "multiple of 16")
+F32_MAX_F = 128  # f32 at F > 128 would need the BPTT's f32 dgates tile split across CTAs
 
 
 def _require_cuda(what, named):
@@ -167,12 +204,16 @@ def _require_cuda(what, named):
 def check_domain(what: str, dtype: torch.dtype, feat: int, hw: int, cin=None) -> None:
     """Raise unless activations of `dtype`, F = `feat`, `hw` positions and
     (K5) C = `cin` input channels lie in the CUDA kernels' domain: bf16
-    activations (the matmul operands; f32 runs only in the plain versions,
-    on the CPU), F a multiple of 16 up to 128 (2-CTA clusters) or of 32 up
-    to 256 (4-CTA clusters), H*W <= 64, C a multiple of 16.  TypeError for
-    the dtype, ValueError for a shape; each message names the domain."""
-    if dtype != torch.bfloat16:
+    activations at F a multiple of 16 up to 128 (2-CTA clusters) or of 32 up
+    to 256 (4-CTA clusters), f32 activations at F a multiple of 16 up to
+    128; H*W <= 64, C a multiple of 16.  TypeError for the dtype (f32 above
+    F = 128 included), ValueError for a shape; each message names the
+    domain."""
+    if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what}: activations are {dtype}; the CUDA kernels take {DOMAIN}")
+    if dtype == torch.float32 and feat > F32_MAX_F:
+        raise TypeError(f"{what}: activations are {dtype} at F={feat}, above {F32_MAX_F}; the "
+                        f"CUDA kernels take {DOMAIN}")
     narrow = feat % 16 == 0 and 0 < feat <= 128
     wide = feat % 32 == 0 and 128 < feat <= 256
     if not (narrow or wide) or hw > 64 or (cin is not None and cin % 16):
@@ -181,14 +222,20 @@ def check_domain(what: str, dtype: torch.dtype, feat: int, hw: int, cin=None) ->
 
 
 def _activations(named) -> torch.dtype:
-    """bfloat16, or the first other dtype among the named tensors."""
-    return next((t.dtype for _, t in named if t.dtype != torch.bfloat16), torch.bfloat16)
+    """The tensors' one dtype, or the first that differs from the first's
+    (which `check_domain` then refuses, or the kernels would read it wrong)."""
+    first = named[0][1].dtype
+    odd = next((t.dtype for _, t in named if t.dtype != first), None)
+    if odd is not None:
+        raise TypeError(f"the CUDA kernels take one activation dtype; got {first} and {odd}")
+    return first
 
 
 # The launch geometry of K5 and K6, as `csrc/convlstm_wgmma.cuh`
-# (rec_cluster, fwd_smem_layout, bwd_layout, wgrad_bn, wgrad_smem) computes
-# it: a change to one is made in both; the wrappers hold them equal, asking
-# the library once per (C, F) for K5 (`_layouts`) and once per F for K6
+# (rec_cluster, fwd_smem_layout, bwd_layout, wgrad_bn, wgrad_smem,
+# wgrad_f32_bn, wgrad_f32_smem) computes it: a change to one is made in
+# both; the wrappers hold them equal, asking the library once per (C, F,
+# element size) for K5 (`_layouts`) and once per (F, element size) for K6
 # (`_scan_layouts`).  One cluster of 2 CTAs per sample up to F = 128, of 4
 # beyond, each CTA F/CL channels of every gate; shared memory per CTA for
 # the forward (weight ring of FWD_ROWS-row slabs of the CTA's 4F/CL
@@ -196,13 +243,20 @@ def _activations(named) -> torch.dtype:
 # xg in registers), the BPTT (ring of BWD_ROWS-row slabs, half that with 4
 # CTAs; the whole dgates tile, the residuals, K5's dbx warp partials or, in
 # a 2-CTA cluster, the f32 dgates sum of K6's time-constant xg, which a
-# 4-CTA cluster keeps in global memory) and the weight gradient.
+# 4-CTA cluster keeps in global memory) and the weight gradient.  With f32
+# activations (`es` = 4, the element size) the tiles are twice as large, a
+# weight takes 8 ring bytes (its TF32 hi and lo parts), slots hold 8 rows
+# (forward) and 32 (BPTT), nothing is staged (the residuals go out and come
+# in through registers), K6's dgates sum lives in global memory, and the
+# weight GEMM has its own tiles (`_WF_*`).
 SMEM_LIMIT = 232448  # bytes one CTA may use on the H100 (227 KB)
 SMS = 132
 _MROWS, _MIN_STAGES, _MAX_STAGES = 64, 4, 8
 SCAN_BWD_MIN_STAGES = 3  # K6's BPTT with a time-constant xg
 _FWD_ROWS, _BWD_ROWS, _DX_BLOCK = 32, 128, 64
+_FWD_ROWS_F32, _BWD_ROWS_F32 = 8, 32
 _WG_BM, _WG_BK, _WG_STAGES = 128, 64, 4
+_WF_BK, _WF_STAGES, _WF_APAD = 32, 2, 4
 
 
 def _round128(v: int) -> int:
@@ -211,54 +265,82 @@ def _round128(v: int) -> int:
 
 def cluster_size(feat: int) -> int:
     """CTAs a sample (`rec_cluster`): 2 up to F = 128, 4 beyond, where two
-    CTAs' weight slabs, residual staging and rings no longer fit."""
+    CTAs' weight slabs, residual staging and rings no longer fit.  f32
+    activations, which take F <= 128, fit two CTAs because they stage
+    nothing."""
     return 4 if feat > 128 else 2
 
 
-def _bwd_rows(feat: int) -> int:
+def _bwd_rows(feat: int, es: int = 2) -> int:
+    if es == 4:
+        return _BWD_ROWS_F32
     return _BWD_ROWS if cluster_size(feat) == 2 else _BWD_ROWS // 2
+
+
+def _weight_bytes(es: int) -> int:
+    """Ring bytes of one weight: bf16, or an f32 weight's two TF32 parts."""
+    return 8 if es == 4 else 2
 
 
 def _stages(fixed: int, slot: int) -> int:
     return min(_MAX_STAGES, (SMEM_LIMIT - fixed) // slot)
 
 
-def _fwd_fixed(cin: int, feat: int, x_tiles: bool = True) -> int:
-    """The forward's shared memory besides its ring (K6 has no x tiles)."""
+def _fwd_fixed(cin: int, feat: int, x_tiles: bool = True, es: int = 2) -> int:
+    """The forward's shared memory besides its ring (K6 has no x tiles;
+    rows of the x tiles padded by 16 bytes; only bf16 stages residuals)."""
     hf = feat // cluster_size(feat)
-    inputs = 2 * _round128((_MROWS + 1) * (cin + 8) * 2) if x_tiles else 0
-    return 1280 + inputs + 2 * _round128((_MROWS + 1) * feat * 2) + _MROWS * 6 * hf * 2
+    inputs = 2 * _round128((_MROWS + 1) * (cin + 16 // es) * es) if x_tiles else 0
+    staging = _MROWS * 6 * hf * 2 if es == 2 else 0
+    return 1280 + inputs + 2 * _round128((_MROWS + 1) * feat * es) + staging
 
 
-def _bwd_fixed(feat: int, tail: int) -> int:
+def _fwd_slot(feat: int, es: int = 2) -> int:
+    rows = _FWD_ROWS if es == 2 else _FWD_ROWS_F32
+    return rows * 4 * (feat // cluster_size(feat)) * _weight_bytes(es)
+
+
+def _bwd_fixed(feat: int, tail: int, es: int = 2) -> int:
     """The BPTT's shared memory besides its ring."""
     hf = feat // cluster_size(feat)
-    return 256 + _round128((_MROWS + 1) * 4 * feat * 2) + _MROWS * 6 * hf * 2 + tail
+    res = _MROWS * 6 * hf * 2 if es == 2 else 0
+    return 256 + _round128((_MROWS + 1) * 4 * feat * es) + res + tail
 
 
-def _wgrad_geometry(rows: int, m: int, feat: int) -> dict:
+def _wgrad_geometry(rows: int, m: int, feat: int, es: int = 2) -> dict:
     """The weight GEMM over `rows` rows of the dgates scratch for an M x 4F
     gradient: tile width, tiles, split-K (as many splits as fill the card's
     SMs, at least 8 stages of rows each) and shared memory."""
-    bn = 256 if 4 * feat >= 256 else 64
+    if es == 4:
+        bn, bk = (128 if 4 * feat >= 128 else 64), _WF_BK
+        smem = _WF_STAGES * (bk * (_WG_BM + _WF_APAD) * 4 + 2 * bk * bn * 4) + 256
+    else:
+        bn, bk = (256 if 4 * feat >= 256 else 64), _WG_BK
+        smem = _WG_STAGES * (bk * _WG_BM * 2 + bk * bn * 2) + 256
     tiles = -(-m // _WG_BM) * -(-4 * feat // bn)
-    splits = max(1, min(SMS // tiles, rows // (8 * _WG_BK)))
+    splits = max(1, min(SMS // tiles, rows // (8 * bk)))
     return {
         "wgrad_bn": bn, "wgrad_tiles": tiles, "wgrad_splits": splits,
-        "wgrad_rows_per_split": -(-(-(-rows // splits)) // _WG_BK) * _WG_BK,
-        "wgrad_smem": _WG_STAGES * (_WG_BK * _WG_BM * 2 + _WG_BK * bn * 2) + 256,
+        "wgrad_rows_per_split": -(-(-(-rows // splits)) // bk) * bk,
+        "wgrad_smem": smem,
     }
 
 
+def _es(dtype: torch.dtype) -> int:
+    return 4 if dtype == torch.float32 else 2
+
+
 @functools.lru_cache(maxsize=None)
-def proj_geometry(batch, t_len, height, width, cin, feat) -> dict:
-    """The K5 kernels' launch geometry at (B, T, H, W, C, F): CTAs, ring
-    stages and bytes, shared memory per CTA, the weight GEMM's tile width
-    and split-K.  Cached: callers read the dict and never change it."""
+def proj_geometry(batch, t_len, height, width, cin, feat, es: int = 2) -> dict:
+    """The K5 kernels' launch geometry at (B, T, H, W, C, F) for activations
+    of `es` bytes (2: bf16, 4: f32): CTAs, ring stages and bytes, shared
+    memory per CTA, the weight GEMM's tile width and split-K.  Cached:
+    callers read the dict and never change it."""
     cl = cluster_size(feat)
     hf = feat // cl
-    f_slot, f_fixed = _FWD_ROWS * 4 * hf * 2, _fwd_fixed(cin, feat)
-    b_slot, b_fixed = _bwd_rows(feat) * _DX_BLOCK * 2, _bwd_fixed(feat, 4 * 4 * hf * 4)
+    f_slot, f_fixed = _fwd_slot(feat, es), _fwd_fixed(cin, feat, es=es)
+    b_slot = _bwd_rows(feat, es) * _DX_BLOCK * _weight_bytes(es)
+    b_fixed = _bwd_fixed(feat, 4 * 4 * hf * 4, es)
     f_stages, b_stages = _stages(f_fixed, f_slot), _stages(b_fixed, b_slot)
     return {
         "cluster": cl, "clusters": batch, "ctas": cl * batch,
@@ -267,25 +349,25 @@ def proj_geometry(batch, t_len, height, width, cin, feat) -> dict:
         "bwd_stages": b_stages, "bwd_slot_bytes": b_slot,
         "bwd_ring_bytes": b_stages * b_slot, "bwd_smem": b_fixed + b_stages * b_slot,
         "dx_blocks": -(-(cin // cl) // _DX_BLOCK),
-        **_wgrad_geometry(batch * t_len * height * width, cin + 9 * feat, feat),
+        **_wgrad_geometry(batch * t_len * height * width, cin + 9 * feat, feat, es),
     }
 
 
 @functools.lru_cache(maxsize=None)
-def scan_geometry(batch, t_len, height, width, feat, const_input) -> dict:
+def scan_geometry(batch, t_len, height, width, feat, const_input, es: int = 2) -> dict:
     """The K6 kernels' launch geometry at (B, T, H, W, F) for a
-    time-constant xg (a 2-CTA BPTT keeps a (64, 2F) f32 dgates sum in
-    shared memory, a 4-CTA one a (B, 4, 64, F) f32 scratch in global
-    memory, `dxs_scratch_floats`) or a streaming one: CTAs, ring stages
-    and bytes, shared memory per CTA, the fewest BPTT stages the kernel
-    takes, and the weight GEMM's (K5's with C = 0).  Cached like
-    `proj_geometry`."""
+    time-constant xg (a 2-CTA bf16 BPTT keeps a (64, 2F) f32 dgates sum in
+    shared memory, a 4-CTA or f32 one a (B, CL, 64, 4F/CL) f32 scratch in
+    global memory, `dxs_scratch_floats`) or a streaming one, for activations
+    of `es` bytes: CTAs, ring stages and bytes, shared memory per CTA, the
+    fewest BPTT stages the kernel takes, and the weight GEMM's (K5's with C
+    = 0).  Cached like `proj_geometry`."""
     cl = cluster_size(feat)
     hf = feat // cl
-    sum_in_smem = const_input and cl == 2
-    f_slot, f_fixed = _FWD_ROWS * 4 * hf * 2, _fwd_fixed(0, feat, x_tiles=False)
-    b_slot = _bwd_rows(feat) * hf * 2  # rows of the CTA's F/CL columns
-    b_fixed = _bwd_fixed(feat, _MROWS * 4 * hf * 4 if sum_in_smem else 0)
+    sum_in_smem = const_input and cl == 2 and es == 2
+    f_slot, f_fixed = _fwd_slot(feat, es), _fwd_fixed(0, feat, x_tiles=False, es=es)
+    b_slot = _bwd_rows(feat, es) * hf * _weight_bytes(es)  # rows of the CTA's F/CL columns
+    b_fixed = _bwd_fixed(feat, _MROWS * 4 * hf * 4 if sum_in_smem else 0, es)
     f_stages, b_stages = _stages(f_fixed, f_slot), _stages(b_fixed, b_slot)
     return {
         "cluster": cl, "clusters": batch, "ctas": cl * batch,
@@ -294,8 +376,9 @@ def scan_geometry(batch, t_len, height, width, feat, const_input) -> dict:
         "bwd_stages": b_stages, "bwd_slot_bytes": b_slot,
         "bwd_ring_bytes": b_stages * b_slot, "bwd_smem": b_fixed + b_stages * b_slot,
         "bwd_min_stages": SCAN_BWD_MIN_STAGES if sum_in_smem else _MIN_STAGES,
-        "dxs_scratch_floats": batch * _MROWS * 4 * feat if const_input and cl == 4 else 0,
-        **_wgrad_geometry(batch * t_len * height * width, 9 * feat, feat),
+        "dxs_scratch_floats": (batch * _MROWS * 4 * feat
+                               if const_input and not sum_in_smem else 0),
+        **_wgrad_geometry(batch * t_len * height * width, 9 * feat, feat, es),
     }
 
 
@@ -314,13 +397,15 @@ def _check_cuda(x, wx, w, c0, h0, *more):
             f"convlstm_scan_proj: inconsistent shapes x {tuple(x.shape)} wx "
             f"{tuple(wx.shape)} w {tuple(w.shape)} c0 {tuple(c0.shape)} h0 {tuple(h0.shape)}"
         )
-    check_domain("convlstm_scan_proj", _activations(named), feat, height * width, cin)
-    geo = proj_geometry(batch, t_len, height, width, cin, feat)
+    act = _activations(named)
+    check_domain("convlstm_scan_proj", act, feat, height * width, cin)
+    es = _es(act)
+    geo = proj_geometry(batch, t_len, height, width, cin, feat, es)
     if min(geo["fwd_stages"], geo["bwd_stages"]) < _MIN_STAGES:
-        raise ValueError(f"convlstm_scan_proj: C={cin}, F={feat} leave less than "
+        raise ValueError(f"convlstm_scan_proj: C={cin}, F={feat} ({act}) leave less than "
                          f"{_MIN_STAGES} weight stages in one CTA's shared memory")
     lib = _build.library()
-    got, want = _layouts(cin, feat)
+    got, want = _layouts(cin, feat, es)
     if got != want:
         raise RuntimeError(f"convlstm_scan_proj: kernel geometry {got} differs from "
                            f"the wrapper's {want}")
@@ -329,30 +414,43 @@ def _check_cuda(x, wx, w, c0, h0, *more):
 
 _LAYOUT_KEYS = ("fwd_stages", "fwd_smem", "bwd_stages", "bwd_smem", "wgrad_bn", "wgrad_smem",
                 "cluster")
+_ACT_CODE = {2: 1, 4: 0}  # element size -> the library's dtype code (_DTYPE_CODE)
 
 
 @functools.lru_cache(maxsize=None)
-def _layouts(cin: int, feat: int):
-    """(the kernels' shared-memory layout at (C, F), `proj_geometry`'s):
-    asked of the library once per (C, F)."""
+def _layouts(cin: int, feat: int, es: int = 2):
+    """(the kernels' shared-memory layout at (C, F) for `es`-byte
+    activations, `proj_geometry`'s): asked of the library once per (C, F,
+    es)."""
     got = (ctypes.c_int * len(_LAYOUT_KEYS))()
-    _build.library().mmvae_convlstm_proj_layout(cin, feat, got)
-    geo = proj_geometry(1, 1, 8, 8, cin, feat)  # the layout depends on C and F alone
+    _build.library().mmvae_convlstm_proj_layout(cin, feat, _ACT_CODE[es], got)
+    geo = proj_geometry(1, 1, 8, 8, cin, feat, es)  # the layout depends on C, F and es alone
     return tuple(got), tuple(geo[k] for k in _LAYOUT_KEYS)
 
 
-def pack_cores(mat: torch.Tensor) -> torch.Tensor:
-    """(K, N) -> K-major wgmma cores [K/8][N/8][8 n][8 k]: core (kc, nb) holds
-    mat[8kc + k][8nb + n] at [kc][nb][n][k], 128 contiguous bytes in bf16."""
+def pack_cores(mat: torch.Tensor, kc: int = 8) -> torch.Tensor:
+    """(K, N) -> K-major wgmma cores [K/kc][N/8][8 n][kc k]: core (c, nb)
+    holds mat[kc c + k][8nb + n] at [c][nb][n][k], 128 contiguous bytes in
+    bf16 (kc = 8) and in f32 (kc = 4, the TF32 cores)."""
     k, n = mat.shape[-2:]
     lead = mat.shape[:-2]
-    return mat.reshape(*lead, k // 8, 8, n // 8, 8).movedim(-3, -1).contiguous()
+    return mat.reshape(*lead, k // kc, kc, n // 8, 8).movedim(-3, -1).contiguous()
 
 
 def unpack_cores(pk: torch.Tensor) -> torch.Tensor:
     """The inverse of `pack_cores`."""
-    kc, nb = pk.shape[-4:-2]
-    return pk.movedim(-1, -3).reshape(*pk.shape[:-4], kc * 8, nb * 8)
+    kc, nb, _, kk = pk.shape[-4:]
+    return pk.movedim(-1, -3).reshape(*pk.shape[:-4], kc * kk, nb * 8)
+
+
+def _pack(mat: torch.Tensor, tf32_parts: bool) -> torch.Tensor:
+    """(..., K, N) as `pack_cores` (the bf16 kernels' cores), or for the f32
+    kernels (`tf32_parts`) as the TF32 cores of its hi part, then of its lo
+    part (`tf32_split`), stacked on a new first axis: the kernels read lo
+    at hi's offset plus all of hi."""
+    if not tf32_parts:
+        return pack_cores(mat)
+    return torch.stack([pack_cores(part, kc=4) for part in tf32_split(mat)])
 
 
 def consumer_groups(feat: int) -> int:
@@ -362,41 +460,45 @@ def consumer_groups(feat: int) -> int:
     return 2 if (feat // cluster_size(feat)) % 16 == 0 else 1
 
 
-def pack_proj_forward(wx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def pack_proj_forward(wx: torch.Tensor, w: torch.Tensor, tf32_parts: bool = False):
     """[Wx; W] ((C + 9F) x 4F) cut for the CL CTAs of a cluster: rank r
     keeps channels [r F/CL, (r + 1) F/CL) of each gate, 4F/CL columns
     ordered (warpgroup, gate, channel), each consumer warpgroup's F/CL /
-    groups channels of the four gates together; (CL, K/8, 4F/CL/8, 8, 8)."""
+    groups channels of the four gates together; (CL, K/8, 4F/CL/8, 8, 8),
+    or for the f32 kernels (2, CL, K/4, 4F/CL/8, 8, 4) (`_pack`)."""
     cin, f4 = wx.shape
     feat = f4 // 4
     cl, nwg = cluster_size(feat), consumer_groups(feat)
     full = torch.cat([wx, w.reshape(9 * feat, f4)])
     k = full.shape[0]
     per_rank = full.view(k, 4, cl, nwg, feat // cl // nwg).permute(2, 0, 3, 1, 4)
-    return pack_cores(per_rank.reshape(cl, k, f4 // cl))
+    return _pack(per_rank.reshape(cl, k, f4 // cl), tf32_parts)
 
 
-def pack_hidden_backward(w: torch.Tensor) -> torch.Tensor:
+def pack_hidden_backward(w: torch.Tensor, tf32_parts: bool = False) -> torch.Tensor:
     """The BPTT's dh slabs per rank (K5 and K6): W^T with rows (tap, n) and
-    the rank's F/CL columns, (CL, 9*4F/8, F/CL/8, 8, 8)."""
+    the rank's F/CL columns, (CL, 9*4F/8, F/CL/8, 8, 8), or for the f32
+    kernels (2, CL, 9*4F/4, F/CL/8, 8, 4)."""
     f4 = w.shape[-1]
     feat = f4 // 4
     cl = cluster_size(feat)
     wt = w.reshape(9, feat, f4).transpose(1, 2).reshape(9 * f4, feat)
-    return pack_cores(wt.view(9 * f4, cl, feat // cl).permute(1, 0, 2))
+    return _pack(wt.view(9 * f4, cl, feat // cl).permute(1, 0, 2), tf32_parts)
 
 
-def pack_proj_backward(wx: torch.Tensor, w: torch.Tensor):
+def pack_proj_backward(wx: torch.Tensor, w: torch.Tensor, tf32_parts: bool = False):
     """K5's BPTT slabs per rank: `pack_hidden_backward(w)`, and Wx^T (rows
     n) with the rank's C/CL columns in zero-padded blocks of 64, (CL,
-    blocks, 4F/8, 8, 8, 8)."""
+    blocks, 4F/8, 8, 8, 8), or for the f32 kernels (2, CL, blocks, 4F/4, 8,
+    8, 4)."""
     cin, f4 = wx.shape
     cl = cluster_size(f4 // 4)
     cr = cin // cl
     blocks = -(-cr // _DX_BLOCK)
     wxt = wx.t().reshape(f4, cl, cr).permute(1, 0, 2)
     wxt = F.pad(wxt, (0, blocks * _DX_BLOCK - cr)).view(cl, f4, blocks, _DX_BLOCK)
-    return pack_hidden_backward(w), pack_cores(wxt.permute(0, 2, 1, 3))
+    return (pack_hidden_backward(w, tf32_parts),
+            _pack(wxt.permute(0, 2, 1, 3), tf32_parts))
 
 
 @_build.on_device
@@ -421,11 +523,11 @@ def proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
     else:
         outs = (torch.empty(batch, hw, feat, **kw), torch.empty(batch, hw, feat, **kw))
         ptrs = [outs[0].data_ptr(), outs[1].data_ptr(), None]
-    wpk = pack_proj_forward(wx, w)
+    wpk = pack_proj_forward(wx, w, x.dtype == torch.float32)
     err = lib.mmvae_convlstm_proj_fwd(
         x.data_ptr(), wpk.data_ptr(), bx.data_ptr(), c0.data_ptr(), h0.data_ptr(),
         *ptrs, batch, t_len, height, width, cin, feat, _DTYPE_CODE[gate_dtype],
-        int(save), _build.stream_ptr(x.device),
+        int(save), _DTYPE_CODE[x.dtype], _build.stream_ptr(x.device),
     )
     _build.check(err, "convlstm_proj_fwd")
     convlstm_proj_forward.launches += 1
@@ -443,13 +545,15 @@ def proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
     f4 = wx.shape[1]
     feat = f4 // 4
     hw = height * width
-    wtpk, wxpk = pack_proj_backward(wx, w)
+    wtpk, wxpk = pack_proj_backward(wx, w, x.dtype == torch.float32)
     x, c0, h0, hs, cs, ga = (t.contiguous() for t in (x, c0, h0, hs, cs, ga))
     dhl = dh_last.to(act).contiguous()
     dcl = dc_last.to(act).contiguous()
     dev = x.device
     stream = _build.stream_ptr(dev)
-    d_gates = torch.empty(batch, t_len, hw, f4, device=dev, dtype=torch.bfloat16)
+    # the dgates scratch in the activation dtype: bf16, or f32 as JAX rounds
+    # dgates to the weights' dtype
+    d_gates = torch.empty(batch, t_len, hw, f4, device=dev, dtype=act)
     dx = torch.empty(batch, t_len, hw, cin, device=dev, dtype=act)
     db_part = torch.empty(batch, f4, device=dev, dtype=torch.float32)
     db_out = torch.empty(f4, device=dev, dtype=torch.float32)
@@ -459,7 +563,7 @@ def proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
         wtpk.data_ptr(), wxpk.data_ptr(), c0.data_ptr(), cs.data_ptr(), ga.data_ptr(),
         dhl.data_ptr(), dcl.data_ptr(), d_gates.data_ptr(), dx.data_ptr(), db_part.data_ptr(),
         db_out.data_ptr(), dc0.data_ptr(), dh0.data_ptr(), batch, t_len, height, width, cin,
-        feat, stream,
+        feat, _DTYPE_CODE[act], stream,
     )
     _build.check(err, "convlstm_proj_bwd")
     m, splits = cin + 9 * feat, geo["wgrad_splits"]
@@ -467,7 +571,8 @@ def proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
     dw_out = torch.empty(m, f4, device=dev, dtype=torch.float32)
     err = lib.mmvae_convlstm_wgrad(
         x.data_ptr(), hs.data_ptr(), h0.data_ptr(), d_gates.data_ptr(), dw_part.data_ptr(),
-        dw_out.data_ptr(), batch, t_len, height, width, cin, feat, splits, stream,
+        dw_out.data_ptr(), batch, t_len, height, width, cin, feat, splits, _DTYPE_CODE[act],
+        stream,
     )
     _build.check(err, "convlstm_proj_wgrad")
     convlstm_proj_backward.launches += 1
@@ -550,23 +655,24 @@ def convlstm_scan_proj(
 _SCAN_MODES = {"save": 0, "hs": 1, "last": 2}
 
 
-def scan_forward_plain(xg, w, c0, h0, length, gate_dtype, mode: str):
+def scan_forward_plain(xg, w, c0, h0, length, gate_dtype, mode: str, tf32_operands=False):
     """Plain forward.  xg (B, T_in, H, W, 4F), T_in = length or 1 (a
     time-constant input); w (3, 3, F, 4F) HWIO; c0, h0 (B, H, W, F).
     Returns, in xg.dtype: "save" (hs, cs, gates) shaped (B, T, HW, F),
     (B, T, HW, F), (B, T, HW, 4F); "hs" (hs, c_T); "last" (h_T, c_T), with
-    c_T and h_T (B, HW, F)."""
+    c_T and h_T (B, HW, F).  `tf32_operands` as in `proj_forward_plain`."""
     act = xg.dtype
     batch, t_in, height, width, f4 = xg.shape
     feat = f4 // 4
     hw = height * width
     xg = xg.reshape(batch, t_in, hw, f4)
-    w_oihw = w.float().permute(3, 2, 0, 1)
+    op = functools.partial(_operand, act=act, tf32_operands=tf32_operands)
+    w_oihw = _operand(w, None, tf32_operands).permute(3, 2, 0, 1)
     c = c0.reshape(batch, hw, feat).to(gate_dtype)
     h = h0.reshape(batch, hw, feat).to(gate_dtype)
     hs, cs, ga = [], [], []
     for t in range(length):
-        hg = _hidden_conv(h.to(act).float(), w_oihw, height, width)
+        hg = _hidden_conv(op(h), w_oihw, height, width)
         gates = xg[:, t if t_in > 1 else 0].to(gate_dtype) + hg.to(gate_dtype)
         i, f, g, o = _split_gates(gates, feat)
         c = f * c + i * g
@@ -584,17 +690,19 @@ def scan_forward_plain(xg, w, c0, h0, length, gate_dtype, mode: str):
 
 
 def scan_backward_plain(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
-                        last_only: bool):
+                        last_only: bool, tf32_operands=False):
     """Plain BPTT: reverse time, (dh, dc) carried in f32.  dh is the per-step
     cotangent of hs (B, T, HW, F), or of h_T (B, H, W, F) when `last_only`.
     Returns (dxg, dw, dc0, dh0): dxg (B, T or 1, H, W, 4F) in hs.dtype, the
     const input's being the f32 sum over t of the dgates; the rest in the
-    dtypes and shapes of w, c0, h0."""
+    dtypes and shapes of w, c0, h0.  `tf32_operands` as in
+    `proj_forward_plain`."""
     act = hs.dtype
     batch, t_len, hw, feat = hs.shape
     height, width = c0.shape[1:3]
     f4 = 4 * feat
-    w_oihw = w.float().permute(3, 2, 0, 1)
+    op = functools.partial(_operand, act=act, tf32_operands=tf32_operands)
+    w_oihw = _operand(w, None, tf32_operands).permute(3, 2, 0, 1)
     c0f = c0.reshape(batch, hw, feat).float()
     h0f = h0.reshape(batch, hw, feat).float()
     dhs = dh.reshape(batch, -1, hw, feat).to(act).float()
@@ -609,7 +717,7 @@ def scan_backward_plain(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
         dh_t = carry if last_only else carry + dhs[:, t]
         c_t = cs[:, t].float()
         c_prev = cs[:, t - 1].float() if t > 0 else c0f
-        h_prev = hs[:, t - 1].float() if t > 0 else h0f
+        h_prev = op(hs[:, t - 1]) if t > 0 else _operand(h0f, None, tf32_operands)
         i, f, g, o = ga[:, t].float().split(feat, dim=-1)
         tanh_ct = torch.tanh(c_t)
         do = dh_t * tanh_ct
@@ -625,7 +733,7 @@ def scan_backward_plain(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
             dxg[:, 0] += dgates
         else:
             dxg[:, t] = dgates.to(act)
-        dg_n = dgates.to(act).float().view(batch, height, width, f4).permute(0, 3, 1, 2)
+        dg_n = op(dgates).view(batch, height, width, f4).permute(0, 3, 1, 2)
         h_n = h_prev.view(batch, height, width, feat).permute(0, 3, 1, 2)
         dw += torch.nn.grad.conv2d_weight(h_n, w_oihw.shape, dg_n, padding=1)
         carry = F.conv_transpose2d(dg_n, w_oihw, padding=1).permute(0, 2, 3, 1).reshape(
@@ -649,13 +757,15 @@ def _check_scan(w, c0, h0, t_len, const_input, **more):
     if w.shape != (3, 3, feat, 4 * feat) or h0.shape != c0.shape:
         raise ValueError(f"convlstm_scan: inconsistent shapes w {tuple(w.shape)} "
                          f"c0 {tuple(c0.shape)} h0 {tuple(h0.shape)}")
-    check_domain("convlstm_scan", _activations(named), feat, height * width)
-    geo = scan_geometry(batch, t_len, height, width, feat, const_input)
+    act = _activations(named)
+    check_domain("convlstm_scan", act, feat, height * width)
+    es = _es(act)
+    geo = scan_geometry(batch, t_len, height, width, feat, const_input, es)
     if geo["fwd_stages"] < _MIN_STAGES or geo["bwd_stages"] < geo["bwd_min_stages"]:
-        raise ValueError(f"convlstm_scan: F={feat} leaves too few weight stages in one "
+        raise ValueError(f"convlstm_scan: F={feat} ({act}) leaves too few weight stages in one "
                          f"CTA's shared memory")
     lib = _build.library()
-    got, want = _scan_layouts(feat)
+    got, want = _scan_layouts(feat, es)
     if got != want:
         raise RuntimeError(f"convlstm_scan: kernel geometry {got} differs from the "
                            f"wrapper's {want}")
@@ -663,13 +773,14 @@ def _check_scan(w, c0, h0, t_len, const_input, **more):
 
 
 @functools.lru_cache(maxsize=None)
-def _scan_layouts(feat: int):
-    """(the K6 kernels' shared-memory layout at F, `scan_geometry`'s): the
-    forward's stages and bytes, then the BPTT's for a time-constant and for a
-    streaming xg; asked of the library once per F."""
+def _scan_layouts(feat: int, es: int = 2):
+    """(the K6 kernels' shared-memory layout at F for `es`-byte activations,
+    `scan_geometry`'s): the forward's stages and bytes, then the BPTT's for
+    a time-constant and for a streaming xg; asked of the library once per
+    (F, es)."""
     got = (ctypes.c_int * 7)()
-    _build.library().mmvae_convlstm_scan_layout(feat, got)
-    const, stream = (scan_geometry(1, 1, 8, 8, feat, c) for c in (True, False))
+    _build.library().mmvae_convlstm_scan_layout(feat, _ACT_CODE[es], got)
+    const, stream = (scan_geometry(1, 1, 8, 8, feat, c, es) for c in (True, False))
     want = (const["fwd_stages"], const["fwd_smem"], const["bwd_stages"], const["bwd_smem"],
             stream["bwd_stages"], stream["bwd_smem"], const["cluster"])
     return tuple(got), want
@@ -698,11 +809,11 @@ def scan_forward_cuda(xg, w, c0, h0, length, gate_dtype, mode: str):
     else:
         outs = (torch.empty(batch, hw, feat, **kw), torch.empty(batch, hw, feat, **kw))
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
-    wpk = pack_proj_forward(w.new_empty(0, f4), w)
+    wpk = pack_proj_forward(w.new_empty(0, f4), w, xg.dtype == torch.float32)
     err = lib.mmvae_convlstm_scan_fwd(
         xg.data_ptr(), wpk.data_ptr(), c0.data_ptr(), h0.data_ptr(), *ptrs,
         batch, length, t_in, height, width, feat, _DTYPE_CODE[gate_dtype], _SCAN_MODES[mode],
-        _build.stream_ptr(xg.device),
+        _DTYPE_CODE[xg.dtype], _build.stream_ptr(xg.device),
     )
     _build.check(err, "convlstm_scan_fwd")
     convlstm_scan_forward.launches += 1
@@ -732,24 +843,25 @@ def scan_backward_cuda(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
                          f"{tuple(dc_last.shape)} do not fit c0 {tuple(c0.shape)}")
     dev = hs.device
     stream = _build.stream_ptr(dev)
-    wtpk = pack_hidden_backward(w)
+    wtpk = pack_hidden_backward(w, hs.dtype == torch.float32)
     if const_input:
         dxg = torch.empty(batch, 1, height, width, f4, device=dev, dtype=act)
-        d_gates = torch.empty(batch, t_len, hw, f4, device=dev, dtype=torch.bfloat16)
+        d_gates = torch.empty(batch, t_len, hw, f4, device=dev, dtype=act)
     else:
-        # the bf16 dgates the weight GEMM reads are dxg itself
+        # the dgates the weight GEMM reads (in the activation dtype) are dxg itself
         dxg = torch.empty(batch, t_len, height, width, f4, device=dev, dtype=act)
         d_gates = dxg
     dc0 = torch.empty(batch, hw, feat, device=dev, dtype=act)
     dh0 = torch.empty_like(dc0)
-    # a 4-CTA BPTT's f32 dgates sum of a time-constant xg (the kernel zeroes it)
+    # a 4-CTA or f32 BPTT's f32 dgates sum of a time-constant xg (the kernel zeroes it)
     dxs = (torch.empty(geo["dxs_scratch_floats"], device=dev, dtype=torch.float32)
            if geo["dxs_scratch_floats"] else None)
     err = lib.mmvae_convlstm_scan_bwd(
         wtpk.data_ptr(), c0.data_ptr(), cs.data_ptr(), ga.data_ptr(), dhs.data_ptr(),
         dcl.data_ptr(), d_gates.data_ptr(), dxg.data_ptr(),
         None if dxs is None else dxs.data_ptr(), dc0.data_ptr(), dh0.data_ptr(),
-        batch, t_len, height, width, feat, int(const_input), int(last_only), stream,
+        batch, t_len, height, width, feat, int(const_input), int(last_only), _DTYPE_CODE[act],
+        stream,
     )
     _build.check(err, "convlstm_scan_bwd")
     splits = geo["wgrad_splits"]
@@ -757,7 +869,8 @@ def scan_backward_cuda(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
     dw_out = torch.empty(9 * feat, f4, device=dev, dtype=torch.float32)
     err = lib.mmvae_convlstm_wgrad(  # C = 0: hs stands in for the x it never reads
         hs.data_ptr(), hs.data_ptr(), h0.data_ptr(), d_gates.data_ptr(), dw_part.data_ptr(),
-        dw_out.data_ptr(), batch, t_len, height, width, 0, feat, splits, stream,
+        dw_out.data_ptr(), batch, t_len, height, width, 0, feat, splits, _DTYPE_CODE[act],
+        stream,
     )
     _build.check(err, "convlstm_wgrad")
     convlstm_scan_backward.launches += 1

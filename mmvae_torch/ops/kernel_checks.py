@@ -4,7 +4,7 @@ their plain versions on the card.
 One place for the inputs (made on the card from a seed), the comparisons and
 their tolerances; `chip_smoke.py` and `tests/test_torch_cuda.py` both call
 `compare_proj` and `compare_scan`.  Kernel and plain version round the same
-operands to bf16, the one activation dtype the kernels take:
+operands to the activation dtype.  With bf16 activations:
 
 - forward with f32 gates: each output (hs, cs, gates) within 2 bf16 ulps of
   its largest |ref|;
@@ -29,6 +29,22 @@ operands to bf16, the one activation dtype the kernels take:
 The same readings hold K5 and K6 at every width they take, the 4-CTA
 ones (F = 160-256) included, which `chip_smoke.py`'s phase 11 compares at
 B = 64, T = 20.
+
+With f32 activations (`act=torch.float32`, F <= 128) the plain version runs
+with TF32 off whatever the caller set (`full_f32`), and:
+
+- forward with f32 gates: each output within REC_F32_ULPS f32 ulps of its
+  largest |ref| (u = 2^-24 max|ref|); with bf16 gates the bf16-gate
+  readings above;
+- both backward passes, whatever the gate dtype: each gradient within
+  REC_F32_ULPS f32 ulps of its largest |ref|.
+
+The limit sits between the kernels' readings (3xTF32 products, about 2^-21
+of a product) and those of the plain version with every product operand
+rounded to TF32 (`proj_tf32_control`, `scan_tf32_control`: what a 1xTF32
+kernel, or one that rounded an operand to bf16, would read), so a kernel
+that left f32 fails it.  `wgrad_f64_readings` holds the f32 weight GEMM
+alone against an f64 product, beside cuBLAS's f32 product.
 
 `plain_route()` swaps every wrapper's CUDA branch for its plain version,
 so a run on the card takes the model's own ops with no kernel of the repo:
@@ -78,6 +94,19 @@ CS_RTOL = 2.0 ** -6  # K6's cs bound with bf16 gates: 0.05 + CS_RTOL |ref|
 BF16_ATOL = 0.05
 ULPS = 2.0
 F32_UNITS = 4.0  # the head's f32 outputs, in u = sqrt(L) 2^-24 max|ref|
+REC_F32_ULPS = 512.0  # K5's and K6's f32 outputs and gradients, in u = 2^-24 max|ref|
+
+
+@contextlib.contextmanager
+def full_f32():
+    """TF32 off for cuDNN's convolutions and cuBLAS's matmuls (restored on
+    exit): the plain versions' f32 products in f32."""
+    kept = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = kept
 
 
 class Reading(NamedTuple):
@@ -125,20 +154,37 @@ def _scaled(name, a, b, rtol) -> Reading:
     return Reading(r, 1.0, f"{name} {max_abs_err(a, b):.2e} ({r:.2f} of {bound})")
 
 
+def f32_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a - b| in f32 ulps of b's largest magnitude, u = 2^-24 max|b|."""
+    m = float(b.detach().float().abs().max())
+    return max_abs_err(a, b) / (2.0 ** -24 * max(m, 2.0 ** -126))
+
+
+def _rec_f32(name, a, b) -> Reading:
+    u = f32_ulps(a, b)
+    return Reading(u, REC_F32_ULPS, f"{name} {u:.1f} f32 ulps")
+
+
+def _grad(name, a, b) -> Reading:
+    """A recurrence's gradient: in bf16 ulps, or in f32 ulps for f32."""
+    return _rec_f32(name, a, b) if b.dtype == torch.float32 else _ulps(name, a, b)
+
+
 def forward_readings(outs_k, outs_p, gate_dtype, cs_rtol) -> List[Reading]:
     names = ("hs", "cs", "gates")
     if gate_dtype == torch.float32:
-        return [_ulps(n, a, b) for n, a, b in zip(names, outs_k, outs_p)]
+        return [_grad(n, a, b) for n, a, b in zip(names, outs_k, outs_p)]
     return [_scaled(n, a, b, cs_rtol if n == "cs" else 0.0)
             for n, a, b in zip(names, outs_k, outs_p)]
 
 
 def residual_free_readings(names, outs_k, outs_p, gate_dtype, cs_rtol) -> List[Reading]:
     """A residual-free forward's outputs (h_T or hs, then c_T) against the
-    plain version's, at the saving forward's tolerances: 2 bf16 ulps with
-    f32 gates; with bf16 gates 0.05, and 0.05 + cs_rtol |ref| for c_T."""
+    plain version's, at the saving forward's tolerances: 2 bf16 ulps (f32
+    activations: REC_F32_ULPS f32 ulps) with f32 gates; with bf16 gates
+    0.05, and 0.05 + cs_rtol |ref| for c_T."""
     if gate_dtype == torch.float32:
-        return [_ulps(n, a, b) for n, a, b in zip(names, outs_k, outs_p)]
+        return [_grad(n, a, b) for n, a, b in zip(names, outs_k, outs_p)]
     return [_scaled(n, a, b, cs_rtol if n.startswith("c") else 0.0)
             for n, a, b in zip(names, outs_k, outs_p)]
 
@@ -148,32 +194,36 @@ def _exact(name, pairs) -> Reading:
     return Reading(e, 0.0, f"{name} {e:.2e} from the saving forward")
 
 
-def _randn(g, dev, shape, scale):
-    return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+def _randn(g, dev, shape, scale, dtype=torch.bfloat16):
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
 
-def proj_inputs(dev, b, t, h, w, c, f, seed):
-    """K5's (x, wx, bx, w, c0, h0) in bf16."""
+def proj_inputs(dev, b, t, h, w, c, f, seed, dtype=torch.bfloat16):
+    """K5's (x, wx, bx, w, c0, h0) in `dtype` (bf16 or f32)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    return (_randn(g, dev, (b, t, h, w, c), 0.5), _randn(g, dev, (c, 4 * f), c ** -0.5),
-            _randn(g, dev, (4 * f,), 0.1), _randn(g, dev, (3, 3, f, 4 * f), (9 * f) ** -0.5),
-            _randn(g, dev, (b, h, w, f), 0.5), _randn(g, dev, (b, h, w, f), 0.5))
+    return (_randn(g, dev, (b, t, h, w, c), 0.5, dtype),
+            _randn(g, dev, (c, 4 * f), c ** -0.5, dtype),
+            _randn(g, dev, (4 * f,), 0.1, dtype),
+            _randn(g, dev, (3, 3, f, 4 * f), (9 * f) ** -0.5, dtype),
+            _randn(g, dev, (b, h, w, f), 0.5, dtype), _randn(g, dev, (b, h, w, f), 0.5, dtype))
 
 
-def scan_inputs(dev, b, t_in, h, w, f, seed):
-    """K6's (xg, w, c0, h0) in bf16; t_in = 1 for a time-constant xg."""
+def scan_inputs(dev, b, t_in, h, w, f, seed, dtype=torch.bfloat16):
+    """K6's (xg, w, c0, h0) in `dtype`; t_in = 1 for a time-constant xg."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    return (_randn(g, dev, (b, t_in, h, w, 4 * f), 0.5),
-            _randn(g, dev, (3, 3, f, 4 * f), (9 * f) ** -0.5),
-            _randn(g, dev, (b, h, w, f), 0.5), _randn(g, dev, (b, h, w, f), 0.5))
+    return (_randn(g, dev, (b, t_in, h, w, 4 * f), 0.5, dtype),
+            _randn(g, dev, (3, 3, f, 4 * f), (9 * f) ** -0.5, dtype),
+            _randn(g, dev, (b, h, w, f), 0.5, dtype), _randn(g, dev, (b, h, w, f), 0.5, dtype))
 
 
-def compare_proj(dev, shape, gate_dtype, seed: int = 4) -> Comparison:
-    """K5 at shape (B, T, H, W, C, F): the saving forward, the residual-free
-    one, and the backward with random (dh_T, dc_T)."""
-    x, wx, bx, w, c0, h0 = proj_inputs(dev, *shape, seed)
+def compare_proj(dev, shape, gate_dtype, seed: int = 4, act=torch.bfloat16) -> Comparison:
+    """K5 at shape (B, T, H, W, C, F) with `act` activations: the saving
+    forward, the residual-free one, and the backward with random (dh_T,
+    dc_T)."""
+    x, wx, bx, w, c0, h0 = proj_inputs(dev, *shape, seed, act)
     outs_k = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, True)
-    outs_p = ck.proj_forward_plain(x, wx, bx, w, c0, h0, gate_dtype, True)
+    with full_f32():
+        outs_p = ck.proj_forward_plain(x, wx, bx, w, c0, h0, gate_dtype, True)
     h_l, c_l = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, False)
     rd = [_exact("residual-free", ((h_l, outs_k[0][:, -1]), (c_l, outs_k[1][:, -1])))]
     rd += forward_readings(outs_k, outs_p, gate_dtype, cs_rtol=0.0)
@@ -181,16 +231,37 @@ def compare_proj(dev, shape, gate_dtype, seed: int = 4) -> Comparison:
     dh = torch.randn(h_l.shape, generator=g, device=dev)
     dc = torch.randn(h_l.shape, generator=g, device=dev)
     gk = ck.proj_backward_cuda(x, wx, w, c0, h0, *outs_p, dh, dc)
-    gp = ck.proj_backward_plain(x, wx, w, c0, h0, *outs_p, dh, dc)
-    rd += [_ulps(n, a, b) for n, a, b in zip(("dx", "dWx", "dbx", "dW", "dc0", "dh0"), gk, gp)]
+    with full_f32():
+        gp = ck.proj_backward_plain(x, wx, w, c0, h0, *outs_p, dh, dc)
+    rd += [_grad(n, a, b) for n, a, b in zip(("dx", "dWx", "dbx", "dW", "dc0", "dh0"), gk, gp)]
     return Comparison(rd, max(max_abs_err(a, b) for a, b in zip(outs_k, outs_p)),
                       max(max_abs_err(a, b) for a, b in zip(gk, gp)))
 
 
-def proj_backward_repeatable(dev, shape, seed: int = 12) -> dict:
-    """K5's backward twice on the same inputs (bf16 gates): {gradient name:
-    bit-identical}.  The kernels sum in fixed orders, without float atomics."""
-    x, wx, bx, w, c0, h0 = proj_inputs(dev, *shape, seed)
+def proj_tf32_control(dev, shape, seed: int = 4) -> dict:
+    """What a 1xTF32 K5 would read against the plain version, in the units
+    of `compare_proj` with f32 activations and gates and on its inputs: the
+    plain forward and backward with every product operand rounded to TF32,
+    against the same in f32.  {output name: f32 ulps}."""
+    x, wx, bx, w, c0, h0 = proj_inputs(dev, *shape, seed, torch.float32)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    with full_f32():
+        outs = [ck.proj_forward_plain(x, wx, bx, w, c0, h0, torch.float32, True, tf32_operands=t)
+                for t in (False, True)]
+        dh = torch.randn(outs[0][0][:, -1].shape, generator=g, device=dev)
+        dc = torch.randn(dh.shape, generator=g, device=dev)
+        grads = [ck.proj_backward_plain(x, wx, w, c0, h0, *outs[0], dh, dc, tf32_operands=t)
+                 for t in (False, True)]
+    names = ("hs", "cs", "gates", "dx", "dWx", "dbx", "dW", "dc0", "dh0")
+    return {n: f32_ulps(a, b) for n, a, b in zip(names, (*outs[1], *grads[1]),
+                                                 (*outs[0], *grads[0]))}
+
+
+def proj_backward_repeatable(dev, shape, seed: int = 12, act=torch.bfloat16) -> dict:
+    """K5's backward twice on the same inputs (bf16 gates, `act`
+    activations): {gradient name: bit-identical}.  The kernels sum in fixed
+    orders, without float atomics."""
+    x, wx, bx, w, c0, h0 = proj_inputs(dev, *shape, seed, act)
     res = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     dh = torch.randn(c0.shape, generator=g, device=dev)
@@ -201,12 +272,14 @@ def proj_backward_repeatable(dev, shape, seed: int = 12) -> dict:
             for n, a, b in zip(("dx", "dWx", "dbx", "dW", "dc0", "dh0"), first, second)}
 
 
-def scan_backward_repeatable(dev, shape, const: bool, seed: int = 14) -> dict:
-    """K6's backward twice on the same inputs (bf16 gates, per-step dhs) at
-    shape (B, T, H, W, F), time-constant or streaming xg: {gradient name:
-    bit-identical}.  The kernels sum in fixed orders, without float atomics."""
+def scan_backward_repeatable(dev, shape, const: bool, seed: int = 14,
+                             act=torch.bfloat16) -> dict:
+    """K6's backward twice on the same inputs (bf16 gates, per-step dhs,
+    `act` activations) at shape (B, T, H, W, F), time-constant or streaming
+    xg: {gradient name: bit-identical}.  The kernels sum in fixed orders,
+    without float atomics."""
     b, t, h, w, f = shape
-    xg, wh, c0, h0 = scan_inputs(dev, b, 1 if const else t, h, w, f, seed)
+    xg, wh, c0, h0 = scan_inputs(dev, b, 1 if const else t, h, w, f, seed, act)
     res = ck.scan_forward_cuda(xg, wh, c0, h0, t, torch.bfloat16, "save")
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     dhs = torch.randn(res[0].shape, generator=g, device=dev)
@@ -216,15 +289,17 @@ def scan_backward_repeatable(dev, shape, const: bool, seed: int = 14) -> dict:
     return {n: torch.equal(a, b_) for n, a, b_ in zip(("dxg", "dW", "dc0", "dh0"), first, second)}
 
 
-def compare_scan(dev, shape, const: bool, gate_dtype, seed: int = 8) -> Comparison:
-    """K6 at shape (B, T, H, W, F) with a time-constant or streaming xg: the
-    saving forward, the two residual-free ones (every h_t; last-only), and
-    the backward with per-step dhs and with dh_T once, both with a random
-    dc_T."""
+def compare_scan(dev, shape, const: bool, gate_dtype, seed: int = 8,
+                 act=torch.bfloat16) -> Comparison:
+    """K6 at shape (B, T, H, W, F) with a time-constant or streaming xg and
+    `act` activations: the saving forward, the two residual-free ones (every
+    h_t; last-only), and the backward with per-step dhs and with dh_T once,
+    both with a random dc_T."""
     b, t, h, w, f = shape
-    xg, wh, c0, h0 = scan_inputs(dev, b, 1 if const else t, h, w, f, seed)
+    xg, wh, c0, h0 = scan_inputs(dev, b, 1 if const else t, h, w, f, seed, act)
     outs_k = ck.scan_forward_cuda(xg, wh, c0, h0, t, gate_dtype, "save")
-    outs_p = ck.scan_forward_plain(xg, wh, c0, h0, t, gate_dtype, "save")
+    with full_f32():
+        outs_p = ck.scan_forward_plain(xg, wh, c0, h0, t, gate_dtype, "save")
     hs_k, c_k = ck.scan_forward_cuda(xg, wh, c0, h0, t, gate_dtype, "hs")
     hl_k, cl_k = ck.scan_forward_cuda(xg, wh, c0, h0, t, gate_dtype, "last")
     rd = [_exact("residual-free", ((hs_k, outs_k[0]), (c_k, outs_k[1][:, -1]),
@@ -237,15 +312,72 @@ def compare_scan(dev, shape, const: bool, gate_dtype, seed: int = 8) -> Comparis
     for last_only in (False, True):
         dh = dhs[:, -1] if last_only else dhs
         gk = ck.scan_backward_cuda(wh, c0, h0, *outs_p, dh, dc, const, last_only)
-        gp = ck.scan_backward_plain(wh, c0, h0, *outs_p, dh, dc, const, last_only)
+        with full_f32():
+            gp = ck.scan_backward_plain(wh, c0, h0, *outs_p, dh, dc, const, last_only)
         for n, a, b_ in zip(("dxg", "dW", "dc0", "dh0"), gk, gp):
             n = f"last-only {n}" if last_only else n
             if a.shape != b_.shape:
                 raise AssertionError(f"convlstm_scan {n}: shape {tuple(a.shape)} vs "
                                      f"{tuple(b_.shape)}")
-            rd.append(_ulps(n, a, b_))
+            rd.append(_grad(n, a, b_))
         bwd_err = max(bwd_err, max(max_abs_err(a, b_) for a, b_ in zip(gk, gp)))
     return Comparison(rd, max(max_abs_err(a, b_) for a, b_ in zip(outs_k, outs_p)), bwd_err)
+
+
+def scan_tf32_control(dev, shape, const: bool, seed: int = 8) -> dict:
+    """K6's counterpart of `proj_tf32_control` (f32 gates, per-step dhs).
+    {output name: f32 ulps}."""
+    b, t, h, w, f = shape
+    xg, wh, c0, h0 = scan_inputs(dev, b, 1 if const else t, h, w, f, seed, torch.float32)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    with full_f32():
+        outs = [ck.scan_forward_plain(xg, wh, c0, h0, t, torch.float32, "save",
+                                      tf32_operands=tt) for tt in (False, True)]
+        dhs = torch.randn(outs[0][0].shape, generator=g, device=dev)
+        dc = torch.randn(dhs[:, -1].shape, generator=g, device=dev)
+        grads = [ck.scan_backward_plain(wh, c0, h0, *outs[0], dhs, dc, const, False,
+                                        tf32_operands=tt) for tt in (False, True)]
+    names = ("hs", "cs", "gates", "dxg", "dW", "dc0", "dh0")
+    return {n: f32_ulps(a, b_) for n, a, b_ in zip(names, (*outs[1], *grads[1]),
+                                                   (*outs[0], *grads[0]))}
+
+
+def wgrad_f64_readings(dev, shape, seed: int = 3) -> dict:
+    """The f32 weight GEMM (`mmvae_convlstm_wgrad`) alone at K5's shape (B,
+    T, H, W, C, F), on random f32 x, hs, h0 and dgates, against the same
+    product in f64, beside cuBLAS's f32 product (TF32 off) and the product
+    of the operands rounded to TF32: {"kernel", "cuBLAS f32", "TF32
+    operands": f32 ulps of the f64 result's largest magnitude}."""
+    import torch.nn.functional as F
+
+    from mmvae_torch.ops import _build
+
+    b, t, h, w, c, f = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, hs, dg = (torch.randn(b, t, h * w, n, generator=g, device=dev) for n in (c, f, 4 * f))
+    h0 = torch.randn(b, h * w, f, generator=g, device=dev)
+    splits = ck.proj_geometry(b, t, h, w, c, f, 4)["wgrad_splits"]
+    m = c + 9 * f
+    part = torch.empty(splits, m, 4 * f, device=dev)
+    got = torch.empty(m, 4 * f, device=dev)
+    err = _build.library().mmvae_convlstm_wgrad(
+        x.data_ptr(), hs.data_ptr(), h0.data_ptr(), dg.data_ptr(), part.data_ptr(),
+        got.data_ptr(), b, t, h, w, c, f, splits, ck._DTYPE_CODE[torch.float32],
+        _build.stream_ptr(dev))
+    _build.check(err, "convlstm_wgrad f32")
+    # A: row r of [x; the 3x3 taps of h_{t-1}] in the kernel's (tap, f) order
+    hprev = torch.cat([h0[:, None], hs[:, :-1]], 1).reshape(b * t, h, w, f).permute(0, 3, 1, 2)
+    taps = F.unfold(hprev.double(), 3, padding=1).view(b * t, f, 9, h * w)
+    a = torch.cat([x.reshape(-1, c).double(),
+                   taps.permute(0, 3, 2, 1).reshape(-1, 9 * f)], 1)
+    d = dg.reshape(-1, 4 * f)
+    ref = a.t() @ d.double()
+    with full_f32():
+        cublas = a.float().t() @ d
+    rounded = ck.tf32(a.float()).double().t() @ ck.tf32(d).double()
+    u = 2.0 ** -24 * float(ref.abs().max())
+    return {name: float((v.double() - ref).abs().max()) / u
+            for name, v in (("kernel", got), ("cuBLAS f32", cublas), ("TF32 operands", rounded))}
 
 
 HEAD_OUTS = ("mu", "logvar", "z", "z-mu")

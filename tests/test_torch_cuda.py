@@ -113,10 +113,43 @@ def test_proj_layout_matches_the_wrapper(dev, cin, feat):
     assert got == want
 
 
-def test_proj_kernel_refuses_f32_activations(dev):
-    args = [t.float() for t in kernel_checks.proj_inputs(dev, 2, 3, 4, 4, 16, 16, seed=6)]
-    with pytest.raises(TypeError, match="bfloat16"):
+@pytest.mark.parametrize("gate_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 4, 4, 16, 16), (3, 7, 5, 6, 48, 32),
+                                   (2, 4, 7, 9, 32, 80), (2, 3, 8, 8, 128, 128)])
+def test_proj_kernel_matches_plain_in_f32(dev, shape, gate_dtype):
+    """K5 with f32 activations (3xTF32 products) at small shapes, unaligned
+    positions and F = 16-128, with the smoke's comparison and its f32
+    limit (`kernel_checks.compare_proj`, act=float32)."""
+    kernel_checks.compare_proj(dev, shape, gate_dtype, act=torch.float32).check(
+        f"convlstm_proj f32 {shape}")
+
+
+@pytest.mark.parametrize("shape", [(3, 7, 5, 6, 48, 32), (8, 6, 8, 8, 128, 128)])
+def test_proj_backward_is_bit_reproducible_in_f32(dev, shape):
+    same = kernel_checks.proj_backward_repeatable(dev, shape, act=torch.float32)
+    assert all(same.values()), same
+
+
+@pytest.mark.parametrize("feat", [16, 48, 80, 112, 128])
+def test_f32_layouts_match_the_wrapper(dev, feat):
+    """K5's and K6's f32 shared-memory layouts as the library computes them
+    equal `proj_geometry`'s and `scan_geometry`'s (es = 4)."""
+    for cin in (16, 128):
+        got, want = ck._layouts(cin, feat, 4)
+        assert got == want
+    got, want = ck._scan_layouts(feat, 4)
+    assert got == want
+
+
+def test_kernels_refuse_f32_above_128(dev):
+    """f32 at F = 160 raises on the card, naming the limit and the domain;
+    no plain version runs in its place."""
+    args = kernel_checks.proj_inputs(dev, 1, 2, 4, 4, 16, 160, seed=6, dtype=torch.float32)
+    with pytest.raises(TypeError, match="above 128"):
         ck.proj_forward_cuda(*args, torch.float32, True)
+    xg, wh, c0, h0 = kernel_checks.scan_inputs(dev, 1, 1, 4, 4, 160, 11, dtype=torch.float32)
+    with pytest.raises(TypeError, match="float32 activations with F a multiple of 16 up to 128"):
+        ck.scan_forward_cuda(xg, wh, c0, h0, 2, torch.float32, "save")
 
 
 @pytest.mark.parametrize("feat", [144, 288])
@@ -244,10 +277,22 @@ def test_scan_layout_matches_the_wrapper(dev, feat):
     assert got == want
 
 
-def test_scan_kernel_refuses_f32_activations(dev):
-    xg, wh, c0, h0 = (t.float() for t in kernel_checks.scan_inputs(dev, 2, 1, 4, 4, 16, 11))
-    with pytest.raises(TypeError, match="bfloat16"):
-        ck.scan_forward_cuda(xg, wh, c0, h0, 3, torch.float32, "save")
+@pytest.mark.parametrize("gate_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("const", [True, False])
+@pytest.mark.parametrize("shape", [(2, 3, 4, 4, 16), (3, 7, 5, 6, 32), (2, 4, 8, 8, 128)])
+def test_scan_kernel_matches_plain_in_f32(dev, shape, const, gate_dtype):
+    """K6 with f32 activations in every mode at small shapes, with the
+    smoke's comparison and its f32 limit (`kernel_checks.compare_scan`,
+    act=float32)."""
+    kernel_checks.compare_scan(dev, shape, const, gate_dtype, act=torch.float32).check(
+        f"convlstm_scan f32 {shape}")
+
+
+@pytest.mark.parametrize("const", [True, False])
+def test_scan_backward_is_bit_reproducible_in_f32(dev, const):
+    same = kernel_checks.scan_backward_repeatable(dev, (3, 7, 5, 6, 32), const,
+                                                  act=torch.float32)
+    assert all(same.values()), same
 
 
 @pytest.mark.parametrize("name", ["pred_vae", "hier_vae"])

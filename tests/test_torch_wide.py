@@ -112,17 +112,17 @@ def test_domain_takes_the_kernels_widths(f):
     (torch.bfloat16, 288, 64, 128, ValueError, "got F=288, H*W=64, C=128"),
     (torch.bfloat16, 200, 64, None, ValueError, "got F=200, H*W=64"),
     (torch.bfloat16, 8, 64, None, ValueError, "got F=8, H*W=64"),
-    (torch.float32, 128, 64, 128, TypeError, "activations are torch.float32"),
+    (torch.float32, 160, 64, 128, TypeError, "activations are torch.float32 at F=160"),
     (torch.float32, 192, 64, None, TypeError, "activations are torch.float32"),
     (torch.bfloat16, 128, 256, 128, ValueError, "got F=128, H*W=256, C=128"),
     (torch.bfloat16, 192, 256, None, ValueError, "got F=192, H*W=256"),
     (torch.bfloat16, 192, 64, 24, ValueError, "got F=192, H*W=64, C=24"),
-], ids=["F144", "F288", "F200", "F8", "f32", "f32-F192", "HW256", "HW256-F192", "C24"])
+], ids=["F144", "F288", "F200", "F8", "f32-F160", "f32-F192", "HW256", "HW256-F192", "C24"])
 def test_domain_refusals_name_the_limits(dtype, f, hw, cin, exc, got):
     """Outside the domain the wrappers raise, the message naming it: F a
-    multiple of 16 up to 128 or of 32 up to 256, bf16 activations, H*W <=
-    64, C a multiple of 16.  No fallback: the plain versions run only for
-    CPU tensors."""
+    multiple of 16 up to 128 or of 32 up to 256 with bf16 activations, up to
+    128 with f32, H*W <= 64, C a multiple of 16.  No fallback: the plain
+    versions run only for CPU tensors."""
     what = "convlstm_scan_proj" if cin is not None else "convlstm_scan"
     with pytest.raises(exc) as info:
         ck.check_domain(what, dtype, f, hw, cin)
