@@ -6,7 +6,8 @@ then the per-region device budget of a step, then the first 2,000 steps of
 config 3's convergence protocol at eight seeds against the reference's curve,
 then the ConvLSTM kernels at F = 160-256 and the reference's
 lstm_features=192 probe, then the ConvLSTM kernels and configs 3-5 with f32
-activations.
+activations, then the ConvLSTM recurrences at every other shape (the general
+kernels) and the probe in f32.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -184,7 +185,26 @@ Phases, each raising on failure (the script catches nothing):
    and under the EMA, K5 in its launch equations); `python -m mmvae_torch
    train` of config 3 f32, default and fused (K6 too); `run_benchmark` at
    K = 1 and 10; sampling card against CPU with its frames/s; the launch
-   counters set to 0 just before each run and read just after.
+   counters set to 0 just before each run and read just after;
+13. the general-shape kernels (`phase_general`): K5 and K6 on the general
+   route (`convlstm_kernels.route`: every shape outside the wgmma kernels'
+   domain) at `kernel_checks.GENERAL_SHAPES` (the JAX package's small
+   widths, the README's, a 9x13 grid at F = 20 and C = 24, F = 144 and 288
+   in bf16, F = 160-256 in f32, a 16x16 grid at full width in bf16 and
+   f32, the f32 probe), every mode, both gate dtypes, against their plain
+   versions at phase 3's limits, each backward twice bit-identical, every
+   launch on the general route; the TF32 control over the f32 limit at the
+   probe's shape; the general kernels timed at full width beside their
+   plain versions and bounds, and the wgmma forwards without residuals
+   that had not been timed (f32, the 4-CTA widths); configs 3, 4 fused and
+   5 fused at the JAX package's own small widths (a 16x16 grid, F = 16;
+   the smoke's copy `_JAX_TINY`), bf16 and f32, card against CPU; the
+   reference's probe with f32 activations through `fit` at K = 10 and,
+   fused, at K = 1, `run_benchmark` at K = 1 and 10, and sampling, each
+   run's launches held to its equations and every K5 and K6 launch to the
+   general route (`ops.launch_counts_by_route`; every earlier path's runs
+   are held to launch K5 and K6 on the wgmma kernels only: `_counts`); the
+   phase's seconds.
    No jax imported.
 The last three lines are the card, the kernels' JSON line (`launches`: the
 count from the kernel's own path, config 3 for K1, K3, K5 and the head,
@@ -192,7 +212,12 @@ config 4 for K6, 0 for the standalone K2; `launches_by_path`: each path's
 run, the fit, sampling, CLI, data-parallel and steps_per_call runs'
 included; `sampling`:
 the forwards' rows at the sampling shapes; `wide`: K5's and K6's rows at F
-= 160-256; `f32`: their rows with f32 activations), and {"ok": true, "device":
+= 160-256; `f32`: their rows with f32 activations; `nores`: the wgmma
+forwards without residuals in f32 and at F = 160-256; then the general
+kernels' rows, `convlstm_*_general`, launches from the f32 probe's `fit` and
+`launches_by_path` phase 13's runs, times at its shape, `shapes` every timed
+shape; the wgmma rows' `launches_by_path` leave phase 13's runs out), and
+{"ok": true, "device":
 {...}}.  Exits non-zero with no result when CUDA is not available.
 """
 
@@ -1153,7 +1178,7 @@ def run_slice(card: str, name: str, overrides, launched, idle) -> dict:
              and cfg.model.dtype == "bfloat16", f"{name} is not the full-width config")
     ops.reset_launch_counts()
     res, state = run_benchmark(cfg, steps=20, warmup=5, return_state=True)
-    counts = ops.launch_counts()
+    counts = _counts()
     losses = res.pop("losses")
     tag = _tag(name, overrides)
     if cfg.optim.ema_decay:
@@ -1249,10 +1274,25 @@ def _checked_feed():
     return CheckedFeed
 
 
-def _fit(card: str, tag: str, cfg, steps: int, want: dict, device) -> tuple:
+def _counts(general: bool = False) -> dict:
+    """`ops.launch_counts()`, after requiring that every K5 and K6 launch
+    since the counts were set to 0 ran on the general route if `general`,
+    else on the wgmma kernels (`ops.launch_counts_by_route`)."""
+    from mmvae_torch import ops
+
+    off = "wgmma" if general else "general"
+    stray = {k: n for k, n in ops.launch_counts_by_route().items() if k.endswith(off) and n}
+    _require(not stray, f"K5 / K6 launches on the {off} route: {stray}")
+    return ops.launch_counts()
+
+
+def _fit(card: str, tag: str, cfg, steps: int, want: dict, device,
+         general: bool = False) -> tuple:
     """One `fit` run with the launch counters set to 0 just before it and
     read just after; `want` maps kernel wrappers to the count the run must
-    launch (every other kernel: 0).  Returns (state, history, counts)."""
+    launch (every other kernel: 0), K5 and K6 all on the general route if
+    `general`, else all on the wgmma kernels.  Returns (state, history,
+    counts)."""
     import torch
 
     from mmvae_torch import ops
@@ -1264,7 +1304,7 @@ def _fit(card: str, tag: str, cfg, steps: int, want: dict, device) -> tuple:
     state, history = fit(cfg, max_steps=steps, device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = _counts(general)
     _require(all(counts[k] == want.get(k, 0) for k in counts),
              f"{tag}: launches {counts}, expected {want} (others 0)")
     _require(history and all(math.isfinite(h["loss"]) for h in history),
@@ -1543,7 +1583,7 @@ def _sample_call(cfg, mode: str, batch: int, seed: int, g=None, device="cpu"):
                                   seed, eps=eps), batch * (t - ctx))
 
 
-def check_sampling(card: str, dev, name: str, overrides, modes) -> dict:
+def check_sampling(card: str, dev, name: str, overrides, modes, general: bool = False) -> dict:
     """One model at full width, each mode: on the card through the kernels
     against the CPU through the plain versions, from the same weights and
     the same injected draws on 2 clips (f32 throughout, configs 1 and 2:
@@ -1580,6 +1620,7 @@ def check_sampling(card: str, dev, name: str, overrides, modes) -> dict:
         plain = torch.from_numpy(fn(plain_model))
         ops.reset_launch_counts()
         got = fn(card_model)
+        _counts(general)
         counts = ops.launch_counts_by_mode()
         _check_counts(f"sample {tag} {mode}", counts, want)
         _require(got.shape == tuple(plain.shape) and got.dtype == np.float32
@@ -1621,7 +1662,7 @@ def check_sampling(card: str, dev, name: str, overrides, modes) -> dict:
         calls = _SAMPLE_WARMUP + _SAMPLE_WINDOWS * _SAMPLE_CALLS
         counts = ops.launch_counts_by_mode()
         _check_counts(f"sample {tag} {mode} timed", counts, want, calls)
-        out[f"sample {tag} {mode}"] = ops.launch_counts()
+        out[f"sample {tag} {mode}"] = _counts(general)
         fps.sort()
         prof = _device_profile(lambda: fn(card_model), 3)
         print(f"[sample] {tag} {mode}: {fps[len(fps) // 2]:.1f} frames/s (min {fps[0]:.1f}, max "
@@ -1797,6 +1838,7 @@ def check_cli(card: str, dev, workdir: str) -> dict:
                 argv += [a for ov in paths[name] for a in ("--set", ov)]
                 ops.reset_launch_counts()
                 rc, _ = _cli(argv)
+                _counts()
                 counts = ops.launch_counts_by_mode()
                 _require(rc == 0 and written and written[-1][2] == target,
                          f"cli sample {name} {mode}: rc {rc}")
@@ -1821,7 +1863,7 @@ def check_cli(card: str, dev, workdir: str) -> dict:
                       f"{frames.shape} f32 in [{frames.min():.4f}, {frames.max():.4f}], "
                       f"{diff:.1e} from a second call from the same seed; launches "
                       f"{', '.join(f'{k} {v}' for k, v in counts.items() if v)} (all others 0)")
-                out[f"cli sample {name} {mode}"] = ops.launch_counts()
+                out[f"cli sample {name} {mode}"] = _counts()
     finally:
         gen.save_grid, gen.save_gif = real["save_grid"], real["save_gif"]
     if not have_pil:
@@ -1833,7 +1875,7 @@ def check_cli(card: str, dev, workdir: str) -> dict:
     ops.reset_launch_counts()
     rc, text = _cli(["bench", "--config", "mlp_vae", "--steps", "20", "--warmup", "5",
                      "--profile", prof])
-    out["cli bench mlp_vae"] = ops.launch_counts()
+    out["cli bench mlp_vae"] = _counts()
     res = json.loads(text.strip().splitlines()[-1])
     with open(res["trace"]) as fh:
         events = json.load(fh)["traceEvents"]
@@ -2035,7 +2077,7 @@ def _dp_rank(rank: int, backend: str, device: str, init_file: str, workdir: str)
             grads, loss = _grad_step(cfg, dev, u8[rank * b:(rank + 1) * b],
                                      _rank_eps(eps, rank), sync)
             tag = _tag(name, overrides)
-            out["step_counts"][tag] = ops.launch_counts()
+            out["step_counts"][tag] = _counts()
             out["loss"][tag], out["digest"][tag] = loss, _digest(grads)
             if rank == 0:
                 out["grads"][tag] = grads
@@ -2045,7 +2087,7 @@ def _dp_rank(rank: int, backend: str, device: str, init_file: str, workdir: str)
         state, history = fit(_dp_fit_cfg(workdir), max_steps=_DP_FIT_STEPS, device=dev)
         torch.cuda.synchronize(dev)
         out["fit_seconds"] = time.perf_counter() - t0
-        out["counts"] = ops.launch_counts()
+        out["counts"] = _counts()
         out["history"] = history
         out["params"] = _digest(dict(state.model.named_parameters()))
 
@@ -2400,7 +2442,7 @@ def _steps(cfg, dev, sync=None) -> tuple:
     ops.reset_launch_counts()
     ms = [step(state, data) for _ in range(2 * _CHUNK_K // k)]
     torch.cuda.synchronize(dev)
-    counts = ops.launch_counts_by_mode(), ops.launch_counts()
+    counts = ops.launch_counts_by_mode(), _counts()
     metrics = {key: torch.cat([m[key].reshape(-1) for m in ms]).cpu() for key in ms[0]}
     return state, metrics, *counts
 
@@ -2596,7 +2638,7 @@ def time_chunked(card: str) -> tuple:
             tag = f"bench {_tag(name, overrides)} K={k}"
             ops.reset_launch_counts()
             res = run_benchmark(cfg, steps=20, warmup=10, device_profile=True)
-            out[tag] = ops.launch_counts()
+            out[tag] = _counts()
             losses = res.pop("losses")
             _require(all(math.isfinite(v) for v in losses), f"{tag}: a non-finite loss")
             _require(res["mfu"] is not None and math.isfinite(res["mfu"])
@@ -2723,7 +2765,7 @@ def check_regions(card: str, dev, name: str, overrides, launched, idle) -> dict:
         with trace(d) as prof:
             for _ in range(_REGION_STEPS):
                 step(state, data)
-        counts = ops.launch_counts()
+        counts = _counts()
         raw = regions.load_trace(prof.trace_path)
         size = os.path.getsize(prof.trace_path)
     traced_s = time.perf_counter() - t0
@@ -2847,7 +2889,7 @@ def phase_quality(card: str) -> dict:
         results = [quality.run(_QUALITY, seed=seed, steps=_QUALITY_STEPS, out=d, device="cuda",
                                print_fn=lambda *a: None)
                    for seed, d in zip(_QUALITY_SEEDS, dirs)]
-        counts = ops.launch_counts()
+        counts = _counts()
         csvs = [os.path.join(d, "metrics.csv") for d in dirs]
         runs = [quality.read_rows(c) for c in csvs]
         held = quality.compare_runs(csvs, [dataclasses.replace(number, band=_QUALITY_BAND)])
@@ -3030,7 +3072,7 @@ def phase_wide(card: str, dev, workdir: str) -> tuple:
                          f"train.checkpoint_dir={ck_dir}") for a in ("--set", ov)]
     ops.reset_launch_counts()
     rc, _ = _cli(["train", "--config", "seq_vae", "--steps", str(_PROBE_CLI_STEPS), *sets])
-    counts = ops.launch_counts()
+    counts = _counts()
     want = _step_counts(_PROBE_CLI_STEPS, 2 * 2)
     _require(rc == 0 and all(counts[k] == want.get(k, 0) for k in counts),
              f"cli train probe: rc {rc}, launches {counts}, expected {want}")
@@ -3046,7 +3088,7 @@ def phase_wide(card: str, dev, workdir: str) -> tuple:
         tag = f"bench probe K={k}"
         ops.reset_launch_counts()
         res = run_benchmark(cfg, steps=20, warmup=10, device_profile=True)
-        out[tag] = ops.launch_counts()
+        out[tag] = _counts()
         losses = res.pop("losses")
         _require(all(math.isfinite(v) for v in losses), f"{tag}: a non-finite loss")
         _require(out[tag]["convlstm_proj_forward"] > 0 and out[tag]["convlstm_scan_forward"] == 0,
@@ -3255,7 +3297,7 @@ def phase_f32(card: str, dev, workdir: str) -> tuple:
                              f"train.checkpoint_dir={ck_dir}") for a in ("--set", ov)]
         ops.reset_launch_counts()
         rc, _ = _cli(["train", "--config", "seq_vae", "--steps", str(_F32_CLI_STEPS), *sets])
-        counts = ops.launch_counts()
+        counts = _counts()
         want = _step_counts(_F32_CLI_STEPS, 2 * 2, k6=fused)
         _require(rc == 0 and all(counts[k] == want.get(k, 0) for k in counts),
                  f"cli train f32{' fused' if fused else ''}: rc {rc}, launches {counts}, "
@@ -3270,7 +3312,7 @@ def phase_f32(card: str, dev, workdir: str) -> tuple:
         tag = f"bench f32 K={k}"
         ops.reset_launch_counts()
         res = run_benchmark(cfg, steps=20, warmup=10, device_profile=True)
-        out[tag] = ops.launch_counts()
+        out[tag] = _counts()
         losses = res.pop("losses")
         _require(all(math.isfinite(v) for v in losses), f"{tag}: a non-finite loss")
         _require(out[tag]["convlstm_proj_forward"] > 0 and out[tag]["convlstm_scan_forward"] == 0,
@@ -3289,6 +3331,283 @@ def phase_f32(card: str, dev, workdir: str) -> tuple:
     print(f"[f32] seconds: kernels {t1 - t0:.1f}, models {t2 - t1:.1f}, fit {t3 - t2:.1f}, "
           f"cli {t4 - t3:.1f}, bench {t5 - t4:.1f}, sampling {t6 - t5:.1f}; on {card}")
     return rows, out
+
+
+# --- phase 13: the general-shape kernels --------------------------------------
+
+# The JAX package's own small widths of configs 3-5 (`__graft_entry__.py`'s
+# _DRYRUN_TINY, which tests/test_torch_general.py holds this copy equal to):
+# a 16x16 latent grid at F = 16, C = 16, outside the wgmma kernels' domain.
+_JAX_TINY = {
+    "seq_vae": {"enc_channels": (8, 16), "lstm_features": 16, "latent_dim": 16},
+    "pred_vae": {
+        "enc_channels": (8, 16), "lstm_features": 16, "latent_dim": 16,
+        "context_len": 2,
+    },
+    "hier_vae": {
+        "enc_channels": (8, 16), "lstm_features": 16, "chunk_feature": 16,
+        "global_latent": 8, "chunk_latent": 4, "chunk_len": 2, "remat": True,
+    },
+}
+
+
+# The general kernels' rows of the kernels line: the K5 and K6 wrappers whose
+# launches they count on phase 13's paths, the TPU kernels they replace.
+_GENERAL = {f"{name}_general": (name, "mmvae_torch/csrc/convlstm_general.cu", _KERNELS[name][2])
+            for name in (*_K5, *_K6)}
+# The reference's probe (docs/RESULTS.md:56) at the JAX package's default
+# activation dtype: K5 at (64, 20, 8, 8, 128, 192) f32 on the general route,
+# and with fused=true K6 at F = 192 f32 (time-constant xg).
+_PROBE_F32 = _PROBE + _F32
+_PROBE_F32_FUSED = _PROBE_F32 + _FUSED
+_GENERAL_FIT_STEPS, _GENERAL_FUSED_STEPS = 20, 4
+# The shapes timed on the general route (bf16 gates, as the configs run):
+# the 16x16 grid at full width in bf16 and f32, and the f32 probe.
+_GENERAL_TIMED = (((64, 20, 16, 16, 128, 128), "bfloat16"),
+                  ((64, 20, 16, 16, 128, 128), "float32"),
+                  ((64, 20, 8, 8, 128, 192), "float32"))
+
+
+def _tiny_overrides(name: str) -> tuple:
+    """`_JAX_TINY[name]` as `--set`s."""
+    def text(v):
+        if isinstance(v, bool):
+            return str(v).lower()
+        return ",".join(map(str, v)) if isinstance(v, tuple) else str(v)
+
+    return tuple(f"model.kwargs.{k}={text(v)}" for k, v in _JAX_TINY[name].items())
+
+
+def _routes(cfg) -> tuple:
+    """(K5's route, K6's route) of a sequence config: its encoder's last
+    channels and its latent grid (64 / 2^stages), lstm_features, its
+    activation dtype (`convlstm_kernels.route`)."""
+    import torch
+
+    from mmvae_torch.ops import convlstm_kernels as ck
+
+    kw = _model_kwargs(cfg)
+    side = 64 >> len(kw["enc_channels"])
+    act = getattr(torch, cfg.model.dtype)
+    f = kw["lstm_features"]
+    return (ck.route(act, f, side * side, kw["enc_channels"][-1]),
+            ck.route(act, f, side * side))
+
+
+def _timed_row(what: str, name: str, key, kern, plain, iters: int) -> dict:
+    """`kern`'s and its plain version's ms (CUDA events over `iters` calls,
+    TF32 off) beside the bound of kernel `name` at `key`, printed; the row."""
+    from mmvae_torch.ops.kernel_checks import full_f32
+
+    with full_f32():
+        ms, plain_ms = _time_ms(kern, iters, 1), _time_ms(plain, 3, 1)
+    b_ms, by = _bound(name, key)
+    print(f"[general] {what} {name} {key}, bf16 gates: {ms:.3f} ms, {_share(ms, name, key)}, "
+          f"vs plain {plain_ms:.3f} ms; library: none (no one PyTorch call runs the "
+          f"recurrence)")
+    return {"kernel": name, "shape": list(key), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def check_general_kernels(dev) -> tuple:
+    """K5 and K6 on the general route at every shape of
+    `kernel_checks.GENERAL_SHAPES` (the JAX package's small widths, the
+    README's, odd grids and widths, F off the wgmma multiples, f32 above F =
+    128, a 16x16 grid at full width, the f32 probe), both gate dtypes,
+    every mode, against their plain versions at phase 3's limits
+    (`kernel_checks.check_general`), each backward twice bit-identical, the
+    launches all on the general route; the TF32 control at the f32 probe's
+    shape over the f32 limit; then the general kernels timed at
+    `_GENERAL_TIMED` beside their plain versions and bounds, and the wgmma
+    forwards without residuals that PERF.md had not timed (f32 at configs
+    3 and 4's shapes, the 4-CTA widths).  Returns ({general wrapper:
+    {shape: row}}, {shape: wgmma no-residual row})."""
+    import torch
+
+    from mmvae_torch import ops
+    from mmvae_torch.ops import convlstm_kernels as ck
+    from mmvae_torch.ops import kernel_checks as kc
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    err = dict.fromkeys((*_K5, *_K6), 0.0)
+    worst = 0.0
+    for shape, acts in kc.GENERAL_SHAPES:
+        for act in acts:
+            ops.reset_launch_counts()
+            got = kc.check_general(dev, shape, act)
+            counts = _counts(general=True)
+            for label, cmp in got["comparisons"]:
+                print(f"[general] {label}: {cmp.text()}")
+                if act == f32:
+                    worst = max([worst] + [r.value for r in cmp.readings if "f32 ulps" in r.text])
+            _require(all(got["same"].values()), f"{shape} {act}: a backward differs between "
+                                                 f"two calls: {got['same']}")
+            _require(all(counts[n] > 0 for n in (*_K5, *_K6)),
+                     f"{shape} {act}: not every K5 and K6 kernel launched: {counts}")
+            print(f"[general] {shape} {act}: every launch general ({counts['convlstm_proj_forward']}"
+                  f" K5 forwards, {counts['convlstm_scan_backward']} K6 backwards); two calls of "
+                  f"each backward bit-identical ({', '.join(got['same'])})")
+            for name, e in got["err"].items():
+                err[name] = max(err[name], e)
+    probe = (64, 20, 8, 8, 128, 192)
+    control = kc.proj_tf32_control(dev, probe)
+    low = min(control, key=control.get)
+    _require(worst <= kc.REC_F32_ULPS < control[low],
+             f"the f32 limit {kc.REC_F32_ULPS:g} does not sit between the general kernels' "
+             f"worst f32 reading {worst:.1f} and the TF32 control's least at {probe}, {low} "
+             f"{control[low]:.1f}")
+    print(f"[general] f32 limit {kc.REC_F32_ULPS:g} f32 ulps: the general kernels' worst "
+          f"reading {worst:.1f}, the TF32 control's least at {probe} {control[low]:.1f} ({low})")
+
+    rows = {f"{n}_general": {} for n in (*_K5, *_K6)}
+    for shape, act_name in _GENERAL_TIMED:
+        act = getattr(torch, act_name)
+        x, wx, bx, w, c0, h0 = kc.proj_inputs(dev, *shape, seed=6, dtype=act)
+        res = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, bf16, True)
+        dh = torch.randn(c0.shape, device=dev)
+        b, t, h, w_, _, f = shape
+        xg, wh, sc0, sh0 = kc.scan_inputs(dev, b, 1, h, w_, f, seed=10, dtype=act)
+        sres = ck.scan_forward_cuda(xg, wh, sc0, sh0, t, bf16, "save")
+        dhs = torch.randn(sres[0].shape, device=dev)
+        k5, k6 = (*shape, ck._es(act)), (b, t, h, w_, f, True, ck._es(act))
+        calls = {
+            "convlstm_proj_forward": (
+                k5, lambda: ck.proj_forward_cuda(x, wx, bx, w, c0, h0, bf16, True),
+                lambda: ck.proj_forward_plain(x, wx, bx, w, c0, h0, bf16, True)),
+            "convlstm_proj_backward": (
+                k5, lambda: ck.proj_backward_cuda(x, wx, w, c0, h0, *res, dh, dh),
+                lambda: ck.proj_backward_plain(x, wx, w, c0, h0, *res, dh, dh)),
+            "convlstm_scan_forward": (
+                k6, lambda: ck.scan_forward_cuda(xg, wh, sc0, sh0, t, bf16, "save"),
+                lambda: ck.scan_forward_plain(xg, wh, sc0, sh0, t, bf16, "save")),
+            "convlstm_scan_backward": (
+                k6, lambda: ck.scan_backward_cuda(wh, sc0, sh0, *sres, dhs, dhs[:, -1], True,
+                                                  False),
+                lambda: ck.scan_backward_plain(wh, sc0, sh0, *sres, dhs, dhs[:, -1], True,
+                                               False)),
+        }
+        for name, (key, kern, plain) in calls.items():
+            row = _timed_row("general", name, key, kern, plain, 3)
+            rows[f"{name}_general"][str(key)] = {**row, "max_abs_err": err[name]}
+        del res, sres
+        torch.cuda.empty_cache()
+
+    # the wgmma forwards without residuals PERF.md had not timed
+    nores = {}
+    for shape, act in (((64, 20, 8, 8, 128, 128), f32),
+                       *(((64, 20, 8, 8, 128, f), bf16) for f in _WIDE_F)):
+        x, wx, bx, w, c0, h0 = kc.proj_inputs(dev, *shape, seed=6, dtype=act)
+        key = (*shape, ck._es(act))
+        nores[str(key)] = _timed_row(
+            "wgmma", "convlstm_proj_forward_nores", key,
+            lambda: ck.proj_forward_cuda(x, wx, bx, w, c0, h0, bf16, False),
+            lambda: ck.proj_forward_plain(x, wx, bx, w, c0, h0, bf16, False), 5)
+    for (b, t, h, w_, f), act in (((64, 10, 8, 8, 128), f32),
+                                  *(((64, 20, 8, 8, f), bf16) for f in _WIDE_F)):
+        xg, wh, sc0, sh0 = kc.scan_inputs(dev, b, 1, h, w_, f, seed=10, dtype=act)
+        for mode in ("hs", "last"):
+            key = (b, t, h, w_, f, True, ck._es(act))
+            nores[f"{key} {mode}"] = _timed_row(
+                "wgmma", f"convlstm_scan_forward_{mode}", key,
+                lambda: ck.scan_forward_cuda(xg, wh, sc0, sh0, t, bf16, mode),
+                lambda: ck.scan_forward_plain(xg, wh, sc0, sh0, t, bf16, mode), 5)
+    return rows, nores
+
+
+def _probe_f32_cfg(overrides, *more):
+    """The f32 probe's config at full width in one process: config 3's
+    batch, clip length and widths but lstm_features=192, f32 activations."""
+    from mmvae_torch.configs import get_config
+
+    cfg = get_config("seq_vae", ("train.data_parallel=false", *overrides, *more))
+    base = get_config("seq_vae")
+    kw, base_kw = _model_kwargs(cfg), _model_kwargs(base)
+    _require(cfg.data.batch_size == base.data.batch_size and cfg.data.seq_len == base.data.seq_len
+             and cfg.model.dtype == "float32" and kw["lstm_features"] == 192
+             and all(kw[k] == base_kw[k] for k in ("enc_channels", "latent_dim", "image_size")),
+             "the f32 probe is not config 3 at full width with lstm_features=192 in f32")
+    return cfg
+
+
+def phase_general(card: str, dev) -> tuple:
+    """The general-shape kernels: (a) K5 and K6 on the general route
+    against their plain versions, timed (`check_general_kernels`); (b)
+    configs 3, 4 fused and 5 fused at the JAX package's own small widths
+    (`_JAX_TINY`: a 16x16 grid at F = 16), bf16 and f32, card with kernels
+    against CPU with plain versions (`check_model`), every K5 and K6 launch
+    on the general route; (c) the f32 probe: `fit` at K = 10 (20 steps, an
+    eval pass raw and under the EMA) and with fused=true at K = 1 (4 steps,
+    K6 launched), `run_benchmark` at K = 1 and 10, sampling (prior and
+    reconstruct) card against CPU, each run's launches held to its
+    equations, K5's (and K6's) all on the general route; (d) the phase's
+    seconds.  Returns ({general wrapper: rows}, {shape: wgmma no-residual
+    row}, {path: launch counts})."""
+    import torch
+
+    from mmvae_torch import ops
+    from mmvae_torch.bench.throughput import run_benchmark
+    from mmvae_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    rows, nores = check_general_kernels(dev)
+    t1 = time.perf_counter()
+    for name, frames, more in (("seq_vae", 4, ()), ("pred_vae", 8, _FUSED),
+                               ("hier_vae", 20, _FUSED)):
+        overrides = (*_tiny_overrides(name), *more)
+        for act in ("bfloat16", "float32"):
+            cfg = get_config(name, (f"model.dtype={act}", *overrides))
+            _require(_routes(cfg)[0] == "general", f"{name} {overrides}: K5 not general")
+            ops.reset_launch_counts()
+            check_model(dev, name, frames, overrides, act=act)
+            counts = _counts(general=True)
+            k6 = bool(more)
+            _require(all(counts[n] > 0 for n in (*_K5, *(_K6 if k6 else ()))),
+                     f"model {name} {act} at the JAX package's widths: {counts}")
+            print(f"[general] model {name} {act} at {_JAX_TINY[name]}: K5{' and K6' if k6 else ''}"
+                  f" on the general route ({counts['convlstm_proj_forward']} K5 forwards)")
+    t2 = time.perf_counter()
+    out = {}
+    cadence = ("train.eval_batches=2",) + _CUT
+    for tag, overrides, steps, k in (
+            ("fit probe f32 K=10", _PROBE_F32, _GENERAL_FIT_STEPS, 10),
+            ("fit probe f32 fused", _PROBE_F32_FUSED, _GENERAL_FUSED_STEPS, 1)):
+        cfg = _probe_f32_cfg(overrides, *cadence, f"train.eval_every={steps}",
+                             f"train.log_every={steps // 2}", f"train.steps_per_call={k}")
+        fused = overrides == _PROBE_F32_FUSED
+        _require(_routes(cfg) == ("general", "general"), f"{tag}: routes {_routes(cfg)}")
+        want = _step_counts(steps, 2 * 2, k6=fused)
+        _, history, counts = _fit(card, tag, cfg, steps, want, dev, general=True)
+        _require(all(math.isfinite(history[-1].get(c, math.nan))
+                     for c in ("val_loss", "val_loss_ema")), f"{tag}: {history[-1]}")
+        print(f"[general] {tag}: loss {history[0]['loss']:.2f} at step {history[0]['step']} -> "
+              f"{history[-1]['loss']:.2f} at {history[-1]['step']}, val_loss "
+              f"{history[-1]['val_loss']:.2f}, val_loss_ema {history[-1]['val_loss_ema']:.2f}")
+        out[tag] = counts
+    t3 = time.perf_counter()
+    for k in (1, 10):
+        cfg = _chunk_cfg("seq_vae", _PROBE_F32, k)
+        tag = f"bench probe f32 K={k}"
+        ops.reset_launch_counts()
+        res = run_benchmark(cfg, steps=20, warmup=10, device_profile=True)
+        out[tag] = c = _counts(general=True)
+        losses = res.pop("losses")
+        _require(all(math.isfinite(v) for v in losses), f"{tag}: a non-finite loss")
+        _require(c["convlstm_proj_forward"] > 0 and c["convlstm_proj_backward"] > 0
+                 and c["convlstm_scan_forward"] == 0, f"{tag}: launches {c}")
+        row = {"path": _tag("seq_vae", _PROBE_F32), "steps_per_call": k,
+               **{key: res[key] for key in (
+                   "value", "value_min", "value_max", "step_ms", "device_busy_ms",
+                   "idle_share", "kernels_per_step", "host_launches_per_step",
+                   "flops_per_step", "tflops_per_sec_chip", "mfu", "card")}}
+        print(f"[general] timing {json.dumps(row)}")
+        torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    out.update(check_sampling(card, dev, "seq_vae", _PROBE_F32, ("prior", "reconstruct"),
+                              general=True))
+    t5 = time.perf_counter()
+    print(f"[general] seconds: kernels {t1 - t0:.1f}, models {t2 - t1:.1f}, fit {t3 - t2:.1f}, "
+          f"bench {t4 - t3:.1f}, sampling {t5 - t4:.1f}, phase {t5 - t0:.1f}; on {card}")
+    return rows, nores, out
 
 
 def _own_path(kernel: str):
@@ -3344,6 +3663,10 @@ def main() -> int:
         f32_rows, f32_paths = phase_f32(card, dev, workdir)
     by_path.update(f32_paths)
     print(f"[f32] the f32 phase took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    general_rows, nores_rows, general_paths = phase_general(card, dev)
+    by_path.update(general_paths)
+    print(f"[general] the general phase took {time.perf_counter() - t1:.1f} s")
     _require("jax" not in sys.modules and "mmvae_tpu" not in sys.modules,
              "jax or mmvae_tpu was imported")
     kernels = []
@@ -3351,7 +3674,8 @@ def main() -> int:
         own = _own_path(name)
         row = {"name": name, "route": route, "source": source, "replaces": replaces,
                "launches": by_path[own][name] if own else 0, "launches_path": own,
-               "launches_by_path": {tag: c[name] for tag, c in by_path.items()},
+               "launches_by_path": {tag: c[name] for tag, c in by_path.items()
+                                    if tag not in general_paths},
                **checks[name]}
         if name in sampling_rows:
             row["sampling"] = sampling_rows[name]
@@ -3359,7 +3683,23 @@ def main() -> int:
             row["wide"] = wide_rows[name]
         if name in f32_rows:
             row["f32"] = f32_rows[name]
+        if name in ("convlstm_proj_forward", "convlstm_scan_forward"):
+            row["nores"] = {k: r for k, r in nores_rows.items()
+                            if r["kernel"].startswith(f"{name}_")}
         kernels.append(row)
+    # The general kernels, each on its main path: the f32 probe (K5 from its
+    # fit at K = 10, K6 from its fused fit), timed at the probe's shapes.
+    for name, (wrapper, source, replaces) in _GENERAL.items():
+        own = "fit probe f32 fused" if wrapper in _K6 else "fit probe f32 K=10"
+        probe = next(r for r in general_rows[name].values() if r["shape"][:6] in (
+            [64, 20, 8, 8, 128, 192], [64, 20, 8, 8, 192, True]))
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": general_paths[own][wrapper], "launches_path": own,
+            "launches_by_path": {tag: c[wrapper] for tag, c in general_paths.items()},
+            **{k: probe[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+            "shapes": general_rows[name]})
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 """Two checkouts of the package timed side by side on one card.
 
-    python -m mmvae_torch.bench.ab OTHER_ROOT [--steps 10]
+    python -m mmvae_torch.bench.ab OTHER_ROOT [--steps 10] [--kernels-only]
 
 OTHER_ROOT is the root of another checkout of the repository, for example
 an earlier commit unpacked with `git archive` into a directory that
@@ -16,7 +16,8 @@ checkout has the fused head (`bench/timing.head_region_ms`: each kernel
 alone, the op through autograd, and the route it replaced, a cast, two
 F.linear and the Triton K2, on the same inputs); and
 `bench.profile.profile_train_step` of each path (config 3; configs 4 and 5
-with fused=true; config 3 with fused=true; configs 1 and 2).  Every run times with this
+with fused=true; config 3 with fused=true; configs 1 and 2; not with
+`--kernels-only`).  Every run times with this
 tree's `bench/timing.py`, loaded by path.  Each run prints one JSON line,
 then one line per path sums it up.  Fails without a CUDA device.
 """
@@ -71,7 +72,7 @@ def _host_ms(fn, iters: int = 200) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def measure(steps: int) -> dict:
+def measure(steps: int, paths=PATHS) -> dict:
     """K5 and K6 times and the paths' profiles, with the `mmvae_torch` on
     sys.path."""
     import torch
@@ -121,7 +122,7 @@ def measure(steps: int) -> dict:
     if all(heads.values()):
         out["head_ms"] = {key: {k: round(v, 5) for k, v in res.items()}
                           for key, res in heads.items()}
-    for name, overrides in PATHS:
+    for name, overrides in paths:
         res = profile_train_step(get_config(name, overrides), steps=steps, top=6)
         out["profiles"][" ".join((name, *overrides))] = res
     return out
@@ -131,10 +132,12 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", help="root of the other checkout (in a worker: its own root)")
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="time the kernels and the head, not the paths' profiles")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(measure(args.steps)))
+        print(json.dumps(measure(args.steps, () if args.kernels_only else PATHS)))
         return
     here = Path(__file__).resolve().parents[2]
     other = Path(args.other).resolve()
@@ -142,7 +145,7 @@ def main(argv=None) -> None:
     for root in (other, here, here, other):
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--worker", "--steps",
-             str(args.steps), str(root)],
+             str(args.steps), *(["--kernels-only"] if args.kernels_only else []), str(root)],
             cwd=root, env={**os.environ, "PYTHONPATH": str(root)}, capture_output=True,
             text=True,
         )

@@ -5,7 +5,8 @@
 // convlstm_proj_wide.cu and convlstm_scan_wide.cu instantiate them for bf16
 // at the 4-CTA widths (F in (128, 256]), convlstm_proj_f32.cu and
 // convlstm_scan_f32.cu for f32 at F <= 128, which the entry points hand on,
-// so that the six sources compile in parallel.
+// so that the six sources compile in parallel.  Every other shape goes to
+// the general kernels (convlstm_general.cu, `route`).
 #pragma once
 
 #include "convlstm_wgmma.cuh"
@@ -13,29 +14,35 @@
 namespace mmvae {
 
 // The arguments of the library's entry points, as the wrappers pass them.
-// act_dtype: the activations', bf16 (kBF16) or f32 (kF32, F <= 128).
+// act_dtype: the activations', bf16 (kBF16) or f32 (kF32).  gcl and
+// scratch: on the general route, the CTAs a sample and the f32 scratch the
+// wrapper allocates (unused on the wgmma routes).
 struct ProjFwdArgs {
   const void *x, *wpk, *bx, *c0, *h0;
   void *oh, *oc, *og;
-  int B, Tn, H, W, C, F, gate_dtype, save, act_dtype;
+  int B, Tn, H, W, C, F, gate_dtype, save, act_dtype, gcl;
+  void* scratch;
   cudaStream_t stream;
 };
 struct ProjBwdArgs {
   const void *wtpk, *wxpk, *c0, *cs, *ga, *dhl, *dcl;
   void *dG, *dx, *dbx_part, *dbx_out, *dc0, *dh0;
-  int B, Tn, H, W, C, F, act_dtype;
+  int B, Tn, H, W, C, F, act_dtype, gcl;
+  void* scratch;
   cudaStream_t stream;
 };
 struct ScanFwdArgs {
   const void *xg, *wpk, *c0, *h0;
   void *oh, *oc, *og;
-  int B, Tn, xg_steps, H, W, F, gate_dtype, mode, act_dtype;
+  int B, Tn, xg_steps, H, W, F, gate_dtype, mode, act_dtype, gcl;
+  void* scratch;
   cudaStream_t stream;
 };
 struct ScanBwdArgs {
   const void *wtpk, *c0, *cs, *ga, *dhs, *dcl;
   void *dG, *dxg, *dxs, *dc0, *dh0;
-  int B, Tn, H, W, F, const_x, last_only, act_dtype;
+  int B, Tn, H, W, F, const_x, last_only, act_dtype, gcl;
+  void* scratch;
   cudaStream_t stream;
 };
 
@@ -52,6 +59,14 @@ int scan_bwd_f32(const ScanBwdArgs& a);
 int wgrad_f32(const void* x, const void* hs, const void* h0, const void* dG, float* part,
               float* out, int B, int Tn, int H, int W, int C, int F, int splits,
               cudaStream_t stream);
+// Every other shape (convlstm_general.cu).
+int proj_fwd_general(const ProjFwdArgs& a);
+int proj_bwd_general(const ProjBwdArgs& a);
+int scan_fwd_general(const ScanFwdArgs& a);
+int scan_bwd_general(const ScanBwdArgs& a);
+int wgrad_general(const void* x, const void* hs, const void* h0, const void* dG, float* part,
+                  float* out, int B, int Tn, int H, int W, int C, int F, int splits,
+                  int act_dtype, cudaStream_t stream);
 
 namespace {
 
@@ -164,12 +179,25 @@ int scan_bwd(FS fs, const ScanBwdArgs& a) {
   return with_f(fs, a.F, [&](auto f) { return (int)launch_scan_bwd<A, decltype(f)::value>(a); });
 }
 
-// Where an entry point's call goes: f32 activations to the f32 sources
-// (F <= 128 only), bf16 to the 4-CTA sources above F = 128, else here.
-enum Route : int { kHere = 0, kWide = 1, kF32Route = 2, kRefused = 3 };
-inline Route route(int act_dtype, int F) {
-  if (act_dtype == kF32) return F <= 128 ? kF32Route : kRefused;
-  if (act_dtype != kBF16) return kRefused;
+// Where an entry point's call goes (convlstm_kernels.route in Python picks
+// the same).  The wgmma kernels' domain: F a multiple of 16 up to 128 (bf16
+// or f32 activations) or of 32 up to 256 (bf16), H*W <= 64, and for K5 (C >
+// 0; K6 passes C = 0) C a multiple of 16 with at least MIN_STAGES ring
+// stages in both of its recurrences.  In it, f32 activations go to the f32
+// sources, bf16 to the 4-CTA sources above F = 128, else here; every other
+// shape with bf16 or f32 activations to the general kernels.
+enum Route : int { kHere = 0, kWide = 1, kF32Route = 2, kGeneral = 3, kRefused = 4 };
+inline Route route(int act_dtype, int F, int HW, int C) {
+  if (act_dtype != kF32 && act_dtype != kBF16) return kRefused;
+  const int es = act_dtype == kF32 ? 4 : 2;
+  const bool narrow = F % 16 == 0 && F > 0 && F <= 128;
+  const bool wide = es == 2 && F % 32 == 0 && F > 128 && F <= 256;
+  bool wgmma = (narrow || wide) && HW <= 64 && C % 16 == 0;
+  if (wgmma && C > 0)
+    wgmma = fwd_smem_layout(C, F, true, es).stages >= MIN_STAGES &&
+            bwd_smem_layout(F, es).stages >= MIN_STAGES;
+  if (!wgmma) return kGeneral;
+  if (es == 4) return kF32Route;
   return F > 128 ? kWide : kHere;
 }
 

@@ -56,10 +56,12 @@
 //   K so the grid covers the card, partials summed in split order.
 // No float atomics anywhere, so results are bit-reproducible.  The kernels
 // take bf16 activations with C a multiple of 16, F a multiple of 16 up to
-// 128 or of 32 up to 256, and H*W <= 64 (the wrapper checks), and either
-// gate dtype; f32 activations at F a multiple of 16 up to 128
-// (convlstm_proj_f32.cu).  This file holds the bf16 2-CTA widths and the
-// entry points; convlstm_proj_wide.cu the 4-CTA widths.
+// 128 or of 32 up to 256, and H*W <= 64, and either gate dtype; f32
+// activations at F a multiple of 16 up to 128 (convlstm_proj_f32.cu).  The
+// entry points send every other shape to the general kernels
+// (convlstm_general.cu; convlstm_launch.cuh's route, which the wrapper's
+// route matches).  This file holds the bf16 2-CTA widths and the entry
+// points; convlstm_proj_wide.cu the 4-CTA widths.
 
 #include "convlstm_launch.cuh"
 
@@ -92,33 +94,45 @@ using namespace mmvae;
 
 extern "C" {
 
-// Weights pre-packed by the wrapper (see convlstm_kernels.py); act_dtype
-// the activations' (kBF16, or kF32 for F <= 128).
+// Which kernels a shape runs: 0 the wgmma kernels, 1 the general ones, -1
+// refused (an activation dtype other than kBF16 and kF32).  C = 0 for K6.
+int mmvae_convlstm_route(int act_dtype, int F, int HW, int C) {
+  const Route r = route(act_dtype, F, HW, C);
+  return r == kRefused ? -1 : r == kGeneral ? 1 : 0;
+}
+
+// Weights pre-packed by the wrapper (see convlstm_kernels.py) for the route
+// of the shape; act_dtype the activations' (kBF16 or kF32); gcl and scratch
+// the general route's CTAs a sample and f32 scratch (3 B HW F floats).
 int mmvae_convlstm_proj_fwd(const void* x, const void* wpk, const void* bx, const void* c0,
                             const void* h0, void* out_h, void* out_c, void* out_g, int B,
                             int Tn, int H, int W, int C, int F, int gate_dtype, int save,
-                            int act_dtype, void* stream) {
+                            int act_dtype, int gcl, void* scratch, void* stream) {
   const ProjFwdArgs a{x, wpk, bx, c0, h0, out_h, out_c, out_g, B, Tn, H, W, C, F,
-                      gate_dtype, save, act_dtype, (cudaStream_t)stream};
-  switch (route(act_dtype, F)) {
+                      gate_dtype, save, act_dtype, gcl, scratch, (cudaStream_t)stream};
+  switch (route(act_dtype, F, H * W, C)) {
     case kHere: return proj_fwd<bf16>(NarrowF{}, a);
     case kWide: return proj_fwd_wide(a);
     case kF32Route: return proj_fwd_f32(a);
+    case kGeneral: return proj_fwd_general(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// BPTT (dgates scratch, dx, dc0, dh0, dbx).
+// BPTT (dgates scratch, dx, dc0, dh0, dbx); the general route's scratch
+// holds 2 B HW F floats.
 int mmvae_convlstm_proj_bwd(const void* wtpk, const void* wxpk, const void* c0, const void* cs,
                             const void* ga, const void* dhl, const void* dcl, void* dG, void* dx,
                             void* dbx_part, void* dbx_out, void* dc0, void* dh0, int B, int Tn,
-                            int H, int W, int C, int F, int act_dtype, void* stream) {
+                            int H, int W, int C, int F, int act_dtype, int gcl, void* scratch,
+                            void* stream) {
   const ProjBwdArgs a{wtpk, wxpk, c0, cs, ga, dhl, dcl, dG, dx, dbx_part, dbx_out, dc0, dh0,
-                      B, Tn, H, W, C, F, act_dtype, (cudaStream_t)stream};
-  switch (route(act_dtype, F)) {
+                      B, Tn, H, W, C, F, act_dtype, gcl, scratch, (cudaStream_t)stream};
+  switch (route(act_dtype, F, H * W, C)) {
     case kHere: return proj_bwd<bf16>(NarrowF{}, a);
     case kWide: return proj_bwd_wide(a);
     case kF32Route: return proj_bwd_f32(a);
+    case kGeneral: return proj_bwd_general(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -130,7 +144,11 @@ int mmvae_convlstm_wgrad(const void* x, const void* hs, const void* h0, const vo
                          void* dw_part, void* dw_out, int B, int Tn, int H, int W, int C, int F,
                          int splits, int act_dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (route(act_dtype, F) == kF32Route)
+  const Route r = route(act_dtype, F, H * W, C);
+  if (r == kGeneral)
+    return wgrad_general(x, hs, h0, dG, (float*)dw_part, (float*)dw_out, B, Tn, H, W, C, F,
+                         splits, act_dtype, s);
+  if (r == kF32Route)
     return wgrad_f32(x, hs, h0, dG, (float*)dw_part, (float*)dw_out, B, Tn, H, W, C, F, splits,
                      s);
   if (act_dtype != kBF16) return (int)cudaErrorInvalidValue;

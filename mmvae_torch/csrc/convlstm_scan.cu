@@ -50,8 +50,8 @@
 //   order.
 // No float atomics, so results are bit-reproducible.  bf16 activations, F a
 // multiple of 16 up to 128 or of 32 up to 256, or f32 activations, F a
-// multiple of 16 up to 128 (convlstm_scan_f32.cu); H*W <= 64; the wrapper
-// checks.  This file holds the bf16 2-CTA widths and the entry points;
+// multiple of 16 up to 128 (convlstm_scan_f32.cu); H*W <= 64; every other
+// shape goes to the general kernels (convlstm_general.cu).  This file holds the bf16 2-CTA widths and the entry points;
 // convlstm_scan_wide.cu the 4-CTA widths.
 
 #include "convlstm_launch.cuh"
@@ -67,13 +67,14 @@ extern "C" {
 int mmvae_convlstm_scan_fwd(const void* xg, const void* wpk, const void* c0, const void* h0,
                             void* out_h, void* out_c, void* out_g, int B, int Tn, int xg_steps,
                             int H, int W, int F, int gate_dtype, int mode, int act_dtype,
-                            void* stream) {
+                            int gcl, void* scratch, void* stream) {
   const ScanFwdArgs a{xg, wpk, c0, h0, out_h, out_c, out_g, B, Tn, xg_steps, H, W, F,
-                      gate_dtype, mode, act_dtype, (cudaStream_t)stream};
-  switch (route(act_dtype, F)) {
+                      gate_dtype, mode, act_dtype, gcl, scratch, (cudaStream_t)stream};
+  switch (route(act_dtype, F, H * W, 0)) {
     case kHere: return scan_fwd<bf16>(NarrowF{}, a);
     case kWide: return scan_fwd_wide(a);
     case kF32Route: return scan_fwd_f32(a);
+    case kGeneral: return scan_fwd_general(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -81,19 +82,22 @@ int mmvae_convlstm_scan_fwd(const void* xg, const void* wpk, const void* c0, con
 // BPTT: dgates into the scratch dG (the activations' dtype; a streaming
 // xg's dxg, which the wrapper passes as dG), dc0, dh0 and, when const_x,
 // dxg (B, HW, 4F), summed in f32 in shared memory or, with 4 CTAs a sample
-// or f32 activations, in dxs (B * 4 * 64 * F floats).  dhs: dh_T (B, HW,
-// F) when last_only, else (B, T, HW, F).  dW follows from
-// mmvae_convlstm_wgrad over dG.
+// or f32 activations, in dxs (B * 4 * 64 * F floats; on the general route
+// B * HW * 4F).  dhs: dh_T (B, HW, F) when last_only, else (B, T, HW, F).
+// dW follows from mmvae_convlstm_wgrad over dG.  The general route's
+// scratch holds 2 B HW F floats.
 int mmvae_convlstm_scan_bwd(const void* wtpk, const void* c0, const void* cs, const void* ga,
                             const void* dhs, const void* dcl, void* dG, void* dxg, void* dxs,
                             void* dc0, void* dh0, int B, int Tn, int H, int W, int F,
-                            int const_x, int last_only, int act_dtype, void* stream) {
+                            int const_x, int last_only, int act_dtype, int gcl, void* scratch,
+                            void* stream) {
   const ScanBwdArgs a{wtpk, c0, cs, ga, dhs, dcl, dG, dxg, dxs, dc0, dh0, B, Tn, H, W, F,
-                      const_x, last_only, act_dtype, (cudaStream_t)stream};
-  switch (route(act_dtype, F)) {
+                      const_x, last_only, act_dtype, gcl, scratch, (cudaStream_t)stream};
+  switch (route(act_dtype, F, H * W, 0)) {
     case kHere: return scan_bwd<bf16>(NarrowF{}, a);
     case kWide: return scan_bwd_wide(a);
     case kF32Route: return scan_bwd_f32(a);
+    case kGeneral: return scan_bwd_general(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -36,8 +36,9 @@
 // additions truncate); the f32 tiles are twice the bf16 ones, so the
 // residuals leave and come back through registers and nothing is staged.
 // f32 K5 rounds the x segment's sum (with the bias) and the taps' to the
-// gate dtype apart before adding them, as the TPU kernel does; bf16 K5
-// rounds their sum once, as it always has.
+// gate dtype apart before adding them, as the TPU kernel does, and K6 rounds
+// xg to it before adding it to the taps; bf16 K5 rounds their sum once, as
+// it always has (ROADMAP queue 3 says why it stays so).
 #pragma once
 
 #include <type_traits>
@@ -594,9 +595,11 @@ __global__ void __launch_bounds__(rec_threads(F), 1)
           if constexpr (XG) {
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
+              // xg rounded to G before the add, as the TPU kernel rounds
+              // it (convlstm_pallas.py:201; exact unless A is f32, G bf16)
               const float2 xv = pair_f2(xr[q][j8][hr]);
-              pre[q][0] = round_to<G>(pre[q][0] + xv.x);
-              pre[q][1] = round_to<G>(pre[q][1] + xv.y);
+              pre[q][0] = round_to<G>(pre[q][0] + round_to<G>(xv.x));
+              pre[q][1] = round_to<G>(pre[q][1] + round_to<G>(xv.y));
             }
           }
           float hv[2], cv[2], gv[4][2];

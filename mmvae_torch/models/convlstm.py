@@ -21,12 +21,11 @@
     (`torch.utils.checkpoint`); on the kernel paths it is ignored, with a
     warning when fused=True asked for it, as in JAX.
   A time-constant input is projected once on every path.  Each kernel
-  wrapper runs its CUDA kernel for CUDA tensors (bf16 activations at F a
-  multiple of 16 up to 128 or of 32 up to 256, f32 activations at F a
-  multiple of 16 up to 128, H*W <= 64, K5's C a multiple of 16, else it
-  raises: `ops.convlstm_kernels.check_domain`)
-  and its plain version for CPU tensors; the policy does not look at
-  these limits, as JAX's does not.
+  wrapper runs its CUDA kernels for CUDA tensors with bf16 or f32
+  activations at any shape, as the TPU kernels take any (the wgmma kernels
+  in their domain, the general ones elsewhere: `ops.convlstm_kernels.route`;
+  another dtype raises) and its plain version for CPU tensors; the policy
+  does not look at the shapes, as JAX's does not.
 
 Gate order i/f/g/o, forget bias +1; the pointwise chain and the cell state
 run in `gate_dtype` (`_gate_math`).  The interface is NHWC like the JAX

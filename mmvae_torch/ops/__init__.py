@@ -6,7 +6,9 @@ Every kernel wrapper counts its launches in a `launches` attribute:
 sample, fused), `convlstm_proj_forward`, `convlstm_proj_backward` (K5),
 `convlstm_scan_forward` and `convlstm_scan_backward` (K6).  The two
 recurrence forwards also count by mode in a `modes` dict (K5: "save",
-"nores"; K6: "save", "hs", "last"), read by `launch_counts_by_mode`.
+"nores"; K6: "save", "hs", "last"), read by `launch_counts_by_mode`.  K5's
+and K6's four wrappers also count by route in a `routes` dict ("wgmma",
+"general": `convlstm_kernels.route`), read by `launch_counts_by_route`.
 A wrapper counts where it launches; a launch captured in a CUDA graph is
 counted at capture, so `train.loop.chunk_steps` takes the counts its
 capture added (`launch_snapshot`, `launch_delta`), takes them off again
@@ -40,13 +42,15 @@ KERNEL_WRAPPERS = {
     "convlstm_scan_forward": convlstm_scan_forward,
     "convlstm_scan_backward": convlstm_scan_backward,
 }
+_SPLITS = ("modes", "routes")  # the dicts a wrapper may split its count into
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
-        for mode in getattr(fn, "modes", ()):
-            fn.modes[mode] = 0
+        for split in _SPLITS:
+            for key in getattr(fn, split, ()):
+                getattr(fn, split)[key] = 0
 
 
 def launch_counts() -> dict:
@@ -54,11 +58,13 @@ def launch_counts() -> dict:
 
 
 def launch_snapshot() -> dict:
-    """Every count, by wrapper and by mode: {(name, mode or None): n}."""
+    """Every count, by wrapper, mode and route: {(name, None, None): n,
+    (name, "modes" or "routes", key): n}."""
     out = {}
     for name, fn in KERNEL_WRAPPERS.items():
-        out[name, None] = fn.launches
-        out.update(((name, mode), n) for mode, n in getattr(fn, "modes", {}).items())
+        out[name, None, None] = fn.launches
+        for split in _SPLITS:
+            out.update(((name, split, key), n) for key, n in getattr(fn, split, {}).items())
     return out
 
 
@@ -70,12 +76,12 @@ def launch_delta(since: dict) -> dict:
 
 def add_launches(delta: dict) -> None:
     """Add `delta` (a `launch_delta`) to the counts."""
-    for (name, mode), n in delta.items():
+    for (name, split, key), n in delta.items():
         fn = KERNEL_WRAPPERS[name]
-        if mode is None:
+        if split is None:
             fn.launches += n
         else:
-            fn.modes[mode] += n
+            getattr(fn, split)[key] += n
 
 
 def launch_counts_by_mode() -> dict:
@@ -89,6 +95,13 @@ def launch_counts_by_mode() -> dict:
         else:
             out.update((f"{name} {mode}", n) for mode, n in modes.items())
     return out
+
+
+def launch_counts_by_route() -> dict:
+    """K5's and K6's launches by route, as "convlstm_proj_forward general"
+    and the like."""
+    return {f"{name} {way}": n for name, fn in KERNEL_WRAPPERS.items()
+            for way, n in getattr(fn, "routes", {}).items()}
 
 
 __all__ = [
@@ -106,6 +119,7 @@ __all__ = [
     "head_sample_forward",
     "launch_counts",
     "launch_counts_by_mode",
+    "launch_counts_by_route",
     "launch_delta",
     "launch_snapshot",
     "preprocess_gather",

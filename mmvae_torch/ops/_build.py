@@ -44,12 +44,13 @@ _U = ctypes.c_uint
 # C signatures of the library's entry points (all return int).
 _SIGNATURES = {
     "mmvae_preprocess_gather": [_P, _P, _P, _LL, _LL, _LL, _U, _P, _I, _I, _I, _I, _P],
-    "mmvae_convlstm_proj_fwd": [_P] * 8 + [_I] * 9 + [_P],
-    "mmvae_convlstm_proj_bwd": [_P] * 13 + [_I] * 7 + [_P],
+    "mmvae_convlstm_proj_fwd": [_P] * 8 + [_I] * 10 + [_P, _P],
+    "mmvae_convlstm_proj_bwd": [_P] * 13 + [_I] * 8 + [_P, _P],
     "mmvae_convlstm_wgrad": [_P] * 6 + [_I] * 8 + [_P],
+    "mmvae_convlstm_route": [_I] * 4,
     "mmvae_convlstm_proj_layout": [_I, _I, _I, _P],
-    "mmvae_convlstm_scan_fwd": [_P] * 7 + [_I] * 9 + [_P],
-    "mmvae_convlstm_scan_bwd": [_P] * 11 + [_I] * 8 + [_P],
+    "mmvae_convlstm_scan_fwd": [_P] * 7 + [_I] * 10 + [_P, _P],
+    "mmvae_convlstm_scan_bwd": [_P] * 11 + [_I] * 9 + [_P, _P],
     "mmvae_convlstm_scan_layout": [_I, _I, _P],
     "mmvae_head_sample_fwd": [_P] * 12 + [_I] * 4 + [_U, _P, _I, _I, _P],
     "mmvae_head_sample_bwd": [_P] * 12 + [_I] * 4 + [_P],

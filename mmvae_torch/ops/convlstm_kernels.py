@@ -24,12 +24,16 @@ accumulation is f32; the pointwise chain and the cell state run in
 `gate_dtype` (float32 or bfloat16), and the backward chain in f32, as in the
 TPU kernels.  The forward that feeds a backward saves hs, cs and the
 post-activation gates (in T); without grad a residual-free forward runs.
-The CUDA kernels take T = bfloat16 (the production dtype) at F a multiple
-of 16 up to 128 (2 CTAs a sample) or of 32 up to 256 (4 CTAs a sample), and
-T = float32 (the JAX package's default) at F a multiple of 16 up to 128,
-its products f32-accurate as 3xTF32 (weights split here by `tf32_split`,
-`pack_proj_forward`); H*W <= 64 and, for K5, C a multiple of 16
-(`check_domain`); they raise for anything else.
+On the card the wrappers take T = bfloat16 or float32 at every shape
+(`check_domain` refuses any other dtype) and `route` picks the kernels from
+the shape and dtype alone: the wgmma kernels (`csrc/convlstm_wgmma.cuh`) in
+their domain, T = bfloat16 (the production dtype) at F a multiple of 16 up
+to 128 (2 CTAs a sample) or of 32 up to 256 (4 CTAs a sample) and T =
+float32 (the JAX package's default) at F a multiple of 16 up to 128, its
+products f32-accurate as 3xTF32 (weights split here by `tf32_split`,
+`pack_proj_forward`), H*W <= 64 and, for K5, C a multiple of 16 that leaves
+both rings 4 stages; the general kernels (`csrc/convlstm_general.cuh`, f32
+FMA products, `pack_general_forward`) everywhere else.
 
 The plain versions below follow the same algorithms step by step in PyTorch
 (f32 convs and matmuls on operands rounded to T); they are the CPU path and
@@ -187,11 +191,11 @@ def proj_backward_plain(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last, tf32_ope
 # ---------------------------------------------------------------------------
 
 
-# The CUDA kernels' domain, as the message of every refusal states it.
+# The wgmma kernels' domain (`route`); the general kernels take every other
+# shape.
 DOMAIN = ("bfloat16 activations with F a multiple of 16 up to 128 or a multiple of 32 up to "
           "256, float32 activations with F a multiple of 16 up to 128, H*W <= 64 and (K5) C a "
-          "multiple of 16")
-F32_MAX_F = 128  # f32 at F > 128 would need the BPTT's f32 dgates tile split across CTAs
+          "multiple of 16 that leaves both rings 4 stages")
 
 
 def _require_cuda(what, named):
@@ -202,23 +206,54 @@ def _require_cuda(what, named):
 
 
 def check_domain(what: str, dtype: torch.dtype, feat: int, hw: int, cin=None) -> None:
-    """Raise unless activations of `dtype`, F = `feat`, `hw` positions and
-    (K5) C = `cin` input channels lie in the CUDA kernels' domain: bf16
-    activations at F a multiple of 16 up to 128 (2-CTA clusters) or of 32 up
-    to 256 (4-CTA clusters), f32 activations at F a multiple of 16 up to
-    128; H*W <= 64, C a multiple of 16.  TypeError for the dtype (f32 above
-    F = 128 included), ValueError for a shape; each message names the
-    domain."""
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{what}: activations are {dtype}; the CUDA kernels take {DOMAIN}")
-    if dtype == torch.float32 and feat > F32_MAX_F:
-        raise TypeError(f"{what}: activations are {dtype} at F={feat}, above {F32_MAX_F}; the "
-                        f"CUDA kernels take {DOMAIN}")
+    """Raise TypeError unless the activations are bf16 or f32: the CUDA
+    kernels take those at every F = `feat`, `hw` positions and (K5) C =
+    `cin` input channels (`route`)."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what}: activations are {dtype}; the CUDA kernels take bfloat16 or "
+                        f"float32 at any shape (the wgmma kernels {DOMAIN}, the general "
+                        f"kernels the rest)")
+
+
+def route(dtype: torch.dtype, feat: int, hw: int, cin=None) -> str:
+    """The kernels K5 (C = `cin`) or K6 (`cin` None) run for activations of
+    `dtype` at F = `feat` and `hw` positions: "wgmma" in the wgmma kernels'
+    domain (`DOMAIN`: for K5 also at least 4 ring stages in both of its
+    recurrences), else "general".  From the shape and dtype alone, as
+    `csrc/convlstm_launch.cuh`'s `route` (which `mmvae_convlstm_route`
+    exposes) picks them; TypeError for another dtype."""
+    check_domain("convlstm_scan_proj" if cin is not None else "convlstm_scan", dtype, feat, hw,
+                 cin)
     narrow = feat % 16 == 0 and 0 < feat <= 128
-    wide = feat % 32 == 0 and 128 < feat <= 256
-    if not (narrow or wide) or hw > 64 or (cin is not None and cin % 16):
-        got = f"F={feat}, H*W={hw}" + (f", C={cin}" if cin is not None else "")
-        raise ValueError(f"{what}: the CUDA kernels take {DOMAIN}; got {got}")
+    wide = dtype == torch.bfloat16 and feat % 32 == 0 and 128 < feat <= 256
+    wgmma = (narrow or wide) and hw <= 64 and (cin is None or cin % 16 == 0)
+    if wgmma and cin is not None:
+        geo = proj_geometry(1, 1, 8, 8, cin, feat, _es(dtype))
+        wgmma = min(geo["fwd_stages"], geo["bwd_stages"]) >= _MIN_STAGES
+    return "wgmma" if wgmma else "general"
+
+
+_GENERAL_MAX_CLUSTER = 8
+
+
+def general_cluster(batch: int, feat: int) -> int:
+    """CTAs a sample on the general route: the largest power of two up to 8
+    that keeps B x CL within 4 CTAs an SM and at least 8 channels a CTA (1
+    below F = 16).  The results do not depend on it: every output's sums run
+    in the same order whichever CTA owns it."""
+    cl = 1
+    while (cl * 2 <= _GENERAL_MAX_CLUSTER and batch * cl * 2 <= 4 * SMS
+           and feat // (cl * 2) >= 8):
+        cl *= 2
+    return cl
+
+
+def general_wgrad_splits(rows: int, m: int, feat: int) -> int:
+    """Split-K of the general route's weight GEMM over `rows` rows for an M
+    x 4F gradient in 64 x 64 tiles: as many splits as make about two CTAs
+    an SM, each at least 8 chunks of 16 rows."""
+    tiles = -(-m // 64) * -(-4 * feat // 64)
+    return max(1, min(-(-2 * SMS // tiles), rows // 128))
 
 
 def _activations(named) -> torch.dtype:
@@ -383,9 +418,9 @@ def scan_geometry(batch, t_len, height, width, feat, const_input, es: int = 2) -
 
 
 def _check_cuda(x, wx, w, c0, h0, *more):
-    """Raise unless the tensors suit the K5 kernels (on the card, in
-    `check_domain`, rings of at least 4 stages); return the library and the
-    geometry."""
+    """Raise unless the tensors suit the K5 kernels (on the card, one
+    activation dtype, bf16 or f32, consistent shapes); return the library,
+    the wgmma geometry (None on the general route) and the route."""
     named = (("x", x), ("wx", wx), ("w", w), ("c0", c0), ("h0", h0), *more)
     _require_cuda("convlstm_scan_proj", named)
     batch, t_len, height, width, cin = x.shape
@@ -398,18 +433,29 @@ def _check_cuda(x, wx, w, c0, h0, *more):
             f"{tuple(wx.shape)} w {tuple(w.shape)} c0 {tuple(c0.shape)} h0 {tuple(h0.shape)}"
         )
     act = _activations(named)
-    check_domain("convlstm_scan_proj", act, feat, height * width, cin)
+    way = _checked_route(act, feat, height * width, cin)
+    lib = _build.library()
+    if way == "general":
+        return lib, None, way
     es = _es(act)
     geo = proj_geometry(batch, t_len, height, width, cin, feat, es)
-    if min(geo["fwd_stages"], geo["bwd_stages"]) < _MIN_STAGES:
-        raise ValueError(f"convlstm_scan_proj: C={cin}, F={feat} ({act}) leave less than "
-                         f"{_MIN_STAGES} weight stages in one CTA's shared memory")
-    lib = _build.library()
     got, want = _layouts(cin, feat, es)
     if got != want:
         raise RuntimeError(f"convlstm_scan_proj: kernel geometry {got} differs from "
                            f"the wrapper's {want}")
-    return lib, geo
+    return lib, geo, way
+
+
+@functools.lru_cache(maxsize=None)
+def _checked_route(act: torch.dtype, feat: int, hw: int, cin=None) -> str:
+    """`route`, held once per shape against the library's
+    (`mmvae_convlstm_route`): a difference raises."""
+    way = route(act, feat, hw, cin)
+    got = _build.library().mmvae_convlstm_route(_DTYPE_CODE[act], feat, hw, cin or 0)
+    if got != (1 if way == "general" else 0):
+        raise RuntimeError(f"convlstm: the library routes F={feat}, H*W={hw}, C={cin} ({act}) "
+                           f"to {got}, the wrapper to {way}")
+    return way
 
 
 _LAYOUT_KEYS = ("fwd_stages", "fwd_smem", "bwd_stages", "bwd_smem", "wgrad_bn", "wgrad_smem",
@@ -501,10 +547,49 @@ def pack_proj_backward(wx: torch.Tensor, w: torch.Tensor, tf32_parts: bool = Fal
             _pack(wxt.permute(0, 2, 1, 3), tf32_parts))
 
 
+def _interleave(mat: torch.Tensor) -> torch.Tensor:
+    """(..., 4F) gate-major columns (q F + ch) -> channel-major (4 ch + q),
+    as f32: the general kernels' column order, which puts a channel's four
+    gates in one thread's four columns."""
+    f4 = mat.shape[-1]
+    return mat.float().reshape(*mat.shape[:-1], 4, f4 // 4).transpose(-1, -2).reshape(
+        mat.shape).contiguous()
+
+
+def pack_general_forward(wx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[Wx; W] ((C + 9F) x 4F, rows (tap, channel) after Wx's) as f32 in the
+    general kernels' column order (`_interleave`)."""
+    f4 = w.shape[-1]
+    return _interleave(torch.cat([wx, w.reshape(9 * (f4 // 4), f4)]))
+
+
+def pack_general_backward(w: torch.Tensor) -> torch.Tensor:
+    """W^T per tap as f32 (9, 4F, F): row (tap, n) is W[tap][:, n], the
+    general BPTT's transposed taps."""
+    f4 = w.shape[-1]
+    return w.float().reshape(9, f4 // 4, f4).transpose(1, 2).contiguous()
+
+
+def _general_scratch(batch: int, hw: int, feat: int, floats_a_cell: int, device):
+    """The general kernels' f32 scratch: `floats_a_cell` floats a (sample,
+    position, channel) (3 for a forward: c and two h buffers; 2 for a BPTT:
+    dh and dc)."""
+    return torch.empty(floats_a_cell * batch * hw * feat, device=device, dtype=torch.float32)
+
+
+def _count(fn, way: str, mode=None) -> None:
+    """One launch of wrapper `fn` on route `way` (and, for a forward, in
+    `mode`)."""
+    fn.launches += 1
+    fn.routes[way] += 1
+    if mode is not None:
+        fn.modes[mode] += 1
+
+
 @_build.on_device
 def proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
     """CUDA forward; same contract as `proj_forward_plain`."""
-    lib, _ = _check_cuda(x, wx, w, c0, h0, ("bx", bx))
+    lib, _, way = _check_cuda(x, wx, w, c0, h0, ("bx", bx))
     if bx.shape != wx.shape[1:]:
         raise ValueError(f"convlstm_scan_proj: bx {tuple(bx.shape)}, wx {tuple(wx.shape)}")
     if gate_dtype not in _DTYPE_CODE:
@@ -523,15 +608,21 @@ def proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
     else:
         outs = (torch.empty(batch, hw, feat, **kw), torch.empty(batch, hw, feat, **kw))
         ptrs = [outs[0].data_ptr(), outs[1].data_ptr(), None]
-    wpk = pack_proj_forward(wx, w, x.dtype == torch.float32)
+    gcl, scratch = 0, None
+    if way == "general":
+        wpk, bx = pack_general_forward(wx, w), _interleave(bx)
+        gcl, scratch = general_cluster(batch, feat), _general_scratch(batch, hw, feat, 3,
+                                                                      x.device)
+    else:
+        wpk = pack_proj_forward(wx, w, x.dtype == torch.float32)
     err = lib.mmvae_convlstm_proj_fwd(
         x.data_ptr(), wpk.data_ptr(), bx.data_ptr(), c0.data_ptr(), h0.data_ptr(),
         *ptrs, batch, t_len, height, width, cin, feat, _DTYPE_CODE[gate_dtype],
-        int(save), _DTYPE_CODE[x.dtype], _build.stream_ptr(x.device),
+        int(save), _DTYPE_CODE[x.dtype], gcl, None if scratch is None else scratch.data_ptr(),
+        _build.stream_ptr(x.device),
     )
     _build.check(err, "convlstm_proj_fwd")
-    convlstm_proj_forward.launches += 1
-    convlstm_proj_forward.modes["save" if save else "nores"] += 1
+    _count(convlstm_proj_forward, way, "save" if save else "nores")
     return outs
 
 
@@ -539,13 +630,20 @@ def proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
 def proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
     """CUDA backward (BPTT with dx and dbx, then the weight-gradient GEMM);
     same contract as `proj_backward_plain`."""
-    lib, geo = _check_cuda(x, wx, w, c0, h0, ("hs", hs), ("cs", cs), ("ga", ga))
+    lib, geo, way = _check_cuda(x, wx, w, c0, h0, ("hs", hs), ("cs", cs), ("ga", ga))
     act = x.dtype
     batch, t_len, height, width, cin = x.shape
     f4 = wx.shape[1]
     feat = f4 // 4
     hw = height * width
-    wtpk, wxpk = pack_proj_backward(wx, w, x.dtype == torch.float32)
+    gcl, scratch = 0, None
+    if way == "general":
+        wtpk, wxpk = pack_general_backward(w), wx.t().float().contiguous()
+        gcl, scratch = general_cluster(batch, feat), _general_scratch(batch, hw, feat, 2, x.device)
+        splits = general_wgrad_splits(batch * t_len * hw, cin + 9 * feat, feat)
+    else:
+        wtpk, wxpk = pack_proj_backward(wx, w, x.dtype == torch.float32)
+        splits = geo["wgrad_splits"]
     x, c0, h0, hs, cs, ga = (t.contiguous() for t in (x, c0, h0, hs, cs, ga))
     dhl = dh_last.to(act).contiguous()
     dcl = dc_last.to(act).contiguous()
@@ -563,10 +661,10 @@ def proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
         wtpk.data_ptr(), wxpk.data_ptr(), c0.data_ptr(), cs.data_ptr(), ga.data_ptr(),
         dhl.data_ptr(), dcl.data_ptr(), d_gates.data_ptr(), dx.data_ptr(), db_part.data_ptr(),
         db_out.data_ptr(), dc0.data_ptr(), dh0.data_ptr(), batch, t_len, height, width, cin,
-        feat, _DTYPE_CODE[act], stream,
+        feat, _DTYPE_CODE[act], gcl, None if scratch is None else scratch.data_ptr(), stream,
     )
     _build.check(err, "convlstm_proj_bwd")
-    m, splits = cin + 9 * feat, geo["wgrad_splits"]
+    m = cin + 9 * feat
     dw_part = torch.empty(splits, m, f4, device=dev, dtype=torch.float32)
     dw_out = torch.empty(m, f4, device=dev, dtype=torch.float32)
     err = lib.mmvae_convlstm_wgrad(
@@ -575,7 +673,7 @@ def proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
         stream,
     )
     _build.check(err, "convlstm_proj_wgrad")
-    convlstm_proj_backward.launches += 1
+    _count(convlstm_proj_backward, way)
     return (
         dx.view(x.shape),
         dw_out[:cin].to(wx.dtype),
@@ -748,9 +846,9 @@ def scan_backward_plain(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
 
 
 def _check_scan(w, c0, h0, t_len, const_input, **more):
-    """Raise unless the tensors suit the K6 kernels (on the card, in
-    `check_domain`, enough ring stages); return the library and the
-    geometry."""
+    """Raise unless the tensors suit the K6 kernels (on the card, one
+    activation dtype, bf16 or f32, consistent shapes); return the library,
+    the wgmma geometry (None on the general route) and the route."""
     named = (("w", w), ("c0", c0), ("h0", h0), *more.items())
     _require_cuda("convlstm_scan", named)
     batch, height, width, feat = c0.shape
@@ -758,18 +856,20 @@ def _check_scan(w, c0, h0, t_len, const_input, **more):
         raise ValueError(f"convlstm_scan: inconsistent shapes w {tuple(w.shape)} "
                          f"c0 {tuple(c0.shape)} h0 {tuple(h0.shape)}")
     act = _activations(named)
-    check_domain("convlstm_scan", act, feat, height * width)
+    way = _checked_route(act, feat, height * width)
+    lib = _build.library()
+    if way == "general":
+        return lib, None, way
     es = _es(act)
     geo = scan_geometry(batch, t_len, height, width, feat, const_input, es)
     if geo["fwd_stages"] < _MIN_STAGES or geo["bwd_stages"] < geo["bwd_min_stages"]:
         raise ValueError(f"convlstm_scan: F={feat} ({act}) leaves too few weight stages in one "
                          f"CTA's shared memory")
-    lib = _build.library()
     got, want = _scan_layouts(feat, es)
     if got != want:
         raise RuntimeError(f"convlstm_scan: kernel geometry {got} differs from the "
                            f"wrapper's {want}")
-    return lib, geo
+    return lib, geo, way
 
 
 @functools.lru_cache(maxsize=None)
@@ -790,7 +890,7 @@ def _scan_layouts(feat: int, es: int = 2):
 def scan_forward_cuda(xg, w, c0, h0, length, gate_dtype, mode: str):
     """CUDA forward; same contract as `scan_forward_plain`."""
     batch, t_in, height, width, f4 = xg.shape
-    lib, _ = _check_scan(w, c0, h0, length, t_in == 1, xg=xg)
+    lib, _, way = _check_scan(w, c0, h0, length, t_in == 1, xg=xg)
     if gate_dtype not in _DTYPE_CODE:
         raise TypeError(f"convlstm_scan: gate dtype {gate_dtype} not supported")
     feat = f4 // 4
@@ -809,15 +909,21 @@ def scan_forward_cuda(xg, w, c0, h0, length, gate_dtype, mode: str):
     else:
         outs = (torch.empty(batch, hw, feat, **kw), torch.empty(batch, hw, feat, **kw))
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
-    wpk = pack_proj_forward(w.new_empty(0, f4), w, xg.dtype == torch.float32)
+    gcl, scratch = 0, None
+    if way == "general":
+        wpk = pack_general_forward(w.new_empty(0, f4), w)
+        gcl, scratch = general_cluster(batch, feat), _general_scratch(batch, hw, feat, 3,
+                                                                      xg.device)
+    else:
+        wpk = pack_proj_forward(w.new_empty(0, f4), w, xg.dtype == torch.float32)
     err = lib.mmvae_convlstm_scan_fwd(
         xg.data_ptr(), wpk.data_ptr(), c0.data_ptr(), h0.data_ptr(), *ptrs,
         batch, length, t_in, height, width, feat, _DTYPE_CODE[gate_dtype], _SCAN_MODES[mode],
-        _DTYPE_CODE[xg.dtype], _build.stream_ptr(xg.device),
+        _DTYPE_CODE[xg.dtype], gcl, None if scratch is None else scratch.data_ptr(),
+        _build.stream_ptr(xg.device),
     )
     _build.check(err, "convlstm_scan_fwd")
-    convlstm_scan_forward.launches += 1
-    convlstm_scan_forward.modes[mode] += 1
+    _count(convlstm_scan_forward, way, mode)
     return outs
 
 
@@ -827,7 +933,7 @@ def scan_backward_cuda(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
     """CUDA backward (BPTT, then the weight-gradient GEMM); same contract as
     `scan_backward_plain`."""
     batch, t_len, hw, feat = hs.shape
-    lib, geo = _check_scan(w, c0, h0, t_len, const_input, hs=hs, cs=cs, ga=ga)
+    lib, geo, way = _check_scan(w, c0, h0, t_len, const_input, hs=hs, cs=cs, ga=ga)
     height, width = c0.shape[1:3]
     f4 = 4 * feat
     act = hs.dtype
@@ -843,7 +949,16 @@ def scan_backward_cuda(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
                          f"{tuple(dc_last.shape)} do not fit c0 {tuple(c0.shape)}")
     dev = hs.device
     stream = _build.stream_ptr(dev)
-    wtpk = pack_hidden_backward(w, hs.dtype == torch.float32)
+    gcl, scratch = 0, None
+    if way == "general":
+        wtpk = pack_general_backward(w)
+        gcl, scratch = general_cluster(batch, feat), _general_scratch(batch, hw, feat, 2, dev)
+        splits = general_wgrad_splits(batch * t_len * hw, 9 * feat, feat)
+        # a time-constant xg's f32 dgates sum (B, HW, 4F)
+        dxs_floats = batch * hw * f4 if const_input else 0
+    else:
+        wtpk = pack_hidden_backward(w, hs.dtype == torch.float32)
+        splits, dxs_floats = geo["wgrad_splits"], geo["dxs_scratch_floats"]
     if const_input:
         dxg = torch.empty(batch, 1, height, width, f4, device=dev, dtype=act)
         d_gates = torch.empty(batch, t_len, hw, f4, device=dev, dtype=act)
@@ -853,18 +968,17 @@ def scan_backward_cuda(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
         d_gates = dxg
     dc0 = torch.empty(batch, hw, feat, device=dev, dtype=act)
     dh0 = torch.empty_like(dc0)
-    # a 4-CTA or f32 BPTT's f32 dgates sum of a time-constant xg (the kernel zeroes it)
-    dxs = (torch.empty(geo["dxs_scratch_floats"], device=dev, dtype=torch.float32)
-           if geo["dxs_scratch_floats"] else None)
+    # a general, 4-CTA or f32 BPTT's f32 dgates sum of a time-constant xg (the
+    # kernel zeroes it)
+    dxs = torch.empty(dxs_floats, device=dev, dtype=torch.float32) if dxs_floats else None
     err = lib.mmvae_convlstm_scan_bwd(
         wtpk.data_ptr(), c0.data_ptr(), cs.data_ptr(), ga.data_ptr(), dhs.data_ptr(),
         dcl.data_ptr(), d_gates.data_ptr(), dxg.data_ptr(),
         None if dxs is None else dxs.data_ptr(), dc0.data_ptr(), dh0.data_ptr(),
         batch, t_len, height, width, feat, int(const_input), int(last_only), _DTYPE_CODE[act],
-        stream,
+        gcl, None if scratch is None else scratch.data_ptr(), stream,
     )
     _build.check(err, "convlstm_scan_bwd")
-    splits = geo["wgrad_splits"]
     dw_part = torch.empty(splits, 9 * feat, f4, device=dev, dtype=torch.float32)
     dw_out = torch.empty(9 * feat, f4, device=dev, dtype=torch.float32)
     err = lib.mmvae_convlstm_wgrad(  # C = 0: hs stands in for the x it never reads
@@ -873,7 +987,7 @@ def scan_backward_cuda(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
         stream,
     )
     _build.check(err, "convlstm_wgrad")
-    convlstm_scan_backward.launches += 1
+    _count(convlstm_scan_backward, way)
     return (
         dxg,
         dw_out.view(3, 3, feat, f4).to(w.dtype),
@@ -900,6 +1014,11 @@ def convlstm_scan_backward(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool
 convlstm_scan_forward.launches = 0
 convlstm_scan_forward.modes = dict.fromkeys(_SCAN_MODES, 0)  # launches by forward mode
 convlstm_scan_backward.launches = 0
+# launches by route (`route`), of K5's and K6's four wrappers
+for _fn in (convlstm_proj_forward, convlstm_proj_backward, convlstm_scan_forward,
+            convlstm_scan_backward):
+    _fn.routes = {"wgmma": 0, "general": 0}
+del _fn
 
 
 class _Scan(torch.autograd.Function):

@@ -46,6 +46,12 @@ kernel, or one that rounded an operand to bf16, would read), so a kernel
 that left f32 fails it.  `wgrad_f64_readings` holds the f32 weight GEMM
 alone against an f64 product, beside cuBLAS's f32 product.
 
+The general kernels (`convlstm_kernels.route`: every shape outside the
+wgmma kernels' domain) are held to the same readings, whatever their
+activation dtype and F (`check_general`, at `GENERAL_SHAPES` in
+`chip_smoke.py`'s phase 13): their products are f32 FMA, so the TF32
+control fails them too.
+
 `plain_route()` swaps every wrapper's CUDA branch for its plain version,
 so a run on the card takes the model's own ops with no kernel of the repo:
 the witness for a result of the kernels' route.
@@ -340,6 +346,63 @@ def scan_tf32_control(dev, shape, const: bool, seed: int = 8) -> dict:
     names = ("hs", "cs", "gates", "dxg", "dW", "dc0", "dh0")
     return {n: f32_ulps(a, b_) for n, a, b_ in zip(names, (*outs[1], *grads[1]),
                                                    (*outs[0], *grads[0]))}
+
+
+# The general kernels' shapes, (B, T, H, W, C, F) for K5 (K6 drops C), with
+# their activation dtypes: the JAX package's small widths, the README's, odd
+# grids and widths, F off the wgmma multiples (bf16), f32 above F = 128, a
+# 16x16 grid at full width, and the lstm_features=192 probe in f32.
+GENERAL_SHAPES = (
+    ((2, 4, 16, 16, 16, 16), (torch.bfloat16, torch.float32)),
+    ((2, 4, 16, 16, 8, 8), (torch.bfloat16, torch.float32)),
+    ((1, 1, 9, 13, 24, 20), (torch.bfloat16, torch.float32)),
+    ((4, 4, 8, 8, 128, 144), (torch.bfloat16,)),
+    ((4, 4, 8, 8, 128, 288), (torch.bfloat16,)),
+    ((4, 4, 8, 8, 128, 160), (torch.float32,)),
+    ((4, 4, 8, 8, 128, 192), (torch.float32,)),
+    ((4, 4, 8, 8, 128, 256), (torch.float32,)),
+    ((64, 20, 16, 16, 128, 128), (torch.bfloat16, torch.float32)),
+    ((64, 20, 8, 8, 128, 192), (torch.float32,)),
+)
+
+
+def check_general(dev, shape, act) -> dict:
+    """K5 at `shape` (B, T, H, W, C, F) and K6 at it without C, on the
+    general route, with `act` activations: every forward mode and both
+    backward modes of each (time-constant and streaming xg) against their
+    plain versions with both gate dtypes (`compare_proj`, `compare_scan`,
+    which raise over a limit), then each backward twice on the same inputs.
+    Raises unless the route is the general one for both.  Returns
+    {"comparisons": [(label, Comparison)], "err": {wrapper: max abs err},
+    "same": {backward output: bit-identical}}."""
+    b, t, h, w, c, f = shape
+    for cin in (c, None):
+        way = ck.route(act, f, h * w, cin)
+        if way != "general":
+            raise AssertionError(f"{shape} ({act}, C={cin}) takes the {way} route")
+    err = dict.fromkeys(("convlstm_proj_forward", "convlstm_proj_backward",
+                         "convlstm_scan_forward", "convlstm_scan_backward"), 0.0)
+    comparisons = []
+    for gdt in (torch.float32, torch.bfloat16):
+        cmp = compare_proj(dev, shape, gdt, act=act)
+        label = f"convlstm_proj {shape} {act}, gates {gdt}"
+        cmp.check(label)
+        comparisons.append((label, cmp))
+        err["convlstm_proj_forward"] = max(err["convlstm_proj_forward"], cmp.fwd_err)
+        err["convlstm_proj_backward"] = max(err["convlstm_proj_backward"], cmp.bwd_err)
+        for const in (True, False):
+            cmp = compare_scan(dev, (b, t, h, w, f), const, gdt, act=act)
+            label = (f"convlstm_scan {(b, t, h, w, f)} {'const' if const else 'streaming'} "
+                     f"{act}, gates {gdt}")
+            cmp.check(label)
+            comparisons.append((label, cmp))
+            err["convlstm_scan_forward"] = max(err["convlstm_scan_forward"], cmp.fwd_err)
+            err["convlstm_scan_backward"] = max(err["convlstm_scan_backward"], cmp.bwd_err)
+    same = {f"K5 {n}": v for n, v in proj_backward_repeatable(dev, shape, act=act).items()}
+    for const in (True, False):
+        same.update({f"K6 {'const' if const else 'streaming'} {n}": v for n, v in
+                     scan_backward_repeatable(dev, (b, t, h, w, f), const, act=act).items()})
+    return {"comparisons": comparisons, "err": err, "same": same}
 
 
 def wgrad_f64_readings(dev, shape, seed: int = 3) -> dict:

@@ -23,6 +23,12 @@ from mmvae_torch.train.state import create_train_state
 pytestmark = pytest.mark.cuda
 
 
+def _general_launches() -> int:
+    """K5's and K6's launches on the general route (outside the wgmma
+    kernels' domain; `ops.launch_counts_by_route`)."""
+    return sum(n for k, n in ops.launch_counts_by_route().items() if k.endswith(" general"))
+
+
 @pytest.fixture()
 def dev():
     if not torch.cuda.is_available():
@@ -142,26 +148,87 @@ def test_f32_layouts_match_the_wrapper(dev, feat):
 
 
 def test_kernels_refuse_f32_above_128(dev):
-    """f32 at F = 160 raises on the card, naming the limit and the domain;
-    no plain version runs in its place."""
-    args = kernel_checks.proj_inputs(dev, 1, 2, 4, 4, 16, 160, seed=6, dtype=torch.float32)
-    with pytest.raises(TypeError, match="above 128"):
-        ck.proj_forward_cuda(*args, torch.float32, True)
-    xg, wh, c0, h0 = kernel_checks.scan_inputs(dev, 1, 1, 4, 4, 160, 11, dtype=torch.float32)
-    with pytest.raises(TypeError, match="float32 activations with F a multiple of 16 up to 128"):
-        ck.scan_forward_cuda(xg, wh, c0, h0, 2, torch.float32, "save")
+    """f32 at F = 160, which the wgmma kernels refuse (their f32 BPTT tile
+    would not fit), runs the general kernels on the card, K5 and K6, within
+    the f32 limits of their plain versions; the wgmma kernels launch none."""
+    ops.reset_launch_counts()
+    kernel_checks.compare_proj(dev, (1, 2, 4, 4, 16, 160), torch.float32,
+                               act=torch.float32).check("convlstm_proj f32 F=160")
+    kernel_checks.compare_scan(dev, (1, 2, 4, 4, 160), True, torch.float32,
+                               act=torch.float32).check("convlstm_scan f32 F=160")
+    counts, routes = ops.launch_counts(), ops.launch_counts_by_route()
+    for name in ("convlstm_proj_forward", "convlstm_proj_backward", "convlstm_scan_forward",
+                 "convlstm_scan_backward"):
+        assert counts[name] == routes[f"{name} general"] > 0, routes
 
 
 @pytest.mark.parametrize("feat", [144, 288])
 def test_kernels_refuse_widths_outside_their_domain(dev, feat):
-    """F = 144 (above 128, not a multiple of 32) and 288 (above 256) raise
-    on the card, naming the limits; no plain version runs in their place."""
-    args = kernel_checks.proj_inputs(dev, 1, 2, 4, 4, 16, feat, seed=6)
-    with pytest.raises(ValueError, match="multiple of 32 up to 256"):
-        ck.proj_forward_cuda(*args, torch.float32, True)
-    xg, wh, c0, h0 = kernel_checks.scan_inputs(dev, 1, 1, 4, 4, feat, 11)
-    with pytest.raises(ValueError, match="multiple of 32 up to 256"):
-        ck.scan_forward_cuda(xg, wh, c0, h0, 2, torch.float32, "save")
+    """F = 144 (above 128, not a multiple of 32) and 288 (above 256), which
+    the wgmma kernels do not take, run the general kernels on the card
+    within the bf16 limits of their plain versions."""
+    ops.reset_launch_counts()
+    kernel_checks.compare_proj(dev, (1, 2, 4, 4, 16, feat), torch.float32).check(
+        f"convlstm_proj F={feat}")
+    kernel_checks.compare_scan(dev, (1, 2, 4, 4, feat), False, torch.bfloat16).check(
+        f"convlstm_scan F={feat}")
+    counts, routes = ops.launch_counts(), ops.launch_counts_by_route()
+    assert routes["convlstm_proj_forward general"] == counts["convlstm_proj_forward"] > 0
+    assert routes["convlstm_scan_backward general"] == counts["convlstm_scan_backward"] > 0
+
+
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 8, 8), (1, 1, 9, 13, 24, 20),
+                                   (3, 2, 5, 6, 40, 37), (2, 2, 8, 8, 128, 144)])
+def test_general_kernels_match_plain(dev, shape, act):
+    """The general kernels (a 16x16 grid, odd grids and widths, C off the
+    multiples of 16), K5 and K6 in every mode, both gate dtypes, within the
+    limits of `kernel_checks`, each backward twice bit-identical."""
+    got = kernel_checks.check_general(dev, shape, act)
+    assert all(got["same"].values()), got["same"]
+
+
+@pytest.mark.parametrize("side", [8, 16], ids=["wgmma", "general"])
+def test_k6_rounds_f32_xg_to_bf16_gates(dev, side):
+    """f32 activations, bf16 gates, one K6 step on either route (an 8x8 grid
+    takes the wgmma kernels, 16x16 the general ones): xg is rounded to the
+    gate dtype before the taps are added, as the TPU kernel rounds it.  The
+    g gate's xg is 2^-4 + 3 2^-14 and its taps 3 2^-14 (the centre tap of
+    the one live hidden channel): rounded first, 2^-4 + 0; added in f32,
+    2^-4 + 2^-11.  i and o saturate and c_0 = 0, so c_1 = tanh(g) shows
+    the rounding; both routes equal the plain version bit for bit."""
+    feat = 16
+    g = slice(2 * feat, 3 * feat)
+    xg = torch.zeros(1, 1, side, side, 4 * feat, device=dev)
+    xg[..., :feat] = xg[..., 3 * feat:] = 10.0
+    xg[..., g] = 2.0 ** -4 + 3 * 2.0 ** -14
+    w = torch.zeros(3, 3, feat, 4 * feat, device=dev)
+    w[1, 1, 0, g] = 3 * 2.0 ** -14
+    c0 = torch.zeros(1, side, side, feat, device=dev)
+    h0 = torch.zeros_like(c0)
+    h0[..., 0] = 1.0
+    ops.reset_launch_counts()
+    _, c_t = ck.scan_forward_cuda(xg, w, c0, h0, 1, torch.bfloat16, "last")
+    way = "wgmma" if side == 8 else "general"
+    assert ck.route(torch.float32, feat, side * side) == way
+    assert ops.launch_counts_by_route()[f"convlstm_scan_forward {way}"] == 1
+    _, want = ck.scan_forward_plain(xg, w, c0, h0, 1, torch.bfloat16, "last")
+    assert torch.equal(c_t, want)
+    rounded = torch.tanh(torch.tensor(2.0 ** -4, dtype=torch.bfloat16)).float()
+    assert torch.all(c_t == rounded.to(dev)), c_t.unique()
+
+
+def test_route_matches_the_library(dev):
+    """`route` in Python and `mmvae_convlstm_route` in the library pick the
+    same kernels at every F up to 300 and a spread of H*W and C."""
+    lib = ck._build.library()
+    for act in (torch.bfloat16, torch.float32):
+        for hw in (1, 64, 65, 256):
+            for cin in (None, 8, 16, 24, 128, 512):
+                for feat in range(1, 301):
+                    want = 1 if ck.route(act, feat, hw, cin) == "general" else 0
+                    assert lib.mmvae_convlstm_route(ck._DTYPE_CODE[act], feat, hw,
+                                                    cin or 0) == want, (act, feat, hw, cin)
 
 
 def test_train_step_launches_every_kernel(dev):
@@ -179,7 +246,7 @@ def test_train_step_launches_every_kernel(dev):
     # the decoder runs eagerly under the default (auto) policy: K6 stays idle;
     # the head samples through the fused op, never the standalone K2
     assert counts.pop("convlstm_scan_forward") == counts.pop("convlstm_scan_backward") == 0
-    assert counts.pop("reparameterize") == 0
+    assert counts.pop("reparameterize") == 0 and _general_launches() == 0
     assert all(n == 2 for n in counts.values()), counts
 
 
@@ -227,7 +294,7 @@ def test_recipe_train_step_generates_and_keeps_an_ema(dev):
     assert all(torch.isfinite(torch.tensor(losses)))
     counts = ops.launch_counts()
     assert counts.pop("convlstm_scan_forward") == counts.pop("convlstm_scan_backward") == 0
-    assert counts.pop("reparameterize") == 0
+    assert counts.pop("reparameterize") == 0 and _general_launches() == 0
     assert all(n == 3 for n in counts.values()), counts
     live = dict(state.model.named_parameters())
     assert any(not torch.equal(e, live[n]) for n, e in state.ema_params.items())
@@ -313,7 +380,7 @@ def test_fused_train_steps_launch_k5_and_k6(dev, name):
     counts = ops.launch_counts()
     # hier_vae samples twice a step (z_g, then the chunk latents with salt 1),
     # each through the fused head and sample
-    assert counts.pop("reparameterize") == 0
+    assert counts.pop("reparameterize") == 0 and _general_launches() == 0
     for kernel in ("head_sample_forward", "head_sample_backward"):
         assert counts.pop(kernel) == (6 if name == "hier_vae" else 3)
     assert all(n == 3 for n in counts.values()), counts

@@ -1,5 +1,5 @@
 """The ConvLSTM kernels' f32 activations (F <= 128) on the CPU: the domain the
-CUDA wrappers take and the message of the f32 refusal above F = 128, the f32
+wgmma kernels take and the general route above F = 128, the f32
 launch geometry of K5 and K6 against a hand reckoning (the bf16 geometry
 unchanged), the TF32 hi / lo weight packing, the roofline's 3xTF32 bound,
 and configs 3 and 5 with model.dtype=float32 through the port's plain
@@ -37,16 +37,16 @@ def test_domain_takes_f32_up_to_128(f):
 
 @pytest.mark.parametrize("f", [160, 256])
 def test_domain_refuses_f32_above_128(f):
-    """f32 at F > 128 would need the BPTT's f32 dgates tile, (65, 4F) x 4
-    bytes, split across the cluster: refused, the message naming the limit
-    and the domain; no plain version runs in its place on the card."""
+    """f32 at F > 128 would need the wgmma BPTT's f32 dgates tile, (65, 4F)
+    x 4 bytes, split across the cluster, so the wgmma kernels stop at F =
+    128 with f32 activations and these widths, which the wrappers refused
+    before, take the general kernels; the domain check takes them, and no
+    plain version runs in their place on the card."""
     for what, cin in (("convlstm_scan_proj", 128), ("convlstm_scan", None)):
-        with pytest.raises(TypeError) as info:
-            ck.check_domain(what, torch.float32, f, 64, cin)
-        text = str(info.value)
-        assert text.startswith(what) and f"at F={f}, above 128" in text
-        assert ck.DOMAIN in text and "float32 activations with F a multiple of 16 up to 128" \
-            in text
+        ck.check_domain(what, torch.float32, f, 64, cin)
+        assert ck.route(torch.float32, f, 64, cin) == "general"
+        assert ck.route(torch.bfloat16, f, 64, cin) == "wgmma"
+    assert "float32 activations with F a multiple of 16 up to 128" in ck.DOMAIN
 
 
 def test_domain_refuses_other_dtypes_and_mixed_inputs():
