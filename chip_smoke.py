@@ -3,7 +3,7 @@
 the bench and through the training loop (`fit`), then sampling and the CLI,
 then data-parallel training, then K train steps a call in one CUDA graph,
 then the per-region device budget of a step, then the first 2,000 steps of
-config 3's convergence protocol at eight seeds against the reference's curve,
+config 3's convergence protocol at sixteen seeds against the reference's curve,
 then the ConvLSTM kernels at F = 160-256 and the reference's
 lstm_features=192 probe, then the ConvLSTM kernels and configs 3-5 with f32
 activations, then the ConvLSTM recurrences at every other shape (the general
@@ -33,8 +33,10 @@ Phases, each raising on failure (the script catches nothing):
    on a cold L2), K1 beside the one PyTorch call that computes its BCE sum
    (`library_ms`); the fused Gaussian head and sample
    (`head_sample_forward` / `_backward`, which replace K2 on the train
-   steps) at each sampling site and at larger batches, its f32 outputs in
-   f32 units that a TF32 control must fail, its forward bit-identical over
+   steps) at each sampling site, at larger batches and at latent widths
+   past 656, its f32 outputs in f32 units that a TF32 control must fail,
+   with bf16 x (which skips its zero TF32 lo pass) bit-identical to the
+   f32 kernels on x cast to f32, its forward bit-identical over
    many launches (warm, cold, two streams), timed in CUDA graphs beside the
    route it replaces (a cast, two F.linear and K2, with its autograd
    backward: `library_ms`); K5's, K6's and the head's backward (K6 with a
@@ -144,11 +146,11 @@ Phases, each raising on failure (the script catches nothing):
 10. trained quality (`mmvae_torch.bench.quality`): config 3 default's
    convergence protocol (`seq_vae_default`: the full 10,000-clip set, K =
    10, a log line every 200 steps, an eval of 4 val batches every 1,000)
-   cut to 2,000 steps, at train.seed 0-7, with the launch counters set to
+   cut to 2,000 steps, at train.seed 0-15, with the launch counters set to
    0 just before the first run and read just after the last and held to
    their equations; every logged loss finite, each run's val_loss at 2,000
    below its val_loss at 1,000 and its reconstruction of 256 val clips
-   under the base rate, and the eight runs' mean val_loss at 2,000 within
+   under the base rate, and the sixteen runs' mean val_loss at 2,000 within
    5 % of the reference's 5990.1 (`docs/assets/seq_vae_r5_default_loss.csv`,
    one run); each seed's own gap printed (one seed's spread is as wide as
    the band); the phase's seconds printed;
@@ -633,24 +635,29 @@ def check_reparam(dev, shapes) -> dict:
             "bound_by": by, "library_ms": None}
 
 
-# Head shapes beyond the sampling sites: unaligned ones, and the batches the
+# Head shapes beyond the sampling sites: unaligned ones, the batches the
 # configs offer beyond their defaults (config 3 at 256, config 5 at 32),
-# whose backward runs the batch in several blocks.
+# whose backward runs the batch in several blocks, and latent widths past
+# 656 (several latent blocks in the backward).
 _HEAD_EXTRA = ((5, 37, 3, "bfloat16"), (70, 300, 21, "float32"), (256, 8192, 128, "bfloat16"),
-               (32, 256, 128, "float32"), (320, 256, 64, "float32"))
+               (32, 256, 128, "float32"), (320, 256, 64, "float32"),
+               (64, 8192, 657, "bfloat16"), (64, 8192, 1024, "bfloat16"),
+               (64, 256, 1024, "float32"))
 
 
 def check_head_sample(dev, shapes) -> tuple:
     """The fused Gaussian head and sample at each sampling site's (M, K, N,
     x dtype) and at `_HEAD_EXTRA`: forward with eps injected and the three
     gradients against the plain version (`kernel_checks.compare_head` and
-    its tolerances; at the sites also the TF32 control, which the f32
-    limit must reject); at the sites eps's moments, seeds that decide eps,
-    the backward bit-identical over two calls, the forward bit-identical
-    over 200 launches warm, cold and on two streams, and the time of both
-    kernels beside the parent route's on the same inputs (a cast, two
-    F.linear and the Triton K2, with its autograd backward: `library_ms`),
-    by `bench/timing.head_region_ms`; the larger batches timed so too."""
+    its tolerances), and the TF32 control, which the f32 limit must
+    reject; with bf16 x, the kernels (without x's zero lo pass)
+    bit-identical to the f32 kernels on x cast to f32; at the sites and the widths past 656 the
+    backward bit-identical over two calls and the forward over 200
+    launches warm, cold and on two streams; at the sites eps's moments,
+    seeds that decide eps, and the time of both kernels beside the parent
+    route's on the same inputs (a cast, two F.linear and the Triton K2,
+    with its autograd backward: `library_ms`), by
+    `bench/timing.head_region_ms`; the other shapes timed so too."""
     import torch
 
     from mmvae_torch.bench.timing import head_region_ms
@@ -662,16 +669,26 @@ def check_head_sample(dev, shapes) -> tuple:
     extra = tuple((*s[:3], getattr(torch, s[3])) for s in _HEAD_EXTRA)
     for shape in (*shapes, *extra):
         cmp = kc.compare_head(dev, shape)
-        txt = cmp.text()
-        if shape in shapes:
-            ctrl = kc.head_tf32_control(dev, shape)
-            txt += "; TF32 control " + ", ".join(f"{k} {v:.1f}" for k, v in ctrl.items())
-            _require(min(ctrl.values()) > kc.F32_UNITS,
-                     f"head_sample {shape}: the f32 limit {kc.F32_UNITS} does not reject the "
-                     f"TF32 control {ctrl}")
+        ctrl = kc.head_tf32_control(dev, shape)
+        txt = cmp.text() + "; TF32 control " + ", ".join(f"{k} {v:.1f}" for k, v in ctrl.items())
+        _require(min(ctrl.values()) > kc.F32_UNITS,
+                 f"head_sample {shape}: the f32 limit {kc.F32_UNITS} does not reject the "
+                 f"TF32 control {ctrl}")
+        if shape[3] == torch.bfloat16:
+            lo = kc.head_lo_pass_same(dev, shape)
+            _require(all(lo.values()), f"head_sample {shape}: the f32 kernels on x cast to f32 "
+                     f"differ {lo}")
+            txt += "; bit-identical to the f32 kernels on x cast to f32 (x's zero lo pass)"
         print(f"[kernel] head_sample {shape}: {txt} (limit {kc.F32_UNITS:g} f32 units)")
         cmp.check(f"head_sample {shape}")
         worst_f, worst_b = max(worst_f, cmp.fwd_err), max(worst_b, cmp.bwd_err)
+    for shape in (s for s in extra if s[2] > 656):
+        same = kc.head_backward_repeatable(dev, shape)
+        rep = kc.head_forward_repeatable(dev, shape)
+        _require(all(same.values()) and all(rep.values()),
+                 f"head_sample {shape}: not bit-identical over calls: {same} {rep}")
+        print(f"[kernel] head_sample {shape}: backward bit-identical over two calls, forward "
+              f"over {', '.join(rep)} launches")
     first = None
     for shape, runs in shapes.items():
         m, k, n, xdt = shape
@@ -710,7 +727,7 @@ def check_head_sample(dev, shapes) -> tuple:
               f"Triton K2) forward {t['parent_fwd']:.4f} ms, backward {t['parent_bwd']:.4f} ms "
               f"(forward+backward {t['parent_fwd_bwd']:.4f} against the fused op's "
               f"{t['fused_fwd_bwd']:.4f})")
-    for shape in extra[2:]:  # the larger batches, timed as the sites are
+    for shape in extra[2:]:  # the larger batches and widths, timed as the sites are
         t = head_region_ms(dev, shape, 1)
         bkey = (*shape[:3], torch.finfo(shape[3]).bits // 8)
         print(f"[kernel] head_sample {shape}: forward {t['fused_fwd']:.4f} ms, "
@@ -2854,13 +2871,13 @@ def phase_regions(card: str, dev, timed_rows) -> dict:
 
 _QUALITY = "seq_vae_default"
 _QUALITY_STEPS = 2000
-_QUALITY_SEEDS = tuple(range(8))
+_QUALITY_SEEDS = tuple(range(16))
 _QUALITY_BAND = 0.05
 
 
 def phase_quality(card: str) -> dict:
     """Config 3 default's convergence protocol (`mmvae_torch.bench.quality`)
-    cut to its first 2,000 steps on the card, at train.seed 0-7: the full
+    cut to its first 2,000 steps on the card, at train.seed 0-15: the full
     10,000-clip set, K = 10, logging every 200 steps, an eval of 4 val
     batches every 1,000, then each trained model's reconstruction of 256
     val clips; the launch counters set to 0 just before the first run and
@@ -2870,10 +2887,12 @@ def phase_quality(card: str) -> dict:
     run's val_loss at 2,000 below its val_loss at 1,000, and their mean at
     2,000 within `_QUALITY_BAND` of the reference's one run
     (`docs/assets/seq_vae_r5_default_loss.csv`).  The mean, because one
-    run is a draw as wide as the band: the eight seeds' val_loss at 2,000
-    has a standard deviation of 4.7 % of the reference's number on the
-    card, and each seed's own gap is printed beside the mean's.  Returns
-    {path: its launch counts}."""
+    run is a draw as wide as the band: one seed's val_loss at 2,000 has a
+    standard deviation of 4.7 % of the reference's number on the card, so
+    the mean of 16 seeds has a standard error of about 1.2 points (8
+    seeds': 1.65), and a change of rounding anywhere on the path, which
+    redraws every run, moves the mean by about that much; each seed's own
+    gap is printed beside the mean's.  Returns {path: its launch counts}."""
     import tempfile
 
     from mmvae_torch import ops

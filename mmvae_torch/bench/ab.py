@@ -25,6 +25,7 @@ then one line per path sums it up.  Fails without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import ast
 import hashlib
 import importlib.util
 import json
@@ -166,9 +167,19 @@ def main(argv=None) -> None:
     same = all(r["k5_sha256"] == runs[0]["k5_sha256"] for r in runs)
     print(f"[ab] K5 outputs (forward and gradients, bf16 gates) at {len(K5_SHAPES)} shapes: "
           f"{'bit-identical in every run' if same else 'DIFFER between runs'}")
+    from mmvae_torch.bench.roofline import bound
+
     for shape in next((r["head_ms"] for r in runs if "head_ms" in r), {}):
         print(f"[ab] head {shape} ms: " + "; ".join(
             f"{Path(r['root']).name}: {r['head_ms'][shape]}" for r in runs if "head_ms" in r))
+        # both checkouts' kernels against this tree's bound (one yardstick)
+        m, k, n, xdt = ast.literal_eval(shape)
+        key = (m, k, n, 2 if xdt == "bfloat16" else 4)
+        for kernel, col in (("forward", "fused_fwd"), ("backward", "fused_bwd")):
+            ms, by = bound(f"head_sample_{kernel}", key)
+            print(f"[ab] head {shape} {kernel}: bound {ms:.5f} ms ({by}); share " + "; ".join(
+                f"{Path(r['root']).name}: {100 * ms / r['head_ms'][shape][col]:.1f} %"
+                for r in runs if "head_ms" in r))
     for kernel in ("k5", "k6"):
         for shape in runs[0][f"{kernel}_fwd_bwd_ms"]:
             print(f"[ab] {kernel.upper()} {shape} fwd, bwd ms: " + "; ".join(

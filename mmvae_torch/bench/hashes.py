@@ -10,7 +10,13 @@ bf16 activations at three shapes each (`K5_SHAPES`, `K6_SHAPES`) and with
 f32 activations at configs 3-5's shapes (`F32_K5_SHAPES`, `F32_K6_SHAPES`),
 from seeded inputs, both gate dtypes: K5's saving and residual-free
 forwards and its backward; K6's "save", "hs" and "last" forwards and its
-backward with per-step dhs and with dh_T once.  It prints both runs'
+backward with per-step dhs and with dh_T once.  It hashes the Gaussian
+head's forward (eps drawn from a seed) and backward at the sampling sites
+(`HEAD_SHAPES`), and the loss and every gradient of one step of two paths
+(`PATHS`: config 1, whose only kernels of the repo are the head and K1,
+and config 3, whose K5 has bf16 gates) at full width on a small seeded
+input with eps injected, each run twice in the worker with cuDNN
+deterministic ("not reproducible" where the two differ).  It prints both runs'
 digests and whether they are equal, then how far K5's bf16 forward at
 config 3's shape moved between the checkouts (`FORWARD_SHAPE`: hs, cs and
 the gates, both gate dtypes; the largest difference in bf16 ulps of the
@@ -41,6 +47,12 @@ F32_K6_SHAPES = ((64, 10, 8, 8, 128, True), (64, 20, 8, 8, 128, False),
                  (160, 10, 8, 8, 128, True))
 # K5's bf16 forward compared element by element between the checkouts
 FORWARD_SHAPE = (64, 20, 8, 8, 128, 128)
+# (M, K, N, x dtype): the head at configs 3, 5 (two), 1 and 2, and unaligned
+HEAD_SHAPES = ((64, 8192, 128, "bfloat16"), (16, 256, 128, "float32"),
+               (160, 256, 64, "float32"), (64, 512, 20, "float32"),
+               (128, 4096, 64, "float32"), (5, 37, 3, "bfloat16"))
+# (config, clips or frames of the input, frames a clip): one train step's loss and gradients
+PATHS = (("mlp_vae", 4, 0), ("seq_vae", 2, 4))
 
 
 def _digest(tensors) -> str:
@@ -63,7 +75,52 @@ def digests() -> dict:
     for act, k5_shapes, k6_shapes in ((torch.bfloat16, K5_SHAPES, K6_SHAPES),
                                       (torch.float32, F32_K5_SHAPES, F32_K6_SHAPES)):
         out.update(_act_digests(dev, act, k5_shapes, k6_shapes))
+    out.update(_head_digests(dev))
+    for name, batch, frames in PATHS:
+        first, second = (_path_digest(dev, name, batch, frames) for _ in range(2))
+        out[f"path {name} step"] = first if first == second else "not reproducible"
     return out
+
+
+def _head_digests(dev) -> dict:
+    import torch
+
+    from mmvae_torch.ops import head_kernels as hk
+    from mmvae_torch.ops import kernel_checks as kc
+
+    out = {}
+    for m, k, n, xdt in HEAD_SHAPES:
+        x, w_mu, b_mu, w_lv, b_lv = kc.head_inputs(dev, m, k, n, getattr(torch, xdt), 14)
+        fwd = hk.head_sample_forward_cuda(x, w_mu, b_mu, w_lv, b_lv, 77)
+        cots = kc.head_cotangents(dev, m, n, 15)[1:]
+        grads = hk.head_sample_backward_cuda(x, w_mu, w_lv, fwd[3], *cots)
+        out[f"head {(m, k, n, xdt)}"] = _digest((*fwd, *grads))
+    return out
+
+
+def _path_digest(dev, name: str, batch: int, frames: int) -> str:
+    """One step of config `name` at full width: the loss and every
+    parameter gradient of a seeded batch (`frames` frames a clip; 0: single
+    frames), eps injected, from the config's own initial parameters."""
+    import torch
+
+    from mmvae_torch.configs import get_config
+    from mmvae_torch.ops.dispatch import make_sample_fn
+    from mmvae_torch.ops.elbo_kernels import elbo_reduce
+    from mmvae_torch.train.loop import build_model
+
+    torch.backends.cudnn.deterministic = True
+    cfg = get_config(name)
+    g = torch.Generator().manual_seed(9)
+    shape = (batch, frames, 64, 64) if frames else (batch, 64, 64)
+    x = (torch.rand(shape, generator=g) < 0.35).float().to(dev)
+    eps = torch.randn(batch, cfg.model.kwargs["latent_dim"], generator=g)
+    model = build_model(cfg, device="cpu").to(dev)
+    out = model(x, make_sample_fn(0, {0: eps}))
+    bce, kl = elbo_reduce(out.logits, out.target, out.mu, out.logvar)
+    loss = (bce + kl + out.extra_kl) / batch
+    loss.backward()
+    return _digest((loss.reshape(1), *(p.grad for p in model.parameters())))
 
 
 def _act_digests(dev, act, k5_shapes, k6_shapes) -> dict:
@@ -171,7 +228,8 @@ def main(argv=None) -> int:
         note = "equal" if key not in differ else f"DIFFERS from {runs[0].get(key, 'absent')}"
         print(f"[hashes] {key}: {value} ({note} in {args.other})")
     print(f"[hashes] K5 and K6 outputs, bf16 at {len(K5_SHAPES)} + {len(K6_SHAPES)} shapes and "
-          f"f32 at {len(F32_K5_SHAPES)} + {len(F32_K6_SHAPES)}, both gate dtypes: "
+          f"f32 at {len(F32_K5_SHAPES)} + {len(F32_K6_SHAPES)}, both gate dtypes; the head at "
+          f"{len(HEAD_SHAPES)} shapes; {len(PATHS)} paths' steps: "
           f"{'bit-identical' if not differ else f'{len(differ)} differ: ' + '; '.join(differ)}")
     for name, (ulps, share) in forward_moves(*dirs).items():
         print(f"[hashes] K5 bf16 forward {FORWARD_SHAPE}, {name}: at most {ulps:.2f} bf16 ulps "

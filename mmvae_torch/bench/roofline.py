@@ -14,9 +14,11 @@ is three TF32 passes (3xTF32: each operand split into a TF32 hi and lo
 part, hi hi + hi lo + lo hi) at 494.7 TFLOP/s dense, about 165 TFLOP/s of
 f32 products, so an f32 recurrence is bounded at that rate (at F32_FLOPS,
 67 TFLOP/s outside the tensor cores, a 3xTF32 kernel could read over 100 %
-of its bound).  The others do f32 work outside the tensor cores (the
-Gaussian head's products too: full f32, as the reference computes the
-posterior).
+of its bound).  The Gaussian head's products run on the tensor cores as
+split TF32 too (f32-accurate, as the reference computes the posterior):
+three passes at the TF32 rate, or two where one operand is a bf16 x (exact
+in TF32, so its lo pass is zero and the kernels skip it): the forward and
+dW, not dx = D W.  The others do f32 work outside the tensor cores.
 
 Shapes, as `chip_smoke.path_shapes` keys them:
 
@@ -158,9 +160,14 @@ def bound(name: str, shape) -> Tuple[float, str]:
     """(least milliseconds, "bytes" or "operations") for one call."""
     ops, nbytes = kernel_work(name, shape)
     # the ConvLSTM kernels run their products on the tensor cores: bf16, or
-    # f32 (an activation of 4 bytes) as 3xTF32
+    # f32 (an activation of 4 bytes) as 3xTF32; the head's are split TF32
     if name.startswith("convlstm"):
         peak = TF32_3X_FLOPS if tuple(shape[6:]) == (4,) else BF16_TENSOR_FLOPS
+    elif name.startswith("head_sample"):
+        passes = 3 if shape[3] == 4 else 2  # against x: three passes, two for a bf16 x
+        # the backward's dW takes x's passes and dx three, over equal products
+        peak = TF32_TENSOR_FLOPS / (passes if name == "head_sample_forward"
+                                    else (passes + 3) / 2)
     else:
         peak = F32_FLOPS
     t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES

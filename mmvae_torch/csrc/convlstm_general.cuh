@@ -19,10 +19,9 @@
 // outputs a thread, summed in a fixed order.
 // - forward: per step and tile, K5's x segment (x_t Wx) and the 9 taps
 //   (conv3x3 of h_{t-1}) in two accumulators; the epilogue rounds the x
-//   segment with its bias (K5 with f32 activations) or xg_t (K6) and the
-//   taps to the gate dtype apart and adds them in it, as the TPU kernel
-//   does, or (K5 with bf16 activations) rounds their f32 sum once, as the
-//   wgmma kernels do; then it runs the cell (lstm_cell_fast) on the 4
+//   segment with its bias (K5) or xg_t (K6) and the taps to the gate dtype
+//   apart and adds them in it, as the TPU kernel does; then it runs the
+//   cell (lstm_cell_ieee) on the 4
 //   gates of one channel, which the weight packing puts in one thread's 4
 //   columns (column 4 ch + q);
 // - BPTT: per step a pointwise pass (the cell backward from the saved
@@ -49,6 +48,30 @@ namespace mmvae {
 namespace {
 
 constexpr int GEN_THREADS = 256, GEN_BK = 16, GEN_MAX_BM = 256, GEN_MAX_BN = 64;
+
+// The cell with bf16 gates from IEEE expf, division and tanhf, each op
+// rounded to bf16 as torch's bf16 ops round it, so that from the same
+// pre-activations it gives the plain version's bits (lstm_cell_fast's
+// special-function unit errs by a few f32 ulps, which can flip a bf16
+// rounding); with f32 gates it is lstm_cell_fast, bit for bit.
+template <typename G>
+__device__ __forceinline__ Cell lstm_cell_ieee(float pi, float pf, float pg, float po, float c) {
+  if constexpr (std::is_same<G, float>::value) {
+    return lstm_cell_fast<G>(pi, pf, pg, po, c);
+  } else {
+    auto sig = [](float v) {
+      return round_to<G>(1.f / round_to<G>(1.f + round_to<G>(expf(-v))));
+    };
+    Cell r;
+    r.i = sig(pi);
+    r.f = sig(round_to<G>(pf + 1.f));
+    r.g = round_to<G>(tanhf(pg));
+    r.o = sig(po);
+    r.c = round_to<G>(round_to<G>(r.f * c) + round_to<G>(r.i * r.g));
+    r.h = round_to<G>(r.o * round_to<G>(tanhf(r.c)));
+    return r;
+  }
+}
 
 // The output tile of a pass with `cols` columns: bn columns (16, 32 or 64)
 // and bm = 4096 / bn positions, 4 x 4 outputs a thread; lbn = log2(bn / 4).
@@ -123,11 +146,30 @@ __device__ __forceinline__ void gen_chunk(const GenSmem& sm, const GenTile& tl, 
   __syncthreads();
 }
 
-__device__ __forceinline__ void gen_zero(float (&acc)[4][4]) {
+// The same in f64: the products of f32 operands are exact, and their sum
+// rounds once where it is read.
+__device__ __forceinline__ void gen_chunk(const GenSmem& sm, const GenTile& tl, int ty, int tx,
+                                          double (&acc)[4][4]) {
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < GEN_BK; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(sm.a + k * (tl.bm + 4) + 4 * ty);
+    const float4 b = *reinterpret_cast<const float4*>(sm.b + k * tl.bn + 4 * tx);
+    const double av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fma(av[i], bv[j], acc[i][j]);
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__device__ __forceinline__ void gen_zero(T (&acc)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 }
 
 // The cluster's writes to global memory of this step, seen by all its CTAs.
@@ -173,7 +215,13 @@ __global__ void __launch_bounds__(GEN_THREADS)
     A* hcur = hb + (size_t)(t & 1) * HW * F;
     for (int tile = 0; tile < mtiles * ntiles; ++tile) {
       const int m0 = tile / ntiles * tl.bm, n0 = tile % ntiles * tl.bn;
-      float acc[4][4], xacc[4][4];
+      // with bf16 gates the taps sum in f64: the f32 sums of the kernel and
+      // of the plain version's convolution, in their two orders, round to
+      // bf16 apart often enough that K6's cell state, carried over 20 steps
+      // of a 16 x 16 grid, left its bound
+      using TapAcc = std::conditional_t<std::is_same<G, float>::value, float, double>;
+      TapAcc acc[4][4];
+      float xacc[4][4];
       gen_zero(acc);
       gen_zero(xacc);
       if constexpr (!XG) {
@@ -203,19 +251,15 @@ __global__ void __launch_bounds__(GEN_THREADS)
         for (int q = 0; q < 4; ++q) {
           if constexpr (XG) {
             const size_t row = (b * xg_steps + (xg_steps > 1 ? t : 0)) * HW + p;
-            pre[q] = round_to<G>(round_to<G>(acc[i][q]) +
+            pre[q] = round_to<G>(round_to<G>((float)acc[i][q]) +
                                  round_to<G>(to_f(x[row * F4 + q * F + ch])));
-          } else if constexpr (std::is_same<A, bf16>::value) {
-            // bf16 activations: the x segment with its bias and the taps
-            // rounded once, as the wgmma kernels round them
-            pre[q] = round_to<G>(xacc[i][q] + bg[4 * ch + q] + acc[i][q]);
           } else {
             pre[q] = round_to<G>(round_to<G>(xacc[i][q] + bg[4 * ch + q]) +
-                                 round_to<G>(acc[i][q]));
+                                 round_to<G>((float)acc[i][q]));
           }
         }
         float& c = cs_b[p * F + ch];
-        const Cell r = lstm_cell_fast<G>(pre[0], pre[1], pre[2], pre[3], c);
+        const Cell r = lstm_cell_ieee<G>(pre[0], pre[1], pre[2], pre[3], c);
         c = r.c;
         hcur[p * F + ch] = from_f<A>(r.h);
         const size_t o = (b * Tn + t) * HW + p, last = b * HW + p;

@@ -35,10 +35,10 @@
 // slab summed apart and added into f32 registers (the tensor cores' own
 // additions truncate); the f32 tiles are twice the bf16 ones, so the
 // residuals leave and come back through registers and nothing is staged.
-// f32 K5 rounds the x segment's sum (with the bias) and the taps' to the
-// gate dtype apart before adding them, as the TPU kernel does, and K6 rounds
-// xg to it before adding it to the taps; bf16 K5 rounds their sum once, as
-// it always has (ROADMAP queue 3 says why it stays so).
+// K5 rounds the x segment's sum (with the bias) and the taps' to the gate
+// dtype apart before adding them, as the TPU kernel does (bf16 K5 keeps its
+// x segment as packed bf16 pairs while the taps run), and K6 rounds xg to
+// it before adding it to the taps.
 #pragma once
 
 #include <type_traits>
@@ -224,22 +224,28 @@ __device__ __forceinline__ void keep_frags(const uint32_t (&a)[KS][4]) {
 
 // The LSTM cell with the pointwise chain rounded to the gate dtype G as
 // torch's ops in G round, from pre-activations already rounded to G, and its
-// f32 backward from the saved post-activation gates.  The exponential and
-// the reciprocal come from the special-function unit (__expf, __fdividef):
-// a few f32 ulps, far below the bf16 rounding that follows, and about a
-// fifth of the instructions of IEEE expf, division and tanhf, which matters
-// here because one warpgroup of a CTA runs the whole cell between two steps.
-__device__ __forceinline__ float sigm_fast(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
+// f32 backward from the saved post-activation gates.  The sigmoid is the TPU
+// kernel's 1 / (1 + exp(-v)) with every op rounded to G
+// (convlstm_pallas.py:155-159; with G = float the roundings are no-ops).
+// The exponential and the reciprocal come from the special-function unit
+// (__expf, __fdividef): a few f32 ulps, far below the bf16 rounding that
+// follows, and about a fifth of the instructions of IEEE expf, division and
+// tanhf, which matters here because one warpgroup of a CTA runs the whole
+// cell between two steps.
+template <typename G>
+__device__ __forceinline__ float sigm_fast(float v) {
+  return round_to<G>(__fdividef(1.f, round_to<G>(1.f + round_to<G>(__expf(-v)))));
+}
 __device__ __forceinline__ float tanh_fast(float v) {
   return 1.f - __fdividef(2.f, 1.f + __expf(2.f * v));
 }
 template <typename G>
 __device__ __forceinline__ Cell lstm_cell_fast(float pi, float pf, float pg, float po, float c) {
   Cell r;
-  r.i = round_to<G>(sigm_fast(pi));
-  r.f = round_to<G>(sigm_fast(round_to<G>(pf + 1.f)));
+  r.i = sigm_fast<G>(pi);
+  r.f = sigm_fast<G>(round_to<G>(pf + 1.f));
   r.g = round_to<G>(tanh_fast(pg));
-  r.o = round_to<G>(sigm_fast(po));
+  r.o = sigm_fast<G>(po);
   r.c = round_to<G>(round_to<G>(r.f * c) + round_to<G>(r.i * r.g));
   r.h = round_to<G>(r.o * round_to<G>(tanh_fast(r.c)));
   return r;
@@ -333,6 +339,11 @@ __global__ void __launch_bounds__(rec_threads(F), 1)
   constexpr int ROWS = F32 ? FWD_ROWS_F32 : FWD_ROWS;
   constexpr int SEG0 = XG ? 1 : 0;                // K6 has no x segment
   constexpr int NSTAGED = MODE == kSave ? 6 : 1;  // staged tensors (h, c, 4 gates)
+  // K5 with bf16 activations and gates rounds its x segment (with the bias)
+  // and its taps to bf16 apart, then adds them in bf16, as the TPU kernel
+  // does (convlstm_pallas.py:408-409); with f32 gates the one f32 sum is
+  // the same number
+  constexpr bool SPLIT_X = !F32 && !XG && std::is_same<G, __nv_bfloat16>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   const FwdSmem L = fwd_smem_layout(C, F, !XG, ES);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -478,6 +489,7 @@ __global__ void __launch_bounds__(rec_threads(F), 1)
       // acc: the products, from the bias (K5) or zero (K6); f32 K5 sums the
       // taps' in acc from zero and the bias and the x segment's in xacc
       float acc[NW / 2], xacc[F32 && !XG ? NW / 2 : 1];
+      uint32_t xpk[SPLIT_X ? NW / 4 : 1];
       if constexpr (XG || F32) {
 #pragma unroll
         for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
@@ -522,6 +534,16 @@ __global__ void __launch_bounds__(rec_threads(F), 1)
         const uint32_t xrow_addr = smem_u32(xt[cur] + srow_x * xrow) + (lane >> 4) * 16;
         wgmma_fence();
         for (int seg = SEG0; seg < 10; ++seg) {
+          if constexpr (SPLIT_X) {
+            if (seg == 1) {
+              // K5 with bf16 gates: the x segment with its bias, rounded to
+              // bf16 pairs (half the registers of a second f32 accumulator,
+              // which spilled); the taps' first wgmma then starts acc anew
+              fence_regs(acc);
+#pragma unroll
+              for (int i = 0; i < NW / 4; ++i) xpk[i] = pack_bf16(acc[2 * i], acc[2 * i + 1]);
+            }
+          }
           const bool is_x = !XG && seg == 0;
           int hrow = MROWS;
           if (!is_x) {
@@ -548,13 +570,16 @@ __global__ void __launch_bounds__(rec_threads(F), 1)
             // multiplies zeros by the slot's older, finite contents.  Branches
             // around a wgmma make ptxas serialize all of them.
             const uint32_t slot_addr = smem_u32(ring + slot * L.slot);
+            // the first product of the taps replaces K5's x segment in acc
+            // where SPLIT_X keeps that segment apart
+            const int fresh = SPLIT_X && seg == 1 && off == 0;
             wgmma_fence();
 #pragma unroll
             for (int i = 0; i < ROWS / 16; ++i)
               wgmma_rs<NW, 0>(acc, a[i],
                               smem_desc(slot_addr + (i * 2 * (N / 8) + wg * (NW / 8)) * 128,
                                         N * 16, 128),
-                              128, 1);
+                              128, !(fresh && i == 0));
             wgmma_commit();
             wgmma_wait<0>();
             keep_frags(a);
@@ -587,10 +612,14 @@ __global__ void __launch_bounds__(rec_threads(F), 1)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int i = 4 * (q * J8 + j8) + 2 * hr + e;
-              if constexpr (F32 && !XG)
+              if constexpr (F32 && !XG) {
                 pre[q][e] = round_to<G>(round_to<G>(xacc[i]) + round_to<G>(acc[i]));
-              else
+              } else if constexpr (SPLIT_X) {
+                const float2 xv = pair_f2(xpk[i >> 1]);
+                pre[q][e] = round_to<G>((e ? xv.y : xv.x) + round_to<G>(acc[i]));
+              } else {
                 pre[q][e] = round_to<G>(acc[i]);
+              }
             }
           if constexpr (XG) {
 #pragma unroll

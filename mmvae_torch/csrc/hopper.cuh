@@ -292,6 +292,19 @@ __device__ __forceinline__ void tf32_split(float v, uint32_t& hi, uint32_t& lo) 
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
 }
 
+// d += a b on the tensor cores, TF32 operands (mma.sync m16n8k8, f32
+// accumulation).  Fragments, g = lane / 4, tq = lane % 4: A (16 x 8) a[0]
+// (g, tq), a[1] (g + 8, tq), a[2] (g, tq + 4), a[3] (g + 8, tq + 4); B (8 x
+// 8, k x n) b[0] (tq, g), b[1] (tq + 4, g); D (16 x 8) d[0..1] (g, 2 tq +
+// 0..1), d[2..3] (g + 8, 2 tq + 0..1).  The registers come from any layout.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // ldmatrix.x4 at a shared-memory byte address.
 __device__ __forceinline__ void ldsm_x4_addr(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"

@@ -124,10 +124,11 @@ class Canvas:
 
 def generate_clips(seed: Optional[int], batch: int, *, seq_len: int = 20,
                    image_size: int = 64, num_digits: int = 2, sprites=None,
-                   draws: Optional[Draws] = None, device="cpu") -> torch.Tensor:
+                   draws: Optional[Draws] = None, device="cuda") -> torch.Tensor:
     """Fresh u8 clips (batch, seq_len, image_size, image_size) on `device`
-    (the injected draws' where given): drawn from `seed`, or from the
-    injected `draws` (then `seed` may be None)."""
+    (the card unless the caller names the CPU; the injected draws' device
+    where given): drawn from `seed`, or from the injected `draws` (then
+    `seed` may be None)."""
     dev = draws.digits.device if draws is not None else device
     canvas = Canvas(batch, seq_len, image_size, sprites, dev)
     return canvas.render(draws if draws is not None else canvas.draw(seed, num_digits))

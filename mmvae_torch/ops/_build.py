@@ -27,7 +27,6 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -53,7 +52,7 @@ _SIGNATURES = {
     "mmvae_convlstm_scan_bwd": [_P] * 11 + [_I] * 9 + [_P, _P],
     "mmvae_convlstm_scan_layout": [_I, _I, _P],
     "mmvae_head_sample_fwd": [_P] * 12 + [_I] * 4 + [_U, _P, _I, _I, _P],
-    "mmvae_head_sample_bwd": [_P] * 12 + [_I] * 4 + [_P],
+    "mmvae_head_sample_bwd": [_P] * 14 + [_I] * 4 + [_P],
     "mmvae_head_sample_layout": [_I] * 4 + [_P],
 }
 _RESTYPES = {"mmvae_convlstm_proj_layout": None, "mmvae_convlstm_scan_layout": None,
@@ -77,7 +76,7 @@ class KernelLibrary:
         return getattr(self.lib, name)
 
 
-_LIBRARY: Optional[KernelLibrary] = None
+_LIBRARIES: dict = {}
 
 
 def _nvcc() -> str:
@@ -94,12 +93,14 @@ def sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def library() -> KernelLibrary:
-    """Build (once per source hash) and load the kernel library."""
-    global _LIBRARY
-    if _LIBRARY is not None:
-        return _LIBRARY
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library(defines: tuple = ()) -> KernelLibrary:
+    """Build (once per source hash) and load the kernel library; `defines`
+    adds flags to NVCC_FLAGS for a diagnostic build (`bench.head_phases`:
+    `-DHEAD_PHASE_TIMES`), a library of its own."""
+    if defines in _LIBRARIES:
+        return _LIBRARIES[defines]
+    flags = (*NVCC_FLAGS, *defines)
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -111,20 +112,21 @@ def library() -> KernelLibrary:
         with open(BUILD_DIR / "lock", "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes or the process ends
             if not out.exists():
-                log = _compile(out)
-    _LIBRARY = KernelLibrary(out, time.perf_counter() - t0, log)
-    return _LIBRARY
+                log = _compile(out, flags)
+    _LIBRARIES[defines] = KernelLibrary(out, time.perf_counter() - t0, log)
+    return _LIBRARIES[defines]
 
 
-def _compile(out: Path) -> str:
-    """nvcc each source into an object, all at once, then link `out`."""
+def _compile(out: Path, flags: tuple) -> str:
+    """nvcc each source into an object with `flags`, all at once, then link
+    `out`."""
     objdir = out.with_suffix(f".{os.getpid()}.objs")
     objdir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = objdir / f"{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
         procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True)))
     log, failed = "", []

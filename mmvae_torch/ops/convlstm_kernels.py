@@ -54,12 +54,22 @@ from mmvae_torch.ops import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _sigmoid(v: torch.Tensor) -> torch.Tensor:
+    """The gates' sigmoid in their dtype: with bf16 gates 1 / (1 + exp(-v))
+    with every op rounded to bf16, as the TPU kernel computes it
+    (`convlstm_pallas.py:155-159`); with f32 gates torch's."""
+    if v.dtype != torch.bfloat16:
+        return torch.sigmoid(v)
+    one = v.new_ones(())
+    return one / (one + torch.exp(-v))
+
+
 def _split_gates(gates: torch.Tensor, feat: int):
     i, f, g, o = gates.split(feat, dim=-1)
-    i = torch.sigmoid(i)
-    f = torch.sigmoid(f + 1.0)
+    i = _sigmoid(i)
+    f = _sigmoid(f + 1.0)
     g = torch.tanh(g)
-    o = torch.sigmoid(o)
+    o = _sigmoid(o)
     return i, f, g, o
 
 
@@ -112,12 +122,10 @@ def proj_forward_plain(x, wx, bx, w, c0, h0, gate_dtype, save: bool, tf32_operan
     hs, cs, ga = [], [], []
     for t in range(t_len):
         hg = _hidden_conv(op(h), w_oihw, height, width)
-        if act == torch.float32:
-            # the TPU kernel's rounding: projection and conv each rounded to
-            # the gate dtype, then added in it (convlstm_pallas.py:405-406)
-            gates = xg[:, t].to(gate_dtype) + hg.to(gate_dtype)
-        else:  # bf16 activations: the sum rounded once, as the kernels have it
-            gates = (xg[:, t] + hg).to(gate_dtype)
+        # the TPU kernel's rounding: the projection (with its bias) and the
+        # conv each rounded to the gate dtype, then added in it
+        # (convlstm_pallas.py:408-409)
+        gates = xg[:, t].to(gate_dtype) + hg.to(gate_dtype)
         i, f, g, o = _split_gates(gates, feat)
         c = f * c + i * g
         h = o * torch.tanh(c)

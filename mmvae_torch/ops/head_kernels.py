@@ -21,10 +21,12 @@ reparameterize_pallas (z = mu + exp(logvar / 2) eps) with its VJP
   db in f32.
 
 For CUDA tensors the wrappers launch the kernels (one forward launch: the
-products, bias, draw and sample; one backward launch: dx, dW, db) or raise;
-for CPU tensors they run the plain versions, which are the models' route
-before the fusion: two `linear_f32` and `reparameterize_plain`, and the
-same numbers.  The design notes are in the CUDA source.
+products, bias, draw and sample; one backward launch: dx, dW, db; the
+products on the tensor cores as split TF32, f32-accurate; any batch and
+any latent width) or raise; for CPU tensors they run the plain versions,
+which are the models' route before the fusion: two `linear_f32` and
+`reparameterize_plain`, and the same numbers.  The design notes are in
+the CUDA source.
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on the H100
 
 # Geometry, as csrc/head_sample.cu computes it.
-_FW_MT, _FW_NT, _FW_KC, _FW_STAGES, _FW_MAX_SPLIT = 64, 8, 128, 4, 8
-_BW_KT, _BW_FILL, _BW_MAX_PARTS = 32, 132, 32
+_FW_MT, _FW_NT, _FW_KC, _FW_MAX_STAGES, _FW_MAX_SPLIT = 64, 8, 128, 8, 8
+_BW_KT, _BW_MR, _BW_MAX_LB = 64, 64, 128
 
 
 def _up(v: int, m: int) -> int:
@@ -53,33 +55,37 @@ def _up(v: int, m: int) -> int:
 
 def head_geometry(m: int, k: int, n: int, x_itemsize: int) -> dict:
     """The kernels' launch geometry at x (m, k), latent n: the forward's
-    K splits (CTAs a tile), its K slice a CTA, its grid and shared bytes;
-    the backward's grid (K tiles of 32 columns, CTAs sharing each tile),
-    the rows of the batch a block holds (the whole batch where it fits,
-    else the fewest equal blocks that do) and shared bytes (they must fit
-    the card: only the latent width can outgrow it)."""
+    K splits (CTAs a tile), its K slice a CTA, its grid, ring slots and
+    shared bytes; the backward's grid (K tiles of 64 columns, blocks of
+    latent columns), the latent columns a block (the latent width rounded
+    up to a power of two, at least 8 and at most 128), the rows of the
+    batch a block of D and x holds, and shared bytes, which depend on
+    neither the batch nor, past 128, the latent width."""
     splits = min(max(-(-k // _FW_KC), 1), _FW_MAX_SPLIT)
-    stage = _FW_MT * (_FW_KC + 16 // x_itemsize) * x_itemsize + (2 * _FW_NT * (_FW_KC + 4) + 16) * 4
-    wr, tiles = _up(2 * n, 8), -(-k // _BW_KT)
-    fixed, row = wr * (_BW_KT + 4) * 4, (wr + 4) * 4 + (_BW_KT + 16 // x_itemsize) * x_itemsize
-    cap = max((SMEM_LIMIT - fixed) // row // 8 * 8, 8)
-    blocks = -(-m // cap)
-    rows = _up(-(-m // blocks), 8)
+    stage = _FW_MT * (_FW_KC + 16 // x_itemsize) * x_itemsize + 2 * _FW_NT * (_FW_KC + 4) * 4
+    stages = min(_FW_MAX_STAGES, SMEM_LIMIT // stage)
+    tiles, lb = -(-k // _BW_KT), 8
+    while lb < n and lb < _BW_MAX_LB:
+        lb *= 2
     return {
         "fwd_splits": splits,
         "fwd_kslice": _up(-(-k // splits), _FW_KC),
         "fwd_grid": (splits, -(-n // _FW_NT), -(-m // _FW_MT)),
-        "fwd_smem": _FW_STAGES * stage,
-        "bwd_grid": (tiles, min(max(_BW_FILL // tiles, 1), _BW_MAX_PARTS)),
-        "bwd_rows": rows,
-        "bwd_smem": fixed + rows * row,
+        "fwd_stages": stages,
+        "fwd_smem": stages * stage,
+        "bwd_grid": (tiles, -(-n // lb)),
+        "bwd_latent": lb,
+        "bwd_rows": _BW_MR,
+        # the W tile in f32, D's TF32 hi and lo cores, x^T's hi and lo cores
+        "bwd_smem": 3 * (2 * lb) * _BW_KT * 4 + 2 * _BW_MR * _BW_KT * 4,
     }
 
 
 def library_layout(m: int, k: int, n: int, x_dtype) -> tuple:
-    """(K splits, K slice, forward smem, backward smem, backward CTAs a K
-    tile) as the CUDA library computes them (needs the built library)."""
-    out = (ctypes.c_int * 5)()
+    """(K splits, K slice, forward smem, backward smem, backward K tiles,
+    backward latent columns a block) as the CUDA library computes them
+    (needs the built library)."""
+    out = (ctypes.c_int * 6)()
     _build.library().mmvae_head_sample_layout(m, k, n, _DTYPE_CODE[x_dtype], out)
     return tuple(out)
 
@@ -146,10 +152,6 @@ def _check(what, x, w_mu, w_lv, **others):
                              f"{tuple(t.shape)} (contiguous={t.is_contiguous()})")
     if m == 0 or k == 0 or n == 0:
         raise ValueError(f"{what}: empty shape (M, K, N) = ({m}, {k}, {n})")
-    smem = head_geometry(m, k, n, x.element_size())["bwd_smem"]
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{what}: latent width N = {n} needs {smem} bytes of shared memory in "
-                         f"the backward, the card has {SMEM_LIMIT}")
     return m, k, n
 
 
@@ -157,7 +159,8 @@ _TICKETS = {}
 
 
 def tickets(device, stream: int, count: int) -> torch.Tensor:
-    """The forward's tile tickets for launches on `stream` (a CUDA stream
+    """The tickets of both kernels (the forward's one a tile, the
+    backward's one a K tile) for launches on `stream` (a CUDA stream
     handle) of `device`: int32 zeros, which every launch leaves zero (its
     last CTA a tile resets its ticket).  Launches on one stream run one
     after another, so they can share a buffer; two streams never do, so
@@ -166,7 +169,7 @@ def tickets(device, stream: int, count: int) -> torch.Tensor:
     captured on one stream are replayed one at a time."""
     buf = _TICKETS.get((device, stream))
     if buf is None or buf.numel() < count:
-        buf = torch.zeros(max(count, 64), device=device, dtype=torch.int32)
+        buf = torch.zeros(max(count, 4096), device=device, dtype=torch.int32)
         _TICKETS[(device, stream)] = buf
     return buf
 
@@ -200,15 +203,20 @@ def head_sample_backward_cuda(x, w_mu, w_lv, diff, g_mu, g_lv, g_z):
     m, k, n = _check("head_sample_backward", x, w_mu, w_lv, diff=(diff, "mn"),
                      g_mu=(g_mu, "mn"), g_logvar=(g_lv, "mn"), g_z=(g_z, "mn"))
     dev = x.device
+    tiles, blocks = head_geometry(m, k, n, x.element_size())["bwd_grid"]
     dx = torch.empty_like(x)
     f32 = dict(device=dev, dtype=torch.float32)
     dw = (torch.empty(n, k, **f32), torch.empty(n, k, **f32))
     db = (torch.empty(n, **f32), torch.empty(n, **f32))
+    stream = _build.stream_ptr(dev)
+    # partial dx of each latent block, summed by the last CTA of a K tile
+    scratch = torch.empty(tiles * blocks * m * _BW_KT, **f32) if blocks > 1 else None
     ptr = (lambda t: None if t is None else t.data_ptr())
     err = _build.library().mmvae_head_sample_bwd(
         x.data_ptr(), w_mu.data_ptr(), w_lv.data_ptr(), diff.data_ptr(), ptr(g_mu), ptr(g_lv),
         ptr(g_z), dx.data_ptr(), dw[0].data_ptr(), dw[1].data_ptr(), db[0].data_ptr(),
-        db[1].data_ptr(), m, k, n, _DTYPE_CODE[x.dtype], _build.stream_ptr(dev),
+        db[1].data_ptr(), ptr(scratch), tickets(dev, stream, tiles).data_ptr(), m, k, n,
+        _DTYPE_CODE[x.dtype], stream,
     )
     _build.check(err, "head_sample_backward")
     head_sample_backward.launches += 1

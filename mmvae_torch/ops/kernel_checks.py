@@ -17,14 +17,17 @@ operands to the activation dtype.  With bf16 activations:
 - the residual-free forwards equal to the saving one exactly;
 - both backward passes from the same residuals (an f32 chain whatever the
   gate dtype): each gradient within 2 bf16 ulps of its largest |ref|;
-- the Gaussian head and its sample, full f32 products on both sides in
-  other orders: mu, logvar, z (eps injected), z - mu and every f32
-  gradient within F32_UNITS f32 units u = sqrt(L) 2^-24 max|ref|, L the
-  length of the sums behind the output (K forward; K + 2N + M for the
-  gradients, which carry the forward's z - mu); a bf16 dx within 0.05.
-  The limit sits between the kernel's readings and those of the same
-  products with their operands rounded to TF32 (`head_tf32_control`),
-  which a 1xTF32 kernel would show, so a kernel that left f32 fails it.
+- the Gaussian head and its sample, f32-accurate products on both sides
+  (the kernels' split TF32 against the plain f32) in other orders: mu,
+  logvar, z (eps injected), z - mu and every f32 gradient within
+  F32_UNITS f32 units u = sqrt(L) 2^-24 max|ref|, L the length of the
+  sums behind the output (K forward; K + 2N + M for the gradients, which
+  carry the forward's z - mu); a bf16 dx within 0.05.  The limit sits
+  between the kernel's readings and those of the same products with their
+  operands rounded to TF32 (`head_tf32_control`), which a 1xTF32 kernel
+  would show, so a kernel that left f32 fails it.  A bf16 x's TF32 lo
+  part is zero, and the bf16 kernels, which skip its pass, equal the f32
+  kernels on the same x cast to f32 bit for bit (`head_lo_pass_same`).
 
 The same readings hold K5 and K6 at every width they take, the 4-CTA
 ones (F = 160-256) included, which `chip_smoke.py`'s phase 11 compares at
@@ -549,6 +552,22 @@ def head_backward_repeatable(dev, shape, seed: int = 24) -> dict:
     first = hk.head_sample_backward_cuda(x, w_mu, w_lv, diff, *cot)
     second = hk.head_sample_backward_cuda(x, w_mu, w_lv, diff, *cot)
     return {nm: torch.equal(a, b) for nm, a, b in zip(HEAD_GRADS, first, second)}
+
+
+def head_lo_pass_same(dev, shape, seed: int = 26) -> dict:
+    """A bf16 x is exact in TF32, so the kernels skip its zero lo pass: the
+    bf16 kernels (two passes against x) against the f32 kernels (three) on
+    the same x cast to f32, forward (eps drawn) and backward, {output or
+    gradient name: bit-identical}; the f32 dx is rounded to bf16 first."""
+    m, k, n, x_dtype = shape
+    x, w_mu, b_mu, w_lv, b_lv = head_inputs(dev, m, k, n, x_dtype, seed)
+    cot = head_cotangents(dev, m, n, seed + 1)[1:]
+    runs = []
+    for xs in (x, x.float()):
+        fwd = hk.head_sample_forward_cuda(xs, w_mu, b_mu, w_lv, b_lv, 5)
+        dx, *rest = hk.head_sample_backward_cuda(xs, w_mu, w_lv, fwd[3], *cot)
+        runs.append((*fwd, dx.to(x.dtype), *rest))
+    return {nm: torch.equal(a, b) for nm, a, b in zip(HEAD_OUTS + HEAD_GRADS, *runs)}
 
 
 def head_forward_repeatable(dev, shape, copies: int = 20, reps: int = 10,

@@ -4,12 +4,14 @@ against the JAX package on the CPU:
     JAX_PLATFORMS=cpu python tests/_rounding_variants.py [--draws 0 1 2]
 
 - `port`: the plain K5 and K6 of `mmvae_torch.ops.convlstm_kernels` as
-  they are: with bf16 activations K5 rounds x_t Wx + bx + conv3x3(h) to
-  the gate dtype once, and every sigmoid is torch's, rounded once;
-- `apart`: K5 rounds the projection (with its bias) and the taps apart,
-  then adds them in the gate dtype (`convlstm_pallas.py:408-409`);
-- `tpu`: that, and the sigmoid as the TPU kernels compute it, 1 / (1 +
-  exp(-x)) with each op rounded to the gate dtype (`:155-159`).
+  they are: K5 rounds the projection (with its bias) and the taps to the
+  gate dtype apart, then adds them in it (`convlstm_pallas.py:408-409`),
+  and with bf16 gates every sigmoid is 1 / (1 + exp(-x)) with each op
+  rounded to the gate dtype, as the TPU kernels compute it (`:155-159`);
+- `apart`: that rounding of K5's sum, with torch's sigmoid, rounded once;
+- `once`: with bf16 activations K5 rounds x_t Wx + bx + conv3x3(h) to the
+  gate dtype once, and torch's sigmoid (the port's rounding before it
+  took the TPU kernels').
 
 For each it prints how many of the terminal (c_T, h_T) elements of a bf16
 recurrence (B = 2, T = 3, 4x4, C = F = 16, bf16 gates) differ from
@@ -54,10 +56,9 @@ TINY = dict(latent_dim=8, enc_channels=(8, 128), lstm_features=8, image_size=32,
 PORT_FORWARD, PORT_GATES = ck.proj_forward_plain, ck._split_gates
 
 
-def _forward_apart(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
-    """`proj_forward_plain` with the projection and the taps rounded to the
-    gate dtype apart for every activation dtype (the port does so for f32
-    only)."""
+def _forward_once(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
+    """`proj_forward_plain` with x_t Wx + bx + conv3x3(h) rounded to the
+    gate dtype once where the activations are bf16."""
     act = x.dtype
     batch, t_len, height, width, cin = x.shape
     feat = wx.shape[1] // 4
@@ -70,7 +71,10 @@ def _forward_apart(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
     hs, cs, ga = [], [], []
     for t in range(t_len):
         hg = ck._hidden_conv(op(h), w_oihw, height, width)
-        gates = xg[:, t].to(gate_dtype) + hg.to(gate_dtype)
+        if act == torch.float32:
+            gates = xg[:, t].to(gate_dtype) + hg.to(gate_dtype)
+        else:
+            gates = (xg[:, t] + hg).to(gate_dtype)
         i, f, g, o = ck._split_gates(gates, feat)
         c = f * c + i * g
         h = o * torch.tanh(c)
@@ -83,18 +87,13 @@ def _forward_apart(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
     return h.to(act), c.to(act)
 
 
-def _sigmoid(v):
-    one = v.new_ones(())
-    return one / (one + torch.exp(-v))
-
-
-def _gates_tpu(gates, feat):
+def _gates_torch(gates, feat):
     i, f, g, o = gates.split(feat, dim=-1)
-    return _sigmoid(i), _sigmoid(f + 1.0), torch.tanh(g), _sigmoid(o)
+    return torch.sigmoid(i), torch.sigmoid(f + 1.0), torch.tanh(g), torch.sigmoid(o)
 
 
-VARIANTS = {"port": (PORT_FORWARD, PORT_GATES), "apart": (_forward_apart, PORT_GATES),
-            "tpu": (_forward_apart, _gates_tpu)}
+VARIANTS = {"port": (PORT_FORWARD, PORT_GATES), "apart": (PORT_FORWARD, _gates_torch),
+            "once": (_forward_once, _gates_torch)}
 
 
 def use(variant: str) -> None:

@@ -389,13 +389,16 @@ def test_fused_train_steps_launch_k5_and_k6(dev, name):
 # The sampling sites at full width (M, K, N, x dtype): configs 3, 5 (two),
 # 1 and 2; then unaligned shapes, and batches past one 64-row block of the
 # backward (config 3 at batch 256, config 5 at batch 32; an unaligned 150
-# rows).
+# rows); then latent widths past 656 (several latent blocks in the
+# backward, their dx partials summed by the last CTA of a K tile).
 SITES = [(64, 8192, 128, torch.bfloat16), (16, 256, 128, torch.float32),
          (160, 256, 64, torch.float32), (64, 512, 20, torch.float32),
          (128, 4096, 64, torch.float32)]
+WIDE_HEADS = [(64, 8192, 657, torch.bfloat16), (64, 8192, 1024, torch.bfloat16),
+              (64, 256, 1024, torch.float32)]
 HEAD_SHAPES = SITES + [(5, 37, 3, torch.bfloat16), (70, 300, 21, torch.float32),
                        (3, 1100, 9, torch.float32), (256, 8192, 128, torch.bfloat16),
-                       (320, 256, 64, torch.float32), (150, 300, 21, torch.float32)]
+                       (320, 256, 64, torch.float32), (150, 300, 21, torch.float32)] + WIDE_HEADS
 
 
 @pytest.mark.parametrize("shape", HEAD_SHAPES, ids=str)
@@ -406,13 +409,13 @@ def test_head_kernels_match_plain(dev, shape):
     kernel_checks.compare_head(dev, shape).check(f"head_sample {shape}")
 
 
-@pytest.mark.parametrize("shape", SITES, ids=str)
+@pytest.mark.parametrize("shape", SITES + WIDE_HEADS, ids=str)
 def test_head_backward_is_bit_reproducible(dev, shape):
     same = kernel_checks.head_backward_repeatable(dev, shape)
     assert all(same.values()), same
 
 
-@pytest.mark.parametrize("shape", SITES + HEAD_SHAPES[8:10], ids=str)
+@pytest.mark.parametrize("shape", SITES + HEAD_SHAPES[8:10] + WIDE_HEADS, ids=str)
 def test_head_forward_is_bit_reproducible(dev, shape):
     """200 launches warm, cold (a CUDA graph over 20 input copies) and on
     two streams at once, each bit-identical to the first launch."""
@@ -420,12 +423,22 @@ def test_head_forward_is_bit_reproducible(dev, shape):
     assert all(same.values()), same
 
 
-@pytest.mark.parametrize("shape", SITES, ids=str)
+@pytest.mark.parametrize("shape", SITES + WIDE_HEADS, ids=str)
 def test_head_tolerance_rejects_tf32(dev, shape):
     """The f32 limit of `compare_head` rejects the same products with their
-    operands rounded to TF32, and the kernels pass it."""
+    operands rounded to TF32 (what a 1xTF32 head would read), and the
+    kernels pass it (`test_head_kernels_match_plain`)."""
     ctrl = kernel_checks.head_tf32_control(dev, shape)
     assert min(ctrl.values()) > kernel_checks.F32_UNITS, ctrl
+
+
+@pytest.mark.parametrize("shape", [s for s in HEAD_SHAPES if s[3] == torch.bfloat16], ids=str)
+def test_head_bf16_x_skips_its_zero_lo_pass(dev, shape):
+    """A bf16 x is exact in TF32: the bf16 kernels, without x's lo pass,
+    give the bits of the f32 kernels (three passes) on x cast to f32,
+    forward and backward (dx rounded to bf16)."""
+    same = kernel_checks.head_lo_pass_same(dev, shape)
+    assert all(same.values()), same
 
 
 @pytest.mark.parametrize("shape", HEAD_SHAPES, ids=str)
@@ -433,7 +446,7 @@ def test_head_layout_matches_the_wrapper(dev, shape):
     m, k, n, x_dtype = shape
     geo = head_kernels.head_geometry(m, k, n, torch.finfo(x_dtype).bits // 8)
     want = (geo["fwd_splits"], geo["fwd_kslice"], geo["fwd_smem"], geo["bwd_smem"],
-            geo["bwd_grid"][1])
+            geo["bwd_grid"][0], geo["bwd_latent"])
     assert head_kernels.library_layout(m, k, n, x_dtype) == want
 
 

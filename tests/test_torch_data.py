@@ -106,7 +106,18 @@ def test_ongen_per_frame_branch_with_jax_draws_is_byte_identical():
 
 
 def _clips(seed, batch, **kw):
-    return ongen.generate_clips(seed, batch, **kw)
+    return ongen.generate_clips(seed, batch, device="cpu", **kw)
+
+
+def test_generate_clips_runs_on_the_card_unless_told():
+    """Like `Canvas` and the port's other entry points, `generate_clips`
+    takes the card by default; a caller on the CPU names it."""
+    import inspect
+
+    for fn in (ongen.generate_clips, ongen.Canvas):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    clips = ongen.generate_clips(3, 2, seq_len=3, image_size=32, device="cpu")
+    assert clips.device.type == "cpu" and clips.shape == (2, 3, 32, 32)
 
 
 def test_ongen_shapes_and_determinism():
@@ -171,8 +182,8 @@ def test_ongen_custom_bank_identities_are_uniform():
     appears a fair share of the clips."""
     bank = _const_bank()
     values = (bank[:, 0, 0] * 255).astype(np.uint8)
-    clips = ongen.generate_clips(5, 48, seq_len=4,
-                                 image_size=32, num_digits=1, sprites=bank).numpy()
+    clips = ongen.generate_clips(5, 48, seq_len=4, image_size=32, num_digits=1, sprites=bank,
+                                 device="cpu").numpy()
     for frame in clips.reshape(-1, 32, 32):
         nz = np.argwhere(frame > 0)
         assert len(nz) == 64 and tuple(nz.max(0) - nz.min(0)) == (7, 7)

@@ -471,7 +471,7 @@ from mmvae_torch.ops import _build
 _build.BUILD_DIR = Path(sys.argv[1])
 
 
-def compile_(out):
+def compile_(out, flags):
     print("compiled", flush=True)
     time.sleep(1.0)
     out.write_bytes(b"library")

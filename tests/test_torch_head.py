@@ -23,7 +23,8 @@ import jax.numpy as jnp
 import torch
 
 from mmvae_tpu.models.base import GaussianHead as JGaussianHead
-from mmvae_torch.bench.roofline import bound, kernel_work
+from mmvae_torch.bench.roofline import (HBM_BYTES, TF32_3X_FLOPS, TF32_TENSOR_FLOPS, bound,
+                                        kernel_work)
 from mmvae_torch.configs import get_config
 from mmvae_torch.models.base import GaussianHead, head_and_sample
 from mmvae_torch.ops import dispatch, elbo_kernels, head_kernels, seeds
@@ -31,9 +32,10 @@ from mmvae_torch.train.loop import build_model
 
 # (M, K, N): the sampling sites scaled down (seq_vae / pred_vae: B x g*g*F
 # -> latent; hier_vae global: B x chunk_feature -> global latent; hier_vae
-# chunk: B*K x 256 -> chunk latent), and one unaligned shape.
+# chunk: B*K x 256 -> chunk latent), one unaligned shape, and a latent
+# width past 656 (several latent blocks in the kernels' backward).
 SITES = {"seq": (4, 2 * 2 * 8, 8), "hier_global": (3, 16, 8), "hier_chunk": (10, 16, 4),
-         "unaligned": (5, 37, 3)}
+         "unaligned": (5, 37, 3), "wide": (4, 64, 700)}
 
 
 @pytest.fixture(autouse=True)
@@ -207,27 +209,44 @@ def test_head_and_sample_takes_the_injected_eps():
 
 def test_head_roofline_counts():
     """(64, 8192, 128) with bf16 x, the flagship head: the forward is 268
-    MFLOP of f32 products over 9.57 MB, the backward twice the products over
-    19.0 MB; both bound by the operations (67 TFLOP/s f32)."""
+    MFLOP of f32-accurate products over 9.57 MB, the backward twice the
+    products over 19.0 MB.  Counted at the split-TF32 rate (two TF32 passes
+    against a bf16 x, three for dx), both are bound by their bytes: 2.9 and
+    5.7 us."""
     shape = (64, 8192, 128, 2)
     flops, nbytes = kernel_work("head_sample_forward", shape)
     assert flops == pytest.approx(268.4e6, rel=1e-3)
     assert nbytes == pytest.approx(9.57e6, rel=1e-3)
-    assert bound("head_sample_forward", shape) == (pytest.approx(0.0040, rel=0.01), "operations")
+    assert bound("head_sample_forward", shape) == (pytest.approx(0.00286, rel=0.01), "bytes")
+    assert flops / TF32_3X_FLOPS < nbytes / HBM_BYTES
     flops, nbytes = kernel_work("head_sample_backward", shape)
     assert flops == pytest.approx(536.9e6, rel=1e-3)
     assert nbytes == pytest.approx(19.0e6, rel=1e-2)
-    assert bound("head_sample_backward", shape) == (pytest.approx(0.0080, rel=0.01), "operations")
+    assert bound("head_sample_backward", shape) == (pytest.approx(0.00567, rel=0.01), "bytes")
+    # a latent width of 1024 at K = 256 with f32 x: 1.10 GFLOP over 19.9 MB,
+    # bound by its operations at the three-pass rate
+    assert bound("head_sample_forward", (1024, 256, 1024, 4)) == (
+        pytest.approx(1.101e9 * 3 / TF32_TENSOR_FLOPS * 1e3, rel=1e-2), "operations")
+    # a batch of 256 with bf16 x: the forward's 1.07 GFLOP take two passes
+    # (4.34 us, not the 6.5 of three), the backward's dW two and dx three
+    shape = (256, 8192, 128, 2)
+    assert bound("head_sample_forward", shape) == (pytest.approx(0.00434, rel=0.01),
+                                                   "operations")
+    assert bound("head_sample_backward", shape) == (pytest.approx(0.01085, rel=0.01),
+                                                    "operations")
 
 
 @pytest.mark.parametrize("shape", [(64, 8192, 128, 2), (16, 256, 128, 4), (160, 256, 64, 4),
-                                   (5, 37, 3, 2), (256, 8192, 128, 2), (320, 256, 64, 4)])
+                                   (5, 37, 3, 2), (256, 8192, 128, 2), (320, 256, 64, 4),
+                                   (64, 8192, 657, 2), (64, 8192, 1024, 2), (64, 256, 1024, 4)])
 def test_head_geometry_fits_the_card(shape):
-    """Every site's kernels fit in shared memory, at the configs' batches
-    and at larger ones; the forward's K slices cover K; the flagship head's
-    forward runs 128 CTAs, its backward 256.  The backward runs the batch
-    in blocks of rows, one at each site; no batch outgrows shared memory,
-    only a latent width past 656."""
+    """The kernels fit in shared memory at every site, at larger batches and
+    at latent widths past 656; the forward's K slices cover K; the
+    backward's K tiles cover K and its latent blocks N, at most 128 latent
+    columns a block.  The flagship head's forward runs 128 CTAs, its
+    backward 128 (one latent block).  The backward's shared bytes depend on
+    neither the batch nor, past 128, the latent width, so every latent
+    width fits, N = 657 among them."""
     m, k, n, xb = shape
     geo = head_kernels.head_geometry(m, k, n, xb)
     assert geo["fwd_smem"] <= head_kernels.SMEM_LIMIT
@@ -235,16 +254,28 @@ def test_head_geometry_fits_the_card(shape):
     assert 1 <= geo["fwd_splits"] <= 8
     assert geo["fwd_splits"] * geo["fwd_kslice"] >= k
     assert (geo["fwd_splits"] - 1) * geo["fwd_kslice"] < k
+    assert geo["fwd_grid"][1] * 8 >= n and geo["fwd_grid"][2] * 64 >= m
+    tiles, blocks = geo["bwd_grid"]
+    lb = geo["bwd_latent"]
+    assert lb % 8 == 0 and 8 <= lb <= 128
+    assert tiles * 64 >= k > (tiles - 1) * 64
+    assert blocks * lb >= n > (blocks - 1) * lb
+    assert geo["bwd_rows"] == 64
+    assert lb >= min(n, 128) and lb & (lb - 1) == 0  # a power of two
     if shape == (64, 8192, 128, 2):
-        assert geo["fwd_grid"] == (8, 16, 1) and geo["bwd_grid"] == (256, 1)
-    if k == 256:  # config 5's heads: 8 tiles of 32 columns, 16 CTAs each
-        assert geo["bwd_grid"] == (8, 16)
-    rows = geo["bwd_rows"]
-    assert rows % 8 == 0 and rows < m + 8  # equal blocks of whole groups of 8 rows
-    if shape in ((64, 8192, 128, 2), (16, 256, 128, 4), (160, 256, 64, 4)):
-        assert rows >= m  # the sites: one block
+        assert geo["fwd_grid"] == (8, 16, 1) and geo["fwd_stages"] == 8
+        assert geo["fwd_smem"] == 8 * (64 * 136 * 2 + 16 * 132 * 4) == 206848
+        assert geo["bwd_grid"] == (128, 1) and lb == 128
+        # the W tile in f32, D's TF32 hi and lo cores, x^T's hi and lo cores
+        assert geo["bwd_smem"] == 256 * 64 * 4 * 3 + 2 * 64 * 64 * 4 == 229376
+    if (k, n) == (256, 128):  # config 5's global head: 4 K tiles, one latent block
+        assert geo["bwd_grid"] == (4, 1) and lb == 128
+    if n > 128:
+        assert lb == 128 and blocks == -(-n // 128)
     big = head_kernels.head_geometry(100_000, k, n, xb)
-    assert big["bwd_smem"] <= head_kernels.SMEM_LIMIT and big["bwd_rows"] >= 8
+    assert big["bwd_smem"] == geo["bwd_smem"] and big["bwd_grid"] == geo["bwd_grid"]
     for b in (4, 2):
-        assert head_kernels.head_geometry(100_000, 64, 656, b)["bwd_smem"] <= head_kernels.SMEM_LIMIT
-        assert head_kernels.head_geometry(1, 64, 657, b)["bwd_smem"] > head_kernels.SMEM_LIMIT
+        widest = max(head_kernels.head_geometry(64, 8192, w, b)["bwd_smem"]
+                     for w in range(1, 4097))
+        assert widest <= head_kernels.SMEM_LIMIT
+        assert head_kernels.head_geometry(1, 64, 657, b)["bwd_smem"] <= head_kernels.SMEM_LIMIT
