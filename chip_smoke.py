@@ -196,8 +196,9 @@ Phases, each raising on failure (the script catches nothing):
    f32, the f32 probe), every mode, both gate dtypes, against their plain
    versions at phase 3's limits, each backward twice bit-identical, every
    launch on the general route; the TF32 control over the f32 limit at the
-   probe's shape; the general kernels timed at full width beside their
-   plain versions and bounds, and the wgmma forwards without residuals
+   probe's shape; the cell state's readings at the two 16x16 shapes; the
+   general kernels timed at full width beside their plain versions,
+   bounds and PR 16's times, and the wgmma forwards without residuals
    that had not been timed (f32, the 4-CTA widths); configs 3, 4 fused and
    5 fused at the JAX package's own small widths (a 16x16 grid, F = 16;
    the smoke's copy `_JAX_TINY`), bf16 and f32, card against CPU; the
@@ -338,6 +339,10 @@ def phase_build() -> None:
         if "C7513" in line or "C7520" in line:
             serialized.append(line.strip())
     _require(not serialized, f"ptxas serialized wgmma in {len(serialized)} places")
+    from mmvae_torch.bench.general_profile import ptxas_lines
+
+    for line in ptxas_lines(lib.log):  # the general kernels' registers and spills, by name
+        print(f"[build] general {line}")
 
 
 # --- phase 3: kernels against their plain versions -------------------------
@@ -3385,6 +3390,17 @@ _GENERAL_FIT_STEPS, _GENERAL_FUSED_STEPS = 20, 4
 _GENERAL_TIMED = (((64, 20, 16, 16, 128, 128), "bfloat16"),
                   ((64, 20, 16, 16, 128, 128), "float32"),
                   ((64, 20, 8, 8, 128, 192), "float32"))
+# Their times before the tensor-core redesign (the f32 FMA kernels of PR 15,
+# PR 16's log 16 on an "NVIDIA H100 80GB HBM3, 700.00 W"; PERF.md), by
+# (wrapper, activation bytes, F): printed beside each new time.
+_GENERAL_LOG16_MS = {
+    ("convlstm_proj_forward", 2, 128): 62.796, ("convlstm_proj_forward", 4, 128): 62.299,
+    ("convlstm_proj_forward", 4, 192): 44.589, ("convlstm_proj_backward", 2, 128): 129.343,
+    ("convlstm_proj_backward", 4, 128): 136.921, ("convlstm_proj_backward", 4, 192): 82.700,
+    ("convlstm_scan_forward", 2, 128): 58.548, ("convlstm_scan_forward", 4, 128): 58.745,
+    ("convlstm_scan_forward", 4, 192): 43.084, ("convlstm_scan_backward", 2, 128): 126.631,
+    ("convlstm_scan_backward", 4, 128): 134.550, ("convlstm_scan_backward", 4, 192): 76.256,
+}
 
 
 def _tiny_overrides(name: str) -> tuple:
@@ -3413,17 +3429,19 @@ def _routes(cfg) -> tuple:
             ck.route(act, f, side * side))
 
 
-def _timed_row(what: str, name: str, key, kern, plain, iters: int) -> dict:
+def _timed_row(what: str, name: str, key, kern, plain, iters: int, before=None) -> dict:
     """`kern`'s and its plain version's ms (CUDA events over `iters` calls,
-    TF32 off) beside the bound of kernel `name` at `key`, printed; the row."""
+    TF32 off) beside the bound of kernel `name` at `key` (and its time
+    `before`, where given), printed; the row."""
     from mmvae_torch.ops.kernel_checks import full_f32
 
     with full_f32():
         ms, plain_ms = _time_ms(kern, iters, 1), _time_ms(plain, 3, 1)
     b_ms, by = _bound(name, key)
-    print(f"[general] {what} {name} {key}, bf16 gates: {ms:.3f} ms, {_share(ms, name, key)}, "
-          f"vs plain {plain_ms:.3f} ms; library: none (no one PyTorch call runs the "
-          f"recurrence)")
+    was = "" if before is None else f" (PR 16 log 16: {before:.3f} ms, {before / ms:.1f}x)"
+    print(f"[general] {what} {name} {key}, bf16 gates: {ms:.3f} ms{was}, "
+          f"{_share(ms, name, key)}, vs plain {plain_ms:.3f} ms; library: none (no one "
+          f"PyTorch call runs the recurrence)")
     return {"kernel": name, "shape": list(key), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
@@ -3459,6 +3477,11 @@ def check_general_kernels(dev) -> tuple:
                 print(f"[general] {label}: {cmp.text()}")
                 if act == f32:
                     worst = max([worst] + [r.value for r in cmp.readings if "f32 ulps" in r.text])
+                if shape[2:4] == (16, 16) and shape[0] == 64 and "bfloat16" in label.split(
+                        "gates")[-1]:
+                    cs = next(r for r in cmp.readings if r.text.startswith("cs "))
+                    print(f"[general] cell state at full width, {label}: {cs.value:.2f} of its "
+                          f"bound ({cs.text})")
             _require(all(got["same"].values()), f"{shape} {act}: a backward differs between "
                                                  f"two calls: {got['same']}")
             _require(all(counts[n] > 0 for n in (*_K5, *_K6)),
@@ -3506,7 +3529,8 @@ def check_general_kernels(dev) -> tuple:
                                                False)),
         }
         for name, (key, kern, plain) in calls.items():
-            row = _timed_row("general", name, key, kern, plain, 3)
+            row = _timed_row("general", name, key, kern, plain, 3,
+                             _GENERAL_LOG16_MS.get((name, ck._es(act), f)))
             rows[f"{name}_general"][str(key)] = {**row, "max_abs_err": err[name]}
         del res, sres
         torch.cuda.empty_cache()

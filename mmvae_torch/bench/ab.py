@@ -14,7 +14,11 @@ where the wrappers' host work and the launches take the time; the
 Gaussian head region at each sampling site (`HEAD_SHAPES`), where the
 checkout has the fused head (`bench/timing.head_region_ms`: each kernel
 alone, the op through autograd, and the route it replaced, a cast, two
-F.linear and the Triton K2, on the same inputs); and
+F.linear and the Triton K2, on the same inputs); K5 and K6 on the general
+route at `GENERAL_SHAPES` (the 16x16 grid at full width, bf16 and f32, and
+the lstm_features=192 probe in f32: forward saving residuals and backward,
+bf16 gates, K6 time-constant); with `--probe`, `run_benchmark` of the probe
+in f32 (`PROBE_F32`) at K = 1 and 10; and
 `bench.profile.profile_train_step` of each path (config 3; configs 4 and 5
 with fused=true; config 3 with fused=true; configs 1 and 2; not with
 `--kernels-only`).  Every run times with this
@@ -44,6 +48,12 @@ K6_SHAPES = ((64, 10, 8, 8, 128, True), (160, 10, 8, 8, 128, True), (64, 20, 8, 
 # (M, K, N, x dtype): the heads of configs 3 and 4, config 5's global and chunk heads
 HEAD_SHAPES = ((64, 8192, 128, "bfloat16"), (16, 256, 128, "float32"),
                (160, 256, 64, "float32"))
+# (B, T, H, W, C, F, activations): the general route's full-width rows
+GENERAL_SHAPES = ((64, 20, 16, 16, 128, 128, "bfloat16"), (64, 20, 16, 16, 128, 128, "float32"),
+                  (64, 20, 8, 8, 128, 192, "float32"))
+# the reference's lstm_features=192 probe (recipe) at the JAX package's f32
+PROBE_F32 = ("model.kwargs.dec_upsample=fast_mid", "data.on_device_generate=true",
+             "optim.ema_decay=0.999", "model.kwargs.lstm_features=192", "model.dtype=float32")
 PATHS = (("seq_vae", ()), ("pred_vae", ("model.kwargs.fused=true",)),
          ("hier_vae", ("model.kwargs.fused=true",)), ("seq_vae", ("model.kwargs.fused=true",)),
          ("mlp_vae", ()), ("conv_vae", ()))
@@ -73,9 +83,9 @@ def _host_ms(fn, iters: int = 200) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def measure(steps: int, paths=PATHS) -> dict:
-    """K5 and K6 times and the paths' profiles, with the `mmvae_torch` on
-    sys.path."""
+def measure(steps: int, paths=PATHS, probe: bool = False) -> dict:
+    """K5 and K6 times (wgmma and general routes), the probe's benchmark
+    and the paths' profiles, with the `mmvae_torch` on sys.path."""
     import torch
 
     from mmvae_torch.bench.profile import profile_train_step
@@ -118,6 +128,34 @@ def measure(steps: int, paths=PATHS) -> dict:
         _host_ms(lambda: ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True)),
         _host_ms(lambda: ck.proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh, dh)),
     ]
+    out["general_ms"] = {}
+    for *shape, act_name in GENERAL_SHAPES:
+        act = getattr(torch, act_name)
+        b, t, h, w_, _, f = shape
+        x, wx, bx, w, c0, h0 = kc.proj_inputs(dev, *shape, seed=6, dtype=act)
+        res = ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True)
+        dh = torch.randn(c0.shape, device=dev)
+        xg, wh, sc0, sh0 = kc.scan_inputs(dev, b, 1, h, w_, f, seed=10, dtype=act)
+        sres = ck.scan_forward_cuda(xg, wh, sc0, sh0, t, torch.bfloat16, "save")
+        dhs = torch.randn(sres[0].shape, device=dev)
+        out["general_ms"][str((*shape, act_name))] = [timing.event_ms(fn, 3, 1) for fn in (
+            lambda: ck.proj_forward_cuda(x, wx, bx, w, c0, h0, torch.bfloat16, True),
+            lambda: ck.proj_backward_cuda(x, wx, w, c0, h0, *res, dh, dh),
+            lambda: ck.scan_forward_cuda(xg, wh, sc0, sh0, t, torch.bfloat16, "save"),
+            lambda: ck.scan_backward_cuda(wh, sc0, sh0, *sres, dhs, dhs[:, -1], True, False))]
+        del res, sres
+        torch.cuda.empty_cache()
+    if probe:
+        from mmvae_torch.bench.throughput import run_benchmark
+
+        out["probe_f32"] = {}
+        for k in (1, 10):
+            r = run_benchmark(get_config("seq_vae", (*PROBE_F32, f"train.steps_per_call={k}")),
+                              steps=20, warmup=10, device_profile=True)
+            out["probe_f32"][k] = {key: r[key] for key in (
+                "value", "value_min", "value_max", "step_ms", "device_busy_ms", "idle_share",
+                "tflops_per_sec_chip", "mfu", "card")}
+            torch.cuda.empty_cache()
     heads = {str(shape): timing.head_region_ms(dev, (*shape[:3], getattr(torch, shape[3])))
              for shape in HEAD_SHAPES}
     if all(heads.values()):
@@ -135,10 +173,12 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--kernels-only", action="store_true",
                     help="time the kernels and the head, not the paths' profiles")
+    ap.add_argument("--probe", action="store_true",
+                    help="run_benchmark of the probe in f32 at K = 1 and 10 in each run")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(measure(args.steps, () if args.kernels_only else PATHS)))
+        print(json.dumps(measure(args.steps, () if args.kernels_only else PATHS, args.probe)))
         return
     here = Path(__file__).resolve().parents[2]
     other = Path(args.other).resolve()
@@ -146,7 +186,8 @@ def main(argv=None) -> None:
     for root in (other, here, here, other):
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--worker", "--steps",
-             str(args.steps), *(["--kernels-only"] if args.kernels_only else []), str(root)],
+             str(args.steps), *(["--kernels-only"] if args.kernels_only else []),
+             *(["--probe"] if args.probe else []), str(root)],
             cwd=root, env={**os.environ, "PYTHONPATH": str(root)}, capture_output=True,
             text=True,
         )
@@ -165,10 +206,10 @@ def main(argv=None) -> None:
     print("[ab] K5 host ms a call (1 x 1 x 8x8, C=F=16), fwd, bwd: "
           + "; ".join(f"{Path(r['root']).name}: {r['k5_host_fwd_bwd_ms']}" for r in runs))
     same = all(r["k5_sha256"] == runs[0]["k5_sha256"] for r in runs)
-    print(f"[ab] K5 outputs (forward and gradients, bf16 gates) at {len(K5_SHAPES)} shapes: "
-          f"{'bit-identical in every run' if same else 'DIFFER between runs'}")
     from mmvae_torch.bench.roofline import bound
 
+    print(f"[ab] K5 outputs (forward and gradients, bf16 gates) at {len(K5_SHAPES)} shapes: "
+          f"{'bit-identical in every run' if same else 'DIFFER between runs'}")
     for shape in next((r["head_ms"] for r in runs if "head_ms" in r), {}):
         print(f"[ab] head {shape} ms: " + "; ".join(
             f"{Path(r['root']).name}: {r['head_ms'][shape]}" for r in runs if "head_ms" in r))
@@ -184,6 +225,20 @@ def main(argv=None) -> None:
         for shape in runs[0][f"{kernel}_fwd_bwd_ms"]:
             print(f"[ab] {kernel.upper()} {shape} fwd, bwd ms: " + "; ".join(
                 f"{Path(r['root']).name}: {r[f'{kernel}_fwd_bwd_ms'][shape]}" for r in runs))
+    names = ("convlstm_proj_forward", "convlstm_proj_backward", "convlstm_scan_forward",
+             "convlstm_scan_backward")
+    for key in runs[0]["general_ms"]:
+        b, t, h, w, c, f, act = ast.literal_eval(key)
+        es = 2 if act == "bfloat16" else 4
+        shapes = ((b, t, h, w, c, f, es),) * 2 + ((b, t, h, w, f, True, es),) * 2
+        for i, (name, shape) in enumerate(zip(names, shapes)):
+            ms, by = bound(name, shape)
+            print(f"[ab] general {name} {key}: bound {ms:.4f} ms ({by}); " + "; ".join(
+                f"{Path(r['root']).name}: {r['general_ms'][key][i]:.3f} ms "
+                f"({100 * ms / r['general_ms'][key][i]:.2f} %)" for r in runs))
+    for k in (runs[0].get("probe_f32") or {}):
+        print(f"[ab] probe f32 K={k}: " + "; ".join(
+            f"{Path(r['root']).name}: {json.dumps(r['probe_f32'][k])}" for r in runs))
 
 
 if __name__ == "__main__":

@@ -51,12 +51,14 @@ _SIGNATURES = {
     "mmvae_convlstm_scan_fwd": [_P] * 7 + [_I] * 10 + [_P, _P],
     "mmvae_convlstm_scan_bwd": [_P] * 11 + [_I] * 9 + [_P, _P],
     "mmvae_convlstm_scan_layout": [_I, _I, _P],
+    "mmvae_convlstm_general_layout": [_I] * 5 + [_P],
+    "mmvae_convlstm_general_splits": [_I] * 3,
     "mmvae_head_sample_fwd": [_P] * 12 + [_I] * 4 + [_U, _P, _I, _I, _P],
     "mmvae_head_sample_bwd": [_P] * 14 + [_I] * 4 + [_P],
     "mmvae_head_sample_layout": [_I] * 4 + [_P],
 }
 _RESTYPES = {"mmvae_convlstm_proj_layout": None, "mmvae_convlstm_scan_layout": None,
-             "mmvae_head_sample_layout": None}
+             "mmvae_convlstm_general_layout": None, "mmvae_head_sample_layout": None}
 
 
 class KernelLibrary:

@@ -32,8 +32,8 @@ to 128 (2 CTAs a sample) or of 32 up to 256 (4 CTAs a sample) and T =
 float32 (the JAX package's default) at F a multiple of 16 up to 128, its
 products f32-accurate as 3xTF32 (weights split here by `tf32_split`,
 `pack_proj_forward`), H*W <= 64 and, for K5, C a multiple of 16 that leaves
-both rings 4 stages; the general kernels (`csrc/convlstm_general.cuh`, f32
-FMA products, `pack_general_forward`) everywhere else.
+both rings 4 stages; the general kernels (`csrc/convlstm_general.cuh`,
+mma.sync on the tensor cores, `general_geometry`) everywhere else.
 
 The plain versions below follow the same algorithms step by step in PyTorch
 (f32 convs and matmuls on operands rounded to T); they are the CPU path and
@@ -241,27 +241,183 @@ def route(dtype: torch.dtype, feat: int, hw: int, cin=None) -> str:
     return "wgmma" if wgmma else "general"
 
 
-_GENERAL_MAX_CLUSTER = 8
+# The general kernels' launch geometry (`csrc/convlstm_general.cuh`'s
+# gen_geometry, which computes the same numbers; the wrappers hold the two
+# equal once a shape, `_general_layout`).  A cluster of `cluster` CTAs a
+# sample, CTA r owning channels [F r / cl, F (r + 1) / cl) of the four
+# gates; each step is a GEMM of H W positions x (the CTA's 4 nc gate
+# columns forward, all F channels backward) x k-blocks of 16 (the 9 taps,
+# each padded to 16; K5's x projection is one GEMM over all steps first),
+# run by 8 warps of 32 x 32 blocks in passes, with weights streamed in
+# slabs of `pbk` k-blocks through a 3-stage ring.  Shared memory holds, in
+# this order as far as 227 KB allow: the ring, the cell state and h
+# staging, two copies of h with its halo, else one, the saving forward's
+# gates (forward); the ring,
+# K5's column sums, the (dh, dc) carries, the CTA's zero-haloed dgates
+# tile, the partial dh (BPTT).  What does not fit lives in global scratch.
+_GEN_THREADS, _GEN_WARPS, _GEN_STAGES, _GEN_MAX_CLUSTER = 256, 8, 3, 16
+_GEN_RED_BYTES = _GEN_THREADS * 16
+_GEN_WG_BM, _GEN_WG_BN, _GEN_WG_BK, _GEN_WG_PAD = 64, 128, 32, 8
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _up(a: int, b: int) -> int:
+    return _ceil(a, b) * b
+
+
+def _up128(a: int) -> int:
+    return _up(a, 128)
+
+
+def _gen_stride(n: int, es: int) -> int:
+    """A row of n elements padded so that its bytes are an odd multiple of
+    16 (eight rows read by ldmatrix in eight bank groups)."""
+    e = 16 // es
+    s = _up(max(n, 1), e)
+    return s if (s // e) % 2 else s + e
 
 
 def general_cluster(batch: int, feat: int) -> int:
-    """CTAs a sample on the general route: the largest power of two up to 8
-    that keeps B x CL within 4 CTAs an SM and at least 8 channels a CTA (1
-    below F = 16).  The results do not depend on it: every output's sums run
-    in the same order whichever CTA owns it."""
-    cl = 1
-    while (cl * 2 <= _GENERAL_MAX_CLUSTER and batch * cl * 2 <= 4 * SMS
-           and feat // (cl * 2) >= 8):
-        cl *= 2
-    return cl
+    """The fewest CTAs a sample the general route starts from: at most 32
+    channels a CTA and B x CL at least the card's SMs (`general_geometry`
+    takes more, up to 8 and then 16, where a sample's h or dgates would not
+    fit shared memory).  The results do not depend on it: every output's
+    sums run in the same order whichever CTA owns it."""
+    return min(max(_ceil(feat, 32), _ceil(SMS, max(batch, 1))), _GEN_MAX_CLUSTER)
 
 
-def general_wgrad_splits(rows: int, m: int, feat: int) -> int:
-    """Split-K of the general route's weight GEMM over `rows` rows for an M
-    x 4F gradient in 64 x 64 tiles: as many splits as make about two CTAs
-    an SM, each at least 8 chunks of 16 rows."""
-    tiles = -(-m // 64) * -(-4 * feat // 64)
-    return max(1, min(-(-2 * SMS // tiles), rows // 128))
+def _gen_tile_bytes(es: int) -> int:
+    """Bytes of one k-block x n8 weight tile of the recurrences in fragment
+    order: bf16, or an f32 weight as it is (the f64 tensor cores)."""
+    return 256 if es == 2 else 512
+
+
+def _gen_pass_tiles(p: int, mb: int, nt: int):
+    """The n8 tiles [lo, hi) pass p touches (8 blocks a pass, m fastest)."""
+    blocks = mb * _ceil(nt, 4)
+    first = p * _GEN_WARPS
+    last = min(blocks, first + _GEN_WARPS) - 1
+    return first // mb * 4, min(nt, (last // mb + 1) * 4)
+
+
+def _gen_plan(hw: int, nt: int, nkb: int, tile_bytes: int) -> dict:
+    mb = _ceil(hw, 32)
+    passes = _ceil(mb * _ceil(nt, 4), _GEN_WARPS)
+    pass_tiles = max(hi - lo for lo, hi in (_gen_pass_tiles(p, mb, nt) for p in range(passes)))
+    kb_bytes = pass_tiles * tile_bytes
+    pbk = max(1, min(4, 8192 // kb_bytes))
+    return {"nkb": nkb, "nt": nt, "mb": mb, "passes": passes, "pass_tiles": pass_tiles,
+            "pbk": pbk, "stage_bytes": pbk * kb_bytes}
+
+
+def general_wgrad_splits(rows: int, cin: int, feat: int) -> int:
+    """Split-K of the general route's weight GEMM over `rows` rows (64
+    channels of one segment x 128 columns a CTA): about two CTAs an SM,
+    each split at least 8 slabs of 32 rows."""
+    tiles = (_ceil(cin, _GEN_WG_BM) + 9 * _ceil(feat, _GEN_WG_BM)) * _ceil(4 * feat, _GEN_WG_BN)
+    return max(1, min(_ceil(2 * SMS, tiles), rows // (8 * _GEN_WG_BK)))
+
+
+@functools.lru_cache(maxsize=None)
+def general_geometry(batch, t_len, height, width, cin, feat, es: int = 2) -> dict:
+    """The general kernels' launch geometry at (B, T, H, W, C, F) (C = 0
+    for K6; only the weight GEMM's split depends on C) for activations of
+    `es` bytes: the cluster (the fewest CTAs a
+    sample from `general_cluster` up to 8, then 16, that keeps h's copy,
+    the dgates tile and the partials in shared memory; else 16), the
+    forward's and the BPTT's GEMM plans (k-blocks, n8 tiles, passes,
+    k-blocks a ring slab, slab bytes), what each keeps in shared memory,
+    its bytes and its global scratch, and the weight GEMM's split and
+    shared memory.  Cached: callers read the dict and never change it."""
+    top = min(_GEN_MAX_CLUSTER, feat)
+    cl = min(general_cluster(batch, feat), top)
+    while True:
+        geo = _general_geometry_cl(batch, t_len, height, width, cin, feat, es, cl)
+        if (geo["hbuf"] and geo["dg_res"] and geo["part_res"]) or cl == top:
+            return geo
+        cl = min(cl + 1 if cl < 8 else _GEN_MAX_CLUSTER, top)
+
+
+def _general_geometry_cl(batch, t_len, height, width, cin, feat, es, cl) -> dict:
+    hw, halo = height * width, (height + 2) * (width + 2)
+    nc = _ceil(feat, cl)
+    fp = _up(feat, 16)
+    cells = hw * nc
+    f = _gen_plan(hw, _ceil(4 * nc, 8), 9 * fp // 16, _gen_tile_bytes(es))
+    fs = _gen_stride(fp, es)
+    used = _up128(_GEN_STAGES * f["stage_bytes"])
+    state = _up128(cells * 4) + _up128(cells * es)
+    state_res = used + state <= SMEM_LIMIT
+    used += state if state_res else 0
+    hb = _up128(halo * fs * es)
+    hbuf = 2 if used + 2 * hb <= SMEM_LIMIT else 1 if used + hb <= SMEM_LIMIT else 0
+    used += hbuf * hb
+    gb = _up128(4 * cells * es)  # the saving forward's gates, staged where they fit
+    gst_res = state_res and used + gb <= SMEM_LIMIT
+    used += gb if gst_res else 0
+    fwd_scratch = ((0 if state_res else _up128(batch * cl * cells * 4) + _up128(
+        batch * cl * cells * es)) + (0 if hbuf else _up128(batch * 2 * halo * fs * es)))
+    kt = _up(4 * nc, 16)
+    ks = _gen_stride(kt, es)
+    fq = _up(feat, 8)
+    fq += (40 - fq % 32) % 32
+    bp = _gen_plan(hw, _ceil(feat, 8), 9 * kt // 16, _gen_tile_bytes(es))
+    used_b = _up128(_GEN_STAGES * bp["stage_bytes"]) + _GEN_RED_BYTES
+    carry = _up128(cells * 4)
+    carry_res = used_b + 2 * carry <= SMEM_LIMIT
+    used_b += 2 * carry if carry_res else 0
+    dgb = _up128(halo * ks * es)
+    dg_res = used_b + dgb <= SMEM_LIMIT
+    used_b += dgb if dg_res else 0
+    pb = _up128(hw * fq * 4)
+    part_res = used_b + pb <= SMEM_LIMIT
+    used_b += pb if part_res else 0
+    bwd_scratch = ((0 if carry_res else 2 * _up128(batch * cl * cells * 4))
+                   + (0 if dg_res else _up128(batch * cl * halo * ks * es))
+                   + (0 if part_res else _up128(batch * cl * hw * fq * 4)))
+    return {
+        "cluster": cl, "nc": nc, "ctas": batch * cl, "feat_pad": fp,
+        "fwd": f, "h_stride": fs, "state_res": int(state_res), "hbuf": hbuf,
+        "gst_res": int(gst_res),
+        "fwd_smem": used, "fwd_scratch": fwd_scratch,
+        "fwd_stages": _GEN_STAGES, "bwd_stages": _GEN_STAGES,
+        "bwd": bp, "tap_k": kt, "dg_stride": ks, "part_stride": fq,
+        "carry_res": int(carry_res), "dg_res": int(dg_res), "part_res": int(part_res),
+        "bwd_smem": used_b, "bwd_scratch": bwd_scratch,
+        "wgrad_splits": general_wgrad_splits(batch * t_len * hw, cin, feat),
+        "wgrad_smem": _GEN_STAGES * _GEN_WG_BK * (2 * _GEN_WG_PAD + _GEN_WG_BM + _GEN_WG_BN) * es,
+    }
+
+
+def _general_layout_tuple(geo: dict) -> tuple:
+    """The numbers `mmvae_convlstm_general_layout` returns, from a
+    `general_geometry` dict."""
+    f, b = geo["fwd"], geo["bwd"]
+    return (geo["cluster"], geo["nc"], f["nkb"], f["nt"], f["passes"], f["pbk"],
+            f["stage_bytes"], geo["state_res"], geo["hbuf"], geo["gst_res"], geo["fwd_smem"],
+            geo["fwd_scratch"], b["nkb"], b["nt"], b["passes"], b["pbk"], b["stage_bytes"],
+            geo["carry_res"], geo["dg_res"], geo["part_res"], geo["bwd_smem"],
+            geo["bwd_scratch"], geo["wgrad_smem"])
+
+
+@functools.lru_cache(maxsize=None)
+def _general_layout(batch, t_len, height, width, cin, feat, es: int):
+    """`general_geometry` at the shape, held against the library's
+    (`mmvae_convlstm_general_layout`, and its weight GEMM split) once a
+    shape: a difference raises."""
+    geo = general_geometry(batch, t_len, height, width, cin, feat, es)
+    want = _general_layout_tuple(geo)
+    got = (ctypes.c_longlong * len(want))()
+    lib = _build.library()
+    lib.mmvae_convlstm_general_layout(batch, height, width, feat, _ACT_CODE[es], got)
+    splits = lib.mmvae_convlstm_general_splits(batch * t_len * height * width, cin, feat)
+    if tuple(got) != want or splits != geo["wgrad_splits"]:
+        raise RuntimeError(f"convlstm general: kernel geometry {tuple(got)} (splits {splits}) "
+                           f"differs from the wrapper's {want} ({geo['wgrad_splits']})")
+    return geo
 
 
 def _activations(named) -> torch.dtype:
@@ -555,34 +711,130 @@ def pack_proj_backward(wx: torch.Tensor, w: torch.Tensor, tf32_parts: bool = Fal
             _pack(wxt.permute(0, 2, 1, 3), tf32_parts))
 
 
-def _interleave(mat: torch.Tensor) -> torch.Tensor:
-    """(..., 4F) gate-major columns (q F + ch) -> channel-major (4 ch + q),
-    as f32: the general kernels' column order, which puts a channel's four
-    gates in one thread's four columns."""
-    f4 = mat.shape[-1]
-    return mat.float().reshape(*mat.shape[:-1], 4, f4 // 4).transpose(-1, -2).reshape(
-        mat.shape).contiguous()
+# The general kernels' B fragment schemes: "bf16"; f32 as TF32 (hi, lo)
+# parts ("tf32", K5's dx) or as they are for the f64 tensor cores ("f64",
+# the recurrences and K5's x projection).
+def pack_fragments(mat: torch.Tensor, scheme: str) -> torch.Tensor:
+    """(..., K, N) with K a multiple of 16 and N of 8 -> the mma.sync B
+    fragments the general kernels read, one 16-deep k-block and n8 tile
+    after another, lane g * 4 + tq's registers together: "bf16" (..., K/16,
+    N/8, 8 g, 4 tq, 2 r, 2 e) holding mat[16 kb + 8 r + 2 tq + e][8 j + g];
+    "tf32" (..., K/16, N/8, 8 g, 4 tq, 2 h, 2 part, 2 r) holding part (TF32
+    hi, lo) of mat[16 kb + 8 h + 4 r + tq][8 j + g]; "f64" (..., K/16, N/8,
+    8 g, 4 tq, 4 s) f32 holding mat[16 kb + 4 s + tq][8 j + g] (the B
+    fragment of an f64 m16n8k16, converted in the kernel)."""
+    k, n = mat.shape[-2:]
+    lead = mat.shape[:-2]
+    d = len(lead)
+    if scheme == "bf16":
+        v = mat.to(torch.bfloat16).reshape(*lead, k // 16, 2, 4, 2, n // 8, 8)
+        return v.permute(*range(d), d, d + 4, d + 5, d + 2, d + 1, d + 3).contiguous()
+    if scheme == "tf32":
+        parts = torch.stack(tf32_split(mat.float()), -3)  # (..., 2, K, N)
+        v = parts.reshape(*lead, 2, k // 16, 2, 2, 4, n // 8, 8)
+        return v.permute(*range(d), d + 1, d + 5, d + 6, d + 4, d + 2, d, d + 3).contiguous()
+    v = mat.float().reshape(*lead, k // 16, 4, 4, n // 8, 8)
+    return v.permute(*range(d), d, d + 3, d + 4, d + 2, d + 1).contiguous()
 
 
-def pack_general_forward(wx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[Wx; W] ((C + 9F) x 4F, rows (tap, channel) after Wx's) as f32 in the
-    general kernels' column order (`_interleave`)."""
+def unpack_fragments(pk: torch.Tensor, scheme: str) -> torch.Tensor:
+    """The inverse of `pack_fragments`, as f32 (the parts summed)."""
+    if scheme == "bf16":
+        kb, nt = pk.shape[-6:-4]
+        d = pk.dim() - 6
+        v = pk.permute(*range(d), d, d + 4, d + 3, d + 5, d + 1, d + 2)
+        return v.reshape(*pk.shape[:-6], kb * 16, nt * 8).float()
+    if scheme == "f64":
+        kb, nt = pk.shape[-5:-3]
+        d = pk.dim() - 5
+        v = pk.permute(*range(d), d, d + 4, d + 3, d + 1, d + 2)
+        return v.reshape(*pk.shape[:-5], kb * 16, nt * 8).float()
+    kb, nt = pk.shape[-7:-5]
+    d = pk.dim() - 7
+    v = pk.permute(*range(d), d + 5, d, d + 4, d + 6, d + 3, d + 1, d + 2)
+    v = v.reshape(*pk.shape[:-7], 2, kb * 16, nt * 8)
+    return v[..., 0, :, :] + v[..., 1, :, :]
+
+
+@functools.lru_cache(maxsize=None)
+def _general_columns(feat: int, cl: int, device) -> torch.Tensor:
+    """(cl, 4 nc padded to 8) indices into the gate-major columns (q F +
+    ch) of the general kernels' columns: rank r's channels interleaved (4 lc
+    + q), 4F (a zero column) where a rank has fewer than nc or the tile's
+    padding."""
+    nc = _ceil(feat, cl)
+    idx = torch.full((cl, _up(4 * nc, 8)), 4 * feat, dtype=torch.long)
+    for r in range(cl):
+        lo, hi = feat * r // cl, feat * (r + 1) // cl
+        for lc in range(hi - lo):
+            for q in range(4):
+                idx[r, 4 * lc + q] = q * feat + lo + lc
+    return idx.to(device)
+
+
+def _by_rank(mat: torch.Tensor, feat: int, cl: int) -> torch.Tensor:
+    """(..., 4F) gate-major columns -> (cl, ..., 4 nc padded to 8): each
+    rank's columns in the general kernels' order, zero in the padding."""
+    idx = _general_columns(feat, cl, mat.device)
+    full = F.pad(mat, (0, 1))  # column 4F is zero
+    return full[..., idx].movedim(-2, 0)
+
+
+def _fwd_scheme(w: torch.Tensor) -> str:
+    return "f64" if w.dtype == torch.float32 else "bf16"
+
+
+def pack_general_forward(w: torch.Tensor, cl: int) -> torch.Tensor:
+    """W for the general forward: each tap's F rows padded to a multiple of
+    16, rank r's columns (`_by_rank`), in fragment order: (cl, 9 F/16, N/8,
+    ...) (`pack_fragments`, f32 weights for the f64 tensor cores)."""
     f4 = w.shape[-1]
-    return _interleave(torch.cat([wx, w.reshape(9 * (f4 // 4), f4)]))
+    feat = f4 // 4
+    taps = F.pad(w.reshape(9, feat, f4), (0, 0, 0, _up(feat, 16) - feat))
+    return pack_fragments(_by_rank(taps.reshape(-1, f4), feat, cl), _fwd_scheme(w))
 
 
-def pack_general_backward(w: torch.Tensor) -> torch.Tensor:
-    """W^T per tap as f32 (9, 4F, F): row (tap, n) is W[tap][:, n], the
-    general BPTT's transposed taps."""
+def pack_general_xproj(wx: torch.Tensor) -> torch.Tensor:
+    """Wx (C x 4F, padded to 16 x 8, gate-major columns) in fragment order
+    for K5's x projection (as the forward's weights)."""
+    cin, f4 = wx.shape
+    return pack_fragments(F.pad(wx, (0, _up(f4, 8) - f4, 0, _up(cin, 16) - cin)), _fwd_scheme(wx))
+
+
+def _bytes(*ts: torch.Tensor) -> torch.Tensor:
+    """The tensors' bytes, one after another."""
+    return torch.cat([t.reshape(-1).view(torch.uint8) for t in ts])
+
+
+def pack_general_backward(w: torch.Tensor, cl: int) -> torch.Tensor:
+    """W^T for the general BPTT's transposed taps: rank r's rows (tap, its
+    4 nc dgate columns in the kernels' order, padded to 16) against all F
+    channels (padded to 8), in fragment order: (cl, 9 Kt/16, F/8, ...),
+    f32 weights for the f64 tensor cores."""
     f4 = w.shape[-1]
-    return w.float().reshape(9, f4 // 4, f4).transpose(1, 2).contiguous()
+    feat = f4 // 4
+    cols = _by_rank(w.reshape(9, feat, f4), feat, cl)  # (cl, 9, F, 4 nc up 8)
+    kt = _up(cols.shape[-1], 16)
+    wt = F.pad(cols.transpose(-1, -2), (0, _up(feat, 8) - feat, 0, kt - cols.shape[-1]))
+    return pack_fragments(wt.reshape(cl, 9 * kt, -1), _fwd_scheme(w))
 
 
-def _general_scratch(batch: int, hw: int, feat: int, floats_a_cell: int, device):
-    """The general kernels' f32 scratch: `floats_a_cell` floats a (sample,
-    position, channel) (3 for a forward: c and two h buffers; 2 for a BPTT:
-    dh and dc)."""
-    return torch.empty(floats_a_cell * batch * hw * feat, device=device, dtype=torch.float32)
+def pack_general_dx(wx: torch.Tensor) -> torch.Tensor:
+    """Wx^T (4F x C, padded to 16 x 8) in fragment order for K5's dx (f32:
+    TF32 hi and lo parts)."""
+    cin, f4 = wx.shape
+    wxt = F.pad(wx.t(), (0, _up(cin, 8) - cin, 0, _up(f4, 16) - f4))
+    return pack_fragments(wxt, _scheme(wx))
+
+
+def _scheme(w: torch.Tensor) -> str:
+    return "tf32" if w.dtype == torch.float32 else "bf16"
+
+
+def _general_scratch(nbytes: int, device):
+    """The general kernels' global scratch (what did not fit shared
+    memory, `general_geometry`), or None."""
+    return torch.empty(nbytes, device=device, dtype=torch.uint8) if nbytes else None
 
 
 def _count(fn, way: str, mode=None) -> None:
@@ -618,9 +870,14 @@ def proj_forward_cuda(x, wx, bx, w, c0, h0, gate_dtype, save: bool):
         ptrs = [outs[0].data_ptr(), outs[1].data_ptr(), None]
     gcl, scratch = 0, None
     if way == "general":
-        wpk, bx = pack_general_forward(wx, w), _interleave(bx)
-        gcl, scratch = general_cluster(batch, feat), _general_scratch(batch, hw, feat, 3,
-                                                                      x.device)
+        geo = _general_layout(batch, t_len, height, width, cin, feat, _es(x.dtype))
+        gcl = geo["cluster"]
+        # the recurrence's W, then Wx for the x projection; the scratch holds
+        # the projection (B T H W x 4F in the gate dtype), then the
+        # recurrence's own
+        wpk = _bytes(pack_general_forward(w, gcl), pack_general_xproj(wx))
+        xg_bytes = _up(batch * t_len * hw * f4 * _es(gate_dtype), 256)
+        bx, scratch = bx.float(), _general_scratch(xg_bytes + geo["fwd_scratch"], x.device)
     else:
         wpk = pack_proj_forward(wx, w, x.dtype == torch.float32)
     err = lib.mmvae_convlstm_proj_fwd(
@@ -646,9 +903,10 @@ def proj_backward_cuda(x, wx, w, c0, h0, hs, cs, ga, dh_last, dc_last):
     hw = height * width
     gcl, scratch = 0, None
     if way == "general":
-        wtpk, wxpk = pack_general_backward(w), wx.t().float().contiguous()
-        gcl, scratch = general_cluster(batch, feat), _general_scratch(batch, hw, feat, 2, x.device)
-        splits = general_wgrad_splits(batch * t_len * hw, cin + 9 * feat, feat)
+        geo = _general_layout(batch, t_len, height, width, cin, feat, _es(x.dtype))
+        gcl, splits = geo["cluster"], geo["wgrad_splits"]
+        wtpk, wxpk = pack_general_backward(w, gcl), pack_general_dx(wx)
+        scratch = _general_scratch(geo["bwd_scratch"], x.device)
     else:
         wtpk, wxpk = pack_proj_backward(wx, w, x.dtype == torch.float32)
         splits = geo["wgrad_splits"]
@@ -919,9 +1177,10 @@ def scan_forward_cuda(xg, w, c0, h0, length, gate_dtype, mode: str):
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
     gcl, scratch = 0, None
     if way == "general":
-        wpk = pack_general_forward(w.new_empty(0, f4), w)
-        gcl, scratch = general_cluster(batch, feat), _general_scratch(batch, hw, feat, 3,
-                                                                      xg.device)
+        geo = _general_layout(batch, length, height, width, 0, feat, _es(xg.dtype))
+        gcl = geo["cluster"]
+        wpk = pack_general_forward(w, gcl)
+        scratch = _general_scratch(geo["fwd_scratch"], xg.device)
     else:
         wpk = pack_proj_forward(w.new_empty(0, f4), w, xg.dtype == torch.float32)
     err = lib.mmvae_convlstm_scan_fwd(
@@ -959,9 +1218,10 @@ def scan_backward_cuda(w, c0, h0, hs, cs, ga, dh, dc_last, const_input: bool,
     stream = _build.stream_ptr(dev)
     gcl, scratch = 0, None
     if way == "general":
-        wtpk = pack_general_backward(w)
-        gcl, scratch = general_cluster(batch, feat), _general_scratch(batch, hw, feat, 2, dev)
-        splits = general_wgrad_splits(batch * t_len * hw, 9 * feat, feat)
+        geo = _general_layout(batch, t_len, height, width, 0, feat, _es(act))
+        gcl, splits = geo["cluster"], geo["wgrad_splits"]
+        wtpk = pack_general_backward(w, gcl)
+        scratch = _general_scratch(geo["bwd_scratch"], dev)
         # a time-constant xg's f32 dgates sum (B, HW, 4F)
         dxs_floats = batch * hw * f4 if const_input else 0
     else:

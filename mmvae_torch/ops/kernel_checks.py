@@ -52,8 +52,9 @@ alone against an f64 product, beside cuBLAS's f32 product.
 The general kernels (`convlstm_kernels.route`: every shape outside the
 wgmma kernels' domain) are held to the same readings, whatever their
 activation dtype and F (`check_general`, at `GENERAL_SHAPES` in
-`chip_smoke.py`'s phase 13): their products are f32 FMA, so the TF32
-control fails them too.
+`chip_smoke.py`'s phase 13): with f32 activations their products are f64
+(the forwards, the BPTT, the weight GEMM) or 3xTF32 (K5's dx) on the
+tensor cores, so the TF32 control fails them too.
 
 `plain_route()` swaps every wrapper's CUDA branch for its plain version,
 so a run on the card takes the model's own ops with no kernel of the repo:

@@ -179,13 +179,30 @@ def test_kernels_refuse_widths_outside_their_domain(dev, feat):
 
 @pytest.mark.parametrize("act", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("shape", [(2, 3, 16, 16, 8, 8), (1, 1, 9, 13, 24, 20),
-                                   (3, 2, 5, 6, 40, 37), (2, 2, 8, 8, 128, 144)])
+                                   (3, 2, 5, 6, 40, 37), (2, 2, 8, 8, 128, 144),
+                                   (64, 2, 16, 16, 128, 128), (2, 3, 16, 16, 24, 44),
+                                   (1, 2, 32, 32, 8, 288)])
 def test_general_kernels_match_plain(dev, shape, act):
-    """The general kernels (a 16x16 grid, odd grids and widths, C off the
-    multiples of 16), K5 and K6 in every mode, both gate dtypes, within the
-    limits of `kernel_checks`, each backward twice bit-identical."""
+    """The general kernels (a 16x16 grid, at full width too, odd grids and
+    widths, F and C off the multiples of 8 and 16, a 32x32 grid at F = 288
+    whose h, dgates and partials live in global scratch), K5 and K6 in every
+    mode, both gate dtypes, within the limits of `kernel_checks`, each
+    backward twice bit-identical."""
     got = kernel_checks.check_general(dev, shape, act)
     assert all(got["same"].values()), got["same"]
+
+
+@pytest.mark.parametrize("es", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(64, 20, 16, 16, 128, 128), (64, 20, 8, 8, 128, 192),
+                                   (2, 3, 16, 16, 24, 44), (1, 2, 32, 32, 8, 288),
+                                   (2, 4, 16, 16, 16, 16), (1, 1, 9, 13, 24, 20)])
+def test_general_layout_matches_the_wrapper(dev, shape, es):
+    """The general kernels' geometry as the library computes it (K5 and K6)
+    equals `general_geometry`'s (`_general_layout` raises otherwise)."""
+    b, t, h, w, c, f = shape
+    for cin in (c, 0):
+        geo = ck._general_layout(b, t, h, w, cin, f, es)
+        assert geo is ck.general_geometry(b, t, h, w, cin, f, es)
 
 
 @pytest.mark.parametrize("side", [8, 16], ids=["wgmma", "general"])
