@@ -15,20 +15,25 @@ prints one JSON line: the step time on the host clock (steps ended by
 host makes per step (CUDA runtime launch calls: a graph replay is one), and
 the kernels with the most device time.  Fails without a CUDA device.
 
-`--regions` adds `regions`: the per-region device budget of a step
-(`bench.regions`: the kernels' ms a step by the JAX package's named regions,
-forward and backward apart), from one more window of `steps` steps traced
-with the host's activity too, apart from the windows above (tracing the
-host slows it).  It runs at `train.steps_per_call` = 1: a graph replay runs
-no host code to attribute, and launches the same kernels as K eager steps.
+`--regions` adds `regions`: the per-region device budget of a step (the
+kernels' ms a step by the port's named regions, forward and backward apart),
+from one more window of `steps` steps traced with the host's activity too,
+apart from the windows above (tracing the host slows it).  At
+`train.steps_per_call` = K > 1 it reads the graph replays of that window by
+the chunk's region map (`bench.regions.replay_budget`: each row's idle gaps
+inside a replay beside its device time; `regions` is null, and the reason
+on stderr, where a replay does not match the map); at K = 1 it reads the
+eager steps (`bench.regions.budget`).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import tempfile
 import time
 from collections import defaultdict
+from typing import Optional
 
 import torch
 
@@ -78,6 +83,31 @@ def device_busy_ms(kernels) -> float:
     return _busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
 
 
+def replay_regions(fn, regions_map, calls: int, steps: int, depth: int = 2) -> Optional[dict]:
+    """`calls` graph replays (`fn`, `steps` steps in all) traced by
+    `utils.profiling.trace` and read by `bench.regions.replay_budget`: the
+    rows, largest first (ms a step: forward, backward, of which idle gaps,
+    their sum and share), and the replays' span a step; None where a replay
+    does not match `regions_map`."""
+    from mmvae_torch.bench.regions import load_trace, replay_budget
+    from mmvae_torch.utils.profiling import trace
+
+    with tempfile.TemporaryDirectory(prefix="mmvae_replay_") as d:
+        with trace(d) as prof:
+            for _ in range(calls):
+                fn()
+        rows = replay_budget(load_trace(prof.trace_path), regions_map, steps, depth)
+    if rows is None:
+        return None
+    span = sum(f + b for f, b, _ in rows.values())
+    table = [{"region": r, "fwd_ms": f, "bwd_ms": b, "gap_ms": g, "ms": f + b,
+              "share": (f + b) / span if span else 0.0} for r, (f, b, g) in rows.items()]
+    table.sort(key=lambda r: -r["ms"])
+    return {"timeline": "replay", "steps": steps, "depth": depth, "span_ms": span,
+            "work_nodes": len(regions_map.nodes), "graph_nodes": regions_map.graph_nodes,
+            "rows": table}
+
+
 def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12,
                        regions: bool = False, depth: int = 2) -> dict:
     """`steps` train steps timed and profiled after `warmup` (both rounded
@@ -89,9 +119,6 @@ def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12,
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train_step measures a CUDA device; none is available")
     spc = steps_per_call(cfg)
-    if regions and spc > 1:
-        raise ValueError("the region budget profiles at train.steps_per_call = 1 (a graph "
-                         f"replay runs no host code to attribute), not {spc}")
     calls, steps = -(-steps // spc), -(-steps // spc) * spc
     state, data, step = setup_resident_training(cfg, torch.device("cuda"))
     for _ in range(-(-warmup // spc) + (spc > 1)):  # a chunk's first call captures
@@ -110,7 +137,10 @@ def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12,
     busy = device_busy_ms(kernels) / steps
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     budget = {}
-    if regions:
+    if regions and spc > 1:
+        budget = {"regions": replay_regions(lambda: step(state, data), step.regions(), calls,
+                                            steps, depth)}
+    elif regions:
         from mmvae_torch.bench.regions import profile_regions
 
         budget = {"regions": profile_regions(lambda: step(state, data), calls, steps, depth)}

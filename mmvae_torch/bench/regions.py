@@ -32,10 +32,19 @@ and a non-reentrant checkpoint's recompute, which runs inside the backward
 of a node of the checkpointed region (the decoder's remat), lands in that
 region's backward, as JAX's remat does under the scope's transpose.
 
-Under `train.steps_per_call` = K > 1 a graph replay runs no host code, so
-the regions show only in eager calls: profile at K = 1.  A replay launches
-the same kernels as K eager steps, so the budget at K = 1 is the device
-budget of a step at any K.
+A graph replay (`train.steps_per_call` = K > 1) runs no host code, so no
+range opens in it; `replay_budget` reads the replays instead, by the
+region map the capture recorded (`chunk.regions()`, see
+`utils.profiling`): each replay's device work, taken by the correlation of
+its `cudaGraphLaunch` and ordered by start, is matched to the map's work
+nodes by position, kind and kernel name.  Inside a replay the idle gap
+before a node goes to the node's region, so the rows (regions and `?`)
+sum to the replays' span; every time is the device trace's own.  A count,
+kind or name that differs, a graph that is not one chain of nodes (the
+data-parallel graph branches into NCCL's stream) or no map gives None and
+the reason on stderr; a first or last replay that the trace's window cut
+is left out.  `budget` stays the reader of eager steps and of CPU
+traces.
 """
 
 from __future__ import annotations
@@ -46,15 +55,19 @@ import glob
 import gzip
 import json
 import os
+import sys
 import tempfile
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from mmvae_torch.utils.profiling import PORT_REGIONS
+
 # The JAX package's region names (its `jax.named_scope`s in train/loop.py,
 # models/seq_vae.py and models/hier_vae.py), which the port opens with
-# `utils.profiling.annotate` at the counterpart sites.
-REGIONS = ("preprocess", "model_fwd", "elbo_reduce", "frame_enc", "enc_lstm",
-           "latent_head", "z_init", "dec_lstm", "frame_dec", "chunk_lstm")
+# `utils.profiling.annotate` at the counterpart sites, then the port's own.
+JAX_REGIONS = ("preprocess", "model_fwd", "elbo_reduce", "frame_enc", "enc_lstm",
+               "latent_head", "z_init", "dec_lstm", "frame_dec", "chunk_lstm")
+REGIONS = JAX_REGIONS + PORT_REGIONS
 UNATTRIBUTED = "?"
 _TOP = 3  # kernels named a row
 
@@ -216,6 +229,92 @@ def tally(timeline: str, work, steps: int, depth: int = 2) -> dict:
             "items_per_step": len(work) / steps,
             "unlaunched_per_step": sum(path is None for _, path, _ in work) / steps,
             "total_ms": total, "rows": rows}
+
+
+_CATEGORY = {"kernel": "kernel", "gpu_memcpy": "memcpy", "gpu_memset": "memset"}
+
+
+def _same_work(e: dict, kind: str, name: Optional[str]) -> bool:
+    """Whether the device event `e` is the work node (`kind`, `name`): a
+    kernel by its name; a graph's memcpy or memset as such, or as the copy
+    kernel CUDA runs for it (`memcpy32_post` and the like)."""
+    if kind == "kernel":
+        return e["cat"] == "kernel" and e["name"] == name
+    return _CATEGORY[e["cat"]] == kind or (e["cat"] == "kernel" and e["name"].startswith(kind))
+
+
+def _refuse(reason: str) -> None:
+    print(f"replay_budget: {reason}", file=sys.stderr)
+    return None
+
+
+def _matches(work: List[dict], nodes) -> bool:
+    return all(_same_work(e, *n[:2]) for e, n in zip(work, nodes))
+
+
+def replay_budget(trace: dict, regions_map, steps: int,
+                  depth: int = 2) -> Optional[Dict[str, Tuple[float, float, float]]]:
+    """{region path cut to `depth` names: (forward ms, backward ms, of which
+    idle gap ms)} a step of the graph replays in `trace` (`steps` steps in
+    all, as many a replay), by `regions_map` (`utils.profiling.GraphRegions`,
+    the chunk's `regions`); None, with the reason on stderr, where a replay
+    does not match it (see the module docstring).
+
+    The profiler keeps a device record only inside its window, so the
+    trace's first replay can lack the map's first nodes and its last replay
+    the map's last ones: such a replay, whose events are the rest of the
+    map's in order, is left out (said on stderr), and the others are read."""
+    if regions_map is None:
+        return _refuse("no region map (the chunk has not captured a graph)")
+    if not regions_map.chain:
+        return _refuse("the graph is not one chain of nodes (it branches, as into NCCL's "
+                       "stream): its work has no one order to match")
+    events = trace.get("traceEvents", [])
+    launches = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") in _LAUNCH_CATS
+                       and e.get("name", "").startswith("cudaGraphLaunch")),
+                      key=lambda e: e["ts"])
+    if not launches:
+        return _refuse("no cudaGraphLaunch in the trace")
+    if steps % len(launches):
+        return _refuse(f"{steps} steps do not divide over {len(launches)} replays")
+    by_corr = defaultdict(list)
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS:
+            by_corr[(e.get("args") or {}).get("correlation")].append(e)
+    nodes = regions_map.nodes
+    read, cut = [], []
+    for r, launch in enumerate(launches):
+        work = sorted(by_corr.get((launch.get("args") or {}).get("correlation"), ()),
+                      key=lambda e: e["ts"])
+        if len(work) == len(nodes) and _matches(work, nodes):
+            read.append(work)
+        elif 0 < len(work) < len(nodes) and (
+                (r == 0 and _matches(work, nodes[len(nodes) - len(work):]))
+                or (r == len(launches) - 1 and _matches(work, nodes))):
+            cut.append(f"replay {r} ({len(work)} of {len(nodes)} nodes)")
+        else:
+            same = next((i for i, (e, n) in enumerate(zip(work, nodes))
+                         if not _same_work(e, *n[:2])), min(len(work), len(nodes)))
+            return _refuse(f"replay {r} of {len(launches)}: {len(work)} device events, the "
+                           f"map has {len(nodes)} work nodes, the first {same} match")
+    if not read:
+        return _refuse(f"no replay whole in the trace: {', '.join(cut)}")
+    if cut:
+        print(f"replay_budget: left out, cut by the trace's window: {', '.join(cut)}",
+              file=sys.stderr)
+    per_step = 1e3 * (steps // len(launches)) * len(read)  # us to ms, over the steps read
+    fwd, bwd, gap = defaultdict(float), defaultdict(float), defaultdict(float)
+    for work in read:
+        prev_end = None
+        for e, (_, _, path, where) in zip(work, nodes):
+            start, end = e["ts"], e["ts"] + e.get("dur", 0)
+            idle = 0.0 if prev_end is None else max(0.0, start - prev_end)
+            us = end - start if prev_end is None else max(end, prev_end) - prev_end
+            prev_end = end if prev_end is None else max(end, prev_end)
+            row = "/".join(path[:depth]) or UNATTRIBUTED
+            (fwd if where == "fwd" else bwd)[row] += us / per_step
+            gap[row] += idle / per_step
+    return {row: (fwd[row], bwd[row], gap[row]) for row in set(fwd) | set(bwd)}
 
 
 def profile_regions(fn, calls: int, steps: int, depth: int = 2) -> dict:

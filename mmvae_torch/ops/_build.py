@@ -56,6 +56,9 @@ _SIGNATURES = {
     "mmvae_head_sample_fwd": [_P] * 12 + [_I] * 4 + [_U, _P, _I, _I, _P],
     "mmvae_head_sample_bwd": [_P] * 14 + [_I] * 4 + [_P],
     "mmvae_head_sample_layout": [_I] * 4 + [_P],
+    "mmvae_capture_frontier": [_P, _P, _I],
+    "mmvae_graph_nodes": [_P] * 4 + [_I],
+    "mmvae_graph_kernel_name": [ctypes.c_ulonglong, ctypes.c_char_p, _I],
 }
 _RESTYPES = {"mmvae_convlstm_proj_layout": None, "mmvae_convlstm_scan_layout": None,
              "mmvae_convlstm_general_layout": None, "mmvae_head_sample_layout": None}

@@ -44,7 +44,8 @@ from mmvae_torch.train import checkpoint as ckpt
 from mmvae_torch.train.metrics import MetricsLogger
 from mmvae_torch.train.state import TrainState, create_train_state
 from mmvae_torch.utils.debug import debug_nans, install_sigterm_checkpoint
-from mmvae_torch.utils.profiling import annotate
+from mmvae_torch.utils.profiling import (GraphRegions, RegionRecorder, annotate, backward,
+                                         record_regions, span)
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -188,22 +189,28 @@ def make_train_step(
         ongen_idx = torch.arange(ongen_batch, device=device)  # the whole generated batch
 
     def step(state: TrainState, data: Optional[torch.Tensor]) -> Metrics:
-        seed = shard_seed_t(step_seed_t(state.step_t), rank)
+        with annotate("rows"):
+            seed = shard_seed_t(step_seed_t(state.step_t), rank)
+            if gen_fn is not None:
+                idx = ongen_idx
+            elif resident_batch is not None and resident_epochs:
+                idx = resident_row_indices(state.step_t, data.shape[0], resident_batch,
+                                           resident_seed, data.device, shard_index=rank)
+            elif resident_batch is not None:
+                idx = uniform_rows(seed, data.shape[0], resident_batch, data.device)
+            else:
+                idx = torch.arange(data.shape[0], device=data.device)
         if gen_fn is not None:
-            data, idx = gen_fn(stream_seed_t(seed, STREAM_ONGEN)), ongen_idx
-        elif resident_batch is not None and resident_epochs:
-            idx = resident_row_indices(state.step_t, data.shape[0], resident_batch,
-                                       resident_seed, data.device, shard_index=rank)
-        elif resident_batch is not None:
-            idx = uniform_rows(seed, data.shape[0], resident_batch, data.device)
-        else:
-            idx = torch.arange(data.shape[0], device=data.device)
+            with annotate("ongen"):
+                data = gen_fn(stream_seed_t(seed, STREAM_ONGEN))
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(data, idx, seed, kl_beta(state.step_t, beta, kl_warmup_steps))
-        loss.backward()
+        backward(loss)
         if sync is not None:
-            metrics = sync(state.model.parameters(), metrics)
-        state.apply_gradients()
+            with annotate("grad_sync"):
+                metrics = sync(state.model.parameters(), metrics)
+        with annotate("optimizer"):
+            state.apply_gradients()
         return metrics
 
     return step
@@ -228,6 +235,7 @@ class _Captured(NamedTuple):
     stacked: torch.Tensor  # the K steps' metrics (K, keys), rewritten by each replay
     keys: List[str]
     launches: dict  # the kernel launches the graph holds (`ops.launch_delta`)
+    recorder: RegionRecorder  # the capture's region boundaries, walked on demand
 
 
 def chunk_steps(step: Callable[[TrainState, Optional[torch.Tensor]], Metrics], n_steps: int,
@@ -252,11 +260,19 @@ def chunk_steps(step: Callable[[TrainState, Optional[torch.Tensor]], Metrics], n
     A capture or replay that fails raises; nothing falls back to the eager
     loop.  On the CPU the chunk is the K-step loop itself.
 
+    The capture records the step's regions (`utils.profiling.record_regions`)
+    and keeps the captured graph: `chunk.regions()` walks it, at its first
+    call after a capture, into the region of each of its work nodes
+    (`utils.profiling.GraphRegions`), by which `bench.regions.replay_budget`
+    reads a traced replay; None before the first capture.  Under a
+    profiler a replay is the host span `chunk.replay`.
+
     Under data parallelism the chunk needs NCCL on a card (gloo's
     collectives cannot be captured), and `sync.stop` reaches the ranks
     through a device buffer the host writes before each replay
     (`parallel.GradSync`)."""
     captured: Optional[_Captured] = None
+    walked: Optional[GraphRegions] = None
 
     def loop(state: TrainState, data: Optional[torch.Tensor]) -> list:
         return [step(state, data) for _ in range(n_steps)]
@@ -265,7 +281,7 @@ def chunk_steps(step: Callable[[TrainState, Optional[torch.Tensor]], Metrics], n
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
     def capture(state: TrainState, data: Optional[torch.Tensor]) -> Metrics:
-        nonlocal captured
+        nonlocal captured, walked
         dev = state.step_t.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -273,15 +289,17 @@ def chunk_steps(step: Callable[[TrainState, Optional[torch.Tensor]], Metrics], n
             warm = stack(loop(state, data))
         torch.cuda.current_stream(dev).wait_stream(side)
         host_step, counted = state.step, ops.launch_snapshot()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with record_regions() as recorder, torch.cuda.graph(graph, stream=side):
             ms = loop(state, data)
             keys = list(ms[0])
             stacked = torch.stack([torch.stack([m[k].float() for k in keys]) for m in ms])
+        graph.instantiate()
         state.step = host_step  # the capture ran nothing
         launches = ops.launch_delta(counted)
         ops.add_launches({key: -n for key, n in launches.items()})
-        captured = _Captured(graph, _bindings(state, data), stacked, keys, launches)
+        captured = _Captured(graph, _bindings(state, data), stacked, keys, launches, recorder)
+        walked = None
         return warm
 
     def chunk(state: TrainState, data: Optional[torch.Tensor]) -> Metrics:
@@ -289,18 +307,27 @@ def chunk_steps(step: Callable[[TrainState, Optional[torch.Tensor]], Metrics], n
             return stack(loop(state, data))
         if captured is None or captured.bindings != _bindings(state, data):
             return capture(state, data)
-        captured.graph.replay()
-        state.step += n_steps
-        ops.add_launches(captured.launches)
-        if sync is not None:
-            sync.replayed()
-        out = captured.stacked.clone()
-        return {k: out[:, j] for j, k in enumerate(captured.keys)}
+        with span("chunk.replay"):
+            captured.graph.replay()
+            state.step += n_steps
+            ops.add_launches(captured.launches)
+            if sync is not None:
+                sync.replayed()
+            out = captured.stacked.clone()
+            return {k: out[:, j] for j, k in enumerate(captured.keys)}
 
     if sync is not None and sync.device.type == "cuda" and sync.backend != "nccl":
         raise ValueError(f"train.steps_per_call={n_steps} on a card under data parallelism "
                          f"needs the NCCL backend: {sync.backend}'s collectives cannot be "
                          "captured in a CUDA graph")
+    def regions() -> Optional[GraphRegions]:
+        """The region map of the graph the chunk replays."""
+        nonlocal walked
+        if walked is None and captured is not None:
+            walked = captured.recorder.walk(captured.graph)
+        return walked
+
+    chunk.regions = regions
     return chunk
 
 

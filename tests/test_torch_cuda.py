@@ -294,6 +294,100 @@ def test_chunk_replays_equal_eager_steps(dev, resident_epochs):
         assert torch.equal(p, q), name
 
 
+# The benchmark's cells (`BENCHMARK.json`): config, overrides, the regions
+# its step opens
+REGION_CELLS = {
+    "seq_vae.resident.k10": ("seq_vae", (), (
+        "rows", "preprocess", "model_fwd/frame_enc", "model_fwd/enc_lstm",
+        "model_fwd/latent_head", "model_fwd/z_init", "model_fwd/dec_lstm",
+        "model_fwd/frame_dec", "elbo_reduce", "optimizer")),
+    "hier_vae_fused.resident.k10": ("hier_vae", ("model.kwargs.fused=true",), (
+        "rows", "preprocess", "model_fwd", "model_fwd/frame_enc", "model_fwd/chunk_lstm",
+        "model_fwd/dec_lstm", "model_fwd/frame_dec", "elbo_reduce", "optimizer")),
+}
+
+
+def _cell_chunk(dev, cell):
+    """(state, data, chunk) of the cell's config at its widths and batch, ten
+    steps a graph."""
+    from mmvae_torch.bench.throughput import setup_resident_training
+
+    name, overrides, _ = REGION_CELLS[cell]
+    return setup_resident_training(get_config(name, overrides + ("train.steps_per_call=10",)),
+                                   dev)
+
+
+@pytest.mark.parametrize("cell", list(REGION_CELLS))
+def test_region_boundaries_add_no_graph_node(dev, cell, monkeypatch):
+    """A chunk captured with the region boundaries holds the same work
+    nodes, in the same order and with the same kernel names, as one captured
+    with the recorder stubbed out (no boundary, no backward hook); every
+    kernel node is named and every region holds work; the map is walked
+    once."""
+    import contextlib
+
+    from mmvae_torch.train import loop
+    from mmvae_torch.utils import profiling
+
+    @contextlib.contextmanager
+    def no_boundaries(frontier=None):
+        yield profiling.RegionRecorder(lambda: None)  # walks the graph, records nothing
+
+    maps = []
+    for stub in (True, False):
+        with monkeypatch.context() as m:
+            if stub:
+                m.setattr(loop, "record_regions", no_boundaries)
+            state, data, chunk = _cell_chunk(dev, cell)
+            chunk(state, data)
+        maps.append(chunk.regions())
+        assert chunk.regions() is maps[-1]  # walked once a capture
+        del state, data, chunk
+        torch.cuda.empty_cache()
+    plain, marked = maps
+    assert plain.chain and marked.chain and plain.graph_nodes == marked.graph_nodes
+    assert [n[:2] for n in plain.nodes] == [n[:2] for n in marked.nodes]
+    assert all(name for kind, name, _, _ in marked.nodes if kind == "kernel")
+    assert {path for _, _, path, _ in plain.nodes} == {()}
+    held = {"/".join(path) for _, _, path, _ in marked.nodes}
+    assert set(REGION_CELLS[cell][2]) <= held <= set(REGION_CELLS[cell][2]) | {"", "model_fwd"}
+
+
+@pytest.mark.parametrize("cell", list(REGION_CELLS))
+def test_traced_replays_match_the_region_map(dev, cell, tmp_path):
+    """Every replay of a traced window of 3 calls is whole in the trace and
+    matches the chunk's map, and the rows (regions and `?`) sum to the
+    replays' span a step within 0.5 %, the rest `?` at most 3 % of it."""
+    from mmvae_torch.bench import regions
+    from mmvae_torch.utils import profiling
+
+    state, data, chunk = _cell_chunk(dev, cell)
+    chunk(state, data)
+    chunk(state, data)
+    with profiling.trace(str(tmp_path)) as prof:
+        for _ in range(3):
+            chunk(state, data)
+    trace = regions.load_trace(prof.trace_path)
+    rows = regions.replay_budget(trace, chunk.regions(), 30, depth=2)
+    assert rows is not None
+    launches = [e["args"]["correlation"] for e in trace["traceEvents"]
+                if e.get("ph") == "X" and e.get("name") == "cudaGraphLaunch"]
+    assert len(launches) == 3
+    span = 0.0
+    for corr in launches:
+        work = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+                and e.get("cat") in regions.DEVICE_CATS and e["args"].get("correlation") == corr]
+        assert len(work) == len(chunk.regions().nodes)
+        span += max(e["ts"] + e["dur"] for e in work) - min(e["ts"] for e in work)
+    span_ms = span / 1e3 / 30
+    total = sum(f + b for f, b, _ in rows.values())
+    assert total == pytest.approx(span_ms, rel=5e-3)
+    assert set(REGION_CELLS[cell][2]) <= set(rows)
+    unattributed = rows.get(regions.UNATTRIBUTED, (0.0, 0.0, 0.0))
+    assert sum(unattributed[:2]) <= 0.03 * span_ms
+    assert rows["optimizer"][1] == 0 and rows["model_fwd/dec_lstm"][1] > 0
+
+
 def test_recipe_train_step_generates_and_keeps_an_ema(dev):
     """The recommended recipe (fast_mid, clips generated on the card, EMA) at
     small widths: finite losses, K1, K3, K5 and the head once a step, K6 and

@@ -2,19 +2,27 @@
 (`mmvae_torch.bench.regions`), on the CPU at tiny widths.
 
 The port opens the JAX package's `jax.named_scope` regions, under the same
-names and at the counterpart sites (read from the `mmvae_tpu` sources); a
-traced CPU train step puts every operator, the backward's and the decoder
+names and at the counterpart sites (read from the `mmvae_tpu` sources), and
+its own (`utils.profiling.PORT_REGIONS`) where the JAX package names none;
+a traced CPU train step puts every operator, the backward's and the decoder
 remat's recompute included, in its region; the reader attributes a
 hand-built GPU-style trace's kernels by their launches; a profiled step
 equals an unprofiled one bit for bit; `annotate` opens no range without a
-profiler.
+profiler.  The boundaries a capture records (`utils.profiling.record_regions`)
+are held here with a stand-in for the capture's frontier, a dispatch mode
+that numbers the aten ops: every op of a step lands in its region, forward
+and backward, and the boundaries add no op; `replay_budget` reads
+hand-built traces of graph replays by a region map.
 """
 
+import contextlib
 import re
+from collections import Counter
 from pathlib import Path
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from mmvae_torch.bench import regions
 from mmvae_torch.bench.throughput import setup_resident_training
@@ -56,15 +64,22 @@ _PORT = r'annotate\("(\w+)"\)'
 
 @pytest.mark.parametrize("jax_file,port_file", SITES)
 def test_regions_equal_the_jax_named_scopes(jax_file, port_file):
+    """The JAX package's names at their sites, in order; the train step's
+    own regions (`profiling.PORT_REGIONS`) beside them are left out there,
+    and a model file opens none of them."""
     want = _names(REPO / "mmvae_tpu" / jax_file, _JAX)
     assert want, f"{jax_file} names no scope"
-    assert _names(REPO / "mmvae_torch" / port_file, _PORT) == want
+    port = _names(REPO / "mmvae_torch" / port_file, _PORT)
+    if port_file == "train/loop.py":
+        port = [n for n in port if n not in profiling.PORT_REGIONS]
+    assert port == want
 
 
 def test_no_other_region_is_opened():
     """Only the counterpart sites open regions (pred_vae, conv_vae and
-    mlp_vae name none in the JAX package), and the reader's names are the
-    JAX package's."""
+    mlp_vae name none in the JAX package), the port's own among them in
+    its train step, and the reader's names are the JAX package's, then the
+    port's."""
     jax_files = {p.relative_to(REPO / "mmvae_tpu").as_posix()
                  for p in (REPO / "mmvae_tpu").rglob("*.py")
                  if re.search(_JAX, p.read_text())}
@@ -73,7 +88,10 @@ def test_no_other_region_is_opened():
                   if re.search(_PORT, p.read_text())}
     assert jax_files == port_files == {j for j, _ in SITES}
     every = {n for j, _ in SITES for n in _names(REPO / "mmvae_tpu" / j, _JAX)}
-    assert set(regions.REGIONS) == every
+    assert set(regions.JAX_REGIONS) == every
+    assert regions.REGIONS == regions.JAX_REGIONS + profiling.PORT_REGIONS
+    own = set(_names(REPO / "mmvae_torch" / "train/loop.py", _PORT)) - every
+    assert own == set(profiling.PORT_REGIONS)
 
 
 def _tiny(name, *overrides):
@@ -147,14 +165,15 @@ def test_cpu_step_lands_in_its_regions(case, tmp_path):
     b = regions.budget(trace, steps=1)
     assert b["timeline"] == "host"
     rows = {r["region"]: r for r in b["rows"]}
-    for region in ("preprocess", *model_regions, "elbo_reduce"):
+    for region in ("rows", "preprocess", *model_regions, "elbo_reduce", "optimizer"):
         assert rows[region]["fwd_ms"] > 0, region
     # every region with parameters, or with a differentiable input, has a backward
     for region in (*model_regions, "elbo_reduce"):
         assert rows[region]["bwd_ms"] > 0, region
-    assert rows["preprocess"]["bwd_ms"] == 0  # u8 in: nothing to differentiate
-    assert set(rows) <= {"preprocess", "model_fwd", *model_regions, "elbo_reduce",
-                         regions.UNATTRIBUTED}
+    for region in ("rows", "preprocess", "optimizer"):  # nothing to differentiate
+        assert rows[region]["bwd_ms"] == 0, region
+    assert set(rows) <= {"rows", "preprocess", "model_fwd", *model_regions, "elbo_reduce",
+                         "optimizer", regions.UNATTRIBUTED}
     assert sum(r["ms"] for r in b["rows"]) == pytest.approx(b["total_ms"], rel=1e-12)
     assert sum(r["share"] for r in b["rows"]) == pytest.approx(1.0)
 
@@ -168,7 +187,8 @@ def test_cpu_step_lands_in_its_regions(case, tmp_path):
         assert recomputed == set()
     # depth 1: the model's regions fold into model_fwd
     shallow = {r["region"] for r in regions.budget(trace, steps=1, depth=1)["rows"]}
-    assert shallow == {"preprocess", "model_fwd", "elbo_reduce", regions.UNATTRIBUTED}
+    assert shallow == {"rows", "preprocess", "model_fwd", "elbo_reduce", "optimizer",
+                       regions.UNATTRIBUTED}
 
 
 def _x(cat, name, tid, ts, dur, **args):
@@ -294,3 +314,258 @@ def test_annotate_opens_no_range_without_a_profiler(monkeypatch):
             torch.ones(2) + 1
     assert opened == ["enc_lstm"]
     assert "enc_lstm" in {e.name for e in prof.events()}
+
+
+# --- regions in a captured graph ------------------------------------------------------
+
+
+class _Numbered(TorchDispatchMode):
+    """Numbers the aten ops it sees, forward and backward: a stand-in for
+    the nodes of a captured graph, whose frontier is the last op."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+    def frontier(self):
+        return (len(self.ops) - 1,) if self.ops else ()
+
+
+def _recorded_step(cfg, record: bool = True):
+    """(the aten ops of one train step, each op's (region path, pass), the
+    recorder, the state after the step) under `record_regions` with the
+    numbered ops as the frontier (or with no recorder)."""
+    state, data, step = setup_resident_training(cfg, torch.device("cpu"))
+    step(state, data)
+    mode = _Numbered()
+    with (profiling.record_regions(mode.frontier) if record
+          else contextlib.nullcontext()) as rec, mode:
+        step(state, data)
+    places = rec.place(range(len(mode.ops))) if record else None
+    return mode.ops, places, rec, state
+
+
+def _ops_by_row(ops, places) -> dict:
+    rows = {}
+    for op, (path, where) in zip(ops, places):
+        rows.setdefault(("/".join(path) or regions.UNATTRIBUTED, where), Counter())[op] += 1
+    return rows
+
+
+# What stays outside every region (`profiling.PORT_REGIONS`' note): the loss
+# arithmetic, its backward and the backward's seed gradient, the gradients'
+# hand-over to `.grad` (AccumulateGrad: a detach, or a copy where the layout
+# differs), and the host's record of `zero_grad`.
+FWD_RESIDUE = {"add", "mul", "div", "detach", "ones_like", "_record_function_enter_new",
+               "_record_function_exit"}
+BWD_RESIDUE = {"div", "mul", "detach", "new_empty_strided", "copy_"}
+
+CAPTURE_CASES = {"seq_vae": ("seq_vae", SEQ), "hier_vae": ("hier_vae", HIER)}
+
+
+@pytest.mark.parametrize("case", list(CAPTURE_CASES))
+def test_recorded_regions_hold_every_op_of_a_step(case):
+    """Configs 3 and 5 (the decoder under remat): the forward's regions open
+    and close in the order of the JAX package's, each closed at the step's
+    end; each model region and elbo_reduce has backward work, met in the
+    reverse order; the optimizer's step is in `optimizer`; only the
+    residue is outside every region."""
+    name, model_regions = CAPTURE_CASES[case]
+    ops, places, rec, _ = _recorded_step(_tiny(name))
+    fwd = [path for _, path, where in rec.marks if where == "fwd"]
+    opened = [fwd[0]] + [b for a, b in zip(fwd, fwd[1:]) if len(b) > len(a)]
+    for a, b in zip(fwd, fwd[1:]):  # one region opened or closed at a time
+        assert a == b or b[:-1] == a or a[:-1] == b, (a, b)
+    want = ("rows", "preprocess", "model_fwd", *model_regions, "elbo_reduce", "optimizer")
+    assert ["/".join(p) for p in opened] == list(want)
+    assert fwd[-1] == ()
+    met = list(dict.fromkeys("/".join(p) for _, p, where in rec.marks
+                             if where == "bwd" and p not in ((), ("model_fwd",))))
+    assert met == ["elbo_reduce", *reversed(model_regions)]
+    rows = _ops_by_row(ops, places)
+    assert rows[("optimizer", "fwd")]["_fused_adam_"] == 1
+    assert sum(c["_fused_adam_"] for r, c in rows.items() if r != ("optimizer", "fwd")) == 0
+    assert set(rows[(regions.UNATTRIBUTED, "fwd")]) <= FWD_RESIDUE
+    assert set(rows[(regions.UNATTRIBUTED, "bwd")]) <= BWD_RESIDUE
+    for region in (*model_regions, "elbo_reduce"):
+        assert sum(rows[(region, "bwd")].values()) > 0, region
+    assert {r for r, _ in rows} <= {*want, "model_fwd", regions.UNATTRIBUTED}
+
+
+def test_the_decoders_recompute_lands_in_its_backward():
+    """Config 3 under remat runs the ops it runs without remat in the same
+    rows (less the decoder's saves for the backward), and its recompute's
+    ops besides, all in dec_lstm's backward."""
+    remat, p_remat, _, _ = _recorded_step(_tiny("seq_vae"))
+    plain, p_plain, _, _ = _recorded_step(_tiny("seq_vae", "model.kwargs.remat=false"))
+    a, b = _ops_by_row(remat, p_remat), _ops_by_row(plain, p_plain)
+    extra = {r: c - b.get(r, Counter()) for r, c in a.items() if c - b.get(r, Counter())}
+    assert set(extra) == {("model_fwd/dec_lstm", "bwd")}
+    assert extra[("model_fwd/dec_lstm", "bwd")]["convolution"] > 0  # the recomputed taps
+    saved = {r: c - a.get(r, Counter()) for r, c in b.items() if c - a.get(r, Counter())}
+    assert set(saved) <= {("model_fwd/dec_lstm", "fwd")}
+    assert set(saved.get(("model_fwd/dec_lstm", "fwd"), ())) <= {"detach"}
+
+
+@pytest.mark.parametrize("name", ["seq_vae", "hier_vae"])
+def test_region_boundaries_add_no_op(name):
+    """The boundaries and the backward's hooks run no op: a step recorded
+    runs the ops of a step not recorded, in the same order, and ends in the
+    same state bit for bit."""
+    ops, _, _, state = _recorded_step(_tiny(name))
+    plain_ops, _, _, plain = _recorded_step(_tiny(name), record=False)
+    assert ops == plain_ops and len(ops) > 100
+    a, b = _state_tensors(state), _state_tensors(plain)
+    assert set(a) == set(b)
+    for key in a:
+        assert torch.equal(a[key], b[key]), key
+
+
+def test_a_chunk_that_captures_nothing_has_no_region_map():
+    """On the CPU a chunk is the K-step loop: nothing is captured, so
+    `chunk.regions()` is None, before a call and after one."""
+    state, data, chunk = setup_resident_training(_tiny("seq_vae", "train.steps_per_call=2"),
+                                                 torch.device("cpu"))
+    assert chunk.regions() is None
+    assert chunk(state, data)["loss"].shape == (2,)
+    assert chunk.regions() is None
+
+
+def test_recorder_places_nodes_after_their_last_boundary():
+    """A node belongs to the last mark recorded whose frontier lies before
+    it; a mark's frontier is its latest node; nodes before every mark are
+    outside every region."""
+    rec = profiling.RegionRecorder(lambda: None)
+    rec.marks = [((), ("a",), "fwd"), ((1,), ("a", "b"), "fwd"), ((1,), ("a",), "fwd"),
+                 ((0, 3), ("c",), "bwd"), ((9,), (), "fwd")]
+    assert rec.place([0, 1, 2, 3, 4]) == [(("a",), "fwd"), (("a",), "fwd"), (("a",), "fwd"),
+                                           (("a",), "fwd"), (("c",), "bwd")]
+    rec.marks = [((2,), ("x",), "fwd")]
+    assert rec.place([0, 1, 2, 3]) == [((), "fwd")] * 3 + [(("x",), "fwd")]
+
+
+# A region map of four work nodes (a memcpy among them) and two replays of it
+MAP = profiling.GraphRegions(nodes=(
+    ("kernel", "fwd_kernel", ("model_fwd", "enc_lstm"), "fwd"),
+    ("memcpy", None, ("model_fwd",), "fwd"),
+    ("kernel", "bwd_kernel", ("model_fwd", "enc_lstm"), "bwd"),
+    ("kernel", "adam_kernel", ("optimizer",), "fwd"),
+), chain=True, graph_nodes=5)
+
+
+def _replays(*replays) -> dict:
+    """A GPU-style trace: each replay a `cudaGraphLaunch` and its device
+    events [(category, name, ts, dur)] under the launch's correlation."""
+    events = []
+    for r, work in enumerate(replays):
+        events.append(_x("cuda_runtime", "cudaGraphLaunch", 1, 1000.0 * r, 5.0,
+                         correlation=100 + r))
+        events.append(_x("user_annotation", "chunk.replay", 1, 1000.0 * r - 1, 10.0))
+        for cat, name, ts, dur in work:
+            events.append({"ph": "X", "cat": cat, "name": name, "pid": 0, "tid": 7,
+                           "ts": 1000.0 * r + ts, "dur": dur,
+                           "args": {"correlation": 100 + r}})
+    events.append(_kernel("eager_kernel", 7, 5000.0, 3.0))  # not a replay's
+    return {"traceEvents": events}
+
+
+REPLAY = [("kernel", "fwd_kernel", 10.0, 20.0),  # span 10 .. 110
+          ("kernel", "memcpy32_post", 34.0, 2.0),  # the graph's memcpy, run as a copy kernel
+          ("kernel", "bwd_kernel", 36.0, 40.0),
+          ("kernel", "adam_kernel", 90.0, 20.0)]
+
+
+def test_replay_budget_gives_each_node_the_gap_before_it():
+    rows = regions.replay_budget(_replays(REPLAY, REPLAY), MAP, steps=4)
+    # a step: (fwd, bwd, of which gaps) ms; two replays of two steps each
+    assert rows == {
+        "model_fwd/enc_lstm": (pytest.approx(0.020 * 2 / 4), pytest.approx(0.040 * 2 / 4),
+                               pytest.approx(0.0)),
+        "model_fwd": (pytest.approx(0.006 * 2 / 4), 0.0, pytest.approx(0.004 * 2 / 4)),
+        "optimizer": (pytest.approx(0.034 * 2 / 4), 0.0, pytest.approx(0.014 * 2 / 4))}
+    span = 0.100 * 2 / 4
+    assert sum(f + b for f, b, _ in rows.values()) == pytest.approx(span)
+    shallow = regions.replay_budget(_replays(REPLAY, REPLAY), MAP, steps=4, depth=1)
+    assert set(shallow) == {"model_fwd", "optimizer"}
+    assert sum(f + b for f, b, _ in shallow.values()) == pytest.approx(span)
+    # a node that ends inside its predecessor adds no time; overlap is not counted twice
+    nested = [REPLAY[0], ("gpu_memcpy", "Memcpy DtoD (Device -> Device)", 12.0, 2.0),
+              *REPLAY[2:]]
+    rows = regions.replay_budget(_replays(nested), MAP, steps=2)
+    assert rows["model_fwd"] == (0.0, 0.0, 0.0)
+    assert sum(f + b for f, b, _ in rows.values()) == pytest.approx(0.100 / 2)
+
+
+@pytest.mark.parametrize("fault", ["reordered", "shortened", "renamed", "memset for memcpy",
+                                   "a node lost at the end", "branched", "no map", "no replay",
+                                   "steps over replays"])
+def test_replay_budget_refuses_what_does_not_match(fault, capsys):
+    second, regions_map, steps = list(REPLAY), MAP, 6
+    if fault == "reordered":
+        second[0], second[2] = (*REPLAY[2][:2], *REPLAY[0][2:]), (*REPLAY[0][:2], *REPLAY[2][2:])
+    elif fault == "shortened":  # a middle replay: no window cut it
+        second = second[:3]
+    elif fault == "renamed":
+        second[3] = ("kernel", "sgd_kernel", 90.0, 20.0)
+    elif fault == "memset for memcpy":
+        second[1] = ("gpu_memset", "Memset (Device)", 34.0, 2.0)
+    elif fault == "branched":
+        regions_map = MAP._replace(chain=False)
+    elif fault == "no map":
+        regions_map = None
+    elif fault == "steps over replays":
+        steps = 4
+    trace = _replays(REPLAY, second, REPLAY) if fault != "no replay" else _replays()
+    if fault == "a node lost at the end":  # the last replay, short of a node not its last
+        trace = _replays(REPLAY, REPLAY, REPLAY[:2] + REPLAY[3:])
+    assert regions.replay_budget(trace, regions_map, steps=steps) is None
+    assert "replay_budget: " in capsys.readouterr().err
+    if fault not in ("branched", "no map"):
+        assert regions.replay_budget(_replays(REPLAY), MAP, steps=2) is not None
+
+
+def test_replay_budget_leaves_out_replays_the_window_cut(capsys):
+    """The trace's first replay without the map's first nodes and its last
+    without the last ones are left out, and the whole replay between them
+    is read; a trace with no whole replay gives None."""
+    whole = regions.replay_budget(_replays(REPLAY), MAP, steps=2)
+    assert capsys.readouterr().err == ""
+    rows = regions.replay_budget(_replays(REPLAY[1:], REPLAY, REPLAY[:3]), MAP, steps=6)
+    assert rows == whole
+    err = capsys.readouterr().err
+    assert "replay 0 (3 of 4 nodes)" in err and "replay 2 (3 of 4 nodes)" in err
+    assert regions.replay_budget(_replays(REPLAY[2:], REPLAY[:1]), MAP, steps=4) is None
+    assert "no replay whole" in capsys.readouterr().err
+
+
+def test_the_benchmarks_readers_ignore_the_ports_own_spans():
+    """The benchmark's frozen reader (`benchmark/trace.py`) and its six
+    per-layer metrics read a trace the same with the port's own regions and
+    host spans in it (`optimizer`, `rows`, `chunk.replay`) as without them:
+    they name only the JAX package's regions."""
+    from types import SimpleNamespace
+
+    from benchmark import cells, trace as frozen
+
+    plain = _gpu_style_trace()
+    spans = {"traceEvents": plain["traceEvents"] + [
+        _x("user_annotation", "chunk.replay", 1, -5.0, 500.0),
+        _x("user_annotation", "rows", 1, -4.0, 3.0),
+        _x("user_annotation", "optimizer", 1, 299.0, 25.0),
+        _x("user_annotation", "grad_sync", 1, 290.0, 5.0)]}
+    names = [m["name"] for m in cells.manifest()["per_layer"]]
+    assert len(names) == 6
+
+    def read(t):
+        dev = frozen.device_events(t)
+        ctx = SimpleNamespace(regions=frozen.regions(t, 2), busy_s=frozen.busy_us(dev) / 1e6,
+                              window_s=1e-3, steps=2, nccl_s=0.0, world=1,
+                              flops_per_step=1e6, recurrence_bound_ms=1e-3)
+        return ctx.regions, frozen.device_ops(dev), {n: cells.reader(n)(ctx) for n in names}
+
+    assert read(spans) == read(plain)
+    assert read(plain)[2]["region_ms.recurrence"] == pytest.approx(0.0155)
