@@ -53,16 +53,17 @@ Phases, each raising on failure (the script catches nothing):
    of the host generator's;
 4. the slices through `run_benchmark` at full width, each with the launch
    counters set to 0 just before it and read just after: config 3
-   `seq_vae` (64 clips x 20 frames: K1, K3, K5 and the head; K6 not
-   launched), config 4 `pred_vae` and config 5 `hier_vae` (16 clips x 100
-   frames) with `model.kwargs.fused=true` (K1, K3, K5, K6 and the head),
-   the recommended recipe (config 3 with `fast_mid`, clips generated on the
-   card every step and a parameter EMA: K1, K3, K5 and the head; K6 not
-   launched; the EMA moved off both the initial and the live parameters),
-   the standalone K2 launched on none, 3 timed windows of 20 train steps
-   after 5 warmup steps, losses finite and falling; then config 3 with
-   fused=true once more, timed beside the default, as a measurement of the
-   decoder policy (not adopted);
+   `seq_vae` (64 clips x 20 frames: K1, K3, K5, the head and, under the
+   auto policy, K6), config 4 `pred_vae` and config 5 `hier_vae` (16 clips
+   x 100 frames) with `model.kwargs.fused=true` (K1, K3, K5, K6 and the
+   head), the recommended recipe (config 3 with `fast_mid`, clips generated
+   on the card every step and a parameter EMA: as config 3; the EMA moved
+   off both the initial and the live parameters), K6 wherever
+   `models.convlstm.runs_kernel` puts the decoder, the standalone K2
+   launched on none, 3 timed windows of 20 train steps after 5 warmup
+   steps, losses finite and falling; then config 3 with fused=false (both
+   recurrences on the eager loop: neither K5 nor K6), timed beside the
+   default, as a measurement of the policy;
 5. the training loop `fit` at full width (its one cut: a 2,000-clip
    procedural set), each run with the launch counters set to 0 just before
    it and read just after and held to its path's equations (K5's forward
@@ -131,7 +132,8 @@ Phases, each raising on failure (the script catches nothing):
    device busy ms and idle share, kernels and host launches a step,
    flops_per_step, TFLOP/s and MFU (finite, in (0, 1]);
 9. the named regions (`mmvae_torch.bench.regions`) at K = 1 and full width
-   on config 3 (default and fused=true), config 4 fused, config 5 fused and
+   on config 3 (default, and fused=false: both recurrences on the eager
+   loop), config 4 fused, config 5 fused and
    the recipe: a step with the profiler on bit-identical to one without,
    then 10 traced steps with the launch counters set to 0 just before them
    and read just after; each region the JAX model names has forward (and,
@@ -139,7 +141,7 @@ Phases, each raising on failure (the script catches nothing):
    summed device time (kernels, memsets, copies), and each kernel kind
    lands in its region (K3 in preprocess, K1 in elbo_reduce, the head in
    latent_head on config 3, K5 in enc_lstm or chunk_lstm, K6 in dec_lstm
-   where fused, their backward and weight GEMM in those regions'
+   where the decoder runs it, their backward and weight GEMM in those regions'
    backward); each path's budget printed; then `annotate`'s cost with no
    profiler running and configs 1 and 3's K = 1 step ms from phase 8
    beside those measured before the regions;
@@ -359,6 +361,22 @@ def _model_kwargs(cfg) -> dict:
     return {**{k: p.default for k, p in params.items()}, **cfg.model.kwargs}
 
 
+def _dec_k6(cfg) -> bool:
+    """Whether the decoder recurrence of a sequence model under `cfg` runs
+    K6 on the card: `models.convlstm.runs_kernel` for its time-constant
+    input at the config's activations, F and grid."""
+    import torch
+
+    from mmvae_torch.models.convlstm import runs_kernel
+
+    if cfg.data.per_frame:
+        return False
+    kw = _model_kwargs(cfg)
+    grid = kw["image_size"] // 2 ** len(kw["enc_channels"])
+    return runs_kernel(kw["fused"], True, "cuda", getattr(torch, cfg.model.dtype),
+                       kw["lstm_features"], grid * grid)
+
+
 def _run_shapes(name: str, overrides, world: int = 1) -> dict:
     """{kernel kind: [shapes]} that one run of `name` under `overrides`
     gives the kernels (see `path_shapes`); with `world`, what rank 0 of
@@ -406,7 +424,7 @@ def _run_shapes(name: str, overrides, world: int = 1) -> dict:
     else:
         samples = [((b, kw["latent_dim"]), 0)]
         heads = [(b, grid * grid * feat, kw["latent_dim"], dtype)]
-    fused = cfg.model.kwargs.get("fused") is True
+    fused = _dec_k6(cfg)
     return {"preprocess": [(clips, t, b, fb)],
             "elbo": [((b, scored, size, size), samples[0][0], fb)],
             "reparam": samples, "head": heads,
@@ -1164,15 +1182,27 @@ def phase_models(dev) -> None:
 # generated on the card every step, and a parameter EMA.
 _RECIPE = ("model.kwargs.dec_upsample=fast_mid", "data.on_device_generate=true",
            "optim.ema_decay=0.999")
-# (config, overrides, kernels that must launch, kernels that must not)
+# (config, overrides, kernels that must launch, kernels that must not); K6
+# joins one or the other by the decoder's policy (`_slice_kernels`)
 _SLICES = (
-    ("seq_vae", (), _STEP + _K5, _K6 + _K2),
-    ("pred_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, _K2),
-    ("hier_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, _K2),
-    ("seq_vae", _RECIPE, _STEP + _K5, _K6 + _K2),
+    ("seq_vae", (), _STEP + _K5, _K2),
+    ("pred_vae", ("model.kwargs.fused=true",), _STEP + _K5, _K2),
+    ("hier_vae", ("model.kwargs.fused=true",), _STEP + _K5, _K2),
+    ("seq_vae", _RECIPE, _STEP + _K5, _K2),
 )
-# Policy measurement, recorded and not adopted: config 3's decoder through K6.
-_POLICY = ("seq_vae", ("model.kwargs.fused=true",), _STEP + _K5 + _K6, _K2)
+# Policy measurement: config 3 with fused=false (both recurrences on the eager
+# loop), beside the default.
+_POLICY = ("seq_vae", ("model.kwargs.fused=false",), _STEP, _K5 + _K2)
+
+
+def _slice_kernels(name: str, overrides, launched, idle) -> tuple:
+    """(launched, idle) of a slice with K6 added to the one its decoder's
+    policy puts it in (`_dec_k6`)."""
+    from mmvae_torch.configs import get_config
+
+    if _dec_k6(get_config(name, overrides)):
+        return launched + _K6, idle
+    return launched, idle + _K6
 
 # The fit runs' one cut: a 2,000-clip procedural set (data generation ~3 s).
 _CUT = ("data.num_sequences=2000",)
@@ -1198,6 +1228,7 @@ def run_slice(card: str, name: str, overrides, launched, idle) -> dict:
     base = get_config(name)
     _require(cfg.data.batch_size == base.data.batch_size and cfg.data.seq_len == base.data.seq_len
              and cfg.model.dtype == "bfloat16", f"{name} is not the full-width config")
+    launched, idle = _slice_kernels(name, overrides, launched, idle)
     ops.reset_launch_counts()
     res, state = run_benchmark(cfg, steps=20, warmup=5, return_state=True)
     counts = _counts()
@@ -1246,7 +1277,7 @@ def _tag(name: str, overrides) -> str:
 
 
 def phase_slice(card: str) -> dict:
-    """Configs 3, 4 and 5; then config 3 with fused=true (policy
+    """Configs 3, 4 and 5; then config 3 with fused=false (policy
     measurement).  Returns {path: that run's launch counts}."""
     return {_tag(name, overrides): run_slice(card, name, overrides, launched, idle)
             for name, overrides, launched, idle in (*_SLICES, _POLICY)}
@@ -1403,7 +1434,8 @@ def fit_streaming_and_resume(card: str, dev, workdir: str) -> dict:
     real_feed, loop.DeviceFeed = loop.DeviceFeed, feed
     try:
         tag = "fit seq_vae streaming"
-        state, history, counts = _fit(card, tag, cfg, 60, _step_counts(60, 3 * 2), dev)
+        state, history, counts = _fit(card, tag, cfg, 60,
+                                      _step_counts(60, 3 * 2, k6=_dec_k6(cfg)), dev)
         sums, feed.sums[:] = torch.stack(feed.sums).cpu().tolist(), []
         data = dict(num_sequences=cfg.data.num_sequences, seq_len=cfg.data.seq_len,
                     seed=cfg.data.seed)
@@ -1462,7 +1494,8 @@ def fit_streaming_and_resume(card: str, dev, workdir: str) -> dict:
               f"{1e3 * (t2 - t1):.1f} ms on the writer thread ({size:.1f} MiB), on {card}")
 
         cfg.train.resume = True
-        _, resumed, counts2 = _fit(card, tag + " resumed", cfg, 80, _step_counts(20, 2), dev)
+        _, resumed, counts2 = _fit(card, tag + " resumed", cfg, 80,
+                                   _step_counts(20, 2, k6=_dec_k6(cfg)), dev)
         sums = torch.stack(feed.sums).cpu().tolist()
         _require(sums == host[60:80], f"{tag} resumed: the feed did not hand over the host "
                                       f"batches 60-79")
@@ -1494,7 +1527,7 @@ def phase_fit(card: str, dev, workdir: str) -> dict:
         ema = bool(cfg.optim.ema_decay)
         evals = 2 * (2 if ema else 1)
         want = _step_counts(steps, evals, k5=name not in ("mlp_vae", "conv_vae"),
-                            k6=name == "pred_vae")
+                            k6=_dec_k6(cfg))
         state, history, counts = _fit(card, tag, cfg, steps, want, dev)
         last = history[-1]
         _require(history[-1]["loss"] < history[0]["loss"],
@@ -1532,7 +1565,7 @@ def _sample_want(cfg, mode: str, cli: bool = False) -> dict:
     (`ops.launch_counts_by_mode`; every key not named: 0).  A posterior
     draw is one fused head forward (two on hier_vae: z_g and the chunks);
     hier_vae's prior chain one a chunk; a sequence model's encoder K5
-    without residuals; a decoder under fused=true K6 in its "hs" mode; the
+    without residuals; a decoder on K6 (`_dec_k6`) K6's "hs" mode; the
     CLI's clips one K3 (u8 / 255)."""
     name, kw = cfg.model.name, cfg.model.kwargs
     seq = not cfg.data.per_frame
@@ -1545,7 +1578,7 @@ def _sample_want(cfg, mode: str, cli: bool = False) -> dict:
             want["preprocess_gather"] = 1
     elif name == "hier_vae":
         want["head_sample_forward"] = cfg.data.seq_len // kw["chunk_len"]
-    if seq and kw.get("fused") is True:
+    if _dec_k6(cfg):
         want["convlstm_scan_forward hs"] = 1
     return want
 
@@ -2198,11 +2231,11 @@ def phase_dp(card: str, dev, workdir: str) -> dict:
     # in this process on the card: the full batch, each rank's half (half 0
     # twice: the step's own repeatability) and their mean, the split's
     # result; then the same on the plain route in bf16 and in f32
-    refs, witness = {}, {}
+    refs, witness, k6 = {}, {}, {}
     for name, overrides in _DP_CONFIGS:
         tag = _tag(name, overrides)
         cfg, u8, eps = _dp_inputs(name, overrides)
-        refs[tag] = _split_gap(cfg, dev, u8, eps)
+        refs[tag], k6[tag] = _split_gap(cfg, dev, u8, eps), _dec_k6(cfg)
         with plain_route():
             witness[tag] = {
                 dt: _split_gap(get_config(name, overrides + more), dev, u8, eps)[2]
@@ -2248,9 +2281,9 @@ def phase_dp(card: str, dev, workdir: str) -> dict:
               f"process: {same} of {len(split)} tensors bit-identical, worst rel L2 {off:.3e} "
               f"(limit 2 x {floor:.3e}, the step's own repeatability); loss {dp_loss:.4f} "
               f"against {split_loss:.4f}")
-        # a step of this path: K6 under config 5's fused decoder, a head each
+        # a step of this path: K6 where its decoder runs it, a head each
         # sampling site (config 5: two)
-        want = _step_counts(1, 0, k6="fused=true" in tag)
+        want = _step_counts(1, 0, k6=k6[tag])
         if tag.startswith("hier_vae"):
             want.update(head_sample_forward=2, head_sample_backward=2)
         for r, res in enumerate(ranks):
@@ -2295,7 +2328,7 @@ def phase_dp(card: str, dev, workdir: str) -> dict:
 
     cfg = _dp_fit_cfg(workdir)
     evals = 2 * 2  # two passes of 2 full batches of 32 (each rank's 100 val rows)
-    want = _step_counts(_DP_FIT_STEPS, evals)
+    want = _step_counts(_DP_FIT_STEPS, evals, k6=_dec_k6(cfg))
     for r, res in enumerate(ranks):
         _require(all(res["counts"][k] == want.get(k, 0) for k in res["counts"]),
                  f"dp fit rank {r}: launches {res['counts']}, expected {want} (others 0)")
@@ -2579,7 +2612,8 @@ def fit_chunked(card: str, dev, workdir: str) -> dict:
     tag = f"fit seq_vae chunked K={_CHUNK_K}"
     split_dir, whole_dir = (os.path.join(workdir, f"chunked_{n}") for n in ("split", "whole"))
     cfg = cfg_in(split_dir)
-    state, history, counts = _fit(card, tag, cfg, 40, _step_counts(40, 2 * 2), dev)
+    k6 = _dec_k6(cfg)
+    state, history, counts = _fit(card, tag, cfg, 40, _step_counts(40, 2 * 2, k6=k6), dev)
     _require([h["step"] for h in history] == [10, 20, 30, 40]
              and all("val_loss" in history[i] for i in (1, 3)),
              f"{tag}: logged {[sorted(h) for h in history]}")
@@ -2589,9 +2623,11 @@ def fit_chunked(card: str, dev, workdir: str) -> dict:
     _require((step, data_step, fresh.step, int(fresh.step_t)) == (40, 40, 40, 40)
              and all(torch.equal(want[k], got[k].to(want[k].device)) for k in want),
              f"{tag}: the restored state differs from the saved one")
-    whole, _, _ = _fit(card, tag + " to 60", cfg_in(whole_dir), 60, _step_counts(60, 3 * 2), dev)
+    whole, _, _ = _fit(card, tag + " to 60", cfg_in(whole_dir), 60,
+                       _step_counts(60, 3 * 2, k6=k6), dev)
     cfg.train.resume = True
-    resumed, hist2, counts2 = _fit(card, tag + " resumed", cfg, 60, _step_counts(20, 2), dev)
+    resumed, hist2, counts2 = _fit(card, tag + " resumed", cfg, 60,
+                                   _step_counts(20, 2, k6=k6), dev)
     a, b = _state_tensors(whole), _state_tensors(resumed)
     _require([h["step"] for h in hist2] == [50, 60]
              and all(torch.equal(a[k], b[k]) for k in a),
@@ -2704,12 +2740,12 @@ def phase_chunk(card: str, dev, workdir: str) -> tuple:
 
 # The paths whose per-region budget is read (K = 1: a graph replay runs no
 # host code to attribute, and launches the same kernels as eager steps).
-_REGION_PATHS = (
-    ("seq_vae", (), _STEP + _K5, _K6 + _K2),
-    ("seq_vae", _FUSED, _STEP + _K5 + _K6, _K2),
-    ("pred_vae", _FUSED, _STEP + _K5 + _K6, _K2),
-    ("hier_vae", _FUSED, _STEP + _K5 + _K6, _K2),
-    ("seq_vae", _RECIPE, _STEP + _K5, _K6 + _K2),
+_REGION_PATHS = (  # K6 joins launched or idle as in `_SLICES`
+    ("seq_vae", (), _STEP + _K5, _K2),
+    ("seq_vae", ("model.kwargs.fused=false",), _STEP, _K5 + _K2),
+    ("pred_vae", _FUSED, _STEP + _K5, _K2),
+    ("hier_vae", _FUSED, _STEP + _K5, _K2),
+    ("seq_vae", _RECIPE, _STEP + _K5, _K2),
 )
 _REGION_WARMUP, _REGION_STEPS = 5, 10
 # The regions the JAX model names under model_fwd (mmvae_tpu/models/*.py);
@@ -2724,27 +2760,29 @@ _MODEL_REGIONS = {
 _BEFORE_REGIONS_MS = {"mlp_vae": 2.843, "seq_vae": 46.557}
 
 
-def _kernel_rows(name: str, fused: bool) -> dict:
+def _kernel_rows(name: str, k5: bool, k6: bool) -> dict:
     """{kernel name: the (row, pass) set its launches must fill} of a path:
     K3 in preprocess, K1 in elbo_reduce, the head in latent_head (model_fwd
-    where the JAX model names no head region), K5 (and K6 where fused) in
-    the recurrences' regions, their backward (and the weight GEMM they
-    share) in those regions' backward."""
+    where the JAX model names no head region), K5 and K6 where the path
+    runs them in the recurrences' regions, their backward (and the weight
+    GEMM they share) in those regions' backward."""
     enc = {"seq_vae": "model_fwd/enc_lstm", "hier_vae": "model_fwd/chunk_lstm"}.get(
         name, "model_fwd")
     dec = "model_fwd/dec_lstm" if name != "pred_vae" else "model_fwd"
     head = "model_fwd/latent_head" if name == "seq_vae" else "model_fwd"
-    rec = {enc, dec} if fused else {enc}
-    return {
+    rec = {r for r, runs in ((enc, k5), (dec, k6)) if runs}
+    rows = {
         "preprocess_gather_kernel": {("preprocess", "fwd")},
         "bce_partial_kernel": {("elbo_reduce", "fwd")},
         "sum_partials_kernel": {("elbo_reduce", "fwd")},
         "head_sample_fwd_kernel": {(head, "fwd")},
         "head_sample_bwd_kernel": {(head, "bwd")},
-        "rec_fwd_wgmma_kernel": {(r, "fwd") for r in rec},
-        "rec_bwd_wgmma_kernel": {(r, "bwd") for r in rec},
-        "wgrad_wgmma_kernel": {(r, "bwd") for r in rec},
     }
+    if rec:
+        rows.update({"rec_fwd_wgmma_kernel": {(r, "fwd") for r in rec},
+                     "rec_bwd_wgmma_kernel": {(r, "bwd") for r in rec},
+                     "wgrad_wgmma_kernel": {(r, "bwd") for r in rec}})
+    return rows
 
 
 def check_regions(card: str, dev, name: str, overrides, launched, idle) -> dict:
@@ -2767,6 +2805,7 @@ def check_regions(card: str, dev, name: str, overrides, launched, idle) -> dict:
 
     cfg = get_config(name, overrides)
     tag = f"regions {_tag(name, overrides)}"
+    launched, idle = _slice_kernels(name, overrides, launched, idle)
     plain, (state, data, step) = (setup_resident_training(cfg, dev) for _ in range(2))
     m_plain = plain[2](plain[0], plain[1])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_regions_") as d, trace(d):
@@ -2811,7 +2850,7 @@ def check_regions(card: str, dev, name: str, overrides, launched, idle) -> dict:
                  f"{tag}: region {region} has no forward device time: {sorted(rows)}")
         _require(region == "preprocess" or rows[region]["bwd_ms"] > 0,
                  f"{tag}: region {region} has no backward device time")
-    expect = _kernel_rows(name, "model.kwargs.fused=true" in overrides)
+    expect = _kernel_rows(name, _K5[0] in launched, _dec_k6(cfg))
     landed = {}
     for e, path, where in work:
         for kind in expect:
@@ -2918,9 +2957,14 @@ def phase_quality(card: str) -> dict:
         runs = [quality.read_rows(c) for c in csvs]
         held = quality.compare_runs(csvs, [dataclasses.replace(number, band=_QUALITY_BAND)])
     n = len(_QUALITY_SEEDS)
-    want = _step_counts(n * _QUALITY_STEPS, n * 2 * quality.EVAL_BATCHES)
-    want["head_sample_forward"] += n
+    k6 = _dec_k6(quality.protocol_config(_QUALITY))
+    want = _step_counts(n * _QUALITY_STEPS, n * 2 * quality.EVAL_BATCHES, k6=k6)
+    want["head_sample_forward"] += n  # each seed's reconstruction
     want["convlstm_proj_forward"] += n
+    if k6:  # the reconstruction's decoder, and the prior GIF's where PIL writes it
+        gifs = sum("prior.gif" in res["fidelity"].get("pictures", ()) for res in results
+                   if isinstance(res["fidelity"].get("pictures"), list))
+        want["convlstm_scan_forward"] += n + gifs
     _require(all(counts[k] == want.get(k, 0) for k in counts),
              f"{tag}: launches {counts}, expected {want} (others 0)")
     for seed, res, rows in zip(_QUALITY_SEEDS, results, runs):
@@ -3079,7 +3123,7 @@ def phase_wide(card: str, dev, workdir: str) -> tuple:
             ("fit probe fused", _PROBE_FUSED, _PROBE_FUSED_STEPS, 1)):
         cfg = _probe_cfg(overrides, *cadence, f"train.eval_every={steps}",
                          f"train.log_every={steps // 4}", f"train.steps_per_call={k}")
-        want = _step_counts(steps, 2 * 2, k6=overrides == _PROBE_FUSED)
+        want = _step_counts(steps, 2 * 2, k6=_dec_k6(cfg))
         _, history, counts = _fit(card, tag, cfg, steps, want, dev)
         _require(history[-1]["loss"] < history[0]["loss"],
                  f"{tag}: loss did not fall: {[round(h['loss'], 1) for h in history]}")
@@ -3097,7 +3141,7 @@ def phase_wide(card: str, dev, workdir: str) -> tuple:
     ops.reset_launch_counts()
     rc, _ = _cli(["train", "--config", "seq_vae", "--steps", str(_PROBE_CLI_STEPS), *sets])
     counts = _counts()
-    want = _step_counts(_PROBE_CLI_STEPS, 2 * 2)
+    want = _step_counts(_PROBE_CLI_STEPS, 2 * 2, k6=_dec_k6(_probe_cfg(_PROBE)))
     _require(rc == 0 and all(counts[k] == want.get(k, 0) for k in counts),
              f"cli train probe: rc {rc}, launches {counts}, expected {want}")
     _require(os.path.isdir(ck_dir) and os.listdir(ck_dir), f"cli train probe: no checkpoint "
@@ -3115,7 +3159,8 @@ def phase_wide(card: str, dev, workdir: str) -> tuple:
         out[tag] = _counts()
         losses = res.pop("losses")
         _require(all(math.isfinite(v) for v in losses), f"{tag}: a non-finite loss")
-        _require(out[tag]["convlstm_proj_forward"] > 0 and out[tag]["convlstm_scan_forward"] == 0,
+        _require(out[tag]["convlstm_proj_forward"] > 0
+                 and (out[tag]["convlstm_scan_forward"] > 0) == _dec_k6(cfg),
                  f"{tag}: launches {out[tag]}")
         row = {"path": _tag("seq_vae", _PROBE), "steps_per_call": k,
                **{key: res[key] for key in (
@@ -3301,7 +3346,7 @@ def phase_f32(card: str, dev, workdir: str) -> tuple:
     tag = "fit f32 K=10"
     cfg = _f32_cfg((), *cadence, f"train.eval_every={_F32_FIT_STEPS}",
                    f"train.log_every={_F32_FIT_STEPS // 5}", "train.steps_per_call=10")
-    want = _step_counts(_F32_FIT_STEPS, 2 * 2)
+    want = _step_counts(_F32_FIT_STEPS, 2 * 2, k6=_dec_k6(cfg))
     _, history, counts = _fit(card, tag, cfg, _F32_FIT_STEPS, want, dev)
     _require(history[-1]["loss"] < history[0]["loss"],
              f"{tag}: loss did not fall: {[round(h['loss'], 1) for h in history]}")
@@ -3322,7 +3367,7 @@ def phase_f32(card: str, dev, workdir: str) -> tuple:
         ops.reset_launch_counts()
         rc, _ = _cli(["train", "--config", "seq_vae", "--steps", str(_F32_CLI_STEPS), *sets])
         counts = _counts()
-        want = _step_counts(_F32_CLI_STEPS, 2 * 2, k6=fused)
+        want = _step_counts(_F32_CLI_STEPS, 2 * 2, k6=_dec_k6(_f32_cfg(more)))
         _require(rc == 0 and all(counts[k] == want.get(k, 0) for k in counts),
                  f"cli train f32{' fused' if fused else ''}: rc {rc}, launches {counts}, "
                  f"expected {want}")
@@ -3339,7 +3384,8 @@ def phase_f32(card: str, dev, workdir: str) -> tuple:
         out[tag] = _counts()
         losses = res.pop("losses")
         _require(all(math.isfinite(v) for v in losses), f"{tag}: a non-finite loss")
-        _require(out[tag]["convlstm_proj_forward"] > 0 and out[tag]["convlstm_scan_forward"] == 0,
+        _require(out[tag]["convlstm_proj_forward"] > 0
+                 and (out[tag]["convlstm_scan_forward"] > 0) == _dec_k6(cfg),
                  f"{tag}: launches {out[tag]}")
         row = {"path": _tag("seq_vae", _F32), "steps_per_call": k,
                **{key: res[key] for key in (
@@ -3618,7 +3664,7 @@ def phase_general(card: str, dev) -> tuple:
                              f"train.log_every={steps // 2}", f"train.steps_per_call={k}")
         fused = overrides == _PROBE_F32_FUSED
         _require(_routes(cfg) == ("general", "general"), f"{tag}: routes {_routes(cfg)}")
-        want = _step_counts(steps, 2 * 2, k6=fused)
+        want = _step_counts(steps, 2 * 2, k6=_dec_k6(cfg))
         _, history, counts = _fit(card, tag, cfg, steps, want, dev, general=True)
         _require(all(math.isfinite(history[-1].get(c, math.nan))
                      for c in ("val_loss", "val_loss_ema")), f"{tag}: {history[-1]}")
@@ -3636,7 +3682,7 @@ def phase_general(card: str, dev) -> tuple:
         losses = res.pop("losses")
         _require(all(math.isfinite(v) for v in losses), f"{tag}: a non-finite loss")
         _require(c["convlstm_proj_forward"] > 0 and c["convlstm_proj_backward"] > 0
-                 and c["convlstm_scan_forward"] == 0, f"{tag}: launches {c}")
+                 and (c["convlstm_scan_forward"] > 0) == _dec_k6(cfg), f"{tag}: launches {c}")
         row = {"path": _tag("seq_vae", _PROBE_F32), "steps_per_call": k,
                **{key: res[key] for key in (
                    "value", "value_min", "value_max", "step_ms", "device_busy_ms",
@@ -3655,10 +3701,10 @@ def phase_general(card: str, dev) -> tuple:
 
 def _own_path(kernel: str):
     """The first slice whose path launches `kernel`: config 3 (the main
-    path) for K1, K3, K5 and the head, config 4 fused for K6; None for the
-    standalone K2, which no train step launches."""
-    return next((_tag(name, overrides) for name, overrides, launched, _ in _SLICES
-                 if kernel in launched), None)
+    path) for K1, K3, K5, the head and, where its decoder runs it, K6; None
+    for the standalone K2, which no train step launches."""
+    return next((_tag(name, overrides) for name, overrides, launched, idle in _SLICES
+                 if kernel in _slice_kernels(name, overrides, launched, idle)[0]), None)
 
 
 def main() -> int:

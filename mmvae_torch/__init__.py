@@ -7,7 +7,8 @@ flax.  Its main path is the config-3 (`seq_vae`) train step:
     models.seq_vae          frame encoder (cuDNN), encoder ConvLSTM
                             (ops.convlstm_kernels, CUDA csrc/convlstm_proj.cu),
                             head + sampling (ops.elbo_kernels, Triton),
-                            decoder ConvLSTM + frame decoder (cuDNN, eager)
+                            decoder ConvLSTM (K6, csrc/convlstm_scan.cu),
+                            frame decoder (cuDNN)
     ops.elbo_kernels        BCE + KL reduce (Triton)
     train.loop              loss, backward, Adam; `fit` (eval, checkpoints,
                             resume, the streaming data.feed) and `evaluate`

@@ -12,8 +12,9 @@ prints one JSON line: the step time on the host clock (steps ended by
 `torch.cuda.synchronize()`), the device-busy time per step from
 `torch.profiler` (the union of kernel intervals on the card), the idle share
 (1 - busy / step), the kernels the card runs per step, the launches the
-host makes per step (CUDA runtime launch calls: a graph replay is one), and
-the kernels with the most device time.  Fails without a CUDA device.
+host makes per step (CUDA runtime launch calls: a graph replay is one), the
+kernels with the most device time, and the process's peak of allocated
+device memory (`memory_peak_bytes`).  Fails without a CUDA device.
 
 `--regions` adds `regions`: the per-region device budget of a step (the
 kernels' ms a step by the port's named regions, forward and backward apart),
@@ -120,6 +121,7 @@ def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12,
         raise RuntimeError("profile_train_step measures a CUDA device; none is available")
     spc = steps_per_call(cfg)
     calls, steps = -(-steps // spc), -(-steps // spc) * spc
+    torch.cuda.reset_peak_memory_stats()
     state, data, step = setup_resident_training(cfg, torch.device("cuda"))
     for _ in range(-(-warmup // spc) + (spc > 1)):  # a chunk's first call captures
         step(state, data)
@@ -156,6 +158,7 @@ def profile_train_step(cfg, *, steps: int = 10, warmup: int = 5, top: int = 12,
         "kernel_launches_per_step": round(len(kernels) / steps, 1),
         "host_launches_per_step": None if host is None else round(host / steps, 2),
         "top_kernels_ms_per_step": [[name[:90], round(ms / steps, 4)] for name, ms in ranked],
+        "memory_peak_bytes": torch.cuda.max_memory_allocated(),
         **budget,
     }
 

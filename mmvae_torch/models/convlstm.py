@@ -6,26 +6,30 @@
   (C, 4F) matrix and the hidden kernel stays HWIO (3, 3, F, 4F); otherwise
   (the decoders) the input projection is a conv and the hidden conv an OIHW
   `nn.Conv2d`.  Param names and layouts follow `convert.state_dict_from_flax`.
-- The recurrence runs one of three ways, chosen as the JAX module chooses
-  (`fused`, `mmvae_tpu/models/convlstm.py:224-307`):
+- The recurrence runs one of three ways (`runs_kernel`; the JAX module's
+  `fused`, `mmvae_tpu/models/convlstm.py:224-307`):
   - the encoder fast path, `ops.convlstm_scan_proj` (K5, projection inside
     the kernel), for a 1x1 projection, need_hs=False and a streaming input,
     unless fused=False.  The JAX path also needs C % 128 == 0, a TPU
     lane-width condition;
   - `ops.convlstm_scan` (K6) after the hoisted projection: for every other
     recurrence under fused=True, and under fused=None (auto) for a
-    streaming input;
+    streaming input and, on a CUDA tensor, for a time-constant one (xs of
+    length 1 with `length=T`, the decoders) where the H100 ran K6 faster
+    than the eager loop under remat: the 2-CTA wgmma kernels
+    (`ops.convlstm_kernels.route`, F <= 128) with bf16 or f32 activations;
   - an eager loop of convs (the JAX `lax.scan`): fused=False, and a
-    time-constant input (xs of length 1 with `length=T`, the decoders)
-    under auto.  `remat=True` recomputes each step in the backward
+    time-constant input under auto elsewhere: on the CPU and on `meta` (the
+    JAX policy, which the TPU runs), and on the card at the 4-CTA widths and
+    on the general route.
+    `remat=True` recomputes each step in the backward
     (`torch.utils.checkpoint`); on the kernel paths it is ignored, with a
     warning when fused=True asked for it, as in JAX.
   A time-constant input is projected once on every path.  Each kernel
   wrapper runs its CUDA kernels for CUDA tensors with bf16 or f32
   activations at any shape, as the TPU kernels take any (the wgmma kernels
-  in their domain, the general ones elsewhere: `ops.convlstm_kernels.route`;
-  another dtype raises) and its plain version for CPU tensors; the policy
-  does not look at the shapes, as JAX's does not.
+  in their domain, the general ones elsewhere; another dtype raises) and
+  its plain version for CPU tensors.
 
 Gate order i/f/g/o, forget bias +1; the pointwise chain and the cell state
 run in `gate_dtype` (`_gate_math`).  The interface is NHWC like the JAX
@@ -43,9 +47,34 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from mmvae_torch.models.base import HWIOKernel, ProjMatrix
-from mmvae_torch.ops.convlstm_kernels import convlstm_scan, convlstm_scan_proj
+from mmvae_torch.ops.convlstm_kernels import (
+    cluster_size,
+    convlstm_scan,
+    convlstm_scan_proj,
+    route,
+)
 
 State = Tuple[torch.Tensor, torch.Tensor]
+
+
+def runs_kernel(fused: Optional[bool], const: bool, device, dtype: torch.dtype, feat: int,
+                hw: int) -> bool:
+    """Whether a recurrence of F = `feat` channels over `hw` positions, its
+    input time-constant or not (`const`), runs a kernel (K5 or K6) rather
+    than the eager loop.  fused=True or False decides; under auto (None) a
+    streaming input runs one, and a time-constant input does on a CUDA
+    `device` where K6 ran faster than the eager loop under remat on an
+    H100: bf16 or f32 activations on the wgmma kernels with two CTAs a
+    sample (F <= 128).  Their 4-CTA widths (bf16 F = 160-256) and the
+    general kernels ran slower, and keep the loop, as do the CPU and `meta`
+    (the JAX policy)."""
+    if fused is not None:
+        return fused
+    if not const:
+        return True
+    if torch.device(device).type != "cuda" or dtype not in (torch.bfloat16, torch.float32):
+        return False
+    return route(dtype, feat, hw) == "wgmma" and cluster_size(feat) == 2
 
 
 def _gate_math(gates, c, out_dtype, compute_dtype=torch.float32):
@@ -105,7 +134,8 @@ class ConvLSTM(nn.Module):
         b, t_in = xs.shape[:2]
         t = length or t_in
         const = t_in == 1 and t > 1
-        fused = self.fused if self.fused is not None else not const
+        fused = runs_kernel(self.fused, const, xs.device, self.dtype, self.features,
+                            xs.shape[2] * xs.shape[3])
         dt = self.dtype
         c0, h0 = state0
         if fused and self.proj and not need_hs and not const:

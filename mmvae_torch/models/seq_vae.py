@@ -5,7 +5,10 @@ state only, through the recurrence kernel) -> Gaussian head.
 decode: z -> initial (c, h) and a time-constant z-token -> decoder ConvLSTM
 over T steps -> batched frame decoder -> logits (B, T, H, W), float32.
 `fused` goes to both ConvLSTMs (see models/convlstm.py): None runs the
-decoder eagerly, True through K6.  `prior_logits` decodes z ~ N(0, I).
+decoder through K6 on the card where `convlstm.runs_kernel` finds K6 the
+faster (the 2-CTA wgmma kernels, F <= 128) and eagerly elsewhere (the CPU,
+wider F, the general route), True through K6, False eagerly.
+`prior_logits` decodes z ~ N(0, I).
 
 Named regions (`utils.profiling.annotate`), the JAX model's
 `jax.named_scope`s: frame_enc, enc_lstm, latent_head, z_init, dec_lstm,

@@ -260,11 +260,65 @@ def test_train_step_launches_every_kernel(dev):
     losses = [float(step(state, data)["loss"]) for _ in range(2)]
     assert all(torch.isfinite(torch.tensor(losses)))
     counts = ops.launch_counts()
-    # the decoder runs eagerly under the default (auto) policy: K6 stays idle;
-    # the head samples through the fused op, never the standalone K2
-    assert counts.pop("convlstm_scan_forward") == counts.pop("convlstm_scan_backward") == 0
+    # the decoder runs K6 under the default (auto) policy on the card, on the
+    # wgmma kernels; the head samples through the fused op, never the
+    # standalone K2
+    routes = ops.launch_counts_by_route()
+    assert routes["convlstm_scan_forward wgmma"] == routes["convlstm_scan_backward wgmma"] == 2
     assert counts.pop("reparameterize") == 0 and _general_launches() == 0
     assert all(n == 2 for n in counts.values()), counts
+
+
+def _decoder_run(dev, fused, act=torch.bfloat16, gate=torch.bfloat16):
+    """Config 3's decoder ConvLSTM (token 16 -> F = 128 over 8x8, remat) on
+    one draw at full width (64 clips x 20 steps): hs and the gradients of
+    the token, both state tensors and both weights under per-step
+    cotangents, in f32."""
+    from mmvae_torch.models.convlstm import ConvLSTM
+
+    torch.manual_seed(1)
+    m = ConvLSTM(16, 128, dtype=act, gate_dtype=gate, remat=True, fused=fused, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    token = torch.randn(64, 1, 8, 8, 16, generator=g, device=dev).to(torch.bfloat16)
+    c0, h0 = ((0.5 * torch.randn(64, 8, 8, 128, generator=g, device=dev)).to(torch.bfloat16)
+              for _ in range(2))
+    dhs = torch.randn(64, 20, 8, 8, 128, generator=g, device=dev)
+    token, c0, h0 = (t.to(act).requires_grad_() for t in (token, c0, h0))
+    with kernel_checks.full_f32():
+        _, hs = m((c0, h0), token, length=20)
+        (hs.float() * dhs).sum().backward()
+    out = {"hs": hs, "dtoken": token.grad, "dc0": c0.grad, "dh0": h0.grad,
+           "dW_input": m.input.weight.grad, "dW_hidden": m.step.hidden.weight.grad}
+    return {k: v.detach().float() for k, v in out.items()}
+
+
+def test_config3_decoder_under_auto_runs_k6_as_the_eager_loop(dev):
+    """Config 3's full-width decoder under auto runs K6 once each way on the
+    wgmma route, and agrees with the same module under fused=False (the
+    eager loop under remat): hs within the 0.05 of K6 against its plain
+    version with bf16 gates (`kernel_checks`); each gradient as close to
+    the f32 result (f32 activations and gates, the eager loop, TF32 off) as
+    the eager loop's, within twice its relative L2 distance (the eager
+    loop's bf16 autograd rounds dc at every step, so the 2 bf16 ulps that
+    K6 is held to against a plain version on the same residuals would hold
+    the eager loop's rounding, not K6's)."""
+    ops.reset_launch_counts()
+    auto = _decoder_run(dev, None)
+    routes = ops.launch_counts_by_route()
+    assert routes["convlstm_scan_forward wgmma"] == routes["convlstm_scan_backward wgmma"] == 1
+    ops.reset_launch_counts()
+    eager = _decoder_run(dev, False)
+    assert sum(ops.launch_counts().values()) == 0
+    truth = _decoder_run(dev, False, torch.float32, torch.float32)
+    reading = kernel_checks._scaled("hs", auto["hs"], eager["hs"], 0.0)
+    assert reading.value <= reading.limit, reading.text
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    for name in ("dtoken", "dc0", "dh0", "dW_input", "dW_hidden"):
+        got, want = rel(auto[name], truth[name]), rel(eager[name], truth[name])
+        assert got <= 2 * want, (name, got, want)
 
 
 @pytest.mark.parametrize("resident_epochs", [False, True])
@@ -390,8 +444,9 @@ def test_traced_replays_match_the_region_map(dev, cell, tmp_path):
 
 def test_recipe_train_step_generates_and_keeps_an_ema(dev):
     """The recommended recipe (fast_mid, clips generated on the card, EMA) at
-    small widths: finite losses, K1, K3, K5 and the head once a step, K6 and
-    the standalone K2 never, and an EMA off the live parameters."""
+    small widths: finite losses, K1, K3, K5, K6 (the decoder under auto) and
+    the head once a step, the standalone K2 never, and an EMA off the live
+    parameters."""
     from mmvae_torch.bench.throughput import setup_resident_training
 
     cfg = get_config("seq_vae", ("model.kwargs.dec_upsample=fast_mid",
@@ -404,7 +459,7 @@ def test_recipe_train_step_generates_and_keeps_an_ema(dev):
     losses = [float(step(state, data)["loss"]) for _ in range(3)]
     assert all(torch.isfinite(torch.tensor(losses)))
     counts = ops.launch_counts()
-    assert counts.pop("convlstm_scan_forward") == counts.pop("convlstm_scan_backward") == 0
+    assert counts["convlstm_scan_forward"] == counts["convlstm_scan_backward"] == 3
     assert counts.pop("reparameterize") == 0 and _general_launches() == 0
     assert all(n == 3 for n in counts.values()), counts
     live = dict(state.model.named_parameters())

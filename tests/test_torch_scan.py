@@ -229,6 +229,75 @@ def test_fused_with_remat_warns_and_runs_k6():
         m((zeros, zeros), token, length=T)
 
 
+# Auto's choice for a time-constant input on the card, by (activations, F,
+# H*W), as the H100 timed the decoder both ways: config 3's decoder in bf16
+# and in f32 (the 2-CTA wgmma kernels: K6), the probe's F = 192 in bf16
+# (the 4-CTA wgmma kernels: the loop), a 16x16 grid and the probe in f32
+# (the general kernels: the loop); fp16, which no kernel takes; F = 16 and
+# 256 at their wgmma widths.
+_CARD_CONST = [
+    (torch.bfloat16, 128, 64, "wgmma", True),
+    (torch.float32, 128, 64, "wgmma", True),
+    (torch.bfloat16, 16, 64, "wgmma", True),
+    (torch.bfloat16, 192, 64, "wgmma", False),
+    (torch.bfloat16, 256, 64, "wgmma", False),
+    (torch.bfloat16, 128, 256, "general", False),
+    (torch.float32, 192, 64, "general", False),
+    (torch.float16, 128, 64, None, False),
+]
+
+
+@pytest.mark.parametrize("dtype,feat,hw,way,k6", _CARD_CONST,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_auto_runs_k6_for_a_const_input_where_the_card_measured_it_faster(dtype, feat, hw,
+                                                                          way, k6):
+    if way is not None:
+        assert ck.route(dtype, feat, hw) == way
+    assert tconvlstm.runs_kernel(None, True, torch.device("cuda"), dtype, feat, hw) is k6
+    assert tconvlstm.runs_kernel(None, True, "cuda:0", dtype, feat, hw) is k6
+
+
+_SHAPES = [(torch.bfloat16, 128, 64), (torch.float32, 128, 64), (torch.bfloat16, 192, 64),
+           (torch.bfloat16, 128, 256), (torch.float32, 192, 64), (torch.bfloat16, 16, 16)]
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta", "cuda"])
+@pytest.mark.parametrize("shape", _SHAPES, ids=lambda v: str(v).replace("torch.", ""))
+def test_runs_kernel_keeps_the_explicit_settings_and_the_jax_policy(device, shape):
+    """fused=True runs a kernel and fused=False the eager loop at every
+    shape and on every device; under auto a streaming input always runs a
+    kernel, and a time-constant one runs the eager loop off the card (the
+    JAX policy: the CPU parity tests and `bench.flops` on `meta`)."""
+    dtype, feat, hw = shape
+    for const in (False, True):
+        assert tconvlstm.runs_kernel(True, const, device, dtype, feat, hw) is True
+        assert tconvlstm.runs_kernel(False, const, device, dtype, feat, hw) is False
+    assert tconvlstm.runs_kernel(None, False, device, dtype, feat, hw) is True
+    if device != "cuda":
+        assert tconvlstm.runs_kernel(None, True, device, dtype, feat, hw) is False
+
+
+@pytest.mark.parametrize("const", [False, True])
+def test_auto_asks_the_rule_with_the_recurrence_it_runs(monkeypatch, const):
+    """ConvLSTM's forward hands `runs_kernel` its own setting, whether the
+    input is time-constant, the input's device, the activation dtype, F and
+    the grid's positions."""
+    asked = []
+
+    def rule(*args):
+        asked.append(args)
+        return real(*args)
+
+    real = tconvlstm.runs_kernel
+    monkeypatch.setattr(tconvlstm, "runs_kernel", rule)
+    m = tconvlstm.ConvLSTM(6, F, dtype=torch.bfloat16)
+    xs = torch.randn(B, 1 if const else T, S, S + 1, 6)
+    zeros = torch.zeros(B, S, S + 1, F)
+    with torch.no_grad():
+        m((zeros, zeros), xs, length=T)
+    assert asked == [(None, const, xs.device, torch.bfloat16, F, S * (S + 1))]
+
+
 TINY = dict(latent_dim=8, enc_channels=(8, 128), lstm_features=8, image_size=32,
             enc_x_kernel=1)
 
