@@ -25,8 +25,9 @@ Each reading carries "correct", the verdict of the cell's limits on it.
 `--leaves PATH` appends, for each seed, every leaf's gaps of every reading
 (`check.leaf_gaps`) as a JSON line.
 
-A cell over several ranks starts itself under torchrun, as a run does; rank
-0 prints.  Set-up and the reference run once a seed in one process.
+A cell over several ranks starts itself under torchrun (a run starts its
+ranks itself, with the same environment); rank 0 prints.  Set-up and the
+reference run once a seed in one process.
 """
 
 from __future__ import annotations

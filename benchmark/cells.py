@@ -5,7 +5,11 @@ configuration and traffic mix, and every metric.  Each part sits in a file
 of its own, found by the names there:
 
 - a configuration: `configs/<config>.json` (the program's config and
-  overrides, the sizes, the reference model's module under `reference/`);
+  overrides, the sizes, the reference model's module under `reference/`,
+  and under "regions" the names its program opens beyond `trace.REGIONS`);
+- a reference model: `reference/<name>.py` (`spec`, `eps_shapes`, `loss`,
+  and `recurrences`: each recurrence call of a step with its region, work
+  and hidden products, from which `counts` takes the bounds and FLOPs);
 - a traffic mix: `traffic/<traffic>.json` (the data path, steps a call,
   ranks, the traced window);
 - a cell's limits of the comparison that decides `correct`:
@@ -13,8 +17,8 @@ of its own, found by the names there:
 - a per-layer metric: `metrics/<metric>.py`, whose `read(ctx)` returns the
   number or None where the run has nothing to read.
 
-A new cell, configuration, traffic mix or metric is new files and new
-entries in `BENCHMARK.json`; no file here changes.
+A new cell, configuration, architecture, traffic mix or metric is new
+files and new entries in `BENCHMARK.json`; no file here changes.
 """
 
 from __future__ import annotations

@@ -239,7 +239,8 @@ class Program:
                 sync_dev(self.dev)
             prof.export_chrome_trace(os.path.join(d, "regions.json"))
             del prof
-            out["regions"] = tr.regions(tr.load(os.path.join(d, "regions.json")), region_steps)
+            out["regions"] = tr.regions(tr.load(os.path.join(d, "regions.json")), region_steps,
+                                        names=region_names(self.cell))
         return out
 
     def close(self) -> None:
@@ -347,12 +348,28 @@ def initial_cpu(cell, seed: int, dev) -> Dict[str, torch.Tensor]:
     return {n: t.to("cpu") for n, t in common.init_params(spec, seed, dev).items()}
 
 
+def region_names(cell) -> tuple:
+    """The names of the regions a traced run attributes device work to: the
+    benchmark's `trace.REGIONS` and those the configuration's file lists
+    under "regions" (names its program opens beyond them)."""
+    from benchmark import trace
+
+    return trace.REGIONS + tuple(cell.config.get("regions", ()))
+
+
 def per_layer_context(cell, traced: dict, world: int) -> SimpleNamespace:
-    s = sizes_of(cell)
+    """What a per-layer metric reads (`metrics/<name>.py`): the traced run's
+    regions (device ms a step, forward and backward), busy, window and NCCL
+    seconds and steps, and a rank's work a step from the reference's
+    declarations: its model FLOPs, its recurrences' least ms by region
+    (`bound_ms`) and in all (`recurrence_bound_ms`)."""
+    s, ref = sizes_of(cell), cell.config["reference"]
     b = s["batch_size"] // world
+    declared = counts.recurrences(s, ref, b)
     return SimpleNamespace(
         regions=traced["regions"], busy_s=traced["busy_s"], window_s=traced["window_s"],
         steps=traced["steps"], nccl_s=traced["nccl_s"], world=world,
-        flops_per_step=counts.flops_per_step(s, cell.config["reference"], b),
-        recurrence_bound_ms=counts.recurrence_bound_ms(s, b))
+        flops_per_step=counts.flops_per_step(s, ref, b),
+        bound_ms=counts.bound_ms_by_region(declared),
+        recurrence_bound_ms=counts.recurrence_bound_ms(declared))
 

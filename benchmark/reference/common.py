@@ -115,11 +115,13 @@ def lstm_cell(gates, c, lowp: LowP):
 
 
 def convlstm(xg_steps, w_hidden_oihw, c, h, steps: int, lowp: LowP, hidden_conv=None):
-    """A ConvLSTM over `steps` steps: gates = xg_t + conv3x3(h).  `xg_steps`
-    is (B, T, 4F, g, g) or, for a time-constant drive, (B, 1, 4F, g, g);
-    c and h are NCHW.  Returns (c_T, h_T, [h_1 .. h_T]).  `hidden_conv`
-    replaces the 3x3 product (the FLOP count's)."""
-    hidden_conv = hidden_conv or (lambda h_, w: conv(h_, w, None, lowp, padding=1))
+    """A ConvLSTM over `steps` steps: gates = xg_t + convkxk(h), SAME, k odd
+    from the OIHW hidden kernel.  `xg_steps` is (B, T, 4F, g, g) or, for a
+    time-constant drive, (B, 1, 4F, g, g); c and h are NCHW.  Returns (c_T,
+    h_T, [h_1 .. h_T]).  `hidden_conv` replaces the hidden product (the FLOP
+    count's)."""
+    hidden_conv = hidden_conv or (
+        lambda h_, w: conv(h_, w, None, lowp, padding=w.shape[-1] // 2))
     hs = []
     for t in range(steps):
         xg = xg_steps[:, 0 if xg_steps.shape[1] == 1 else t]

@@ -9,13 +9,15 @@ learned prior p(z_k | z_g, z_{k-1}), a GRU over the chunk index with flax's
 gate layout (no recurrent biases on r and z), teacher-forced on the z_k;
 the decoder ConvLSTM over Tc steps for all B*K chunks from a state and a
 time-constant token made from (z_g, z_k); the "fast" frame decoder; BCE +
-KL(z_g) + KL(q(z_k) || p(z_k)), over the batch.
+KL(z_g) + KL(q(z_k) || p(z_k)), over the batch.  `recurrences` declares
+the two ConvLSTMs as the port's K5 and K6 count them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from benchmark import counts
 from benchmark.reference import common as c
 
 _TOKEN_CH = 16
@@ -41,6 +43,16 @@ def spec(sizes: dict) -> list:
             + c.linear_spec("z_to_state", lg + lc, 2 * g * g * f)
             + c.linear_spec("z_to_token", lg + lc, g * g * _TOKEN_CH)
             + c.lstm_conv_spec("dec_lstm", _TOKEN_CH, f) + c.decoder_spec(f, tuple(reversed(ch))))
+
+
+def recurrences(sizes: dict, batch: int) -> list:
+    """The step's recurrences at `batch` clips (`counts.Recurrence`), over
+    its B x K chunks: the chunk encoder as K5, the decoder, driven by a
+    time-constant token, as K6."""
+    ch, f, tc = sizes["enc_channels"], sizes["lstm_features"], sizes["chunk_len"]
+    g, n = 64 // 2 ** len(ch), batch * (sizes["seq_len"] // tc)
+    return [counts.k5_call("chunk_lstm", n, tc, g, g, ch[-1], f),
+            counts.k6_call("dec_lstm", n, tc, g, g, f)]
 
 
 def eps_shapes(sizes: dict, batch: int) -> dict:

@@ -5,13 +5,15 @@ input projection) keeping its last h; the Gaussian head and its sample;
 the decoder's initial (c, h) and a time-constant z-token from z; the
 decoder ConvLSTM (3x3 input conv of the token) over T steps; the "fast"
 frame decoder to logits; BCE + KL summed, over the batch.  Sizes come
-from the configuration's file (`sizes`).
+from the configuration's file (`sizes`).  `recurrences` declares the two
+ConvLSTMs as the port's K5 and K6 count them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from benchmark import counts
 from benchmark.reference import common as c
 
 
@@ -25,6 +27,15 @@ def spec(sizes: dict) -> list:
             + c.linear_spec("z_to_state", lat, 2 * g * g * f)
             + c.linear_spec("z_to_token", lat, g * g * tok)
             + c.lstm_conv_spec("dec_lstm", tok, f) + c.decoder_spec(f, tuple(reversed(ch))))
+
+
+def recurrences(sizes: dict, batch: int) -> list:
+    """The step's recurrences at `batch` clips (`counts.Recurrence`): the
+    encoder as K5, the decoder, driven by a time-constant token, as K6."""
+    ch, f = sizes["enc_channels"], sizes["lstm_features"]
+    g, t = 64 // 2 ** len(ch), sizes["seq_len"]
+    return [counts.k5_call("enc_lstm", batch, t, g, g, ch[-1], f),
+            counts.k6_call("dec_lstm", batch, t, g, g, f)]
 
 
 def eps_shapes(sizes: dict, batch: int) -> dict:

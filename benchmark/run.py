@@ -5,8 +5,8 @@
 from the root of a checkout, on a machine with the cards the cell asks
 for.  `--trace 0` prints the cell's end-to-end metrics (`BENCHMARK.json`),
 `--trace 1` its per-layer metrics and the device's busy seconds and
-window.  A cell over several ranks starts itself under `torchrun
---standalone` (one process a card) and rank 0 prints the line.  Without a
+window.  A cell over several ranks starts one process a card itself, with
+torchrun's environment, and rank 0 prints the line.  Without a
 card, or with fewer cards than the cell asks for, it prints no result and
 exits 2; where a module of `jax`, `jaxlib`, `flax` or `mmvae_tpu` is loaded
 after the window, it names them and exits 3.  The kernels build into
@@ -21,6 +21,8 @@ import argparse
 import json
 import math
 import os
+import signal
+import socket
 import subprocess
 import sys
 import time
@@ -31,14 +33,18 @@ MIN_CALLS = 20
 
 
 def process_start() -> float:
-    """The epoch second this process started (/proc's start time), or now."""
+    """The epoch second this process started (/proc's start time after
+    boot, in clock ticks), or now.  The boot's epoch second is now less
+    /proc/uptime, to a hundredth of a second: /proc/stat's `btime` is
+    truncated to a whole second, which would put the start up to a second
+    early by an amount fixed for each machine."""
     try:
         with open("/proc/self/stat") as f:
             ticks = int(f.read().rsplit(")", 1)[1].split()[19])
-        with open("/proc/stat") as f:
-            boot = next(int(line.split()[1]) for line in f if line.startswith("btime"))
+        with open("/proc/uptime") as f:
+            boot = time.time() - float(f.read().split()[0])
         return boot + ticks / os.sysconf("SC_CLK_TCK")
-    except (OSError, ValueError, IndexError, StopIteration):
+    except (OSError, ValueError, IndexError):
         return time.time()
 
 
@@ -80,14 +86,58 @@ def card_line() -> str:
     return out.strip().splitlines()[0] if out.strip() else "nvidia-smi: no card"
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def _launch(args, ranks: int) -> int:
-    """This command again under torchrun, one process a card."""
-    env = dict(os.environ, PERFBENCH_T0=repr(_start_epoch()))
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(ranks), "-m", "benchmark.run",
-           "--workload", args.workload, "--seed", str(args.seed),
-           "--seconds", str(args.seconds), "--trace", str(args.trace)]
-    return subprocess.run(cmd, env=env).returncode
+    """This command again in one process a card, each with the environment
+    that torchrun would give it (RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT, one OpenMP thread), started from this process, which
+    imports no torch: torchrun's launcher would import it once more before
+    the ranks start, a serial third of the cell's set-up.  Waits for every
+    rank; where one fails or this process is ended, ends the others.  The
+    first nonzero exit code of a rank is the run's."""
+    base = dict(os.environ, PERFBENCH_T0=repr(_start_epoch()), MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(_free_port()), WORLD_SIZE=str(ranks))
+    base.setdefault("OMP_NUM_THREADS", "1")
+    cmd = [sys.executable, "-m", "benchmark.run", "--workload", args.workload,
+           "--seed", str(args.seed), "--seconds", str(args.seconds), "--trace", str(args.trace)]
+    procs = [subprocess.Popen(cmd, env=dict(base, RANK=str(r), LOCAL_RANK=str(r)))
+             for r in range(ranks)]
+
+    def stop(*_):
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+
+    def ended(signum, _frame):
+        stop()
+        raise SystemExit(128 + signum)
+
+    kept = {s: signal.signal(s, ended) for s in (signal.SIGTERM, signal.SIGINT)}
+    rc = 0
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p.returncode for p in procs if p.returncode]
+            if failed and not rc:
+                rc = failed[0]
+                stop()
+            time.sleep(0.2)
+        rc = rc or next((p.returncode for p in procs if p.returncode), 0)
+    finally:
+        stop()
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for s, h in kept.items():
+            signal.signal(s, h)
+    return rc
 
 
 def run_rank(cell, args, t_start: float) -> int:
@@ -201,6 +251,9 @@ def main(argv=None) -> int:
     cache = ROOT / "build" / "triton"
     cache.mkdir(parents=True, exist_ok=True)
     os.environ["TRITON_CACHE_DIR"] = str(cache)
+    ranks = int(cell.traffic["ranks"])
+    if ranks > 1 and "LOCAL_RANK" not in os.environ:
+        return _launch(args, ranks)  # each rank looks for the cards below
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
@@ -208,9 +261,6 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {cell.chips} CUDA device(s), found {have}: no result",
               file=sys.stderr)
         return 2
-    ranks = int(cell.traffic["ranks"])
-    if ranks > 1 and "LOCAL_RANK" not in os.environ:
-        return _launch(args, ranks)
     return run_rank(cell, args, t_start)
 
 

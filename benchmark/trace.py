@@ -3,7 +3,9 @@ idle gaps, the kernels that took most time, and each kernel's region.
 
 Busy time is the union of the intervals in which a kernel, memset or copy
 ran on the device.  A region is a `record_function` range the program
-opens under one of `REGIONS` (its `utils.profiling.annotate` sites); a
+opens under one of the names `regions` is given: `REGIONS` (the
+`utils.profiling.annotate` sites of configs 3 and 5), and those a
+configuration's file lists under "regions" (`harness.region_names`); a
 kernel belongs to the host event that launched it (matched by the trace's
 `correlation`), and a host event's region is the path of the region ranges
 around it on its thread.  A host event inside an autograd node is backward
@@ -103,7 +105,8 @@ class _Trace:
     """The host events by thread with their enclosing event, the fwdbwd
     flows and the launches by correlation."""
 
-    def __init__(self, trace: dict):
+    def __init__(self, trace: dict, names: Iterable[str] = REGIONS):
+        self.names = frozenset(names)
         events = trace.get("traceEvents", [])
         host = [e for e in events if e.get("ph") == "X" and e.get("cat") in _HOST_CATS]
         self.device = device_events(trace)
@@ -177,7 +180,7 @@ class _Trace:
         path, j, where = [], i, None
         while j is not None:
             e = self.host[j]
-            if e["cat"] == "user_annotation" and e["name"] in REGIONS:
+            if e["cat"] == "user_annotation" and e["name"] in self.names:
                 path.append(e["name"])
             elif e["cat"] == "cpu_op" and e["name"].startswith(_NODE):
                 fwd = self.forward_of(j)
@@ -190,11 +193,13 @@ class _Trace:
         return where
 
 
-def regions(trace: dict, steps: int, depth: int = 2) -> Dict[str, Tuple[float, float]]:
+def regions(trace: dict, steps: int, depth: int = 2,
+            names: Iterable[str] = REGIONS) -> Dict[str, Tuple[float, float]]:
     """{region path cut to `depth` names: (forward ms, backward ms) a step}
-    of the device work in `trace`; work outside every region (or whose
-    launch the trace lacks) goes to `?`."""
-    t = _Trace(trace)
+    of the device work in `trace`, a region being a range named in
+    `names`; work outside every region (or whose launch the trace lacks)
+    goes to `?`."""
+    t = _Trace(trace, names)
     fwd, bwd = defaultdict(float), defaultdict(float)
     for k in t.device:
         i = t.launch.get((k.get("args") or {}).get("correlation"))
